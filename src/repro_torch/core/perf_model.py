@@ -1,0 +1,353 @@
+"""Performance model — paper Sec. 13, with the H100 roofline.
+
+The paper's algebra:
+  * farm:     T(m tasks, nw workers) ~= T_seq / nw, bounded by emitter /
+              collector service times and Amdahl's law;
+  * pipeline: service time T_S = max_i T_Si; speedup = sum T_Si / max T_Si.
+
+The compiler's ``annotate``/``place`` passes use that algebra for farm widths
+and a roofline of the target card (:data:`H100_SXM`, NVIDIA's data-sheet
+figures) for device time.  :func:`calibrate` measures the host constants —
+one core's FLOP/s, the thread-queue hop — and the CUDA dispatch cost, and
+caches them in the port's own file ``torch_calibration.json``; the
+reference's ``calibration.json`` holds TPU-side constants and is never read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+import warnings
+from typing import Dict, Optional, Sequence
+
+
+# --------------------------------------------------------------------------
+# Paper Sec. 13 algebra
+# --------------------------------------------------------------------------
+def farm_time(m_tasks: int, t_task: float, nw: int,
+              t_emit: float = 0.0, t_collect: float = 0.0) -> float:
+    """Completion time of m tasks on an nw-worker farm: workers process in
+    parallel, but the emitter/collector are serial stages — the farm's
+    service time is max(t_emit, t_task/nw, t_collect)."""
+    service = max(t_emit, t_task / nw, t_collect)
+    return m_tasks * service + t_task  # + one task latency (paper: latency
+    # of a single task does not decrease)
+
+
+def farm_speedup(m_tasks: int, t_task: float, nw: int,
+                 t_emit: float = 0.0, t_collect: float = 0.0) -> float:
+    return (m_tasks * t_task) / farm_time(m_tasks, t_task, nw, t_emit, t_collect)
+
+
+def pipeline_service_time(stage_times: Sequence[float]) -> float:
+    return max(stage_times)
+
+
+def pipeline_time(m_tasks: int, stage_times: Sequence[float]) -> float:
+    """m x T_S plus the fill latency sum(T_Si)."""
+    return m_tasks * pipeline_service_time(stage_times) + sum(stage_times)
+
+
+def pipeline_speedup(stage_times: Sequence[float], m_tasks: int = 10**9) -> float:
+    """-> sum T_Si / max T_Si for long streams (paper's formula)."""
+    seq = sum(stage_times)
+    return (m_tasks * seq) / pipeline_time(m_tasks, stage_times)
+
+
+def amdahl(serial_fraction: float, n: int) -> float:
+    return 1.0 / (serial_fraction + (1.0 - serial_fraction) / n)
+
+
+def choose_farm_width(t_task: float, n_max: int, t_emit: float = 0.0,
+                      t_collect: float = 0.0,
+                      overhead: float = 2e-5) -> int:
+    """Smallest worker count whose per-item service time hits the farm's
+    serial floor: service = max(t_emit, t_task/nw, t_collect), so adding
+    workers beyond t_task/floor buys nothing (paper Sec. 13).  ``overhead``
+    is the channel's own service time (queue push/pop) — the floor even for
+    a free emitter.  Used by the graph compiler's ``place`` stage."""
+    floor = max(t_emit, t_collect, overhead, 1e-9)
+    w = math.ceil(t_task / floor)
+    return max(1, min(w, max(1, n_max)))
+
+
+def a2a_service_time(t_left: float, t_right: float, n_left: int,
+                     n_right: int, hop: float = 0.0) -> float:
+    """Steady-state per-item service time of an ``all_to_all`` stage: the
+    slower side over its width, floored by twice the per-item channel hop."""
+    return max(t_left / max(1, n_left), t_right / max(1, n_right),
+               2.0 * hop)
+
+
+def pipeline_bubble_fraction(n_stages: int, n_microbatches: int) -> float:
+    """GPipe bubble: (S-1)/(M+S-1)."""
+    return (n_stages - 1) / (n_microbatches + n_stages - 1)
+
+
+def choose_microbatches(n_stages: int, max_bubble: float = 0.1,
+                        max_micro: int = 256) -> int:
+    """Smallest M with bubble fraction <= max_bubble."""
+    m = math.ceil((n_stages - 1) * (1.0 - max_bubble) / max_bubble)
+    return max(1, min(m, max_micro))
+
+
+# --------------------------------------------------------------------------
+# H100 roofline
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    name: str
+    peak_flops_bf16: float   # per card, FLOP/s (dense tensor cores)
+    hbm_bw: float            # per card, B/s
+    link_bw: float           # NVLink, per direction, B/s
+    hbm_bytes: float
+
+
+# NVIDIA's H100 SXM data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
+# 900 GB/s NVLink (450 GB/s each way), 80 GB; rates at the 700 W limit
+H100_SXM = HardwareSpec(
+    name="h100_sxm",
+    peak_flops_bf16=989e12,
+    hbm_bw=3.35e12,
+    link_bw=450e9,
+    hbm_bytes=80e9,
+)
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    """The three terms, in seconds, per step, per card."""
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops_total: float = 0.0
+    bytes_total: float = 0.0
+    coll_bytes: float = 0.0
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Optimistic (perfect-overlap) step time = max of terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def roofline(flops_total: float, bytes_total: float,
+             coll_bytes_per_card: float, n_cards: int,
+             hw: HardwareSpec = H100_SXM) -> RooflineTerms:
+    """flops_total/bytes_total are totals over the cards; collective bytes
+    are per-card link traffic."""
+    return RooflineTerms(
+        flops_total / (n_cards * hw.peak_flops_bf16),
+        bytes_total / (n_cards * hw.hbm_bw),
+        coll_bytes_per_card / hw.link_bw,
+        flops_total=flops_total, bytes_total=bytes_total,
+        coll_bytes=coll_bytes_per_card)
+
+
+# --------------------------------------------------------------------------
+# Calibration — measured constants for the compiler's place pass
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class HostCalibration:
+    """The cost constants ``place`` consumes.  ``source`` records where they
+    came from: baked-in ``default``s, a fresh ``measured`` run, or the
+    on-disk ``cached`` result of an earlier run on this machine."""
+
+    peak_flops: float           # useful numpy FLOP/s of one host core
+    queue_hop_s: float          # per-item thread-tier SPSC push+pop cost
+    device_dispatch_s: float    # per-microbatch host<->device boundary cost
+    # marginal per-stage cost of one extra stage inside a fused device
+    # segment (PyTorch runs eagerly: one more kernel launch, not measured
+    # yet — the default stands)
+    fused_segment_s: float = 2e-6
+    # host<->device boundary bandwidths (GB/s) and the share of the smaller
+    # of transfer and compute the overlapped boundary hides (not measured
+    # yet on the card — the defaults stand)
+    h2d_bw_gbs: float = 8.0
+    d2h_bw_gbs: float = 8.0
+    overlap_eff: float = 0.5
+    source: str = "default"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def boundary_time(self, transfer_s: float, compute_s: float) -> float:
+        """Cost of one fused device run behind the overlapped boundary:
+        ``max(transfer, compute)`` plus the unhidden share of the smaller."""
+        lo, hi = min(transfer_s, compute_s), max(transfer_s, compute_s)
+        eff = min(1.0, max(0.0, self.overlap_eff))
+        return hi + (1.0 - eff) * lo
+
+
+DEFAULT_CALIBRATION = HostCalibration(
+    peak_flops=5e10, queue_hop_s=2e-5, device_dispatch_s=2e-5,
+    source="default")
+
+_CALIB_VERSION = 1
+_calibration: Optional[HostCalibration] = None
+
+
+def _calib_cache_path() -> str:
+    """``REPRO_FF_CACHE`` (the cache directory both packages honour) >
+    ``XDG_CACHE_HOME`` > ``~/.cache``; the port's file is
+    ``torch_calibration.json``."""
+    base = os.environ.get("REPRO_FF_CACHE")
+    if not base:
+        xdg = os.environ.get("XDG_CACHE_HOME",
+                             os.path.join(os.path.expanduser("~"), ".cache"))
+        base = os.path.join(xdg, "repro_ff")
+    return os.path.join(base, "torch_calibration.json")
+
+
+def _measure_peak_flops() -> float:
+    import numpy as np
+    n = 192
+    a = np.random.default_rng(0).standard_normal((n, n)).astype(np.float32)
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        a @ a
+        best = min(best, time.perf_counter() - t0)
+    return 2.0 * n ** 3 / max(best, 1e-9)
+
+
+def _measure_queue_hop() -> float:
+    from .queues import SPSCQueue
+    q = SPSCQueue(256)
+    n = 20_000
+    t0 = time.perf_counter()
+    for i in range(n):
+        q.try_push(i)
+        q.try_pop()
+    return max((time.perf_counter() - t0) / n, 1e-9)
+
+
+def measure_cuda_dispatch(n: int = 200) -> float:
+    """Seconds the card takes per launch of a tiny kernel, back to back,
+    timed with CUDA events (what one extra device step costs)."""
+    import torch
+    x = torch.zeros(8, device="cuda")
+    for _ in range(10):
+        x.add_(1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        x.add_(1.0)
+    end.record()
+    end.synchronize()
+    return max(start.elapsed_time(end) * 1e-3 / n, 1e-9)
+
+
+def calibrate(cache: bool = True) -> HostCalibration:
+    """Measure the constants on this machine and (optionally) persist them:
+    one core's numpy FLOP/s, the thread-queue hop, and — where a CUDA
+    device exists — the dispatch cost.  An unwritable cache location keeps
+    the constants in memory with a warning."""
+    global _calibration
+    import torch
+    c = HostCalibration(
+        peak_flops=_measure_peak_flops(),
+        queue_hop_s=_measure_queue_hop(),
+        device_dispatch_s=(measure_cuda_dispatch()
+                           if torch.cuda.is_available()
+                           else DEFAULT_CALIBRATION.device_dispatch_s),
+        source="measured")
+    _calibration = c
+    if cache:
+        path = _calib_cache_path()
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                json.dump({"version": _CALIB_VERSION,
+                           "cpu_count": os.cpu_count(), **c.as_dict(),
+                           "autotune": _load_autotune()}, f)
+        except OSError as e:
+            warnings.warn(f"perf_model: cache {path!r} is not writable "
+                          f"({e}); keeping the calibration in memory only",
+                          RuntimeWarning, stacklevel=2)
+    return c
+
+
+def _read_cache() -> dict:
+    try:
+        with open(_calib_cache_path()) as f:
+            d = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return d if isinstance(d, dict) and d.get("version") == _CALIB_VERSION \
+        else {}
+
+
+def _load_cached_calibration() -> Optional[HostCalibration]:
+    d = _read_cache()
+    if d.get("cpu_count") != os.cpu_count():
+        return None
+    try:
+        return HostCalibration(
+            **{f.name: float(d[f.name])
+               for f in dataclasses.fields(HostCalibration)
+               if f.name != "source"}, source="cached")
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def get_calibration(measure: bool = True) -> HostCalibration:
+    """The process-wide calibration: memoized, then the on-disk cache, then a
+    fresh :func:`calibrate` run (skipped when ``measure=False``, which
+    returns the baked-in defaults instead)."""
+    global _calibration
+    if _calibration is not None:
+        return _calibration
+    cached = _load_cached_calibration()
+    if cached is not None:
+        _calibration = cached
+        return cached
+    if not measure:
+        return DEFAULT_CALIBRATION
+    return calibrate()
+
+
+def reset_calibration() -> None:
+    """Drop the in-memory calibration (tests)."""
+    global _calibration
+    _calibration = None
+
+
+# --------------------------------------------------------------------------
+# Autotuned window depths (and, later, tiles), kept in the same cache file
+# --------------------------------------------------------------------------
+_autotune: Optional[Dict[str, dict]] = None
+
+
+def _load_autotune() -> Dict[str, dict]:
+    global _autotune
+    if _autotune is None:
+        at = _read_cache().get("autotune")
+        _autotune = ({str(k): dict(v) for k, v in at.items()
+                      if isinstance(v, dict)} if isinstance(at, dict) else {})
+    return _autotune
+
+
+def lookup_autotuned(key: Optional[str]) -> Optional[dict]:
+    """The autotuned record for a key (e.g. ``"device_overlap:window"``),
+    or None — callers fall back to their default and never sweep."""
+    if not key:
+        return None
+    rec = _load_autotune().get(key)
+    return dict(rec) if rec else None
+
+
+def reset_autotuned() -> None:
+    """Drop the in-memory autotune table (tests)."""
+    global _autotune
+    _autotune = None

@@ -1,0 +1,171 @@
+"""The fused all-to-all hop: route, expert compute, combine.
+
+Port of ``src/repro/kernels/a2a_fused.py:a2a_fused``.  The TPU kernel traces
+the user's expert functions into its body; a CUDA kernel cannot call Python,
+so the hop is three parts (see ``csrc/a2a_fused.cu`` for the kernels' design
+and bounds):
+
+1. :func:`a2a_route` — softmax + top-1 route and first-come capacity
+   positions, a CUDA kernel;
+2. the expert compute — every expert applied to every token with
+   ``torch.func.vmap``, as the TPU kernel computes all and then selects;
+3. :func:`a2a_combine` — the routed output selected per token and tokens
+   past capacity zero-filled, a CUDA kernel.
+
+Each kernel wrapper runs its plain PyTorch version (``*_plain``) for a CPU
+tensor and launches the kernel for a CUDA tensor; ``launches`` on the
+wrapper counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Callable, Sequence, Tuple
+
+import torch
+
+from . import backend
+
+_ROUTE_SMEM_MAX = 232448     # bytes of shared memory one Hopper block may use
+
+
+def _lib() -> ctypes.CDLL:
+    lib = backend.load("a2a_fused")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.a2a_route_smem_bytes.argtypes = [i]
+        lib.a2a_route_smem_bytes.restype = ctypes.c_longlong
+        lib.a2a_route_launch.argtypes = [p, i, i, i, p, p, p, p]
+        lib.a2a_route_launch.restype = i
+        lib.a2a_combine_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
+                                           ctypes.c_longlong, i, p]
+        lib.a2a_combine_launch.restype = i
+        lib._ff_typed = True
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# route: softmax + top-1 + first-come lane position
+# ---------------------------------------------------------------------------
+def a2a_route_plain(logits: torch.Tensor, capacity: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`a2a_route`, with the kernel's arithmetic:
+    ``exp(x - max)`` summed left to right, divided, argmax of the
+    probabilities (first index on ties)."""
+    x = logits.to(torch.float32)
+    T, E = x.shape
+    u = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    s = u[:, 0]
+    for j in range(1, E):
+        s = s + u[:, j]
+    idx = torch.argmax(u / s[:, None], dim=-1)
+    onehot = torch.nn.functional.one_hot(idx, E).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
+    return idx.to(torch.int32), pos.to(torch.int32), pos < capacity
+
+
+def a2a_route(logits: torch.Tensor, capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits ``(T, E)`` -> ``(idx (T,) int32, pos (T,) int32, keep (T,)
+    bool)``: each token's expert, its first-come rank in that expert's lane,
+    and whether that rank is below ``capacity``."""
+    if logits.dim() != 2 or logits.shape[1] < 1:
+        raise ValueError(f"a2a_route needs logits (T, E>=1), got "
+                         f"{tuple(logits.shape)}")
+    if not backend.use_kernel(logits):
+        return a2a_route_plain(logits, capacity)
+    T, E = logits.shape
+    if T >= 2 ** 31:
+        raise ValueError(f"a2a_route takes fewer than 2**31 tokens (got {T})")
+    lib = _lib()
+    smem = lib.a2a_route_smem_bytes(E)
+    if smem > _ROUTE_SMEM_MAX:
+        raise ValueError(f"a2a_route: {E} experts need {smem} bytes of shared "
+                         f"memory, more than the {_ROUTE_SMEM_MAX} a block has")
+    x = logits.to(torch.float32).contiguous()
+    idx = torch.empty(T, dtype=torch.int32, device=x.device)
+    pos = torch.empty(T, dtype=torch.int32, device=x.device)
+    keep = torch.empty(T, dtype=torch.bool, device=x.device)
+    if T == 0:
+        return idx, pos, keep
+    cap = max(-2 ** 31, min(int(capacity), 2 ** 31 - 1))
+    err = lib.a2a_route_launch(x.data_ptr(), T, E, cap, idx.data_ptr(),
+                               pos.data_ptr(), keep.data_ptr(),
+                               backend.current_stream(x.device))
+    a2a_route.launches += 1
+    backend.check(err, "a2a_route")
+    return idx, pos, keep
+
+
+a2a_route.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# combine: select the routed expert's output, zero-fill the dropped tokens
+# ---------------------------------------------------------------------------
+def a2a_combine_plain(ys: torch.Tensor, idx: torch.Tensor,
+                      keep: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`a2a_combine`."""
+    T = idx.shape[0]
+    sel = ys[idx.long(), torch.arange(T, device=ys.device)]
+    mask = keep.reshape((T,) + (1,) * (sel.dim() - 1))
+    return torch.where(mask, sel, torch.zeros((), dtype=sel.dtype,
+                                              device=sel.device))
+
+
+def a2a_combine(ys: torch.Tensor, idx: torch.Tensor,
+                keep: torch.Tensor) -> torch.Tensor:
+    """ys ``(E, T, *out)``, idx ``(T,)`` int32 in ``[0, E)``, keep ``(T,)``
+    bool -> ``(T, *out)``: ``out[t] = ys[idx[t], t]`` where ``keep[t]``,
+    else zeros.  Pure selection: no arithmetic touches the values."""
+    if ys.dim() < 2 or idx.shape != (ys.shape[1],) or keep.shape != idx.shape:
+        raise ValueError(f"a2a_combine: ys {tuple(ys.shape)}, idx "
+                         f"{tuple(idx.shape)}, keep {tuple(keep.shape)}")
+    if not backend.use_kernel(ys):
+        return a2a_combine_plain(ys, idx, keep)
+    if idx.dtype != torch.int32 or keep.dtype != torch.bool:
+        raise TypeError("a2a_combine needs idx int32 and keep bool")
+    if idx.device != ys.device or keep.device != ys.device:
+        raise ValueError("a2a_combine: ys, idx and keep on different devices")
+    ys = ys.contiguous()
+    idx = idx.contiguous()
+    keep = keep.contiguous()
+    T = ys.shape[1]
+    out = torch.empty(ys.shape[1:], dtype=ys.dtype, device=ys.device)
+    row_bytes = math.prod(ys.shape[2:]) * ys.element_size()
+    if T == 0 or row_bytes == 0:
+        return out
+    unit = next(u for u in (16, 8, 4, 2, 1)
+                if row_bytes % u == 0 and ys.data_ptr() % u == 0
+                and out.data_ptr() % u == 0)
+    err = _lib().a2a_combine_launch(
+        ys.data_ptr(), idx.data_ptr(), keep.data_ptr(), out.data_ptr(),
+        T, row_bytes, unit, backend.current_stream(ys.device))
+    a2a_combine.launches += 1
+    backend.check(err, "a2a_combine")
+    return out
+
+
+a2a_combine.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the whole hop
+# ---------------------------------------------------------------------------
+def a2a_fused(logits: torch.Tensor, xs: torch.Tensor,
+              expert_fns: Sequence[Callable], capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits ``(T, E)``; xs ``(T, *item)`` already left-mapped items;
+    ``expert_fns`` the E right workers (per-item torch functions agreeing on
+    output shape/dtype).  Returns ``(out (T, *expert_out), keep (T,))`` with
+    over-capacity tokens zero-filled and ``keep=False``."""
+    T, E = logits.shape
+    if len(expert_fns) != E:
+        raise ValueError(f"logits width {E} != {len(expert_fns)} experts")
+    ys = [torch.func.vmap(fn)(xs) for fn in expert_fns]
+    if any(y.shape != ys[0].shape or y.dtype != ys[0].dtype for y in ys[1:]):
+        raise ValueError("a2a experts must agree on output shape/dtype: "
+                         f"{[(tuple(y.shape[1:]), str(y.dtype)) for y in ys]}")
+    idx, _pos, keep = a2a_route(logits, capacity)
+    return a2a_combine(torch.stack(ys), idx, keep), keep

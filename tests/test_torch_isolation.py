@@ -1,0 +1,110 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor anything of
+the reference package, its entry points default to the GPU, and the tiers it
+has not ported refuse instead of running elsewhere."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.core.compiler import Placement
+from repro_torch.core.plan import single_device_plan
+
+torch.set_num_threads(1)
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules():
+    return sorted("repro_torch." + ".".join(
+        p.relative_to(PKG).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax_and_no_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "from repro_torch.kernels import backend\n"
+            "print(bad, backend._libs)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[] {}"   # and no kernel built or loaded
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    bad = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(SRC)}: {name}")
+    assert bad == []
+
+
+def test_the_plan_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert single_device_plan().device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            single_device_plan()
+    plan = single_device_plan(device="cpu")
+    assert plan.device == torch.device("cpu")
+    assert dict(plan.mesh.shape) == {"data": 1}
+    assert plan == single_device_plan(device="cpu")   # equal plans hash equal
+    assert hash(plan.mesh) == hash(single_device_plan(device="cpu").mesh)
+
+
+@pytest.mark.parametrize("knob", [{"mode": "process"}, {"mode": "remote"},
+                                  {"adaptive": True},
+                                  {"remote_workers": ["localhost:1"]}])
+def test_unported_tiers_raise(knob):
+    g = T.pipeline(T.farm(lambda x: x + 1, n=2))
+    with pytest.raises(T.GraphError, match="not ported yet"):
+        g.compile(config=T.CompileConfig(**knob))
+
+
+@pytest.mark.parametrize("target", ["host_process", "host_remote"])
+def test_unported_placements_raise(target):
+    g = T.pipeline(T.farm(lambda x: x + 1, n=2))
+    for value in (target, Placement(target)):
+        with pytest.raises(T.GraphError, match="not ported yet"):
+            g.compile(config=T.CompileConfig(placements={0: value}))
+
+
+def test_host_runner_is_the_reference_runtime():
+    # the copied host tier runs a farm of threads, results in any order
+    r = T.pipeline(T.farm(lambda x: x * 2, n=3)).compile(
+        config=T.CompileConfig(mode="host"))
+    assert type(r).__name__ == "HostRunner"
+    assert sorted(r.run(list(range(20)))) == [2 * i for i in range(20)]
+    assert sorted(T.farm(lambda x: x + 1, n=2).lower().run([1, 2])) == [2, 3]
+
+
+def test_device_mode_without_a_plan_raises():
+    with pytest.raises(T.GraphError, match="needs a plan"):
+        T.pipeline(lambda x: x).compile(config=T.CompileConfig(mode="device"))
+
+
+def test_kernel_choice_follows_the_tensor_device():
+    from repro_torch.kernels import backend
+    assert backend.use_kernel(torch.zeros(1)) is False
+    with pytest.raises(RuntimeError, match="no kernel"):
+        backend.use_kernel(torch.zeros(1, device="meta"))
