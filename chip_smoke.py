@@ -6,9 +6,16 @@
 Phases, each of which fails the run:
 
 1. card — its name and power limit; the CUDA kernels built from the sources
-   in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+   in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
+   source, all started together;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
+   ``flash_attention`` against its plain version (bf16 within 2e-2, f32
+   within 2e-5) at Mixtral's attention shapes (H32/Hkv8, D128, window 4096:
+   S 2048, ragged S 5000, Sq 512 against Sk 4096) and on the grid of
+   ``tests/test_kernels.py``; ``router_topk`` against its plain version
+   (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
+   K 2, and at E 64/256 with K up to 8;
 3. main path — ``pipeline(pre, all_to_all([left]*2, experts), post)``
    compiled for the device and run through ``FFGraph.compile(...).run`` at
    the widths of the repo's Mixtral-8x7B config (d_model 4096, moe_d_ff
@@ -20,8 +27,25 @@ Phases, each of which fails the run:
 4. overlapped hybrid — the same segment between host stages, microbatch
    512 and 4 in flight: byte-equal to the synchronous boundary, rows in
    stream order;
-5. times — each kernel and its plain version at the phase-3 shapes (CUDA
-   events, median of repeats) beside its bound, and the phase-3 items/s.
+5. serve — ``repro_torch.serving.InferenceEngine`` at the widths of the
+   repo's Mixtral-8x7B config (d_model 4096, 32/8 heads of 128, 8 experts
+   top-2 of 14336, vocab 32000, window 4096, bf16), cut to 4 of its 32
+   layers, random weights from a torch.Generator seeded 0; max_batch 8,
+   cache_len 4096 (the window, so decode runs on the ring); 16 requests
+   with prompts of 100-3000 tokens (numpy seed 0) and one of 5000 (the
+   window mask and the cache roll), 32 new tokens each.  Every request must
+   finish with its 32 tokens; ``flash_attention`` must have launched
+   layers x prefills times and ``router_topk`` layers x (prefills + decode
+   steps); one request's tokens must equal a manual prefill + decode loop
+   on the card.  The decode step, the slot insert and the engine's decode
+   tick must queue their work without making the host wait for the card
+   (``torch.cuda.set_sync_debug_mode("error")``).  Prints prefill and
+   decode tokens/s and ms per decode step, split into the host's time to
+   queue a step and the step's device time (CUDA graph);
+6. times — each kernel and its plain version (CUDA events, median of
+   repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
+   phase-5 kernels at its shapes (attention at S 2048, with
+   ``scaled_dot_product_attention`` beside it), and the phase-3 items/s.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the ``kernels`` record.  Without a CUDA
@@ -31,16 +55,23 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, dense bf16 on the tensor cores
 
 
 def say(msg: str) -> None:
@@ -119,7 +150,82 @@ def phase_kernels(dev: torch.device) -> dict:
                         checks += 1
     say(f"[kernels] a2a_route, a2a_combine equal their plain versions "
         f"({checks} cases, max |err| {err})")
-    return {"checks": checks, "max_abs_err": err}
+    err["flash_attention"], n_flash = check_flash(dev)
+    err["router_topk"], n_router = check_router(dev)
+    return {"checks": checks + n_flash + n_router, "max_abs_err": err}
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+# (B, H, Hkv, Sq, Sk, D, causal, window, dtypes): Mixtral's attention at the
+# serving shapes, then the grid of tests/test_kernels.py:22-30
+BF16, F32 = (torch.bfloat16,), (torch.float32, torch.bfloat16)
+FLASH_CASES = [
+    (1, 32, 8, 2048, 2048, 128, True, 4096, BF16),
+    (1, 32, 8, 5000, 5000, 128, True, 4096, BF16),   # ragged, past the window
+    (1, 32, 8, 512, 4096, 128, True, 4096, BF16),    # chunked prefill
+] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
+     for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
+                                  (2, 4, 2, 256, 256, 64),
+                                  (1, 4, 1, 128, 256, 32),
+                                  (1, 2, 2, 128, 128, 128),
+                                  (1, 4, 2, 100, 100, 16))
+     for c, w in ((True, 0), (True, 64), (False, 0))]
+
+
+def check_flash(dev: torch.device) -> tuple:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(3)
+    worst, n = 0.0, 0
+    for B, H, Hkv, Sq, Sk, D, causal, window, dtypes in FLASH_CASES:
+        for dtype in dtypes:
+            q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(dev)
+            k = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(dev)
+            v = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(dev)
+            got = flash_attention(q, k, v, causal, window).float()
+            want = flash_attention_plain(q, k, v, causal, window).float()
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            tol = FLASH_TOL[dtype]
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                fail(f"flash_attention != plain at B{B} H{H}/{Hkv} Sq{Sq} "
+                     f"Sk{Sk} D{D} causal={causal} window={window} {dtype}: "
+                     f"max |err| {e}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, e)
+            n += 1
+            del q, k, v, got, want
+    say(f"[kernels] flash_attention equals its plain version ({n} cases, "
+        f"max |err| {worst:.3g} in bf16, within 2e-2; f32 within 2e-5)")
+    return worst, n
+
+
+# (T, E, K): the serving shapes (decode T = max_batch, prefill T = prompt
+# length) and wider routers
+ROUTER_CASES = [(8, 8, 2), (2048, 8, 2), (5000, 8, 2), (8, 64, 8),
+                (2048, 64, 8), (2048, 256, 8), (5000, 256, 4)]
+
+
+def check_router(dev: torch.device) -> tuple:
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    g = torch.Generator().manual_seed(4)
+    worst, n = 0.0, 0
+    for T, E, K in ROUTER_CASES:
+        logits = (torch.randn(T, E, generator=g) * 2).to(dev)
+        for cap in (expert_capacity(T, E, K, 1.25), T, 1):
+            w, idx, pos, keep = router_topk(logits, K, cap)
+            pw, pidx, ppos, pkeep = router_topk_plain(logits, K, cap)
+            if not (torch.equal(idx, pidx) and torch.equal(pos, ppos)
+                    and torch.equal(keep, pkeep)):
+                fail(f"router_topk != plain at T={T} E={E} K={K} cap={cap}")
+            worst = max(worst, float((w - pw).abs().max()))
+            n += 1
+    if worst > 1.2e-7:               # one ulp of a weight near 1
+        fail(f"router_topk weights differ from plain by {worst}")
+    say(f"[kernels] router_topk equals its plain version ({n} cases: "
+        f"experts, positions, keep equal; max |w err| {worst:.3g})")
+    return worst, n
 
 
 # ---------------------------------------------------------------------------
@@ -337,11 +443,198 @@ def phase_hybrid(main: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 5: the serving path at Mixtral-8x7B's width
 # ---------------------------------------------------------------------------
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
+SERVE_LAYERS = 4                 # of Mixtral's 32: ~12.1 GB of bf16 weights
+SERVE_BATCH, SERVE_CACHE = 8, 4096
+SERVE_REQUESTS, SERVE_NEW = 16, 32
+PROMPT_LENS, LONG_PROMPT = (100, 3000), 5000
 
+
+def serve_config():
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get("mixtral-8x7b"), n_layers=SERVE_LAYERS)
+
+
+def serve_prompts(vocab: int, n: int = SERVE_REQUESTS,
+                  lens: tuple = PROMPT_LENS, long: int = LONG_PROMPT,
+                  seed: int = 0) -> list:
+    """n prompts from numpy seed 0: n-1 of ragged length in ``lens`` and one
+    of ``long`` tokens in the middle."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = [int(x) for x in rng.integers(lens[0], lens[1] + 1, n - 1)]
+    sizes.insert(n // 2, long)
+    return [rng.integers(0, vocab, m, dtype=np.int32) for m in sizes]
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def no_host_wait(dev: torch.device):
+    """Raise if the code inside makes the host wait for the card: a read of
+    a device value, a blocking copy, a synchronize."""
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def manual_greedy(cfg, plan, params, prompt, n_new: int, batch: int,
+                  cache_len: int) -> list:
+    """The twin of the engine for one request (tests/test_serving.py:44):
+    prefill it alone, then decode step by step at the engine's batch width
+    with the request in slot 0 and the other slots idle, as the engine's
+    free slots are."""
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    dev = plan.device
+    prefill = make_prefill_step(cfg, plan, cache_len)
+    decode = make_decode_step(cfg, plan, cache_len)
+    logits, cache1 = prefill(params, {"tokens": torch.as_tensor(
+        prompt, dtype=torch.int32, device=dev)[None]})
+    caches = {kind: {n: torch.zeros(shape, dtype=dtype, device=dev)
+                     for n, (shape, dtype) in kv.items()}
+              for kind, kv in LM(cfg).cache_defs(batch, cache_len).items()}
+    for kind, kv in cache1.items():
+        for n, c in kv.items():
+            caches[kind][n][:, 0] = c[:, 0]
+    tok = torch.zeros(batch, 1, dtype=torch.int32, device=dev)
+    tok[0, 0] = torch.argmax(logits[0, -1])
+    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+    pos[0] = len(prompt)
+    step = torch.zeros(batch, dtype=torch.int32, device=dev)
+    step[0] = 1
+    out = [int(tok[0, 0])]
+    for _ in range(n_new - 1):
+        tok, _, caches = decode(params, caches, {"token": tok, "pos": pos})
+        pos = pos + step
+        out.append(int(tok[0, 0]))
+    return out
+
+
+def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
+                max_batch: int = SERVE_BATCH, cache_len: int = SERVE_CACHE,
+                check_launches: bool = True) -> dict:
+    """Serve ``prompts`` through the engine; fail unless every request
+    finishes with ``max_new`` tokens, the kernels launched once per layer
+    per prefill (attention) and per prefill and decode step (router), and
+    request 0's tokens equal the manual loop.  ``check_launches=False`` is
+    for a rehearsal on the CPU, where the kernels' plain versions run."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.router_topk import router_topk
+    from repro_torch.models.params import bytes_params
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import init_state, make_decode_step, \
+        make_prefill_step
+    from repro_torch.serving import InferenceEngine, Request
+    from repro_torch.serving.engine import _TICK, _insert
+    dev = plan.device
+    t0 = time.perf_counter()
+    params = init_state(cfg, plan, torch.Generator(device=dev)
+                        .manual_seed(0))["params"]
+    sync(dev)
+    say(f"[serve] {cfg.name} at d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k} of {cfg.moe_d_ff}, vocab {cfg.vocab}, window "
+        f"{cfg.window}; {cfg.n_layers} layers: "
+        f"{bytes_params(LM(cfg).param_defs()) / 1e9:.2f} GB of weights from "
+        f"seed 0 in {time.perf_counter() - t0:.1f} s")
+    eng = InferenceEngine(cfg, plan, params, max_batch=max_batch,
+                          cache_len=cache_len)
+    n_prompt = sum(len(p) for p in prompts)
+    flash_attention.launches = 0
+    router_topk.launches = 0
+    t1 = time.perf_counter()
+    with eng:
+        handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
+                   for p in prompts]
+        outs = [h.result(timeout=900) for h in handles]
+    wall = time.perf_counter() - t1
+    launches = {"flash_attention": flash_attention.launches,
+                "router_topk": router_topk.launches}
+    L, n = cfg.n_layers, len(prompts)
+    for i, out in enumerate(outs):
+        if not isinstance(out, Request) or len(out.tokens) != max_new:
+            fail(f"request {i} ended as {out!r}")
+        if not all(0 <= t < cfg.vocab for t in out.tokens):
+            fail(f"request {i}: token out of the vocabulary: {out.tokens}")
+    want = {"flash_attention": L * n, "router_topk": L * (n + eng.steps)}
+    say(f"[serve] {n} requests, {n_prompt} prompt tokens, "
+        f"{n * max_new} generated in {wall:.2f} s ({eng.steps} decode "
+        f"steps); kernel launches {launches}, expected {want}")
+    if check_launches and launches != want:
+        fail(f"kernel launches {launches} on the serving path, expected "
+             f"{want}")
+    manual = manual_greedy(cfg, plan, params, prompts[0], max_new, max_batch,
+                           cache_len)
+    if manual != outs[0].tokens:
+        fail(f"engine tokens {outs[0].tokens} != manual loop {manual}")
+    say(f"[serve] request 0 ({len(prompts[0])} prompt tokens): engine tokens "
+        f"equal the manual prefill + decode loop ({max_new} tokens)")
+
+    # the path's rates, each part alone: prefill of the longest and of a
+    # median prompt, and the engine's batched decode step on its caches
+    prefill = make_prefill_step(cfg, plan, cache_len)
+    decode = make_decode_step(cfg, plan, cache_len)
+    rates = {}
+    for p in (max(prompts, key=len), sorted(prompts, key=len)[n // 2]):
+        tokens = torch.as_tensor(p, dtype=torch.int32, device=dev)[None]
+        secs = []
+        for _ in range(3):
+            sync(dev)
+            t = time.perf_counter()
+            logits, cache1 = prefill(params, {"tokens": tokens})
+            sync(dev)
+            secs.append(time.perf_counter() - t)
+        rates[len(p)] = len(p) / sorted(secs)[1]
+
+    # decode on the engine's caches: the host's time to queue a step, the
+    # synchronised step and its device time alone (CUDA graph) split what a
+    # step costs; then the step, the engine's slot insert and its decode
+    # tick must queue their work without a host wait
+    st = eng.state
+    batch = {"token": st.cur_tok, "pos": st.pos}
+    decode(params, st.caches, batch)
+    sync(dev)
+    t = time.perf_counter()
+    for _ in range(10):
+        decode(params, st.caches, batch)
+    queue_ms = (time.perf_counter() - t) / 10 * 1e3
+    sync(dev)
+    step_ms = (time.perf_counter() - t) / 10 * 1e3
+    dev_ms = (graph_ms(lambda: decode(params, st.caches, batch), reps=3,
+                       iters=5) if dev.type == "cuda" else float("nan"))
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None].cpu()
+    with no_host_wait(dev):
+        decode(params, st.caches, batch)
+        _insert(st, cache1, 0, tok, len(p))
+        eng._decode_node.svc(_TICK)
+    sync(dev)
+    say(f"[serve] prefill {', '.join(f'{r:.1f} tokens/s at {m}' for m, r in rates.items())} "
+        f"(B=1, median of 3); decode {step_ms:.2f} ms per step at batch "
+        f"{max_batch} (mean of 10), {max_batch / step_ms * 1e3:.1f} "
+        f"tokens/s: {queue_ms:.2f} ms of host time to queue a step, "
+        f"{dev_ms:.2f} ms of device time (CUDA graph, median of 3), "
+        f"{threading.active_count()} threads alive; no host wait in the "
+        f"step, the slot insert or the engine's decode tick; whole run "
+        f"{n * max_new / wall:.1f} generated tokens/s end to end")
+    return {"launches": launches, "wall_s": wall, "steps": eng.steps,
+            "prefill_tok_s": rates, "decode_ms": step_ms,
+            "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times
+# ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int = 5, iters: int = 20) -> float:
     """Median over ``reps`` of the mean of ``iters`` back-to-back eager
@@ -391,6 +684,76 @@ def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
     return sorted(meds)[len(meds) // 2]
 
 
+def kernel_row(name: str, cu: str, replaces: str, launches: int, err: float,
+               ms: float, plain_ms: float, t_bytes: float, t_ops: float,
+               library_ms) -> dict:
+    """One entry of the ``kernels`` line; the bound is the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def time_serving_kernels(dev: torch.device, serve: dict, errs: dict,
+                         card: str) -> list:
+    """The serving path's kernels at its shapes: attention over a 2048-token
+    prompt (B1, H32/Hkv8, D128, causal, window 4096) and the router over its
+    2048 tokens (E8, K2, capacity from the model's formula)."""
+    import torch.nn.functional as F
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    g = torch.Generator().manual_seed(5)
+    B, H, Hkv, S, D, W = 1, 32, 8, 2048, 128, 4096
+    q = torch.randn(B, H, S, D, generator=g).to(torch.bfloat16).to(dev)
+    k = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
+    pairs = S * (S + 1) // 2                # causal; the window does not bind
+    flops = 4 * D * pairs * B * H           # q.k and p.v, 2 FLOP per MAC
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    ms = graph_ms(lambda: flash_attention(q, k, v, True, W))
+    eager = time_ms(lambda: flash_attention(q, k, v, True, W))
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, True, W),
+                    reps=3, iters=5)
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    rows = [kernel_row("flash_attention", "flash_attention",
+                       "src/repro/kernels/flash_attention.py:35",
+                       serve["launches"]["flash_attention"],
+                       errs["flash_attention"], ms, plain,
+                       nbytes / HBM_BYTES_PER_S * 1e3,
+                       flops / BF16_FLOPS * 1e3, lib)]
+    say(f"[time] flash_attention B{B} H{H}/{Hkv} S{S} D{D} bf16 causal: "
+        f"{ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms per eager "
+        f"call, plain {plain:.4f} ms, scaled_dot_product_attention "
+        f"{lib:.4f} ms, bound {rows[-1]['bound_ms']:.6f} ms "
+        f"({rows[-1]['bound_by']}: {flops:.4g} FLOP, {nbytes} B); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s on {card}")
+    T, E, K = S, 8, 2
+    cap = expert_capacity(T, E, K, 1.25)
+    logits = (torch.randn(T, E, generator=g) * 2).to(dev)
+    nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
+    ops = T * E * (3 + 4 * K)     # max, exp-sum; per pick sub, exp, div, cmp
+    ms = graph_ms(lambda: router_topk(logits, K, cap))
+    eager = time_ms(lambda: router_topk(logits, K, cap))
+    plain = time_ms(lambda: router_topk_plain(logits, K, cap))
+    rows.append(kernel_row("router_topk", "router_topk",
+                           "src/repro/kernels/router_topk.py:26",
+                           serve["launches"]["router_topk"],
+                           errs["router_topk"], ms, plain,
+                           nbytes / HBM_BYTES_PER_S * 1e3,
+                           ops / F32_FLOPS * 1e3, None))
+    say(f"[time] router_topk T{T} E{E} K{K}: {ms:.4f} ms on the device (CUDA "
+        f"graph), {eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
+        f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}, {nbytes} B) "
+        f"on {card}")
+    return rows
+
+
 def phase_times(dev: torch.device, main: dict, card: str) -> list:
     from repro_torch.core import CompileConfig
     from repro_torch.core.compiler import make_device_batched
@@ -418,21 +781,15 @@ def phase_times(dev: torch.device, main: dict, card: str) -> list:
         ms = graph_ms(lambda: kern(*args))
         eager_ms = time_ms(lambda: kern(*args))
         plain_ms = time_ms(lambda: plain(*args))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/a2a_fused.cu",
-                     "replaces": "src/repro/kernels/a2a_fused.py:48",
-                     "launches": main["launches"][name],
-                     "max_abs_err": main["kernels"]["max_abs_err"][name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": None})
+        rows.append(kernel_row(
+            name, "a2a_fused", "src/repro/kernels/a2a_fused.py:48",
+            main["launches"][name], main["kernels"]["max_abs_err"][name],
+            ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / F32_FLOPS * 1e3, None))
         say(f"[time] {name}: {ms:.4f} ms on the device (CUDA graph), "
             f"{eager_ms:.4f} ms per eager call, plain {plain_ms:.4f} ms per "
-            f"eager call, bound {bound:.6f} ms ({rows[-1]['bound_by']}, "
-            f"{nbytes} B) on {card}")
+            f"eager call, bound {rows[-1]['bound_ms']:.6f} ms "
+            f"({rows[-1]['bound_by']}, {nbytes} B) on {card}")
     runner = build_graph(main["fns"]).compile(config=CompileConfig(
         plan=main["plan"], mode="device"))
     runner.run(main["stream"])
@@ -468,7 +825,12 @@ def main() -> int:
     main = phase_main_path(dev)
     main["kernels"] = kernels
     phase_hybrid(main)
+    from repro_torch.core.plan import single_device_plan
+    cfg = serve_config()
+    serve = phase_serve(single_device_plan(), cfg, serve_prompts(cfg.vocab))
     rows = phase_times(dev, main, card["card"])
+    rows += time_serving_kernels(dev, serve, kernels["max_abs_err"],
+                                 card["card"])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

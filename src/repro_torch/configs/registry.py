@@ -1,0 +1,36 @@
+"""--arch <id> registry of the configs the port runs.
+
+A copy of ``src/repro/configs/registry.py``; ``_load_all`` imports only the
+config modules the port has (the model slices that bring the other
+architectures bring their configs).
+"""
+
+from __future__ import annotations
+
+from .base import Config
+
+_REGISTRY = {}
+
+
+def register(cfg: Config) -> Config:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get(name: str) -> Config:
+    import copy
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return copy.deepcopy(_REGISTRY[name])
+
+
+def names():
+    return sorted(_REGISTRY)
+
+
+def _load_all():
+    from . import mixtral_8x7b, ff_tiny  # noqa: F401
+
+
+_load_all()
+ASSIGNED = [n for n in names() if n != "ff-tiny"]

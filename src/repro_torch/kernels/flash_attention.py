@@ -1,0 +1,139 @@
+"""Blocked (flash) GQA attention, forward kernel plus recompute backward.
+
+Port of ``src/repro/kernels/flash_attention.py:flash_attention`` as wrapped
+by ``src/repro/kernels/ops.py:flash_attention``.  The CUDA kernel is
+``csrc/flash_attention.cu`` (its header gives the design and the bound).
+
+:func:`flash_attention` runs the plain PyTorch version
+(:func:`flash_attention_plain`, the reference's ``ref.attention_ref`` with
+queries aligned to the end of the keys) for CPU tensors and launches the
+kernel for CUDA tensors; ``flash_attention.launches`` counts the launches.
+As in the reference, the backward pass has no kernel: it recomputes through
+the plain version (``ops.py`` does the same with ``jax.vjp``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import backend
+
+NEG_INF = -2.0e38
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = backend.load("flash_attention")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.flash_attention_launch.restype = i
+        lib._ff_typed = True
+    return lib
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """Plain version: the whole score matrix in fp32, GQA by repeating the
+    KV heads, queries aligned to the end of the keys."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=1)
+        v = v.repeat_interleave(H // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        / torch.sqrt(torch.tensor(float(D)))
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s,
+                    torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention needs q (B,H,Sq,D), k and v "
+                         f"(B,Hkv,Sk,D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _Sq, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1 \
+            or H % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (same B and D, Hkv | H)")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one type; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v on different devices")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if max(Sq, Sk, B, H) >= 2 ** 31 or Sk < 1:
+        raise ValueError(f"flash_attention: sizes out of range "
+                         f"(B {B}, H {H}, Sq {Sq}, Sk {Sk})")
+    o = torch.empty_like(q)
+    if Sq == 0 or B == 0:
+        return o
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
+        Sq, Sk, D, int(bool(causal)), int(window), _DTYPES[q.dtype],
+        backend.current_stream(q.device))
+    with _count_lock:
+        flash_attention.launches += 1
+    backend.check(err, "flash_attention")
+    return o
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if backend.use_kernel(q):
+            return _launch(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = flash_attention_plain(*leaves, ctx.causal, ctx.window)
+            grads = torch.autograd.grad(out, leaves, g)
+        return grads + (None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q ``(B,H,Sq,D)``; k, v ``(B,Hkv,Sk,D)`` with ``Hkv | H`` -> ``(B,H,Sq,D)``
+    in q's type.  Queries are aligned to the end of the keys (self-attention
+    when Sq == Sk, chunked prefill when Sq < Sk); ``window > 0`` adds the
+    sliding-window mask.  Any Sq and Sk; the kernel takes D in
+    ``HEAD_DIMS`` and float32 or bfloat16."""
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+flash_attention.launches = 0
+

@@ -1,0 +1,105 @@
+"""Common layers: norms, GLU MLPs, embeddings, RoPE.
+
+Port of ``src/repro/models/layers.py`` for one device: products run in the
+activations' type (bf16 for the models) with fp32 normalisation statistics,
+and the reference's sharding constraints (``plan.constrain``,
+``plan.gather_fsdp``) are no-ops on one device and are dropped.
+``apply_mrope`` (Qwen2-VL) comes with the slice that brings that model.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .params import ParamDef
+
+
+# -- norms -------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    m = x.mean(-1, keepdim=True)
+    v = ((x - m) ** 2).mean(-1, keepdim=True)
+    x = (x - m) * torch.rsqrt(v + eps)
+    return (x * w.float() + b.float()).to(dt)
+
+
+def norm_defs(d_model: int, kind: str = "rms", layers: Optional[int] = None):
+    lead = (layers,) if layers else ()
+    lax_ = ("layers",) if layers else ()
+    if kind == "rms":
+        return {"w": ParamDef(lead + (d_model,), lax_ + (None,), init="zeros")}
+    return {"w": ParamDef(lead + (d_model,), lax_ + (None,), init="ones"),
+            "b": ParamDef(lead + (d_model,), lax_ + (None,), init="zeros")}
+
+
+def apply_norm(x, p, kind: str = "rms"):
+    if kind == "rms":
+        return rms_norm(x, p["w"])
+    return layer_norm(x, p["w"], p["b"])
+
+
+# -- GLU MLP (SwiGLU / GeGLU) --------------------------------------------------
+def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
+    lead = (layers,) if layers else ()
+    la = ("layers",) if layers else ()
+    return {
+        "wi": ParamDef(lead + (d_model, d_ff), la + ("fsdp", "tp")),
+        "wg": ParamDef(lead + (d_model, d_ff), la + ("fsdp", "tp")),
+        "wo": ParamDef(lead + (d_ff, d_model), la + ("tp", "fsdp")),
+    }
+
+
+def activation(g: torch.Tensor, act: str) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
+
+
+def mlp(x, p, act: str = "silu"):
+    a = x @ p["wi"]
+    g = activation(x @ p["wg"], act)
+    return (a * g) @ p["wo"]
+
+
+# -- embeddings ----------------------------------------------------------------
+def embed(tokens: torch.Tensor, p) -> torch.Tensor:
+    return p["emb"][tokens.long()].to(torch.bfloat16)
+
+
+def unembed(x: torch.Tensor, p) -> torch.Tensor:
+    w = p.get("unemb")
+    if w is None:
+        w = p["emb"].T
+    return x @ w
+
+
+# -- rotary position embeddings -------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    ang = positions[..., None].float() * freqs              # (B,S,d/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)

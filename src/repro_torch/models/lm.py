@@ -1,0 +1,202 @@
+"""Language-model backbone on one device: the ``dense`` and ``moe`` blocks.
+
+Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
+``_run_segments``, ``prefill``, ``decode_step``, ``_cache_write_pos``,
+``cache_defs``).  Parameters keep the reference's nesting — ``embed``,
+``final_norm`` and per-kind ``stacks`` whose leaves carry a leading layer
+dimension — so the reference's initialised tree, carried across with
+``core.params.from_numpy``, loads as it is.  Where the reference scans over
+the stacked layers, the port loops over them in Python.
+
+Block kinds of later slices (``mamba2``, ``mlstm``, ``slstm``,
+``shared_attn``, ``enc``, ``dec``) raise ``NotImplementedError`` naming the
+slice; so does ``loss`` (the training slice).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..core.tree import tree_map
+from .attention import attention, attn_defs
+from .layers import apply_norm, embed, mlp, mlp_defs, norm_defs, unembed
+from .moe import moe_block, moe_defs
+from .params import ParamDef, init_params
+
+_LATER = {
+    "mamba2": "the hybrid-serving slice (Zamba2, with the ssd_scan kernel)",
+    "shared_attn": "the hybrid-serving slice (Zamba2, with the ssd_scan "
+                   "kernel)",
+    "mlstm": "the xLSTM slice (with the ssd_scan kernel)",
+    "slstm": "the xLSTM slice",
+    "enc": "the encoder-decoder slice (Whisper)",
+    "dec": "the encoder-decoder slice (Whisper)",
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet: it comes with "
+            f"{_LATER.get(kind, 'a later slice')}")
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
+                window=0, moe=False):
+    """One pre-norm block; returns (x, new_cache).  The MoE aux losses are
+    not computed: only the loss reads them, and it comes with the training
+    slice."""
+    xn = apply_norm(x, p["ln1"], cfg.norm)
+    a, new_cache = attention(xn, p["attn"], cfg, positions=positions,
+                             causal=True, window=window, cache=cache,
+                             cache_pos=pos_offset)
+    x = x + a
+    xn = apply_norm(x, p["ln2"], cfg.norm)
+    if moe:
+        m, _ = moe_block(xn, p["moe"], cfg, losses=False)
+    else:
+        m = mlp(xn, p["mlp"], cfg.act)
+    return x + m, new_cache
+
+
+def block_defs(kind, cfg, layers):
+    _check_kind(kind)
+    d = {
+        "ln1": norm_defs(cfg.d_model, cfg.norm, layers),
+        "ln2": norm_defs(cfg.d_model, cfg.norm, layers),
+        "attn": attn_defs(cfg, layers),
+    }
+    if kind == "moe":
+        d["moe"] = moe_defs(cfg, layers)
+    else:
+        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, layers)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+class LM:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    # -- parameters -----------------------------------------------------------
+    def param_defs(self):
+        cfg = self.cfg
+        d: Dict[str, Any] = {
+            "embed": {"emb": ParamDef((cfg.vocab, cfg.d_model),
+                                      ("tp", "fsdp"), init="embed",
+                                      scale=0.02)},
+            "final_norm": norm_defs(cfg.d_model, cfg.norm),
+        }
+        if not cfg.tie_embeddings:
+            d["embed"]["unemb"] = ParamDef((cfg.d_model, cfg.vocab),
+                                           ("fsdp", "tp"))
+        d["stacks"] = {kind: block_defs(kind, cfg, total)
+                       for kind, total in cfg.stack_sizes().items()}
+        return d
+
+    def init(self, gen: torch.Generator):
+        """Parameters drawn from ``gen``, on the generator's device."""
+        return init_params(self.param_defs(), gen)
+
+    # -- segment runner ---------------------------------------------------------
+    def _run_segments(self, params, x, *, mode, caches=None, positions=None,
+                      pos_offset=0):
+        """Run the segment list; returns (x, caches).  Prefill builds the
+        caches (a leading layer dimension per kind); decode writes into the
+        given caches in place and returns them."""
+        cfg = self.cfg
+        window = cfg.window if cfg.attn_kind == "swa" else 0
+        offsets: Dict[str, int] = {}
+        pieces: Dict[str, list] = {}
+        for kind, count in cfg.segments:
+            _check_kind(kind)
+            start = offsets.get(kind, 0)
+            offsets[kind] = start + count
+            for li in range(start, start + count):
+                pl = tree_map(lambda t: t[li], params["stacks"][kind])
+                if mode == "prefill":
+                    cl = "init"
+                else:
+                    cl = {n: c[li] for n, c in caches[kind].items()}
+                x, nc = dense_block(x, pl, cfg, cache=cl,
+                                    positions=positions,
+                                    pos_offset=pos_offset, window=window,
+                                    moe=(kind == "moe"))
+                if mode == "prefill":
+                    pieces.setdefault(kind, []).append(nc)
+        if mode != "prefill":
+            return x, caches
+        return x, {kind: {n: torch.stack([c[n] for c in cs])
+                          for n in ("k", "v")}
+                   for kind, cs in pieces.items()}
+
+    # -- serving -----------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, params, batch, plan=None,
+                cache_len: Optional[int] = None):
+        """Process the prompt; returns (last-position logits (B,1,V),
+        caches padded to ``cache_len``)."""
+        cfg = self.cfg
+        if cache_len is not None:
+            cfg.cache_len = (min(cache_len, cfg.window)
+                             if cfg.attn_kind == "swa" else cache_len)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed(tokens, params["embed"])
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, caches = self._run_segments(params, x, mode="prefill",
+                                       positions=positions)
+        x = apply_norm(x, params["final_norm"], cfg.norm)
+        return unembed(x[:, -1:], params["embed"]), caches
+
+    @torch.no_grad()
+    def decode_step(self, params, caches, batch, plan=None):
+        """One token for every sequence.  batch: {'token': (B,1), 'pos': ()
+        or (B,)}.  Returns (logits (B,1,V), caches), the caches written in
+        place."""
+        cfg = self.cfg
+        tok = batch["token"]
+        B = tok.shape[0]
+        pos = batch["pos"]
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.tensor(pos, dtype=torch.int32, device=tok.device)
+        if pos.dim() == 1:                      # per-sequence positions
+            positions = pos[:, None].to(torch.int32)
+        else:
+            positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
+        x = embed(tok, params["embed"])
+        x, caches = self._run_segments(
+            params, x, mode="decode", caches=caches, positions=positions,
+            pos_offset=self._cache_write_pos(pos))
+        x = apply_norm(x, params["final_norm"], cfg.norm)
+        return unembed(x, params["embed"]), caches
+
+    def loss(self, params, batch, plan=None):
+        raise NotImplementedError("LM.loss is not ported yet: it comes with "
+                                  "the training slice")
+
+    def _cache_write_pos(self, pos):
+        cfg = self.cfg
+        if cfg.attn_kind == "swa" and cfg.cache_len == cfg.window:
+            return torch.remainder(pos, cfg.window)
+        return pos
+
+    def cache_defs(self, B: int, S_max: int):
+        """Tree of (shape, dtype) for the decode caches."""
+        cfg = self.cfg
+        S_eff = min(S_max, cfg.window) if cfg.attn_kind == "swa" else S_max
+        cfg.cache_len = S_eff
+        out = {}
+        for kind, total in cfg.stack_sizes().items():
+            _check_kind(kind)
+            shape = (total, B, S_eff, cfg.n_kv_heads, cfg.head_dim)
+            out[kind] = {"k": (shape, torch.bfloat16),
+                         "v": (shape, torch.bfloat16)}
+        return out

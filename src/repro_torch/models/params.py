@@ -1,0 +1,74 @@
+"""Parameter definition trees.
+
+Port of ``src/repro/models/params.py``.  A model builds a nested dict of
+:class:`ParamDef` leaves; :func:`init_params` draws real tensors from it with
+a ``torch.Generator`` (on the generator's device, so a CUDA generator fills
+the card directly).  The logical axes stay on every def, as in the
+reference, for the multi-device slice; on one device nothing reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterator, Optional, Tuple
+
+import torch
+
+from ..core.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"          # normal | zeros | ones | embed
+    scale: float = 1.0            # fan-in style scale applied by _init_leaf
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _init_leaf(d: ParamDef, gen: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    # fan-in scaled truncated normal, cut at two standard deviations
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = d.scale / math.sqrt(max(fan_in, 1))
+    if d.init == "embed":
+        std = d.scale
+    x = torch.empty(d.shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(d.dtype)
+
+
+def init_params(defs: Any, gen: torch.Generator) -> Any:
+    """Real parameters for a def tree, drawn leaf by leaf from ``gen`` on
+    the generator's device.  The numbers differ from the reference's
+    ``jax.random`` draw; tests carry the reference's parameters across with
+    ``core.params.from_numpy`` instead."""
+    device = gen.device
+    return tree_map(lambda d: _init_leaf(d, gen, device), defs)
+
+
+def walk_defs(defs: Any, path: Tuple[str, ...] = ()
+              ) -> Iterator[Tuple[Tuple[str, ...], ParamDef]]:
+    """(key path, def) for every leaf of a nested dict of defs."""
+    if isinstance(defs, dict):
+        for k, v in defs.items():
+            yield from walk_defs(v, path + (k,))
+    else:
+        yield path, defs
+
+
+def count_params(defs: Any) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+def bytes_params(defs: Any) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize
+               for d in tree_leaves(defs))

@@ -1,0 +1,110 @@
+"""The port's ``flash_attention`` against the reference's, on the CPU.
+
+On a CPU tensor the port's wrapper runs its plain version; the reference's
+``repro.kernels.ops.flash_attention`` runs the Pallas kernel in interpret
+mode.  Inputs come from numpy seeds and go to both packages.  Tolerances are
+those of ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2.  The kernel itself
+is held against the plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ops import flash_attention as jflash
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+
+torch.set_num_threads(1)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(seed, B, H, Hkv, Sq, Sk, D, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s, dtype=np.float32)
+            for s in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+    return ([jnp.asarray(a).astype(JDT[dtype]) for a in arrs],
+            [torch.from_numpy(a).to(TDT[dtype]) for a in arrs])
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# the grid of tests/test_kernels.py:22-30
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
+    (1, 2, 2, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),     # GQA 2:1
+    (1, 4, 1, 128, 256, 32),     # MQA, chunked-prefill alignment
+    (1, 2, 2, 128, 128, 128),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_kernel(B, H, Hkv, Sq, Sk, D, causal,
+                                               window, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(Sq + Sk + D, B, H, Hkv, Sq, Sk, D,
+                                      dtype)
+    want = jflash(jq, jk, jv, causal, window, 128)
+    got = flash_attention(q, k, v, causal, window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, TOL[dtype])
+
+
+# ragged lengths the Pallas kernel does not take (block multiples only)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", [
+    (1, 4, 2, 37, 37, 16, True, 0),
+    (2, 4, 1, 13, 50, 32, True, 0),       # chunked prefill, ragged
+    (1, 2, 2, 70, 70, 16, True, 32),      # longer than the window
+    (1, 4, 2, 9, 200, 64, True, 64),      # window, q at the end of the keys
+    (1, 2, 1, 33, 33, 128, False, 0),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_matches_reference_oracle(
+        B, H, Hkv, Sq, Sk, D, causal, window, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(Sq * 7 + Sk, B, H, Hkv, Sq, Sk, D,
+                                      dtype)
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal, window)
+    _close(got, want, TOL[dtype])
+
+
+def test_flash_attention_grad_matches_reference():
+    # tests/test_kernels.py:44-58: the gradient of the kernel's wrapper
+    (jq, jk, jv), (q, k, v) = _inputs(5, 1, 2, 2, 128, 128, 32, "float32")
+    jg = jax.grad(lambda q, k, v: jflash(q, k, v).sum(),
+                  argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves).sum().backward()
+    for got, want in zip(leaves, jg):
+        assert torch.isfinite(got.grad).all()
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    _, (q, k, v) = _inputs(1, 1, 4, 2, 16, 16, 16, "float32")
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, True, 8)
+    assert flash_attention.launches == before
+    assert torch.equal(got, flash_attention_plain(q, k, v, True, 8))
+
+
+def test_shapes_that_do_not_fit_raise():
+    q = torch.zeros(1, 3, 8, 16)
+    with pytest.raises(ValueError, match="Hkv"):
+        flash_attention(q, torch.zeros(1, 2, 8, 16), torch.zeros(1, 2, 8, 16))
+    with pytest.raises(ValueError, match="needs q"):
+        flash_attention(q[0], q[0], q[0])
+    with pytest.raises(RuntimeError, match="no kernel"):
+        m = torch.zeros(1, 2, 8, 16, device="meta")
+        flash_attention(m, m, m)

@@ -1,0 +1,178 @@
+"""The port's serving engine against the reference's, on the CPU.
+
+Both engines serve the reduced Mixtral-8x7B with the reference's weights
+(carried across with ``core.params.from_numpy``) and prompts from numpy
+seeds.  Greedy tokens must be equal (``tests/test_serving.py:44``), and the
+port's engine must batch continuously with results independent of the
+batch (``tests/test_serving.py:60,85``).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as jget
+from repro.core import FF_EOS as JFF_EOS
+from repro.core.plan import single_device_plan as jplan
+from repro.runtime.steps import init_state as jinit_state
+from repro.serving import InferenceEngine as JEngine
+from repro.serving import Request as JRequest
+from repro_torch.configs import get as tget
+from repro_torch.core import FF_EOS, GraphError
+from repro_torch.core.params import from_numpy
+from repro_torch.core.plan import single_device_plan
+from repro_torch.runtime.steps import (init_state, make_decode_step,
+                                       make_prefill_step)
+from repro_torch.serving import InferenceEngine, Overloaded, Request
+
+torch.set_num_threads(1)
+
+ARCH = "mixtral-8x7b"
+CACHE_LEN = 64
+
+
+@pytest.fixture(scope="module")
+def served():
+    jcfg = jget(ARCH).reduced()
+    params = jinit_state(jcfg, jplan(), jax.random.PRNGKey(0))["params"]
+    tcfg = tget(ARCH).reduced()
+    tp = from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    return jcfg, params, tcfg, single_device_plan("cpu"), tp
+
+
+def _prompts(seed, n, lengths=(8,)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, lengths[i % len(lengths)], dtype=np.int32)
+            for i in range(n)]
+
+
+def _serve(eng, request_cls, prompts, max_new, eos=FF_EOS):
+    """Offload every prompt through the paper's API, drain, and return the
+    finished requests by id."""
+    eng.run_then_freeze()
+    for i, p in enumerate(prompts):
+        n = max_new[i] if isinstance(max_new, list) else max_new
+        eng.offload(request_cls(prompt=p, max_new_tokens=n, id=i))
+    eng.offload(eos)
+    got = {}
+    while True:
+        ok, req = eng.load_result()
+        if not ok:
+            break
+        got[req.id] = req
+    assert eng.wait() == 0
+    return got
+
+
+def _manual_greedy(cfg, plan, params, prompt, n_new):
+    prefill = make_prefill_step(cfg, plan, CACHE_LEN)
+    decode = make_decode_step(cfg, plan, CACHE_LEN)
+    logits, caches = prefill(params,
+                             {"tokens": torch.from_numpy(prompt)[None]})
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    out = [int(tok[0, 0])]
+    for i in range(n_new - 1):
+        tok, _, caches = decode(params, caches,
+                                {"token": tok,
+                                 "pos": torch.tensor(len(prompt) + i,
+                                                     dtype=torch.int32)})
+        out.append(int(tok[0, 0]))
+    return out
+
+
+def test_engine_tokens_equal_the_reference_engine(served):
+    jcfg, jparams, tcfg, plan, tp = served
+    # ragged prompts; 40 outgrows the reduced config's 32-token window
+    prompts = _prompts(0, 3, lengths=(8, 21, 40))
+    want = _serve(JEngine(jcfg, jplan(), jparams, max_batch=2,
+                          cache_len=CACHE_LEN), JRequest, prompts, 6,
+                  eos=JFF_EOS)
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 6)
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for i in range(3):
+        assert got[i].tokens == want[i].tokens, i
+        assert got[i].finish_reason == want[i].finish_reason == "max_tokens"
+
+
+def test_engine_matches_its_manual_loop(served):
+    _, _, tcfg, plan, tp = served
+    prompt = _prompts(1, 1)[0]
+    want = _manual_greedy(tcfg, plan, tp, prompt, 6)
+    with InferenceEngine(tcfg, plan, tp, max_batch=2,
+                         cache_len=CACHE_LEN) as eng:
+        out = eng.submit(Request(prompt=prompt, max_new_tokens=6)
+                         ).result(timeout=120)
+    assert isinstance(out, Request) and out.tokens == want
+
+
+def test_engine_continuous_batching_many_requests(served):
+    _, _, tcfg, plan, tp = served
+    N = 7
+    max_new = [4 + (i % 3) for i in range(N)]
+    eng = InferenceEngine(tcfg, plan, tp, max_batch=3, cache_len=CACHE_LEN)
+    done = _serve(eng, Request, _prompts(2, N), max_new)
+    assert sorted(done) == list(range(N))
+    for i, r in done.items():
+        assert len(r.tokens) == max_new[i]
+    # batched slots: fewer decode steps than the sequential sum of lengths
+    assert eng.steps < sum(max_new)
+    assert eng.stats()["requests"]["finished"] == N
+
+
+def test_engine_results_independent_of_batching(served):
+    _, _, tcfg, plan, tp = served
+    prompts = _prompts(3, 3)
+    solo = [_serve(InferenceEngine(tcfg, plan, tp, max_batch=3,
+                                   cache_len=CACHE_LEN), Request, [p], 5)[0]
+            for p in prompts]
+    packed = _serve(InferenceEngine(tcfg, plan, tp, max_batch=3,
+                                    cache_len=CACHE_LEN), Request, prompts, 5)
+    for i in range(3):
+        assert packed[i].tokens == solo[i].tokens, i
+
+
+def test_submit_sheds_past_max_pending(served):
+    _, _, tcfg, plan, tp = served
+    with InferenceEngine(tcfg, plan, tp, max_batch=1, cache_len=CACHE_LEN,
+                         max_pending=2) as eng:
+        handles = [eng.submit(Request(prompt=p, max_new_tokens=2))
+                   for p in _prompts(4, 6)]
+        outs = [h.result(timeout=120) for h in handles]
+    assert any(isinstance(o, Overloaded) for o in outs)
+    assert all(len(o.tokens) == 2 for o in outs if isinstance(o, Request))
+
+
+def test_engine_defaults_to_cuda_and_refuses_adaptive(served):
+    _, _, tcfg, plan, tp = served
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            InferenceEngine(tcfg, None, tp)
+    eng = InferenceEngine(tcfg, None, tp, device="cpu", cache_len=CACHE_LEN)
+    assert eng.plan.device == torch.device("cpu")
+    with pytest.raises(GraphError, match="not ported yet"):
+        InferenceEngine(tcfg, plan, tp, adaptive=True)
+    with pytest.raises(ValueError, match="params on"):
+        InferenceEngine(tcfg, single_device_plan("meta"), tp)
+
+
+def test_serve_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", ARCH, "--requests", "3",
+                       "--max-new", "3", "--max-batch", "2",
+                       "--layers", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3/3 requests, 9 tokens" in out
+    assert "engine graph on cpu" in out
+
+
+def test_init_state_draws_on_the_plan_device(served):
+    _, _, tcfg, plan, _ = served
+    a = init_state(tcfg, plan, torch.Generator().manual_seed(3))["params"]
+    b = init_state(tcfg, plan, torch.Generator().manual_seed(3))["params"]
+    assert torch.equal(a["embed"]["emb"], b["embed"]["emb"])
+    assert a["embed"]["emb"].device == torch.device("cpu")
+    with pytest.raises(ValueError, match="generator on"):
+        init_state(tcfg, single_device_plan("meta"),
+                   torch.Generator().manual_seed(3))
