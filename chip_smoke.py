@@ -15,7 +15,13 @@ Phases, each of which fails the run:
    S 2048, ragged S 5000, Sq 512 against Sk 4096) and on the grid of
    ``tests/test_kernels.py``; ``router_topk`` against its plain version
    (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
-   K 2, and at E 64/256 with K up to 8;
+   K 2, and at E 64/256 with K up to 8; ``ssd_scan`` against its plain
+   version, y and the final state, at Zamba2's serving shapes (B1 H64, one
+   group of q/k, N = P = 64, chunk 256; S 2048, ragged 5000, and 100 under
+   the chunk; in the model path's types and in f32 and bf16), on the grid of
+   ``tests/test_kernels.py`` and at xLSTM's N = P = 384 and P = 1 (f32
+   within 1e-4 of the output's scale: sums in another order; a bf16 y one
+   bf16 step, 2**-7 relative, more);
 3. main path — ``pipeline(pre, all_to_all([left]*2, experts), post)``
    compiled for the device and run through ``FFGraph.compile(...).run`` at
    the widths of the repo's Mixtral-8x7B config (d_model 4096, moe_d_ff
@@ -42,10 +48,18 @@ Phases, each of which fails the run:
    (``torch.cuda.set_sync_debug_mode("error")``).  Prints prefill and
    decode tokens/s and ms per decode step, split into the host's time to
    queue a step and the step's device time (CUDA graph);
+5b. hybrid serve — the same engine and checks on the repo's Zamba2-1.2B
+   config at full width and full depth (d_model 2048, 38 Mamba2 layers of
+   64 SSM heads with N = P = 64, one shared attention block called 5 times,
+   32/32 heads of 64, window 4096, vocab 32000; 1.17 B parameters, bf16),
+   random weights from a torch.Generator seeded 0, the same 16 requests;
+   ``ssd_scan`` must have launched 38 x prefills times and
+   ``flash_attention`` 5 x prefills;
 6. times — each kernel and its plain version (CUDA events, median of
    repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
    phase-5 kernels at its shapes (attention at S 2048, with
-   ``scaled_dot_product_attention`` beside it), and the phase-3 items/s.
+   ``scaled_dot_product_attention`` beside it), ``ssd_scan`` at phase 5b's
+   (B1 H64 S2048 N64 P64, chunk 256), and the phase-3 items/s.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the ``kernels`` record.  Without a CUDA
@@ -152,7 +166,9 @@ def phase_kernels(dev: torch.device) -> dict:
         f"({checks} cases, max |err| {err})")
     err["flash_attention"], n_flash = check_flash(dev)
     err["router_topk"], n_router = check_router(dev)
-    return {"checks": checks + n_flash + n_router, "max_abs_err": err}
+    err["ssd_scan"], n_ssd = check_ssd(dev)
+    return {"checks": checks + n_flash + n_router + n_ssd,
+            "max_abs_err": err}
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
@@ -225,6 +241,76 @@ def check_router(dev: torch.device) -> tuple:
         fail(f"router_topk weights differ from plain by {worst}")
     say(f"[kernels] router_topk equals its plain version ({n} cases: "
         f"experts, positions, keep equal; max |w err| {worst:.3g})")
+    return worst, n
+
+
+# (B, H, G, S, N, P, chunk, types): Zamba2's prefill (one group of q/k for
+# 64 heads), the grid of tests/test_kernels.py:61-66, and xLSTM-125m's mLSTM
+# (4 heads of N = P = 384, and its P = 1 normaliser).  Types: "model" is the
+# Mamba2 block's call (bf16 q/k, f32 v and log_a, f32 y), "f32" and "bf16"
+# give every tensor that type.
+SSD_ALL = ("model", "f32", "bf16")
+SSD_CASES = [
+    (1, 64, 1, 2048, 64, 64, 256, SSD_ALL),
+    (1, 64, 1, 5000, 64, 64, 256, SSD_ALL),     # ragged tail chunk
+    (1, 64, 1, 100, 64, 64, 256, SSD_ALL),      # shorter than a chunk
+    (4, 64, 1, 300, 64, 64, 256, SSD_ALL),      # B 4 prefill: P tile 64
+    (1, 2, 2, 128, 16, 32, 64, ("f32", "bf16")),
+    (2, 3, 3, 256, 32, 64, 128, ("f32", "bf16")),
+    (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
+    (1, 4, 4, 1000, 384, 384, 256, ("f32", "bf16")),
+    (1, 4, 4, 1000, 384, 1, 256, ("f32", "bf16")),
+]
+# f32: both versions sum in fp32, in other orders; a bf16 y may round to the
+# other side of one bf16 step (2**-7 relative) on top
+SSD_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
+
+
+def ssd_inputs(g: torch.Generator, dev: torch.device, B: int, H: int,
+               G: int, S: int, N: int, P: int, types: str) -> tuple:
+    """q, k (B,G,S,N) at scale 0.3, v (B,H,S,P), log_a in [-0.2, 0]: decays
+    of a few dozen steps, as a trained Mamba2's dt * A gives."""
+    qk_t = torch.float32 if types == "f32" else torch.bfloat16
+    v_t = torch.bfloat16 if types == "bf16" else torch.float32
+    q = (torch.randn(B, G, S, N, generator=g) * 0.3).to(qk_t).to(dev)
+    k = (torch.randn(B, G, S, N, generator=g) * 0.3).to(qk_t).to(dev)
+    v = torch.randn(B, H, S, P, generator=g).to(v_t).to(dev)
+    la = (-torch.rand(B, H, S, generator=g) * 0.2).to(v_t).to(dev)
+    return q, k, v, la
+
+
+def check_ssd(dev: torch.device) -> tuple:
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    g = torch.Generator().manual_seed(6)
+    worst, n = 0.0, 0
+    for B, H, G, S, N, P, chunk, types in SSD_CASES:
+        for t in types:
+            q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, t)
+            out = torch.float32 if t == "model" else None
+            y, st = ssd_scan(q, k, v, la, chunk, out_dtype=out,
+                             return_state=True)
+            py, pst = ssd_scan_plain(q, k, v, la, chunk, out_dtype=out)
+            torch.cuda.synchronize()
+            for name, got, want, tol in (
+                    ("y", y, py, SSD_TOL["bf16" if t == "bf16" else "f32"]),
+                    ("state", st, pst, SSD_TOL["f32"])):
+                if got.dtype != want.dtype or got.shape != want.shape:
+                    fail(f"ssd_scan {name} {got.dtype} {tuple(got.shape)}, "
+                         f"plain {want.dtype} {tuple(want.shape)}")
+                got, want = got.float(), want.float()
+                e = float((got - want).abs().max())
+                scale = max(float(want.abs().max()), 1.0)
+                if not bool(torch.isfinite(got).all()) or not torch.allclose(
+                        got, want, rtol=tol, atol=1e-4 * scale):
+                    fail(f"ssd_scan {name} != plain at B{B} H{H}/G{G} S{S} "
+                         f"N{N} P{P} chunk {chunk} ({t}): max |err| {e}, "
+                         f"scale {scale}")
+                worst = max(worst, e)
+            n += 1
+            del q, k, v, la, y, st, py, pst
+    say(f"[kernels] ssd_scan equals its plain version ({n} cases, y and "
+        f"state; max |err| {worst:.3g}; f32 within 1e-4 of the scale, bf16 y "
+        f"within 2**-7)")
     return worst, n
 
 
@@ -457,6 +543,57 @@ def serve_config():
     return dataclasses.replace(get("mixtral-8x7b"), n_layers=SERVE_LAYERS)
 
 
+def kernel_fns() -> dict:
+    """The serving path's kernel wrappers, each with its launch count."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.router_topk import router_topk
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_attention": flash_attention, "router_topk": router_topk,
+            "ssd_scan": ssd_scan}
+
+
+def expected_launches(cfg, prefills: int, steps: int) -> dict:
+    """Launches the serving path must make: attention once per attention
+    block per prefill (decode attention is plain), the router once per MoE
+    layer per prefill and decode step, the recurrence once per Mamba2 layer
+    per prefill (decode runs the plain step)."""
+    blocks = {"attn": 0, "moe": 0, "mamba2": 0}
+    for kind, count in cfg.segments:
+        if kind in ("dense", "moe", "shared_attn"):
+            blocks["attn"] += count
+        if kind in ("moe", "mamba2"):
+            blocks[kind] += count
+    want = {"flash_attention": blocks["attn"] * prefills}
+    if blocks["moe"]:
+        want["router_topk"] = blocks["moe"] * (prefills + steps)
+    if blocks["mamba2"]:
+        want["ssd_scan"] = blocks["mamba2"] * prefills
+    return want
+
+
+def describe(cfg) -> str:
+    parts = [f"{cfg.name} at d_model {cfg.d_model}",
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"]
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts top-{cfg.top_k} of "
+                     f"{cfg.moe_d_ff}")
+    kinds = {}
+    for kind, count in cfg.segments:
+        kinds[kind] = kinds.get(kind, 0) + count
+    if "mamba2" in kinds:
+        from repro_torch.models.ssm import mamba2_dims
+        d_inner, H = mamba2_dims(cfg)
+        parts.append(f"{kinds['mamba2']} mamba2 layers of {H} SSM heads "
+                     f"(N {cfg.ssm_state}, P {cfg.ssm_headdim}, d_inner "
+                     f"{d_inner}, chunk {cfg.gla_chunk})")
+    if "shared_attn" in kinds:
+        parts.append(f"a shared {cfg.act} block called "
+                     f"{kinds['shared_attn']} times (window "
+                     f"{cfg.shared_attn_window}, d_ff {cfg.d_ff})")
+    parts.append(f"vocab {cfg.vocab}, window {cfg.window}")
+    return ", ".join(parts) + f"; segments {kinds}"
+
+
 def serve_prompts(vocab: int, n: int = SERVE_REQUESTS,
                   lens: tuple = PROMPT_LENS, long: int = LONG_PROMPT,
                   seed: int = 0) -> list:
@@ -486,6 +623,50 @@ def no_host_wait(dev: torch.device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# kernel families by a substring of the CUDA kernel's name (cuBLAS on
+# Hopper names its kernels nvjet_*, sm90_xmma_* or *gemm*)
+KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
+                   ("flash_attention", ("flash_fwd_kernel",)),
+                   ("router_topk", ("router_topk",)),
+                   ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
+                   ("elementwise (torch)", ("elementwise", "CatArray")),
+                   ("reductions (torch)", ("reduce", "scan", "softmax")))
+
+
+def device_breakdown(dev: torch.device, fn) -> str:
+    """Device time of one call of ``fn`` by kernel family (torch.profiler,
+    which reads the card's kernel records through CUPTI): milliseconds and
+    kernel count per family; the names of the largest kernels of no family
+    follow."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    fams, others = {}, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((name for name, keys in KERNEL_FAMILIES
+                    if any(k in e.key for k in keys)), "other")
+        if fam == "other":
+            others.append((us, e.key[:48]))
+        ms, count = fams.get(fam, (0.0, 0))
+        fams[fam] = (ms + us / 1e3, count + e.count)
+    total = sum(ms for ms, _ in fams.values())
+    if total <= 0:
+        return "device time not measured (the profiler saw no kernel)"
+    parts = [f"{fam} {ms:.3f} ms ({ms / total:.0%}, {c} kernels)"
+             for fam, (ms, c) in sorted(fams.items(), key=lambda x: -x[1][0])]
+    top = "; ".join(f"{k} {us / 1e3:.3f} ms"
+                    for us, k in sorted(others, reverse=True)[:3])
+    return (f"{total:.3f} ms of kernels: " + ", ".join(parts)
+            + (f" [largest other: {top}]" if top else ""))
 
 
 def manual_greedy(cfg, plan, params, prompt, n_new: int, batch: int,
@@ -525,13 +706,11 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
                 max_batch: int = SERVE_BATCH, cache_len: int = SERVE_CACHE,
                 check_launches: bool = True) -> dict:
     """Serve ``prompts`` through the engine; fail unless every request
-    finishes with ``max_new`` tokens, the kernels launched once per layer
-    per prefill (attention) and per prefill and decode step (router), and
-    request 0's tokens equal the manual loop.  ``check_launches=False`` is
-    for a rehearsal on the CPU, where the kernels' plain versions run."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.router_topk import router_topk
-    from repro_torch.models.params import bytes_params
+    finishes with ``max_new`` tokens, the kernels launched as
+    :func:`expected_launches` says, and request 0's tokens equal the manual
+    loop.  ``check_launches=False`` is for a rehearsal on the CPU, where the
+    kernels' plain versions run."""
+    from repro_torch.models.params import bytes_params, count_params
     from repro_torch.models.lm import LM
     from repro_torch.runtime.steps import init_state, make_decode_step, \
         make_prefill_step
@@ -542,33 +721,31 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     params = init_state(cfg, plan, torch.Generator(device=dev)
                         .manual_seed(0))["params"]
     sync(dev)
-    say(f"[serve] {cfg.name} at d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
-        f"top-{cfg.top_k} of {cfg.moe_d_ff}, vocab {cfg.vocab}, window "
-        f"{cfg.window}; {cfg.n_layers} layers: "
-        f"{bytes_params(LM(cfg).param_defs()) / 1e9:.2f} GB of weights from "
+    defs = LM(cfg).param_defs()
+    say(f"[serve] {describe(cfg)}: {count_params(defs) / 1e9:.3f} B "
+        f"parameters, {bytes_params(defs) / 1e9:.2f} GB of weights from "
         f"seed 0 in {time.perf_counter() - t0:.1f} s")
     eng = InferenceEngine(cfg, plan, params, max_batch=max_batch,
                           cache_len=cache_len)
     n_prompt = sum(len(p) for p in prompts)
-    flash_attention.launches = 0
-    router_topk.launches = 0
+    kernels = kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
     t1 = time.perf_counter()
     with eng:
         handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
                    for p in prompts]
         outs = [h.result(timeout=900) for h in handles]
     wall = time.perf_counter() - t1
-    launches = {"flash_attention": flash_attention.launches,
-                "router_topk": router_topk.launches}
-    L, n = cfg.n_layers, len(prompts)
+    n = len(prompts)
+    want = expected_launches(cfg, n, eng.steps)
+    launches = {name: kernels[name].launches for name in want}
     for i, out in enumerate(outs):
         if not isinstance(out, Request) or len(out.tokens) != max_new:
             fail(f"request {i} ended as {out!r}")
         if not all(0 <= t < cfg.vocab for t in out.tokens):
             fail(f"request {i}: token out of the vocabulary: {out.tokens}")
-    want = {"flash_attention": L * n, "router_topk": L * (n + eng.steps)}
-    say(f"[serve] {n} requests, {n_prompt} prompt tokens, "
+    say(f"[serve] {cfg.name}: {n} requests, {n_prompt} prompt tokens, "
         f"{n * max_new} generated in {wall:.2f} s ({eng.steps} decode "
         f"steps); kernel launches {launches}, expected {want}")
     if check_launches and launches != want:
@@ -578,7 +755,8 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
                            cache_len)
     if manual != outs[0].tokens:
         fail(f"engine tokens {outs[0].tokens} != manual loop {manual}")
-    say(f"[serve] request 0 ({len(prompts[0])} prompt tokens): engine tokens "
+    say(f"[serve] {cfg.name} request 0 ({len(prompts[0])} prompt tokens): "
+        f"engine tokens "
         f"equal the manual prefill + decode loop ({max_new} tokens)")
 
     # the path's rates, each part alone: prefill of the longest and of a
@@ -619,7 +797,8 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
         _insert(st, cache1, 0, tok, len(p))
         eng._decode_node.svc(_TICK)
     sync(dev)
-    say(f"[serve] prefill {', '.join(f'{r:.1f} tokens/s at {m}' for m, r in rates.items())} "
+    say(f"[serve] {cfg.name} prefill "
+        f"{', '.join(f'{r:.1f} tokens/s at {m}' for m, r in rates.items())} "
         f"(B=1, median of 3); decode {step_ms:.2f} ms per step at batch "
         f"{max_batch} (mean of 10), {max_batch / step_ms * 1e3:.1f} "
         f"tokens/s: {queue_ms:.2f} ms of host time to queue a step, "
@@ -627,6 +806,12 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
         f"{threading.active_count()} threads alive; no host wait in the "
         f"step, the slot insert or the engine's decode tick; whole run "
         f"{n * max_new / wall:.1f} generated tokens/s end to end")
+    if dev.type == "cuda":
+        for what, fn in ((f"prefill of {len(p)} tokens",
+                          lambda: prefill(params, {"tokens": tokens})),
+                         (f"decode step at batch {max_batch}",
+                          lambda: decode(params, st.caches, batch))):
+            say(f"[profile] {cfg.name} {what}: {device_breakdown(dev, fn)}")
     return {"launches": launches, "wall_s": wall, "steps": eng.steps,
             "prefill_tok_s": rates, "decode_ms": step_ms,
             "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms}
@@ -754,6 +939,48 @@ def time_serving_kernels(dev: torch.device, serve: dict, errs: dict,
     return rows
 
 
+def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
+    """``ssd_scan`` at phase 5b's prefill shape: one Mamba2 layer over a
+    2048-token prompt (B1, 64 heads, one group of q/k, N = P = 64, chunk
+    256) in the block's types (bf16 q/k, f32 v, log_a and y) with the final
+    state, as ``models/ssm.py`` calls it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    g = torch.Generator().manual_seed(7)
+    B, H, G, S, N, P, Q = 1, 64, 1, 2048, 64, 64, 256
+    q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, "model")
+    f32 = torch.float32
+    ms = graph_ms(lambda: ssd_scan(q, k, v, la, Q, out_dtype=f32,
+                                   return_state=True))
+    eager = time_ms(lambda: ssd_scan(q, k, v, la, Q, out_dtype=f32,
+                                     return_state=True))
+    plain = time_ms(lambda: ssd_scan_plain(q, k, v, la, Q, out_dtype=f32),
+                    reps=3, iters=5)
+    chunk_heads = -(-S // Q) * B * H
+    # the causal half (pairs s <= t) of the scores q.k, a product of two
+    # bf16 inputs, exact in fp32, so the tensor cores' bf16 rate; then, at
+    # the f32 rate, the causal half of the decay-weighted sum over f32 v and
+    # the two (Q,N)x(N,P)-sized products with the fp32 state
+    score_flops = chunk_heads * Q * (Q + 1) * N
+    f32_flops = chunk_heads * (Q * (Q + 1) * P + 4 * Q * N * P)
+    qk_rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    flops = score_flops + f32_flops
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
+        + B * H * S * P * 4 + B * H * N * P * 4          # y, state (f32)
+    row = kernel_row("ssd_scan", "ssd_scan",
+                     "src/repro/kernels/ssd_scan.py:26",
+                     serve["launches"]["ssd_scan"], errs["ssd_scan"], ms,
+                     plain, nbytes / HBM_BYTES_PER_S * 1e3,
+                     (score_flops / qk_rate + f32_flops / F32_FLOPS) * 1e3,
+                     None)
+    say(f"[time] ssd_scan B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 "
+        f"q/k, f32 v/y): {ms:.4f} ms on the device (CUDA graph), "
+        f"{eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {score_flops:.4g} "
+        f"FLOP of bf16 scores, {f32_flops:.4g} FLOP in f32, {nbytes} B); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s on {card}")
+    return row
+
+
 def phase_times(dev: torch.device, main: dict, card: str) -> list:
     from repro_torch.core import CompileConfig
     from repro_torch.core.compiler import make_device_batched
@@ -813,6 +1040,7 @@ def phase_times(dev: torch.device, main: dict, card: str) -> list:
 
 
 def main() -> int:
+    import gc
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     dev = torch.device("cuda:0")
@@ -828,9 +1056,16 @@ def main() -> int:
     from repro_torch.core.plan import single_device_plan
     cfg = serve_config()
     serve = phase_serve(single_device_plan(), cfg, serve_prompts(cfg.vocab))
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get
+    hcfg = get("zamba2-1.2b")                # full width, full depth
+    hybrid = phase_serve(single_device_plan(), hcfg,
+                         serve_prompts(hcfg.vocab))
     rows = phase_times(dev, main, card["card"])
     rows += time_serving_kernels(dev, serve, kernels["max_abs_err"],
                                  card["card"])
+    rows.append(time_ssd(dev, hybrid, kernels["max_abs_err"], card["card"]))
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

@@ -29,7 +29,7 @@ def names():
 
 
 def _load_all():
-    from . import mixtral_8x7b, ff_tiny  # noqa: F401
+    from . import mixtral_8x7b, zamba2_1_2b, ff_tiny  # noqa: F401
 
 
 _load_all()

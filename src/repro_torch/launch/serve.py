@@ -3,12 +3,15 @@ client API (``submit`` -> ``RequestHandle``, ``results()``, context-manager
 lifecycle), on the GPU unless ``--device`` names another device.
 
 Port of ``src/repro/launch/serve.py`` (without ``--tuned``, which tunes
-XLA's CPU runtime).  ``--layers`` cuts the depth of the config; a config
-other than ``ff-tiny`` runs reduced, as the reference launcher runs it.
-Weights are random, drawn on the device from seed 0.
+XLA's CPU runtime).  ``--layers`` cuts the depth of a config built from
+``n_layers`` and is refused for one built from a segment list (Zamba2); a
+config other than ``ff-tiny`` runs reduced, as the reference launcher runs
+it.  Weights are random, drawn on the device from seed 0.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \\
         --max-new 6 --layers 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --device cpu
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def main(argv=None):
     if args.arch != "ff-tiny":
         cfg = cfg.reduced()
     if args.layers is not None:
+        if cfg.segments_spec is not None:
+            ap.error(f"--layers: {cfg.name} is built from its segment list "
+                     f"{cfg.segments}, which n_layers does not change")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     plan = single_device_plan(args.device)
     gen = torch.Generator(device=plan.device).manual_seed(0)

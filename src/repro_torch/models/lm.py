@@ -1,16 +1,19 @@
-"""Language-model backbone on one device: the ``dense`` and ``moe`` blocks.
+"""Language-model backbone on one device: the ``dense``, ``moe``, ``mamba2``
+and ``shared_attn`` blocks.
 
 Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
 ``_run_segments``, ``prefill``, ``decode_step``, ``_cache_write_pos``,
 ``cache_defs``).  Parameters keep the reference's nesting — ``embed``,
-``final_norm`` and per-kind ``stacks`` whose leaves carry a leading layer
-dimension — so the reference's initialised tree, carried across with
-``core.params.from_numpy``, loads as it is.  Where the reference scans over
-the stacked layers, the port loops over them in Python.
+``final_norm``, per-kind ``stacks`` whose leaves carry a leading layer
+dimension, and the one unstacked ``shared`` block that every
+``shared_attn`` segment calls (Zamba2) — so the reference's initialised
+tree, carried across with ``core.params.from_numpy``, loads as it is.
+Where the reference scans over the stacked layers, the port loops over them
+in Python.
 
-Block kinds of later slices (``mamba2``, ``mlstm``, ``slstm``,
-``shared_attn``, ``enc``, ``dec``) raise ``NotImplementedError`` naming the
-slice; so does ``loss`` (the training slice).
+Block kinds of later slices (``mlstm``, ``slstm``, ``enc``, ``dec``) raise
+``NotImplementedError`` naming the slice; so does ``loss`` (the training
+slice).
 """
 
 from __future__ import annotations
@@ -24,11 +27,10 @@ from .attention import attention, attn_defs
 from .layers import apply_norm, embed, mlp, mlp_defs, norm_defs, unembed
 from .moe import moe_block, moe_defs
 from .params import ParamDef, init_params
+from .ssm import mamba2_block, mamba2_defs, mamba2_state_defs
 
+KINDS = ("dense", "moe", "mamba2", "shared_attn")
 _LATER = {
-    "mamba2": "the hybrid-serving slice (Zamba2, with the ssd_scan kernel)",
-    "shared_attn": "the hybrid-serving slice (Zamba2, with the ssd_scan "
-                   "kernel)",
     "mlstm": "the xLSTM slice (with the ssd_scan kernel)",
     "slstm": "the xLSTM slice",
     "enc": "the encoder-decoder slice (Whisper)",
@@ -37,7 +39,7 @@ _LATER = {
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("dense", "moe"):
+    if kind not in KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: it comes with "
             f"{_LATER.get(kind, 'a later slice')}")
@@ -64,8 +66,24 @@ def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
     return x + m, new_cache
 
 
+def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
+                pos_offset=0):
+    """Uniform block dispatch; returns (x, new_cache)."""
+    if kind == "mamba2":
+        return mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+    if kind == "shared_attn":
+        window = cfg.shared_attn_window
+    else:
+        window = cfg.window if cfg.attn_kind == "swa" else 0
+    return dense_block(x, p, cfg, cache=cache, positions=positions,
+                       pos_offset=pos_offset, window=window,
+                       moe=(kind == "moe"))
+
+
 def block_defs(kind, cfg, layers):
     _check_kind(kind)
+    if kind == "mamba2":
+        return mamba2_defs(cfg, layers)
     d = {
         "ln1": norm_defs(cfg.d_model, cfg.norm, layers),
         "ln2": norm_defs(cfg.d_model, cfg.norm, layers),
@@ -97,8 +115,13 @@ class LM:
         if not cfg.tie_embeddings:
             d["embed"]["unemb"] = ParamDef((cfg.d_model, cfg.vocab),
                                            ("fsdp", "tp"))
-        d["stacks"] = {kind: block_defs(kind, cfg, total)
-                       for kind, total in cfg.stack_sizes().items()}
+        stacks = {}
+        for kind, total in cfg.stack_sizes().items():
+            if kind == "shared_attn":        # one block, called per segment
+                d["shared"] = block_defs(kind, cfg, None)
+            else:
+                stacks[kind] = block_defs(kind, cfg, total)
+        d["stacks"] = stacks
         return d
 
     def init(self, gen: torch.Generator):
@@ -109,10 +132,10 @@ class LM:
     def _run_segments(self, params, x, *, mode, caches=None, positions=None,
                       pos_offset=0):
         """Run the segment list; returns (x, caches).  Prefill builds the
-        caches (a leading layer dimension per kind); decode writes into the
-        given caches in place and returns them."""
+        caches (a leading dimension per kind: the layers of a stack, the
+        calls of the shared block); decode writes into the given caches in
+        place and returns them."""
         cfg = self.cfg
-        window = cfg.window if cfg.attn_kind == "swa" else 0
         offsets: Dict[str, int] = {}
         pieces: Dict[str, list] = {}
         for kind, count in cfg.segments:
@@ -120,21 +143,22 @@ class LM:
             start = offsets.get(kind, 0)
             offsets[kind] = start + count
             for li in range(start, start + count):
-                pl = tree_map(lambda t: t[li], params["stacks"][kind])
+                if kind == "shared_attn":
+                    pl = params["shared"]
+                else:
+                    pl = tree_map(lambda t: t[li], params["stacks"][kind])
                 if mode == "prefill":
                     cl = "init"
                 else:
                     cl = {n: c[li] for n, c in caches[kind].items()}
-                x, nc = dense_block(x, pl, cfg, cache=cl,
+                x, nc = apply_block(kind, x, pl, cfg, cache=cl,
                                     positions=positions,
-                                    pos_offset=pos_offset, window=window,
-                                    moe=(kind == "moe"))
+                                    pos_offset=pos_offset)
                 if mode == "prefill":
                     pieces.setdefault(kind, []).append(nc)
         if mode != "prefill":
             return x, caches
-        return x, {kind: {n: torch.stack([c[n] for c in cs])
-                          for n in ("k", "v")}
+        return x, {kind: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
                    for kind, cs in pieces.items()}
 
     # -- serving -----------------------------------------------------------------
@@ -196,6 +220,9 @@ class LM:
         out = {}
         for kind, total in cfg.stack_sizes().items():
             _check_kind(kind)
+            if kind == "mamba2":
+                out[kind] = mamba2_state_defs(cfg, B, total)
+                continue
             shape = (total, B, S_eff, cfg.n_kv_heads, cfg.head_dim)
             out[kind] = {"k": (shape, torch.bfloat16),
                          "v": (shape, torch.bfloat16)}

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and skips without one.  The module
+Every test here but one needs a CUDA device and skips without one (the
+one checks in plain Python that the ``ssd_scan`` cases reach every P-tile
+width the kernel is compiled for).  The module
 imports only torch and the port, so on a machine without JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -14,6 +16,8 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+from repro_torch.kernels.ssd_scan import P_TILES, p_tile, ssd_scan, \
+    ssd_scan_plain
 
 torch.set_num_threads(1)
 
@@ -146,6 +150,138 @@ def test_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
                         .manual_seed(0))["params"]
     prompt = torch.arange(40, device=cuda, dtype=torch.int32)[None]
     _, cache1 = make_prefill_step(cfg, plan, 32)(params, {"tokens": prompt})
+    decode = make_decode_step(cfg, plan, 32)
+    st = _BatchState(cfg, 3, 32, cuda)
+    st.active_mask[:] = True
+    tok = torch.tensor([[7]], dtype=torch.int32)
+    decode(params, st.caches, {"token": st.cur_tok, "pos": st.pos})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _insert(st, cache1, 1, tok, 40)
+        for _ in range(3):
+            nt, _, st.caches = decode(params, st.caches,
+                                      {"token": st.cur_tok, "pos": st.pos})
+            st.cur_tok = nt
+            st.pos = st.pos + _to_device(st.active_mask.astype(np.int32),
+                                         cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.pos.tolist() == [3, 43, 3]
+
+
+# y and state against the plain version: both sum in fp32 in other orders
+# (f32: 1e-4 of the output's scale), and a bf16 y may round to the other
+# side of a bf16 step (2**-7 relative) on top
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _ssd_inputs(g, B, H, G, S, N, P, qk_dtype, v_dtype, device):
+    q = (torch.randn(B, G, S, N, generator=g) * 0.3).to(qk_dtype).to(device)
+    k = (torch.randn(B, G, S, N, generator=g) * 0.3).to(qk_dtype).to(device)
+    v = torch.randn(B, H, S, P, generator=g).to(v_dtype).to(device)
+    la = (-torch.rand(B, H, S, generator=g) * 0.2).to(device)
+    return q, k, v, la
+
+
+def _held(got, want, tol):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=1e-4 * max(scale, 1.0))
+
+
+# (B, H, G, S, N, P, chunk)
+SSD_KERNEL_CASES = [
+    (1, 64, 1, 600, 64, 64, 256),    # Zamba2's heads, ragged S
+    (1, 8, 1, 100, 64, 64, 256),     # S < chunk
+    (4, 64, 1, 300, 64, 64, 256),    # Zamba2 at B 4: the 64-column P tile
+    (2, 3, 3, 256, 32, 64, 128),     # tests/test_kernels.py's grid
+    (1, 4, 4, 300, 384, 384, 256),   # xLSTM's mLSTM: N = P = 384
+    (1, 4, 4, 300, 384, 1, 256),     # its P = 1 normaliser
+    (2, 4, 2, 77, 16, 24, 32),       # groups, P not a tile multiple
+]
+
+
+def test_ssd_kernel_cases_reach_every_p_tile():
+    """Each compiled P-tile width of the kernel is held against the plain
+    version by some case (on an H100: 132 SMs, 232448 bytes of opt-in
+    shared memory a block)."""
+    tiles = {p_tile(B, H, P, N, min(chunk, S), 132, 232448)
+             for B, H, G, S, N, P, chunk in SSD_KERNEL_CASES}
+    assert tiles == set(P_TILES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,N,P,chunk", SSD_KERNEL_CASES)
+def test_ssd_kernel_matches_plain(cuda, dtype, B, H, G, S, N, P, chunk):
+    g = torch.Generator().manual_seed(S + N + P)
+    q, k, v, la = _ssd_inputs(g, B, H, G, S, N, P, dtype, dtype, cuda)
+    y, state = ssd_scan(q, k, v, la, chunk, return_state=True)
+    py, pstate = ssd_scan_plain(q, k, v, la, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, H, S, P)
+    assert state.dtype == torch.float32 and state.shape == (B, H, N, P)
+    _held(y, py, SSD_TOL[dtype])
+    _held(state, pstate, SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_model_path_types(cuda):
+    """Zamba2's prefill: bf16 q/k of one group, fp32 v and log_a, fp32 y."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v, la = _ssd_inputs(g, 1, 64, 1, 333, 64, 64, torch.bfloat16,
+                              torch.float32, cuda)
+    y, state = ssd_scan(q, k, v, la, 256, out_dtype=torch.float32,
+                        return_state=True)
+    py, pstate = ssd_scan_plain(q, k, v, la, 256, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    _held(y, py, SSD_TOL[torch.float32])
+    _held(state, pstate, SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    z = torch.zeros(1, 2, 8, 16, device=cuda)
+    la = torch.zeros(1, 2, 8, device=cuda)
+    ssd_scan.launches = 0
+    ssd_scan(z, z, z, la)
+    assert ssd_scan.launches == 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        h = z.half()
+        ssd_scan(h, h, h, la)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
+        ssd_scan(t, t, t, la)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1, 8, 8192, device=cuda)
+        ssd_scan(big, big, torch.zeros(1, 1, 8, 64, device=cuda),
+                 torch.zeros(1, 1, 8, device=cuda))
+    assert ssd_scan.launches == 1
+
+
+@pytest.mark.cuda
+def test_hybrid_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
+    """Zamba2's decode step (plain Mamba2 recurrence and the shared block
+    on the ring) and the slot insert of its fp32 ssm state only queue
+    work."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.core.plan import single_device_plan
+    from repro_torch.runtime.steps import (init_state, make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.serving.engine import _BatchState, _insert, _to_device
+    cfg = get("zamba2-1.2b").reduced()
+    plan = single_device_plan(cuda)
+    params = init_state(cfg, plan, torch.Generator(device=cuda)
+                        .manual_seed(0))["params"]
+    prompt = torch.arange(40, device=cuda, dtype=torch.int32)[None]
+    ssd_scan.launches = 0
+    _, cache1 = make_prefill_step(cfg, plan, 32)(params, {"tokens": prompt})
+    assert ssd_scan.launches == sum(c for k, c in cfg.segments
+                                    if k == "mamba2")
     decode = make_decode_step(cfg, plan, 32)
     st = _BatchState(cfg, 3, 32, cuda)
     st.active_mask[:] = True

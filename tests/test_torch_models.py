@@ -17,6 +17,7 @@ from repro.configs import get as jget
 from repro.core.plan import single_device_plan
 from repro.models import attention as JA
 from repro.models import moe as JM
+from repro.models import ssm as JS
 from repro.models.lm import LM as JLM
 from repro.models.params import init_params as jinit
 from repro.runtime.steps import make_decode_step, make_prefill_step
@@ -24,6 +25,7 @@ from repro_torch.configs import get as tget
 from repro_torch.core.params import from_numpy
 from repro_torch.models import attention as TA
 from repro_torch.models import moe as TM
+from repro_torch.models import ssm as TS
 from repro_torch.models.lm import LM as TLM
 from repro_torch.models.params import count_params, init_params
 
@@ -31,6 +33,7 @@ torch.set_num_threads(1)
 
 TOL = 3e-2
 ARCHS = ["mixtral-8x7b", "ff-tiny"]
+HYBRID = "zamba2-1.2b"
 
 
 @pytest.fixture(scope="module")
@@ -184,7 +187,7 @@ def test_lm_prefill_then_four_decode_steps(arch, S, jplan):
         _close_to_scale(tl, jl)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [HYBRID])
 def test_param_tree_matches_reference_nesting(arch):
     jc, tc = _cfgs(arch)
     jp = JLM(jc).init(jax.random.PRNGKey(0))
@@ -219,7 +222,7 @@ def test_init_draws_from_a_torch_generator():
     assert float(a["final_norm"]["w"].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("kind", ["mamba2", "shared_attn", "mlstm", "enc"])
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "enc", "dec"])
 def test_later_block_kinds_raise(kind):
     cfg = tget("ff-tiny").reduced()
     cfg.segments_spec = [(kind, 1)]
@@ -227,3 +230,101 @@ def test_later_block_kinds_raise(kind):
         TLM(cfg).param_defs()
     with pytest.raises(NotImplementedError, match="training slice"):
         TLM(cfg).loss({}, {})
+
+
+# -- Mamba2 block and the hybrid model (Zamba2) --------------------------------
+@pytest.mark.parametrize("S", [16, 48, 9])
+def test_mamba2_block_prefill_state_then_decode(S, jplan):
+    """Prefill (the ssd_scan path, returning the ssm and conv state), then
+    two decode steps on that state, written in place.  The reference's init
+    draws wB and wC at unit scale (their fan-in axis is the one group), so
+    the block's outputs reach the hundreds: held to the output's scale."""
+    jc, tc = _cfgs(HYBRID)
+    p = jinit(JS.mamba2_defs(jc, None), jax.random.PRNGKey(4))
+    tp = _carry(p)
+    jx, tx = _x(S, 2, S, jc.d_model, scale=1.0)
+    jo, jst = jax.jit(lambda x, p: JS.mamba2_block(
+        x, p, jc, jplan, state="init", chunk=jc.gla_chunk))(jx, p)
+    to, tst = TS.mamba2_block(tx, tp, tc, state="init", chunk=tc.gla_chunk)
+    assert to.dtype == torch.bfloat16 and tuple(to.shape) == jo.shape
+    _close_to_scale(to, jo)
+    assert tst["ssm"].dtype == torch.float32
+    assert tst["conv"].dtype == torch.bfloat16
+    for n in ("ssm", "conv"):
+        assert tuple(tst[n].shape) == jst[n].shape
+        _close_to_scale(tst[n], jst[n])
+    jstep = jax.jit(lambda x, p, st: JS.mamba2_block(x, p, jc, jplan,
+                                                     state=st))
+    for i in range(2):
+        jx1, tx1 = _x(100 + i, 2, 1, jc.d_model, scale=1.0)
+        jo, jst = jstep(jx1, p, jst)
+        ssm = tst["ssm"]
+        to, tst2 = TS.mamba2_block(tx1, tp, tc, state=tst)
+        assert tst2 is tst and tst["ssm"] is ssm       # written in place
+        _close_to_scale(to, jo)
+        for n in ("ssm", "conv"):
+            _close_to_scale(tst[n], jst[n])
+
+
+def test_silu_stepwise_rounds_as_the_reference():
+    """The Mamba2 block's gates: bit for bit ``jax.nn.silu`` in bf16 (jitted
+    or not), where ``F.silu``'s one rounding differs in many elements."""
+    jx, tx = _x(12, 4096, scale=3.0)
+    want = np.asarray(jax.jit(jax.nn.silu)(jx), np.float32)
+    assert np.array_equal(TS.silu_stepwise(tx).float().numpy(), want)
+    assert np.array_equal(np.asarray(jax.nn.silu(jx), np.float32), want)
+    assert not np.array_equal(
+        torch.nn.functional.silu(tx).float().numpy(), want)
+
+
+def test_mamba2_state_defs_match_the_reference():
+    jc, tc = _cfgs(HYBRID)
+    jdefs = JS.mamba2_state_defs(jc, 3, 4)
+    for n, (shape, dtype) in TS.mamba2_state_defs(tc, 3, 4).items():
+        assert shape == jdefs[n][0]
+        assert str(dtype).removeprefix("torch.") == jnp.dtype(jdefs[n][1]).name
+
+
+@pytest.mark.parametrize("S", [7, 32, 48])
+def test_hybrid_lm_prefill_then_four_decode_steps(S, jplan):
+    """Zamba2: prefill logits and caches (per mamba2 layer ``ssm``/``conv``,
+    per call of the shared block ``k``/``v``), then 4 decode steps with
+    per-row positions.  S=48 outgrows the reduced 32-token window, so the
+    shared block's cache is rolled into the ring and decode runs on it;
+    prompt lengths are ones the reference's ``chunked_gla`` takes (shorter
+    than or a multiple of ``gla_chunk`` 16)."""
+    jc, tc, jp, tp, cache_len = _models(HYBRID, 64)
+    jprefill = jax.jit(make_prefill_step(jc, jplan, cache_len))
+    jdecode = jax.jit(make_decode_step(jc, jplan, cache_len))
+    tm = TLM(tc)
+    B = 2
+    toks = np.random.default_rng(S).integers(0, jc.vocab, (B, S),
+                                             dtype=np.int32)
+    jl, jcache = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                            cache_len=cache_len)
+    _close_to_scale(tl, jl)
+    assert sorted(tcache) == sorted(jcache) == ["mamba2", "shared_attn"]
+    for kind in jcache:
+        assert sorted(tcache[kind]) == sorted(jcache[kind])
+        for n in jcache[kind]:
+            assert tuple(tcache[kind][n].shape) == jcache[kind][n].shape
+            _close_to_scale(tcache[kind][n], jcache[kind][n])
+    defs = tm.cache_defs(B, cache_len)
+    for kind, leaves in defs.items():
+        for n, (shape, dtype) in leaves.items():
+            assert tuple(tcache[kind][n].shape) == shape
+            assert tcache[kind][n].dtype == dtype
+    nxt = np.random.default_rng(S + 1).integers(0, jc.vocab, (4, B, 1),
+                                                dtype=np.int32)
+    for i in range(4):
+        pos = np.full((B,), S + i, np.int32)
+        _, jl, jcache = jdecode(jp, jcache, {"token": jnp.asarray(nxt[i]),
+                                             "pos": jnp.asarray(pos)})
+        tl, tcache = tm.decode_step(tp, tcache,
+                                    {"token": torch.from_numpy(nxt[i]),
+                                     "pos": torch.from_numpy(pos)})
+        assert tuple(tl.shape) == jl.shape
+        _close_to_scale(tl, jl)
+    for n in ("ssm", "conv"):
+        _close_to_scale(tcache["mamba2"][n], jcache["mamba2"][n])

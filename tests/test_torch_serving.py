@@ -1,10 +1,12 @@
 """The port's serving engine against the reference's, on the CPU.
 
-Both engines serve the reduced Mixtral-8x7B with the reference's weights
-(carried across with ``core.params.from_numpy``) and prompts from numpy
-seeds.  Greedy tokens must be equal (``tests/test_serving.py:44``), and the
-port's engine must batch continuously with results independent of the
-batch (``tests/test_serving.py:60,85``).
+Both engines serve the reduced Mixtral-8x7B, and the reduced Zamba2-1.2B
+(the hybrid: Mamba2 layers and a shared attention block), with the
+reference's weights (carried across with ``core.params.from_numpy``) and
+prompts from numpy seeds.  Greedy tokens must be equal
+(``tests/test_serving.py:44``), and the port's engine must batch
+continuously with results independent of the batch
+(``tests/test_serving.py:60,85``).
 """
 
 import jax
@@ -29,16 +31,26 @@ from repro_torch.serving import InferenceEngine, Overloaded, Request
 torch.set_num_threads(1)
 
 ARCH = "mixtral-8x7b"
+HYBRID = "zamba2-1.2b"
 CACHE_LEN = 64
+
+
+def _both(arch):
+    jcfg = jget(arch).reduced()
+    params = jinit_state(jcfg, jplan(), jax.random.PRNGKey(0))["params"]
+    tcfg = tget(arch).reduced()
+    tp = from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    return jcfg, params, tcfg, single_device_plan("cpu"), tp
 
 
 @pytest.fixture(scope="module")
 def served():
-    jcfg = jget(ARCH).reduced()
-    params = jinit_state(jcfg, jplan(), jax.random.PRNGKey(0))["params"]
-    tcfg = tget(ARCH).reduced()
-    tp = from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    return jcfg, params, tcfg, single_device_plan("cpu"), tp
+    return _both(ARCH)
+
+
+@pytest.fixture(scope="module")
+def served_hybrid():
+    return _both(HYBRID)
 
 
 def _prompts(seed, n, lengths=(8,)):
@@ -94,6 +106,60 @@ def test_engine_tokens_equal_the_reference_engine(served):
     for i in range(3):
         assert got[i].tokens == want[i].tokens, i
         assert got[i].finish_reason == want[i].finish_reason == "max_tokens"
+
+
+def test_hybrid_engine_tokens_equal_the_reference_engine(served_hybrid):
+    """Zamba2 with prompts the reference's ``chunked_gla`` takes (shorter
+    than, or a multiple of, ``gla_chunk`` 16); 48 outgrows the reduced
+    32-token window, so the shared block decodes on the ring."""
+    jcfg, jparams, tcfg, plan, tp = served_hybrid
+    prompts = _prompts(5, 4, lengths=(7, 16, 32, 48))
+    want = _serve(JEngine(jcfg, jplan(), jparams, max_batch=2,
+                          cache_len=CACHE_LEN), JRequest, prompts, 6,
+                  eos=JFF_EOS)
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 6)
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for i in range(4):
+        assert got[i].tokens == want[i].tokens, i
+        assert got[i].finish_reason == want[i].finish_reason == "max_tokens"
+
+
+def test_hybrid_engine_matches_its_manual_loop_on_ragged_prompts(
+        served_hybrid):
+    """Prompt lengths the reference cannot prefill (not a multiple of the
+    chunk): the engine's tokens equal a prefill + decode loop, whatever the
+    batch they share."""
+    _, _, tcfg, plan, tp = served_hybrid
+    prompts = _prompts(6, 3, lengths=(21, 40, 9))
+    want = [_manual_greedy(tcfg, plan, tp, p, 5) for p in prompts]
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 5)
+    for i in range(3):
+        assert got[i].tokens == want[i], i
+
+
+def test_hybrid_batch_state_holds_the_recurrent_state(served_hybrid):
+    """The engine's batched state takes the fp32 ``ssm`` leaf and the
+    shared block's per-call KV stack, and the slot insert writes a
+    prefilled request into one slot only."""
+    from repro_torch.serving.engine import _BatchState, _insert
+    _, _, tcfg, plan, tp = served_hybrid
+    st = _BatchState(tcfg, 3, CACHE_LEN, plan.device)
+    n_mamba = sum(c for k, c in tcfg.segments if k == "mamba2")
+    n_shared = sum(c for k, c in tcfg.segments if k == "shared_attn")
+    assert st.caches["mamba2"]["ssm"].dtype == torch.float32
+    assert st.caches["mamba2"]["ssm"].shape[:2] == (n_mamba, 3)
+    assert st.caches["shared_attn"]["k"].shape[:2] == (n_shared, 3)
+    prefill = make_prefill_step(tcfg, plan, CACHE_LEN)
+    _, cache1 = prefill(tp, {"tokens": torch.from_numpy(
+        _prompts(7, 1, lengths=(13,))[0])[None]})
+    _insert(st, cache1, 1, torch.tensor([[5]], dtype=torch.int32), 13)
+    for kind, leaves in cache1.items():
+        for n, c in leaves.items():
+            assert torch.equal(st.caches[kind][n][:, 1], c[:, 0])
+            assert not st.caches[kind][n][:, 0].any()
+    assert st.pos.tolist() == [0, 13, 0] and st.cur_tok[1, 0] == 5
 
 
 def test_engine_matches_its_manual_loop(served):
@@ -165,6 +231,23 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3/3 requests, 9 tokens" in out
     assert "engine graph on cpu" in out
+
+
+def test_serve_launcher_runs_zamba2_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", HYBRID, "--requests",
+                       "2", "--max-new", "3", "--max-batch", "2",
+                       "--prompt-len", "21"]) == 0
+    assert "served 2/2 requests, 6 tokens" in capsys.readouterr().out
+
+
+def test_serve_launcher_refuses_layers_for_a_segmented_config(capsys):
+    """``--layers`` sets ``n_layers``, which a config with a segment list
+    (Zamba2) does not read: the launcher says so instead of ignoring it."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--arch", HYBRID, "--layers", "1"])
+    assert "segment" in capsys.readouterr().err
 
 
 def test_init_state_draws_on_the_plan_device(served):
