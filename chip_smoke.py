@@ -7,18 +7,25 @@ Phases, each of which fails the run:
 
 1. card — its name and power limit; the CUDA kernels built from the sources
    in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together;
+   source, all started together; ``cuobjdump -sass`` must find HMMA/HGMMA
+   (tensor-core) instructions in every bf16 ``flash_fwd_kernel_tc`` and in
+   the ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per
+   kernel is printed);
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
    ``flash_attention`` against its plain version (bf16 within 2e-2, f32
    within 2e-5) at Mixtral's attention shapes (H32/Hkv8, D128, window 4096:
-   S 2048, ragged S 5000, Sq 512 against Sk 4096) and on the grid of
-   ``tests/test_kernels.py``; ``router_topk`` against its plain version
+   S 2048, ragged S 5000, Sq 512 against Sk 4096), at Zamba2's shared
+   block (H32/32, D64), on the grid of ``tests/test_kernels.py`` and at the
+   kernels' tile edges (lengths 1, 15, 17, 63, 65, 129, q_offset off the
+   tile, windows whose edge falls inside a tile; D 16-128, f32 and bf16);
+   ``router_topk`` against its plain version
    (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
    K 2, and at E 64/256 with K up to 8; ``ssd_scan`` against its plain
    version, y and the final state, at Zamba2's serving shapes (B1 H64, one
    group of q/k, N = P = 64, chunk 256; S 2048, ragged 5000, and 100 under
-   the chunk; in the model path's types and in f32 and bf16), on the grid of
+   the chunk, B 4, tail chunks of 9 and 5 steps; in the model path's types
+   and in f32 and bf16), N and P past one 64 tile, on the grid of
    ``tests/test_kernels.py`` and at xLSTM's N = P = 384 and P = 1 (f32
    within 1e-4 of the output's scale: sums in another order; a bf16 y one
    bf16 step, 2**-7 relative, more);
@@ -57,12 +64,14 @@ Phases, each of which fails the run:
    ``flash_attention`` 5 x prefills;
 6. times — each kernel and its plain version (CUDA events, median of
    repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
-   phase-5 kernels at its shapes (attention at S 2048, with
-   ``scaled_dot_product_attention`` beside it), ``ssd_scan`` at phase 5b's
+   phase-5 kernels at its shapes (attention at S 2048, Mixtral's D128 and
+   Zamba2's D64, with ``scaled_dot_product_attention`` beside it),
+   ``ssd_scan`` at phase 5b's
    (B1 H64 S2048 N64 P64, chunk 256), and the phase-3 items/s.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
-the device; the line before it the ``kernels`` record.  Without a CUDA
+the device; the line before it the card's name and power limit, and the
+line before that the ``kernels`` record.  Without a CUDA
 device, or without the ``src/repro_torch`` package beside this file, the
 script exits non-zero and prints no result.
 """
@@ -86,6 +95,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM, dense bf16 on the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM, dense TF32 on the tensor cores
 
 
 def say(msg: str) -> None:
@@ -114,7 +124,68 @@ def phase_card() -> dict:
     secs = backend.build_all(verbose=True)
     for name, s in secs.items():
         say(f"[build] {name}.cu {s:.2f} s")
+    check_tensor_cores(backend)
     return {"card": card, "build_s": secs}
+
+
+# the kernels that must run on the tensor cores: (library, name prefix,
+# count of instantiations): the bf16 flash kernel for each head dim, the
+# recurrence with bf16 q/k (template <QK_BF16, V_BF16>) for f32 and bf16 v;
+# their SASS must hold HMMA (mma.sync) or HGMMA (wgmma)
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_tc<", 4),
+                       ("ssd_scan", "ssd_scan_kernel<1,", 2))
+
+
+def sass_mma_counts(lib: pathlib.Path) -> dict:
+    """HMMA/HGMMA instructions per kernel of a built library, by
+    ``cuobjdump -sass``; keys are the kernels' names with their template
+    arguments as mangled (``ILi64EE`` -> ``<64>``)."""
+    import os
+    import re
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib.name} failed: {res.stderr.strip()}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            fn = m.group(1) if fn in counts else fn
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def kernel_name(mangled: str) -> str:
+    """``_ZN<len><ns>...<len><name>I<args>E...`` -> ``name<args>``."""
+    import re
+    rest, parts = mangled[3:] if mangled.startswith("_ZN") else "", []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        parts.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    if not parts:
+        return mangled
+    args = re.match(r"I((?:L[a-z]+-?\d+E)+)E", rest)
+    return parts[-1] + ("<" + ",".join(re.findall(r"L[a-z]+(-?\d+)E",
+                                                  args.group(1))) + ">"
+                        if args else "")
+
+
+def check_tensor_cores(backend) -> None:
+    """Fail unless every bf16 instantiation of the tensor-core kernels
+    holds HMMA or HGMMA instructions; print the count per kernel."""
+    for name, symbol, n in TENSOR_CORE_KERNELS:
+        counts = sass_mma_counts(backend.library_path(name))
+        say(f"[build] {name}: HMMA/HGMMA per kernel {counts}")
+        tc = {fn: c for fn, c in counts.items() if fn.startswith(symbol)}
+        if len(tc) != n or not all(tc.values()):
+            fail(f"{name}: expected {n} instantiations of {symbol} with "
+                 f"HMMA/HGMMA instructions, found {tc}")
 
 
 # ---------------------------------------------------------------------------
@@ -175,17 +246,28 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 # (B, H, Hkv, Sq, Sk, D, causal, window, dtypes): Mixtral's attention at the
 # serving shapes, then the grid of tests/test_kernels.py:22-30
 BF16, F32 = (torch.bfloat16,), (torch.float32, torch.bfloat16)
+# (B, H, Hkv, Sq, Sk, causal, window) at the edges of the kernels' 64-row
+# tiles and 16-row mma fragments: lengths of 1, 15, 17, 63, 65 and 129,
+# q_offset = Sk - Sq off the tile, windows whose edge falls inside a tile
+FLASH_EDGES = [(1, 2, 2, 1, 1, True, 0), (2, 4, 2, 15, 15, True, 0),
+               (1, 4, 1, 17, 129, True, 0), (1, 2, 2, 63, 63, False, 0),
+               (1, 4, 2, 65, 65, True, 7), (1, 4, 4, 129, 129, True, 100),
+               (1, 2, 1, 1, 65, True, 0), (1, 8, 2, 100, 1000, True, 300),
+               (2, 2, 2, 65, 129, False, 0), (1, 4, 2, 129, 200, True, 33)]
 FLASH_CASES = [
     (1, 32, 8, 2048, 2048, 128, True, 4096, BF16),
     (1, 32, 8, 5000, 5000, 128, True, 4096, BF16),   # ragged, past the window
     (1, 32, 8, 512, 4096, 128, True, 4096, BF16),    # chunked prefill
+    (1, 32, 32, 2048, 2048, 64, True, 4096, BF16),  # Zamba2's shared block
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
      for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
                                   (2, 4, 2, 256, 256, 64),
                                   (1, 4, 1, 128, 256, 32),
                                   (1, 2, 2, 128, 128, 128),
                                   (1, 4, 2, 100, 100, 16))
-     for c, w in ((True, 0), (True, 64), (False, 0))]
+     for c, w in ((True, 0), (True, 64), (False, 0))
+] + [(B, H, Hkv, Sq, Sk, D, c, w, F32) for D in (16, 32, 64, 128)
+     for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES]
 
 
 def check_flash(dev: torch.device) -> tuple:
@@ -254,7 +336,10 @@ SSD_CASES = [
     (1, 64, 1, 2048, 64, 64, 256, SSD_ALL),
     (1, 64, 1, 5000, 64, 64, 256, SSD_ALL),     # ragged tail chunk
     (1, 64, 1, 100, 64, 64, 256, SSD_ALL),      # shorter than a chunk
-    (4, 64, 1, 300, 64, 64, 256, SSD_ALL),      # B 4 prefill: P tile 64
+    (4, 64, 1, 300, 64, 64, 256, SSD_ALL),      # B 4 prefill
+    (1, 64, 1, 265, 64, 64, 256, SSD_ALL),      # a tail chunk of 9 steps
+    (4, 64, 1, 133, 64, 64, 128, SSD_ALL),      # at B 4, a tail of 5
+    (1, 2, 1, 200, 72, 130, 96, ("f32", "bf16")),   # N, P past a 64 tile
     (1, 2, 2, 128, 16, 32, 64, ("f32", "bf16")),
     (2, 3, 3, 256, 32, 64, 128, ("f32", "bf16")),
     (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
@@ -882,18 +967,15 @@ def kernel_row(name: str, cu: str, replaces: str, launches: int, err: float,
             "library_ms": library_ms}
 
 
-def time_serving_kernels(dev: torch.device, serve: dict, errs: dict,
-                         card: str) -> list:
-    """The serving path's kernels at its shapes: attention over a 2048-token
-    prompt (B1, H32/Hkv8, D128, causal, window 4096) and the router over its
-    2048 tokens (E8, K2, capacity from the model's formula)."""
+def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
+               launches: int, err: float, card: str) -> dict:
+    """``flash_attention`` over one 2048-token bf16 prompt, causal with a
+    4096 window, beside its plain version and
+    ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
-    from repro_torch.core.device import expert_capacity
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
-    g = torch.Generator().manual_seed(5)
-    B, H, Hkv, S, D, W = 1, 32, 8, 2048, 128, 4096
+    B, H, Hkv, S, D, W = shape
     q = torch.randn(B, H, S, D, generator=g).to(torch.bfloat16).to(dev)
     k = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
     v = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
@@ -906,18 +988,37 @@ def time_serving_kernels(dev: torch.device, serve: dict, errs: dict,
                     reps=3, iters=5)
     lib = graph_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
-    rows = [kernel_row("flash_attention", "flash_attention",
-                       "src/repro/kernels/flash_attention.py:35",
-                       serve["launches"]["flash_attention"],
-                       errs["flash_attention"], ms, plain,
-                       nbytes / HBM_BYTES_PER_S * 1e3,
-                       flops / BF16_FLOPS * 1e3, lib)]
-    say(f"[time] flash_attention B{B} H{H}/{Hkv} S{S} D{D} bf16 causal: "
+    row = kernel_row(name, "flash_attention",
+                     "src/repro/kernels/flash_attention.py:35", launches, err,
+                     ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
+                     flops / BF16_FLOPS * 1e3, lib)
+    say(f"[time] {name} B{B} H{H}/{Hkv} S{S} D{D} bf16 causal: "
         f"{ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms per eager "
         f"call, plain {plain:.4f} ms, scaled_dot_product_attention "
-        f"{lib:.4f} ms, bound {rows[-1]['bound_ms']:.6f} ms "
-        f"({rows[-1]['bound_by']}: {flops:.4g} FLOP, {nbytes} B); "
-        f"{flops / ms / 1e9:.1f} TFLOP/s on {card}")
+        f"{lib:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}: {flops:.4g} FLOP, {nbytes} B); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.1%} of the "
+        f"bound on {card}")
+    return row
+
+
+def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
+                         errs: dict, card: str) -> list:
+    """The serving path's kernels at its shapes: attention over a 2048-token
+    prompt (Mixtral: B1, H32/Hkv8, D128; Zamba2's shared block: H32/32,
+    D64; both causal, window 4096) and the router over its 2048 tokens (E8,
+    K2, capacity from the model's formula)."""
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    g = torch.Generator().manual_seed(5)
+    S = 2048
+    rows = [time_flash(dev, g, "flash_attention", (1, 32, 8, S, 128, 4096),
+                       serve["launches"]["flash_attention"],
+                       errs["flash_attention"], card),
+            time_flash(dev, g, "flash_attention_d64",
+                       (1, 32, 32, S, 64, 4096),
+                       hybrid["launches"]["flash_attention"],
+                       errs["flash_attention"], card)]
     T, E, K = S, 8, 2
     cap = expert_capacity(T, E, K, 1.25)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
@@ -957,9 +1058,11 @@ def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
                     reps=3, iters=5)
     chunk_heads = -(-S // Q) * B * H
     # the causal half (pairs s <= t) of the scores q.k, a product of two
-    # bf16 inputs, exact in fp32, so the tensor cores' bf16 rate; then, at
-    # the f32 rate, the causal half of the decay-weighted sum over f32 v and
-    # the two (Q,N)x(N,P)-sized products with the fp32 state
+    # bf16 inputs, exact in fp32, so the tensor cores' bf16 rate; then the
+    # causal half of the decay-weighted sum over f32 v and the two
+    # (Q,N)x(N,P)-sized products with the fp32 state.  Those keep fp32
+    # accuracy as 3xTF32 on the tensor cores (the kernel's way, and the
+    # fastest the card has): three TF32 products each, at the TF32 rate
     score_flops = chunk_heads * Q * (Q + 1) * N
     f32_flops = chunk_heads * (Q * (Q + 1) * P + 4 * Q * N * P)
     qk_rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
@@ -970,13 +1073,14 @@ def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
                      "src/repro/kernels/ssd_scan.py:26",
                      serve["launches"]["ssd_scan"], errs["ssd_scan"], ms,
                      plain, nbytes / HBM_BYTES_PER_S * 1e3,
-                     (score_flops / qk_rate + f32_flops / F32_FLOPS) * 1e3,
-                     None)
+                     (score_flops / qk_rate + 3 * f32_flops / TF32_FLOPS)
+                     * 1e3, None)
     say(f"[time] ssd_scan B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 "
         f"q/k, f32 v/y): {ms:.4f} ms on the device (CUDA graph), "
         f"{eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {score_flops:.4g} "
-        f"FLOP of bf16 scores, {f32_flops:.4g} FLOP in f32, {nbytes} B); "
+        f"FLOP of bf16 scores, {f32_flops:.4g} FLOP with an f32 operand as "
+        f"3xTF32, {nbytes} B); "
         f"{flops / ms / 1e9:.1f} TFLOP/s on {card}")
     return row
 
@@ -1063,7 +1167,7 @@ def main() -> int:
     hybrid = phase_serve(single_device_plan(), hcfg,
                          serve_prompts(hcfg.vocab))
     rows = phase_times(dev, main, card["card"])
-    rows += time_serving_kernels(dev, serve, kernels["max_abs_err"],
+    rows += time_serving_kernels(dev, serve, hybrid, kernels["max_abs_err"],
                                  card["card"])
     rows.append(time_ssd(dev, hybrid, kernels["max_abs_err"], card["card"]))
     say(f"[done] {time.perf_counter() - t0:.1f} s")

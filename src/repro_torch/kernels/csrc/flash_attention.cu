@@ -1,34 +1,53 @@
-// Blocked (flash) GQA attention, forward, as a CUDA kernel for sm_90a.
+// Blocked (flash) GQA attention, forward, as CUDA kernels for sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py:
 // flash_attention (body `_kernel`).  Same function: q (B,H,Sq,D) and k, v
 // (B,Hkv,Sk,D), f32 or bf16; queries aligned to the END of the keys
-// (q_offset = Sk - Sq); causal and sliding-window masks; q scaled by
-// 1/sqrt(D) in fp32 before the product; fp32 running max, denominator and
-// accumulator across KV tiles; masked scores set to -1e38 and the output
-// divided by max(l, 1e-30), as the TPU kernel does; KV head h / (H/Hkv),
-// never repeated.
+// (q_offset = Sk - Sq); causal and sliding-window masks; fp32 running max,
+// denominator and accumulator across KV tiles; masked scores set to -1e38
+// and the output divided by max(l, 1e-30), as the TPU kernel does; KV head
+// h / (H/Hkv), never repeated.  The TPU grid walks the KV blocks of one Q
+// tile as its sequential last dimension with the running state in VMEM
+// scratch; here one block owns one (b, h, 64-query tile) and loops over the
+// KV tiles itself, the running state in registers.  The loop covers only the
+// tiles the causal and window predicates can reach (the TPU kernel's
+// `pl.when` skip, made into loop bounds).  Any Sq and Sk: q rows past Sq are
+// computed on zeros and not stored, keys past Sk are masked.  D is a
+// template parameter (16, 32, 64, 128).
 //
-// Design.  The TPU grid walks the KV blocks of one Q tile as its sequential
-// last dimension with the running state in VMEM scratch.  Here one block of
-// 256 threads owns one (b, h, 64-query tile) and loops over the KV tiles
-// itself, the running state in registers.  The loop covers only the tiles
-// the causal and window predicates can reach (the TPU kernel's `pl.when`
-// skip, made into loop bounds).  Q (pre-scaled), each K/V tile and the
-// tile's probabilities are staged in shared memory as fp32; four adjacent
-// lanes share a query row: each scores BK/4 keys, the row max and sum are
-// reduced with two shuffles, and each accumulates D/4 output dimensions
-// (interleaved, so the four lanes hit four banks).  Rows are padded by one
-// float against bank conflicts.  Ragged tails: q rows past Sq are computed
-// on zeros and not stored, keys past Sk are masked, so any Sq and Sk work
-// (the TPU kernel needs block multiples).  D is a template parameter
-// (16, 32, 64, 128), the element type another.
+// bf16: `flash_fwd_kernel_tc`, on the tensor cores (FlashAttention-2's
+// forward pass).  4 warps, each owning 16 of the block's 64 query rows.  The
+// Q tile is loaded once into registers as mma A-fragments (ldmatrix).  K and
+// V tiles of 64 keys stay bf16 in shared memory, rows padded by 16 bytes (8
+// consecutive rows of an ldmatrix then fall on 32 distinct banks), double
+// buffered with cp.async so that the next tile's load overlaps this tile's
+// products; rows past Sq or Sk are zero-filled (src-size 0).  S = Q K^T is
+// mma.sync m16n8k16 bf16 -> fp32; the online softmax runs on the
+// accumulator fragments (a row's max and sum over the four lanes of a quad,
+// by shuffles; fp32 m and l); P is rounded to bf16 in registers and fed as
+// the A-fragment of P V, V read with ldmatrix.trans: no round trip through
+// shared memory.  Masks are applied only on tiles that straddle the
+// diagonal, the window's edge or Sk.  The grid is (H, q tiles, B) with the
+// q tiles in reverse, so the longest causal tiles of every head start first
+// and the tail of the last wave runs short tiles.
+//
+// Numerics of the bf16 kernel.  The reference scales q by 1/sqrt(D) in fp32
+// before the product; scaling the bf16 q would add a rounding, so the kernel
+// multiplies the fp32 scores instead: with x = s * (log2(e) / sqrt(D)) it
+// takes p = 2^(x - m), which is exp(s/sqrt(D) - m') in another base.  P is
+// rounded to bf16 only as the operand of P V; l sums the fp32 P.
+//
+// f32: `flash_fwd_kernel`, fp32 FMAs from shared memory (one block of 256
+// threads, four lanes sharing a query row, K/V tiles staged as fp32).  This
+// is a dispatch by type, not a fallback: the serving path is bf16, and
+// TF32 tensor cores would miss the f32 tolerance (2e-5).
 //
 // Bound on an H100: operations.  At B1 H32 D128 S2048 causal the products
 // are ~3.4e10 FLOP (35 us at the 989 TFLOP/s bf16 tensor-core peak) against
-// ~42 MB moved (12.5 us at 3.35 TB/s).  This kernel does its products with
-// fp32 FMAs from shared memory, not on the tensor cores, so it runs far
-// from that bound; wgmma tiles fed by TMA are the step that closes the gap.
+// ~42 MB moved (12.5 us at 3.35 TB/s).  What holds the bf16 kernel back now:
+// mma.sync reaches about two thirds of Hopper's tensor-core rate at best
+// (wgmma fed by TMA, with producer and consumer warps, reaches the rest),
+// and each tile pays a block barrier with only 4 warps to hide it.
 //
 // The launcher takes PyTorch's current stream, allocates nothing and returns
 // cudaGetLastError() right after the launch.
@@ -40,22 +59,275 @@
 namespace {
 
 constexpr float kNegInf = -1.0e38f;     // the TPU kernel's NEG_INF
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 128;         // 4 warps x 16 query rows
+constexpr int kTcBQ = 64;               // query rows per block
+constexpr int kTcBK = 64;               // keys per KV tile
+
+template <int D> struct TcTile {
+  static constexpr int LD = D + 8;      // padded bf16 row: 16 bytes extra
+  static constexpr int smem_bytes = (kTcBQ + 4 * kTcBK) * LD * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded tile,
+// zero-filling rows at or past `rows`
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int rows) {
+  constexpr int CPR = D / 8;            // 16-byte chunks per row
+  constexpr int LD = TcTile<D>::LD;
+#pragma unroll
+  for (int i = threadIdx.x; i < 64 * CPR; i += kTcThreads) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * LD + c,
+               src + static_cast<size_t>(ok ? row0 + r : 0) * D + c, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq,
+                    int Sk, int causal, int window, float scale_log2) {
+  constexpr int LD = TcTile<D>::LD;
+  constexpr int KS = D / 16;            // k-steps of Q K^T
+  constexpr int NS = kTcBK / 8;         // 8-key column blocks of S
+  constexpr int ND = D / 8;             // 8-wide column blocks of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kTcBQ * LD;  // [2][kTcBK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kTcBK * LD;
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;   // longest first
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int q_offset = Sk - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* qg = q + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const __nv_bfloat16* kg = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+  const __nv_bfloat16* vg = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
+
+  // the KV tiles some query of this tile can reach
+  const int q_first = q0 + q_offset;
+  const int q_last = min(q0 + kTcBQ, Sq) - 1 + q_offset;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  k_begin = (k_begin / kTcBK) * kTcBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK
+                                      : 0;
+
+  load_tile<D>(Qs, qg, q0, Sq);
+  if (n_tiles > 0) {
+    load_tile<D>(Ks, kg, k_begin, Sk);
+    load_tile<D>(Vs, vg, k_begin, Sk);
+  }
+  cp_async_commit();
+
+  // this lane's two query rows: g and g + 8 of the warp's 16
+  const int row0 = warp * 16 + g;
+  const int qpos0 = q0 + row0 + q_offset;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};            // this lane's part of the row sums
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  uint32_t qf[KS][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * kTcBK;
+    const int buf = it & 1;
+    // one barrier a tile: past it, tile it has landed and every warp is
+    // done with tile it-1, whose buffers then take tile it+1
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      load_tile<D>(Ks + (buf ^ 1) * kTcBK * LD, kg, k0 + kTcBK, Sk);
+      load_tile<D>(Vs + (buf ^ 1) * kTcBK * LD, vg, k0 + kTcBK, Sk);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* Kt = Ks + buf * kTcBK * LD;
+    const __nv_bfloat16* Vt = Vs + buf * kTcBK * LD;
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+    }
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < NS / 2; ++j2) {
+        uint32_t bk[4];
+        ldsm_x4(bk, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * j2], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * j2 + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask (only on tiles that straddle an edge), online softmax
+    const bool edge = k0 + kTcBK > Sk ||
+                      (causal && k0 + kTcBK - 1 > q_first) ||
+                      (window > 0 && k0 <= q_last - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = qpos0 + (e >> 1) * 8;
+          const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          x = ok ? x : kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+
+    // O += P V: P as bf16 A-fragments straight from the S accumulators
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j2 = 0; j2 < ND / 2; ++j2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               LD + j2 * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * j2], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * j2 + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();                   // no copy outlives the block
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * H + h) * Sq * D +
+                          static_cast<size_t>(qi) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * r] * l[r],
+                                acc[j][2 * r + 1] * l[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the FMA units
+// ---------------------------------------------------------------------------
 constexpr int kThreads = 256;
 constexpr int kRowThreads = 4;          // lanes sharing one query row
 constexpr int kBQ = kThreads / kRowThreads;   // 64 query rows per block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D> struct Tile {
   static constexpr int BK = D >= 128 ? 32 : 64;   // keys per KV tile
@@ -63,11 +335,12 @@ template <int D> struct Tile {
       kBQ * (D + 1) + BK * (D + 1) + BK * D + kBQ * (BK + 1);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                 int Sq, int Sk, int causal, int window, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int Hkv, int Sq, int Sk, int causal, int window,
+                 float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int KPT = BK / kRowThreads;   // keys scored per lane
   constexpr int DPT = D / kRowThreads;    // output dims per lane
@@ -92,8 +365,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, c = i % D;
     const int qi = q0 + r;
     Qs[r * (D + 1) + c] =
-        qi < Sq ? to_f32(q[qbase + static_cast<size_t>(qi) * D + c]) * scale
-                : 0.0f;
+        qi < Sq ? q[qbase + static_cast<size_t>(qi) * D + c] * scale : 0.0f;
   }
 
   // the KV tiles some query of this tile can reach
@@ -117,8 +389,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kk = 0.0f, vv = 0.0f;
       if (kj < Sk) {
         const size_t g = kbase + static_cast<size_t>(kj) * D + c;
-        kk = to_f32(k[g]);
-        vv = to_f32(v[g]);
+        kk = k[g];
+        vv = v[g];
       }
       Ks[r * (D + 1) + c] = kk;
       Vs[r * D + c] = vv;
@@ -171,65 +443,89 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   if (qi < Sq) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + qbase + static_cast<size_t>(qi) * D;
+    float* orow = o + qbase + static_cast<size_t>(qi) * D;
 #pragma unroll
-    for (int d = 0; d < DPT; ++d)
-      orow[d * kRowThreads + sub] = from_f32<T>(acc[d] / denom);
+    for (int d = 0; d < DPT; ++d) orow[d * kRowThreads + sub] = acc[d] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Sq, int Sk, int causal, int window,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Tile<D>::smem_floats;
-  // raise the shared-memory limit once per instance, at the first launch
-  // (never again, so a later launch may be captured into a CUDA graph)
-  static bool limit_raised = false;
-  if (smem > 48 * 1024 && !limit_raised) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit_raised = true;
-  }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sq, Sk, causal,
-      window, 1.0f / sqrtf(static_cast<float>(D)));
+// raise a kernel's dynamic shared-memory limit once per instance, at its
+// first launch (never again, so a later launch may be captured into a CUDA
+// graph)
+template <typename K>
+cudaError_t raise_smem(K kernel, size_t smem, bool* raised) {
+  if (smem <= 48 * 1024 || *raised) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) *raised = true;
+  return err;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int H, int Hkv, int Sq, int Sk, int causal, int window,
+              cudaStream_t stream) {
+  const size_t smem = TcTile<D>::smem_bytes;
+  static bool raised = false;
+  cudaError_t err = raise_smem(flash_fwd_kernel_tc<D>, smem, &raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, (Sq + kTcBQ - 1) / kTcBQ, B);
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(D));
+  flash_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      H, Hkv, Sq, Sk, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int Sq, int Sk, int D, int causal, int window,
-             cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hkv, int Sq, int Sk, int causal, int window,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Tile<D>::smem_floats;
+  static bool raised = false;
+  cudaError_t err = raise_smem(flash_fwd_kernel<D>, smem, &raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
+      causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hkv, int Sq, int Sk, int causal, int window, int dtype,
+           cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+  if (dtype == 1)
+    return launch_tc<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, o contiguous; o is (B,H,Sq,D).
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v, o contiguous (bf16: 16-byte
+// aligned); o is (B,H,Sq,D).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int Sq, int Sk,
                            int D, int causal, int window, int dtype,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal,
-                                   window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
+    case 32: return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
+    case 64: return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
+    case 128: return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

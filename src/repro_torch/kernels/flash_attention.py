@@ -3,6 +3,10 @@
 Port of ``src/repro/kernels/flash_attention.py:flash_attention`` as wrapped
 by ``src/repro/kernels/ops.py:flash_attention``.  The CUDA kernel is
 ``csrc/flash_attention.cu`` (its header gives the design and the bound).
+The kernel is chosen by type, not as a fallback: bfloat16 runs on the tensor
+cores (``mma.sync``, fp32 accumulation, P rounded to bf16 only as the
+operand of P V), float32 on the FMA units, since TF32 tensor cores would
+miss the f32 tolerance.
 
 :func:`flash_attention` runs the plain PyTorch version
 (:func:`flash_attention_plain`, the reference's ``ref.attention_ref`` with
@@ -89,6 +93,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k and v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention kernel takes 16-byte aligned "
+                         "bfloat16 q, k, v (its copies are 16 bytes wide)")
     if max(Sq, Sk, B, H) >= 2 ** 31 or Sk < 1:
         raise ValueError(f"flash_attention: sizes out of range "
                          f"(B {B}, H {H}, Sq {Sq}, Sk {Sk})")
@@ -130,7 +138,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's type.  Queries are aligned to the end of the keys (self-attention
     when Sq == Sk, chunked prefill when Sq < Sk); ``window > 0`` adds the
     sliding-window mask.  Any Sq and Sk; the kernel takes D in
-    ``HEAD_DIMS`` and float32 or bfloat16."""
+    ``HEAD_DIMS`` and float32 or bfloat16: a bfloat16 CUDA tensor runs on
+    the tensor cores, a float32 one on the FMA units (a dispatch by type:
+    TF32 would miss the f32 tolerance)."""
     _check(q, k, v)
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))
 

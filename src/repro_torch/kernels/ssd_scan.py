@@ -13,7 +13,10 @@ the kernel for CUDA tensors; ``ssd_scan.launches`` counts the launches.
 Where it differs from the TPU kernel: it can return the final fp32 state
 (prefill hands it to decode), it takes any S (the tail chunk is masked), q
 and k may have G < H heads (read as head ``h // (H/G)``), and ``out_dtype``
-overrides the output type (the model path keeps y in fp32).  As in the
+overrides the output type (the model path keeps y in fp32).  The kernel
+runs a block per (b, h, chunk), the chunks of a head chained through the
+state; the wrapper allocates the chunk states, the last of which is the
+final state, and the kernel's zeroed ticket and flags.  As in the
 reference, the backward pass has no kernel: it recomputes through the plain
 version (``ops.py`` does the same through ``ref.ssd_scan_ref``).
 """
@@ -22,15 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from . import backend
 
 CLIP = (-60.0, 0.0)              # the TPU kernel's exponent clip
-P_TILES = (64, 32, 16)           # the kernel's P-tile template sizes
-_TILE, _NB = 64, 64              # csrc/ssd_scan.cu: kTile, kNB
+TILE, LD_F32, LD_W = 64, 72, 68  # csrc/ssd_scan.cu: kT, kLdF, kLdW
+THREADS = 256                    # csrc/ssd_scan.cu: kThreads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 _limits: Dict[int, tuple] = {}
@@ -107,10 +110,20 @@ def _check(q, k, v, log_a) -> None:
                          f"{(B, H, S)}")
 
 
-def smem_bytes(N: int, pt: int, Q: int) -> int:
-    """Dynamic shared memory of one block (csrc/ssd_scan.cu's layout)."""
-    return 4 * (N * pt + 2 * _TILE * (_NB + 1) + _TILE * pt
-                + _TILE * (_TILE + 1) + Q)
+def score_tiles(P: int, Q: int) -> int:
+    """Weighted-score tiles a block keeps in shared memory: one, or every
+    key tile of the chunk when P spans several 64-column tiles (so the
+    scores are not recomputed for each of them)."""
+    return -(-Q // TILE) if P > TILE else 1
+
+
+def smem_bytes(P: int, Q: int) -> int:
+    """Dynamic shared memory of one block (csrc/ssd_scan.cu's layout): the
+    cumsum and its two exponentials, the score tiles, two buffers of two
+    staged tiles, the block's ticket."""
+    qp = -(-Q // TILE) * TILE
+    return 4 * (3 * qp + score_tiles(P, Q) * TILE * LD_W
+                + 4 * TILE * LD_F32 + 1)
 
 
 def _device_limits(device: torch.device) -> tuple:
@@ -129,22 +142,35 @@ def _device_limits(device: torch.device) -> tuple:
     return _limits[idx]
 
 
-def p_tile(B: int, H: int, P: int, N: int, Q: int, sms: int,
-           smem_limit: int) -> int:
-    """The P-tile width: the smallest template that covers P, halved while
-    half as many blocks again would still fit one wave of the card's SMs
-    (more blocks for a small B x H, at the cost of scoring once per tile),
-    and halved further if the state slice does not fit shared memory."""
-    pt = next((t for t in reversed(P_TILES) if t >= P), P_TILES[0])
-    while pt > P_TILES[-1] and 2 * B * H * -(-P // pt) <= sms:
-        pt //= 2
-    while pt > P_TILES[-1] and smem_bytes(N, pt, Q) > smem_limit:
-        pt //= 2
-    if smem_bytes(N, pt, Q) > smem_limit:
-        raise ValueError(f"ssd_scan kernel: N {N} and chunk {Q} need "
-                         f"{smem_bytes(N, pt, Q)} bytes of shared memory, "
-                         f"more than the card's {smem_limit}")
-    return pt
+class LaunchPlan(NamedTuple):
+    blocks: int          # one per (b, h, chunk)
+    score_tiles: int     # weighted-score tiles kept in shared memory
+    smem: int            # dynamic shared memory of a block, bytes
+    waves: float         # blocks over the blocks the card holds at once
+
+
+def launch_plan(B: int, H: int, S: int, P: int, Q: int, sms: int,
+                smem_limit: int) -> LaunchPlan:
+    """One block per (b, h, chunk), so B*H*ceil(S/Q) blocks fill the card
+    without a P split (Zamba2 at B 1, S 2048: 512 blocks on 132 SMs) and the
+    scores of a chunk are computed once; the chunks of a head chain through
+    the state.  Raises if a block's shared memory, set by the chunk (and by
+    P > 64, which keeps every score tile of the chunk), exceeds the card's
+    opt-in limit.  ``waves`` counts the blocks an SM holds by shared memory
+    (228 KB an SM on an H100) and threads (2048)."""
+    smem = smem_bytes(P, Q)
+    if smem > smem_limit:
+        raise ValueError(f"ssd_scan kernel: chunk {Q} with P {P} needs "
+                         f"{smem} bytes of shared memory, more than the "
+                         f"card's {smem_limit}")
+    blocks = -(-S // Q) * B * H
+    if blocks >= 2 ** 31:
+        raise ValueError(f"ssd_scan: sizes out of range ({blocks} chunks "
+                         f"of {Q} steps over B*H)")
+    per_sm = max(1, min((smem_limit + 1024) // (smem + 1024),
+                        2048 // THREADS))
+    return LaunchPlan(blocks, score_tiles(P, Q), smem,
+                      blocks / (sms * per_sm))
 
 
 def _launch(q, k, v, log_a, chunk: int, out_dtype: torch.dtype):
@@ -172,20 +198,25 @@ def _launch(q, k, v, log_a, chunk: int, out_dtype: torch.dtype):
     if S == 0 or B == 0 or N == 0 or P == 0:
         return y, torch.zeros((B, H, N, P), dtype=torch.float32,
                               device=q.device)
-    state = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
     Q = min(chunk, S)
-    sms, smem_limit = _device_limits(q.device)
-    pt = p_tile(B, H, P, N, Q, sms, smem_limit)
+    plan = launch_plan(B, H, S, P, Q, *_device_limits(q.device))
+    # the chunks' states (the last is the final state), then the zeroed
+    # int32 words of the kernel's block ticket and chunk flags
+    nc, words = -(-S // Q), B * H * N * P
+    buf = torch.empty(nc * words + 1 + nc * B * H, dtype=torch.float32,
+                      device=q.device)
+    buf[nc * words:].view(torch.int32).zero_()
     err = _lib().ssd_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, H, G, S, N, P, Q, pt,
-        smem_bytes(N, pt, Q), _DTYPES[q.dtype], _DTYPES[v.dtype],
-        _DTYPES[log_a.dtype], _DTYPES[out_dtype],
-        backend.current_stream(q.device))
+        y.data_ptr(), buf.data_ptr(), B, H, G, S, N, P, Q, plan.score_tiles,
+        plan.smem, _DTYPES[q.dtype], _DTYPES[v.dtype], _DTYPES[log_a.dtype],
+        _DTYPES[out_dtype], backend.current_stream(q.device))
     with _count_lock:
         ssd_scan.launches += 1
     backend.check(err, "ssd_scan")
-    return y, state
+    state = buf[(nc - 1) * words:nc * words].view(B, H, N, P)
+    # a copy, so the other chunks' states are not kept alive with it
+    return y, (state.clone() if nc > 1 else state)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -217,8 +248,11 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> y ``(B,H,S,P)`` in ``out_dtype`` (default q's type), and with
     ``return_state`` also the final fp32 state ``(B,H,N,P)``.  Chunks of
     ``min(chunk, S)`` steps; any S.  The kernel takes float32 or bfloat16
-    inputs and N as far as its (N, P-tile) state slice fits shared memory
-    (at chunk 256: N 645 with 64-column tiles, 2772 with 16)."""
+    inputs, any N and P, and a chunk as far as a block's shared memory
+    holds it (:func:`smem_bytes`: at P <= 64 a chunk of 11712 steps, at
+    P > 64 of 512).  bf16 q/k score on the tensor cores, f32 q/k by fp32
+    FMAs; every product with an f32 operand keeps fp32 accuracy (3xTF32 on
+    the tensor cores)."""
     _check(q, k, v, log_a)
     y, state = _SSDScan.apply(q, k, v, log_a, int(chunk),
                               out_dtype or q.dtype)

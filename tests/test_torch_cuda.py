@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here but one needs a CUDA device and skips without one (the
-one checks in plain Python that the ``ssd_scan`` cases reach every P-tile
-width the kernel is compiled for).  The module
+one checks in plain Python that the ``ssd_scan`` cases reach every branch
+of the kernel's tiling).  The module
 imports only torch and the port, so on a machine without JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -16,7 +16,7 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.router_topk import router_topk, router_topk_plain
-from repro_torch.kernels.ssd_scan import P_TILES, p_tile, ssd_scan, \
+from repro_torch.kernels.ssd_scan import launch_plan, ssd_scan, \
     ssd_scan_plain
 
 torch.set_num_threads(1)
@@ -91,6 +91,38 @@ def test_flash_kernel_matches_plain(cuda, D, dtype, H, Hkv, Sq, Sk, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window", [
+    (1, 2, 2, 1, 1, True, 0),        # one query, one key
+    (2, 4, 2, 15, 15, True, 0),      # under one mma fragment
+    (1, 4, 1, 17, 129, True, 0),     # q_offset 112: off the 64-key tile
+    (1, 2, 2, 63, 63, False, 0),
+    (1, 4, 2, 65, 65, True, 7),      # the window's edge inside a tile
+    (1, 4, 4, 129, 129, True, 100),
+    (1, 2, 1, 1, 65, True, 0),       # one query at the end of 65 keys
+    (1, 8, 2, 100, 1000, True, 300),
+    (2, 2, 2, 65, 129, False, 0),
+    (1, 4, 2, 129, 200, True, 33),
+])
+def test_flash_kernel_matches_plain_at_tile_edges(cuda, D, dtype, B, H, Hkv,
+                                                  Sq, Sk, causal, window):
+    """Lengths, offsets and window edges that cut the kernels' 64-row tiles
+    and 16-row mma fragments."""
+    g = torch.Generator().manual_seed(D * 1000 + Sq * 7 + Sk)
+    q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
+    got = flash_attention(q, k, v, causal, window)
+    want = flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 2, 8, 16, device=cuda)
     flash_attention.launches = 0
@@ -105,6 +137,11 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
         flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="aligned"):
+        a = torch.zeros(1 * 2 * 8 * 16 + 1, device=cuda,
+                        dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
+        flash_attention(a, a, a)
+    assert flash_attention.launches == 1
 
 
 @pytest.mark.cuda
@@ -199,16 +236,29 @@ SSD_KERNEL_CASES = [
     (1, 4, 4, 300, 384, 384, 256),   # xLSTM's mLSTM: N = P = 384
     (1, 4, 4, 300, 384, 1, 256),     # its P = 1 normaliser
     (2, 4, 2, 77, 16, 24, 32),       # groups, P not a tile multiple
+    (1, 64, 1, 265, 64, 64, 256),    # Zamba2, a tail chunk of 9 steps
+    (4, 64, 1, 133, 64, 64, 128),    # at B 4, a tail chunk of 5 steps
+    (1, 2, 1, 200, 72, 130, 96),     # N, P past a 64 tile, not multiples
 ]
 
 
 def test_ssd_kernel_cases_reach_every_p_tile():
-    """Each compiled P-tile width of the kernel is held against the plain
-    version by some case (on an H100: 132 SMs, 232448 bytes of opt-in
-    shared memory a block)."""
-    tiles = {p_tile(B, H, P, N, min(chunk, S), 132, 232448)
-             for B, H, G, S, N, P, chunk in SSD_KERNEL_CASES}
-    assert tiles == set(P_TILES)
+    """Every branch of the kernel's 64 x 64 tiling is held against the
+    plain version by some case (on an H100: 132 SMs, 232448 bytes of
+    opt-in shared memory a block): one and several chunks (the state
+    chain), one and several query tiles in a chunk, a tail tile, one and
+    several N and P tiles (P > 64 keeps every score tile), widths that are
+    not a multiple of the 16-byte copies, and q/k groups."""
+    seen = set()
+    for B, H, G, S, N, P, chunk in SSD_KERNEL_CASES:
+        Q = min(chunk, S)
+        plan = launch_plan(B, H, S, P, Q, 132, 232448)
+        seen |= {("chunks", -(-S // Q) > 1), ("t tiles", Q > 64),
+                 ("tail", S % 64 != 0), ("n tiles", N > 64),
+                 ("p tiles", plan.score_tiles > 1), ("scalar copies",
+                                                     P % 8 != 0),
+                 ("groups", G < H)}
+    assert seen == {(what, b) for what, _ in seen for b in (True, False)}
 
 
 @pytest.mark.cuda
@@ -255,9 +305,9 @@ def test_ssd_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
         t = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
         ssd_scan(t, t, t, la)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 1, 8, 8192, device=cuda)
-        ssd_scan(big, big, torch.zeros(1, 1, 8, 64, device=cuda),
-                 torch.zeros(1, 1, 8, device=cuda))
+        big = torch.zeros(1, 1, 1024, 8, device=cuda)
+        ssd_scan(big, big, torch.zeros(1, 1, 1024, 128, device=cuda),
+                 torch.zeros(1, 1, 1024, device=cuda), 1024)
     assert ssd_scan.launches == 1
 
 

@@ -108,3 +108,60 @@ def test_shapes_that_do_not_fit_raise():
     with pytest.raises(RuntimeError, match="no kernel"):
         m = torch.zeros(1, 2, 8, 16, device="meta")
         flash_attention(m, m, m)
+
+
+def _tc_kernel_emulation(q, k, v, causal, window):
+    """The bf16 tensor-core kernel's rounding, in torch on the CPU: q.k from
+    the bf16 inputs summed in fp32, the scale (with log2 e) applied to the
+    fp32 scores, 64-key tiles in order with an fp32 running max and sum in
+    base 2, P rounded to bf16 only as the operand of P V, l summed from the
+    fp32 P, the output divided by max(l, 1e-30) and rounded to bf16."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=1)
+    vf = v.float().repeat_interleave(H // Hkv, dim=1)
+    qf = q.float()
+    scale_log2 = float(np.float32(1.4426950408889634 / np.sqrt(D)))
+    qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    m = torch.full((B, H, Sq), -1.0e38)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, 64):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + 64]) \
+            * scale_log2
+        kpos = torch.arange(k0, min(k0 + 64, Sk))[None, :]
+        ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, torch.tensor(-1.0e38))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, :, k0:k0 + 64])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
+    (1, 2, 2, 128, 128, 64),
+    (1, 4, 1, 128, 256, 32),     # MQA, q at the end of the keys
+    (1, 2, 2, 128, 128, 128),
+    (1, 2, 1, 128, 128, 16),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+def test_tensor_core_numerics_match_pallas_kernel(B, H, Hkv, Sq, Sk, D,
+                                                  causal, window):
+    """The bf16 kernel's numerics (scale on the fp32 scores, P in bf16 for
+    P V, l from the fp32 P, 64-key tiles) held to the reference's Pallas
+    kernel in interpret mode within the bf16 tolerance 2e-2."""
+    (jq, jk, jv), (q, k, v) = _inputs(Sq * 3 + D, B, H, Hkv, Sq, Sk, D,
+                                      "bfloat16")
+    want = jflash(jq, jk, jv, causal, window, 128)
+    got = _tc_kernel_emulation(q, k, v, causal, window)
+    _close(got, want, TOL["bfloat16"])

@@ -26,7 +26,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ops import ssd_scan as jssd
 from repro.models.ssm import chunked_gla as jgla
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import p_tile, smem_bytes, ssd_scan, \
+from repro_torch.kernels.ssd_scan import launch_plan, smem_bytes, ssd_scan, \
     ssd_scan_plain
 
 torch.set_num_threads(1)
@@ -165,22 +165,34 @@ def test_ssd_scan_rejects_shapes_that_do_not_fit():
         ssd_scan(q, k[..., :-1], v, la)
 
 
-@pytest.mark.parametrize("B,H,P,N,Q,want", [
-    (1, 64, 64, 64, 256, 32),    # Zamba2 prefill: 128 blocks on 132 SMs
-    (8, 64, 64, 64, 256, 64),    # enough blocks already
-    (1, 4, 384, 384, 256, 16),   # xLSTM's mLSTM: N = P = 384
-    (1, 4, 1, 384, 256, 16),     # its P = 1 normaliser
-    (1, 2, 64, 16, 64, 16),
+@pytest.mark.parametrize("B,H,S,P,Q,want", [
+    (1, 64, 2048, 64, 256, 512),     # Zamba2 prefill: 512 blocks, 132 SMs
+    (8, 64, 2048, 64, 256, 4096),    # many blocks already
+    (1, 4, 1000, 384, 256, 16),      # xLSTM's mLSTM: N = P = 384
+    (1, 4, 1000, 1, 256, 16),        # its P = 1 normaliser
+    (1, 2, 128, 64, 64, 4),
 ])
-def test_p_tile_fills_the_card_within_shared_memory(B, H, P, N, Q, want):
-    pt = p_tile(B, H, P, N, Q, *H100)
-    assert pt == want
-    assert smem_bytes(N, pt, Q) <= H100[1]
+def test_p_tile_fills_the_card_within_shared_memory(B, H, S, P, Q, want):
+    """A block per (b, h, chunk), with no P split: Zamba2's prefill fills
+    the card (more than one block per SM) without scoring a chunk twice,
+    and every plan fits a block's shared memory."""
+    plan = launch_plan(B, H, S, P, Q, *H100)
+    assert plan.blocks == want
+    assert plan.smem == smem_bytes(P, Q) <= H100[1]
+    assert plan.score_tiles == (-(-Q // 64) if P > 64 else 1)
+    if (B, H, S) == (1, 64, 2048):
+        assert plan.blocks > H100[0] and plan.waves > 1
 
 
 def test_p_tile_refuses_a_state_that_cannot_fit():
+    """What bounds a block now is the chunk (and P > 64, which keeps every
+    score tile of the chunk): a chunk of 1024 steps with P 128 does not
+    fit, nor one of 16384 steps at any P."""
     with pytest.raises(ValueError, match="shared memory"):
-        p_tile(1, 1, 64, 4096, 256, *H100)
+        launch_plan(1, 1, 1024, 128, 1024, *H100)
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_plan(1, 1, 16384, 64, 16384, *H100)
+    assert launch_plan(1, 1, 512, 128, 512, *H100).smem <= H100[1]
 
 
 def test_plain_version_returns_state_for_empty_sequence():
@@ -188,3 +200,87 @@ def test_plain_version_returns_state_for_empty_sequence():
     y, state = ssd_scan_plain(q, k, v, la, 16)
     assert tuple(y.shape) == (1, 2, 0, 3)
     assert torch.equal(state, torch.zeros(1, 2, 4, 3))
+
+
+def _kernel_emulation(q, k, v, log_a, chunk):
+    """The CUDA kernel's arithmetic, in torch on the CPU: per chunk, the
+    state h_out = exp(tot) h_in + sum over 64-step tiles of k^T (es v);
+    then per 64-row query tile, exp(cum_t) q.h_in first and the weighted
+    scores of the key tiles j <= i after, each score tile q_i k_j^T summed
+    in fp32 from the inputs' values (bf16 q/k: exact products), weighted by
+    exp(clip(cum_t - cum_s)) and masked to s <= t; every product with an
+    fp32 operand in fp32.  q, k (B,H,S,N), one group per head."""
+    B, H, S, N = q.shape
+    P = v.shape[-1]
+    Q = min(chunk, S)
+    qf, kf, vf, la = (t.float() for t in (q, k, v, log_a))
+    h = torch.zeros(B, H, N, P)
+    ys = torch.zeros(B, H, S, P)
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        qc, kc, vc = (t[:, :, c0:c0 + L] for t in (qf, kf, vf))
+        cum = torch.cumsum(la[:, :, c0:c0 + L], -1)
+        tot = cum[..., -1]
+        es = _exp_clip(tot[..., None] - cum)
+        et = _exp_clip(cum)
+        inc = torch.zeros(B, H, N, P)
+        for j0 in range(0, L, 64):
+            inc = inc + torch.einsum("bhsn,bhsp->bhnp", kc[:, :, j0:j0 + 64],
+                                     vc[:, :, j0:j0 + 64]
+                                     * es[:, :, j0:j0 + 64, None])
+        h_in, h = h, _exp_clip(tot)[..., None, None] * h + inc
+        for i0 in range(0, L, 64):
+            t = torch.arange(i0, min(i0 + 64, L))
+            acc = et[:, :, i0:i0 + 64, None] * torch.einsum(
+                "bhtn,bhnp->bhtp", qc[:, :, i0:i0 + 64], h_in)
+            for j0 in range(0, i0 + 1, 64):
+                s = torch.arange(j0, min(j0 + 64, L))
+                sc = torch.einsum("bhtn,bhsn->bhts", qc[:, :, i0:i0 + 64],
+                                  kc[:, :, j0:j0 + 64])
+                w = sc * _exp_clip(cum[:, :, t, None] - cum[:, :, None, s])
+                w = torch.where(s[None, :] <= t[:, None], w,
+                                torch.zeros(()))
+                acc = acc + torch.einsum("bhts,bhsp->bhtp", w,
+                                         vc[:, :, j0:j0 + 64])
+            ys[:, :, c0 + i0:c0 + i0 + 64] = acc
+    return ys, h
+
+
+def _exp_clip(x):
+    return torch.exp(torch.clamp(x, -60.0, 0.0))
+
+
+@pytest.mark.parametrize("B,H,S,N,P,chunk", [
+    (1, 2, 128, 16, 32, 64),
+    (2, 3, 256, 32, 64, 128),    # two query tiles a chunk
+    (1, 2, 512, 64, 64, 256),    # Zamba2's N = P and chunk, four tiles
+    (1, 1, 256, 72, 80, 128),    # N, P past one 64 tile
+])
+def test_kernel_numerics_match_pallas_kernel(B, H, S, N, P, chunk):
+    """The kernel's numerics with bf16 q/k (scores from the bf16 values in
+    fp32, every other product fp32, the kernel's tile order) held to the
+    reference's Pallas kernel in interpret mode, in fp32, within 1e-4 of
+    the output's scale."""
+    q, k, v, la = _inputs(S + N * P, B, H, S, N, P, dtype="bfloat16")
+    v = np.random.default_rng(S).standard_normal((B, H, S, P),
+                                                 dtype=np.float32)
+    want = np.asarray(jssd(*map(jnp.asarray, (q, k, v, la)), chunk))
+    tq, tk = _t(q, k, dtype="bfloat16")
+    y, _ = _kernel_emulation(tq, tk, torch.from_numpy(v),
+                             torch.from_numpy(la), chunk)
+    scale = max(float(np.abs(want).max()), 1.0)
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * scale)
+
+
+def test_kernel_numerics_state_matches_chunked_gla():
+    """The emulation's final state (the kernel's chunk chain) held to the
+    reference model path's ``s_final`` within 1e-4 of its scale."""
+    B, H, S, N, P, chunk = 1, 2, 384, 16, 8, 128     # a chain of 3 chunks
+    q, k, v, la = _inputs(11, B, H, S, N, P, dtype="bfloat16")
+    sw = [np.ascontiguousarray(np.swapaxes(a, 1, 2)) for a in (q, k, v, la)]
+    _, js = jgla(*map(jnp.asarray, sw), chunk=chunk)
+    _, state = _kernel_emulation(*_t(q, k, v, la), chunk)
+    scale = max(float(np.abs(np.asarray(js)).max()), 1.0)
+    np.testing.assert_allclose(state.numpy(), np.asarray(js), rtol=1e-4,
+                               atol=1e-4 * scale)
