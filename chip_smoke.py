@@ -21,7 +21,7 @@ Phases, each of which fails the run:
    tile, windows whose edge falls inside a tile; D 16-128, f32 and bf16);
    ``router_topk`` against its plain version
    (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
-   K 2, and at E 64/256 with K up to 8; ``ssd_scan`` against its plain
+   K 2, and at E 64/256/384 with K up to 8; ``ssd_scan`` against its plain
    version, y and the final state, at Zamba2's serving shapes (B1 H64, one
    group of q/k, N = P = 64, chunk 256; S 2048, ragged 5000, and 100 under
    the chunk, B 4, tail chunks of 9 and 5 steps; in the model path's types
@@ -67,7 +67,11 @@ Phases, each of which fails the run:
    phase-5 kernels at its shapes (attention at S 2048, Mixtral's D128 and
    Zamba2's D64, with ``scaled_dot_product_attention`` beside it),
    ``ssd_scan`` at phase 5b's
-   (B1 H64 S2048 N64 P64, chunk 256), and the phase-3 items/s.
+   (B1 H64 S2048 N64 P64, chunk 256), and the phase-3 items/s; then the
+   routing kernels at :data:`ROUTE_TIMES` (``router_topk`` at decode's T 8,
+   prefill's T 1859-5000 and wide routers; ``a2a_route`` at T 512 and 4096),
+   each with its grid, beside an empty kernel's time (the latency floor)
+   and the one-block kernel's time at the same shape.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -198,7 +202,7 @@ def phase_kernels(dev: torch.device) -> dict:
     checks = 0
     err = {"a2a_route": 0.0, "a2a_combine": 0.0}
     for E in (2, 8, 64):
-        for T in (1, 37, 1000, 4099):
+        for T in (1, 37, 512, 1000, 4099):   # 512: the hybrid's microbatch
             logits = torch.randn(T, E, generator=g).to(dev)
             for cap in (T, max(1, T // E - 3), 1):
                 idx, pos, keep = a2a_route(logits, cap)
@@ -299,9 +303,11 @@ def check_flash(dev: torch.device) -> tuple:
 
 
 # (T, E, K): the serving shapes (decode T = max_batch, prefill T = prompt
-# length) and wider routers
-ROUTER_CASES = [(8, 8, 2), (2048, 8, 2), (5000, 8, 2), (8, 64, 8),
-                (2048, 64, 8), (2048, 256, 8), (5000, 256, 4)]
+# length; 300 and 512 are prompts that one block of many warps takes whole)
+# and wider routers
+ROUTER_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
+                (5000, 8, 2), (8, 64, 8),
+                (2048, 64, 8), (2048, 256, 8), (5000, 256, 4), (5000, 384, 8)]
 
 
 def check_router(dev: torch.device) -> tuple:
@@ -714,7 +720,7 @@ def no_host_wait(dev: torch.device):
 # Hopper names its kernels nvjet_*, sm90_xmma_* or *gemm*)
 KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
                    ("flash_attention", ("flash_fwd_kernel",)),
-                   ("router_topk", ("router_topk",)),
+                   ("router_topk", ("router_topk", "route_kernel")),
                    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
                    ("elementwise (torch)", ("elementwise", "CatArray")),
                    ("reductions (torch)", ("reduce", "scan", "softmax")))
@@ -1023,7 +1029,7 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
     cap = expert_capacity(T, E, K, 1.25)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
     nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
-    ops = T * E * (3 + 4 * K)     # max, exp-sum; per pick sub, exp, div, cmp
+    ops = T * E * (5 + K)         # max, sub, exp, add, div; a compare a pick
     ms = graph_ms(lambda: router_topk(logits, K, cap))
     eager = time_ms(lambda: router_topk(logits, K, cap))
     plain = time_ms(lambda: router_topk_plain(logits, K, cap))
@@ -1038,6 +1044,87 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
         f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}, {nbytes} B) "
         f"on {card}")
     return rows
+
+
+# (kernel, T, E, K): the router at decode (T 8, the engine's max_batch),
+# at the longest prompt one block takes whole (512), at the median and the
+# longest prompt of phase 5 and at 2048, and at wide routers (E 256 top-8;
+# Kimi-K2's E 384 top-8); the route at the hybrid's microbatch (phase 4)
+# and at phase 3's T
+ROUTE_TIMES = [("router_topk", 8, 8, 2), ("router_topk", 512, 8, 2),
+               ("router_topk", 1859, 8, 2),
+               ("router_topk", 2048, 8, 2), ("router_topk", 5000, 8, 2),
+               ("router_topk", 2048, 256, 8), ("router_topk", 5000, 384, 8),
+               ("a2a_route", 512, 8, 1), ("a2a_route", 4096, 8, 1)]
+# the one-block kernels that the multi-block ones replaced (one block of 512
+# threads walking the token tiles in order), recorded before the redesign
+# at the same shapes in the same harness (tools/time_routing.py --src on an
+# unpacked copy of that tree; NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md
+# section 6).  Printed as recorded numbers, not measured in this run.
+ONE_BLOCK_MS = {("router_topk", 8, 8, 2): 0.0042,
+                ("router_topk", 512, 8, 2): 0.0066,
+                ("router_topk", 1859, 8, 2): 0.0216,
+                ("router_topk", 2048, 8, 2): 0.0224,
+                ("router_topk", 5000, 8, 2): 0.0538,
+                ("router_topk", 2048, 256, 8): 2.7112,
+                ("router_topk", 5000, 384, 8): 10.1374,
+                ("a2a_route", 512, 8, 1): 0.0042,
+                ("a2a_route", 4096, 8, 1): 0.0236}
+
+
+def empty_kernel_ms() -> float:
+    """The latency floor of a kernel in :func:`graph_ms`: a kernel that
+    does nothing (``torch.cuda._sleep(0)``), timed the same way."""
+    return graph_ms(lambda: torch.cuda._sleep(0))
+
+
+def route_time(dev: torch.device, name: str, T: int, E: int, K: int) -> dict:
+    """One routing kernel's device time (CUDA graph, so a multi-block
+    call's workspace fill is in it) on logits at scale 2 with the model's
+    capacity (1.25x the mean load), its plain version's time per eager
+    call and its byte bound."""
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.a2a_fused import a2a_route, a2a_route_plain
+    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    g = torch.Generator().manual_seed(T + E + K)
+    logits = (torch.randn(T, E, generator=g) * 2).to(dev)
+    cap = expert_capacity(T, E, K, 1.25)
+    if name == "router_topk":
+        ms = graph_ms(lambda: router_topk(logits, K, cap))
+        plain = time_ms(lambda: router_topk_plain(logits, K, cap), reps=3,
+                        iters=5)
+        nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
+    else:
+        ms = graph_ms(lambda: a2a_route(logits, cap))
+        plain = time_ms(lambda: a2a_route_plain(logits, cap), reps=3,
+                        iters=5)
+        nbytes = T * E * 4 + T * (4 + 4 + 1)
+    return {"name": name, "T": T, "E": E, "K": K, "ms": ms,
+            "plain_ms": plain, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def time_routes(dev: torch.device, card: str) -> list:
+    """:data:`ROUTE_TIMES`, each beside its grid, its byte bound, the empty
+    kernel's time and the one-block kernel's recorded time at that shape."""
+    from repro_torch.kernels.router_topk import launch_plan
+    floor = empty_kernel_ms()
+    say(f"[time] empty kernel (torch.cuda._sleep(0)), the latency floor: "
+        f"{floor:.4f} ms on the device (CUDA graph) on {card}")
+    out = []
+    for case in ROUTE_TIMES:
+        r = route_time(dev, *case)
+        plan = launch_plan(r["T"], r["E"], r["K"])
+        r["grid"] = (f"{plan.blocks} blocks x {plan.threads} threads "
+                     f"({plan.tokens_per_block} tokens a block)")
+        say(f"[time] {r['name']} T{r['T']} E{r['E']} K{r['K']}: "
+            f"{r['ms']:.4f} ms on the device (CUDA graph), grid {r['grid']}; "
+            f"plain {r['plain_ms']:.4f} ms per eager call; one-block kernel "
+            f"before the redesign {ONE_BLOCK_MS[case]:.4f} ms (recorded, "
+            f"not measured in this run); bound {r['bound_ms']:.6f} ms "
+            f"(bytes, {r['bytes']} B), empty kernel {floor:.4f} ms, on {card}")
+        out.append(r)
+    return out
 
 
 def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
@@ -1170,6 +1257,7 @@ def main() -> int:
     rows += time_serving_kernels(dev, serve, hybrid, kernels["max_abs_err"],
                                  card["card"])
     rows.append(time_ssd(dev, hybrid, kernels["max_abs_err"], card["card"]))
+    time_routes(dev, card["card"])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

@@ -6,7 +6,8 @@ so the hop is three parts (see ``csrc/a2a_fused.cu`` for the kernels' design
 and bounds):
 
 1. :func:`a2a_route` — softmax + top-1 route and first-come capacity
-   positions, a CUDA kernel;
+   positions, a CUDA kernel: the top-1 case of the router's multi-block
+   scan (``csrc/route_scan.cuh``, grid by ``router_topk.launch_plan``);
 2. the expert compute — every expert applied to every token with
    ``torch.func.vmap``, as the TPU kernel computes all and then selects;
 3. :func:`a2a_combine` — the routed output selected per token and tokens
@@ -26,17 +27,16 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from . import backend
-
-_ROUTE_SMEM_MAX = 232448     # bytes of shared memory one Hopper block may use
+from .router_topk import launch_plan, workspace
 
 
 def _lib() -> ctypes.CDLL:
     lib = backend.load("a2a_fused")
     if not getattr(lib, "_ff_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.a2a_route_smem_bytes.argtypes = [i]
+        lib.a2a_route_smem_bytes.argtypes = [i, i, i]
         lib.a2a_route_smem_bytes.restype = ctypes.c_longlong
-        lib.a2a_route_launch.argtypes = [p, i, i, i, p, p, p, p]
+        lib.a2a_route_launch.argtypes = [p, i, i, i, i, i, i] + [p] * 5
         lib.a2a_route_launch.restype = i
         lib.a2a_combine_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
                                            ctypes.c_longlong, i, p]
@@ -78,21 +78,20 @@ def a2a_route(logits: torch.Tensor, capacity: int
     T, E = logits.shape
     if T >= 2 ** 31:
         raise ValueError(f"a2a_route takes fewer than 2**31 tokens (got {T})")
-    lib = _lib()
-    smem = lib.a2a_route_smem_bytes(E)
-    if smem > _ROUTE_SMEM_MAX:
-        raise ValueError(f"a2a_route: {E} experts need {smem} bytes of shared "
-                         f"memory, more than the {_ROUTE_SMEM_MAX} a block has")
+    plan = launch_plan(T, E, 1)
     x = logits.to(torch.float32).contiguous()
     idx = torch.empty(T, dtype=torch.int32, device=x.device)
     pos = torch.empty(T, dtype=torch.int32, device=x.device)
     keep = torch.empty(T, dtype=torch.bool, device=x.device)
     if T == 0:
         return idx, pos, keep
+    ws = workspace(plan, x.device)
     cap = max(-2 ** 31, min(int(capacity), 2 ** 31 - 1))
-    err = lib.a2a_route_launch(x.data_ptr(), T, E, cap, idx.data_ptr(),
-                               pos.data_ptr(), keep.data_ptr(),
-                               backend.current_stream(x.device))
+    err = _lib().a2a_route_launch(
+        x.data_ptr(), T, E, cap, plan.blocks, plan.tokens_per_block,
+        plan.threads, idx.data_ptr(), pos.data_ptr(), keep.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        backend.current_stream(x.device))
     a2a_route.launches += 1
     backend.check(err, "a2a_route")
     return idx, pos, keep

@@ -8,7 +8,8 @@ kernel or raises — there is no ``try`` that falls back.
 The kernels live in ``csrc/*.cu`` as plain C entry points.  At first use each
 source is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the root of the checkout (named by a hash of the
-source, so an edited source never meets a stale library) and loaded with
+source and the ``csrc/*.cuh`` headers it includes, so an edited source or
+header never meets a stale library) and loaded with
 ``ctypes``.  Nothing is built or imported when this module is imported.
 """
 
@@ -19,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -58,10 +60,29 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header under ``csrc`` it includes,
+    directly or through another header (``#include "x.cuh"``), in the
+    order they are first met."""
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in found:
+            continue
+        found.append(f)
+        todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                           (CSRC / f).read_text(), re.M)
+    return [CSRC / f for f in found]
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library's path, named by a hash of the source, the headers it
+    includes and the flags, so an edited source or header never meets a
+    stale library."""
+    h = hashlib.sha1(" ".join(ARCH_FLAGS).encode())
+    for f in sources(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str, verbose: bool = False) -> pathlib.Path:

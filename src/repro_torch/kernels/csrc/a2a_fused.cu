@@ -12,15 +12,11 @@
 //   a2a_combine  out[t] = keep[t] ? Y[idx[t], t] : 0, byte for byte
 //
 // a2a_route.  Bound: bytes (T*E*4 read, T*9 written); the softmax is a few
-// operations per byte.  Design: first-come positions need the tokens in
-// stream order, and CUDA blocks run in no order, so ONE block walks the token
-// tiles in order -- the loop takes the place of the TPU's sequential grid --
-// and keeps the E lane cursors in shared memory.  Inside a tile each thread
-// owns one token: it takes its rank among same-expert lanes of its warp with
-// __match_any_sync, the per-warp expert counts go to shared memory, and the
-// rank among earlier warps is a sum over them.  One block is latency-bound,
-// not bandwidth-bound; a multi-block form (per-block histograms plus a scan
-// over blocks) is the step that makes it fast.
+// operations per byte.  Design: route_scan.cuh, the top-1 case of the
+// router's multi-block scan with a2a's argmax rule (NaN counts as the
+// maximum): ceil(T / tt) blocks route and rank their tiles of tokens with
+// no dependence on each other, and a decoupled look-back over the tiles'
+// per-expert histograms adds the tokens of earlier tiles to each position.
 //
 // a2a_combine.  Bound: bytes (the kept rows of Y read once, T rows written).
 // Design: a grid-stride copy over the output in the widest unit (16, 8, 4, 2
@@ -29,76 +25,16 @@
 // bits and does no arithmetic, so it equals its plain version byte for byte
 // in every dtype.
 //
-// Both launchers take PyTorch's current stream, allocate nothing, and return
-// cudaGetLastError() right after the launch.
+// Both launchers take PyTorch's current stream, allocate nothing (the route
+// wrapper passes its workspace), and return cudaGetLastError() right after
+// the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "route_scan.cuh"
+
 namespace {
-
-constexpr int kRouteThreads = 512;              // 16 warps per token tile
-constexpr int kRouteWarps = kRouteThreads / 32;
-
-__global__ void __launch_bounds__(kRouteThreads)
-a2a_route_kernel(const float* __restrict__ logits, int T, int E, int capacity,
-                 int* __restrict__ idx_out, int* __restrict__ pos_out,
-                 unsigned char* __restrict__ keep_out) {
-  extern __shared__ int smem[];
-  int* cursor = smem;          // [E]               lane write cursors
-  int* wcount = smem + E;      // [kRouteWarps][E]  this tile's per-warp counts
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int i = tid; i < E * (kRouteWarps + 1); i += blockDim.x) smem[i] = 0;
-  __syncthreads();
-
-  for (int base = 0; base < T; base += kRouteThreads) {
-    const int t = base + tid;
-    int e = -1;
-    if (t < T) {
-      // softmax in f32 as JAX computes it: exp(x - max) / sum, then the
-      // argmax of the probabilities, first index on ties (NaN counts as max)
-      const float* row = logits + static_cast<size_t>(t) * E;
-      float m = row[0];
-      for (int j = 1; j < E; ++j) m = fmaxf(m, row[j]);
-      float s = 0.0f;
-      for (int j = 0; j < E; ++j) s += expf(row[j] - m);
-      float best = expf(row[0] - m) / s;
-      e = 0;
-      for (int j = 1; j < E; ++j) {
-        const float p = expf(row[j] - m) / s;
-        if (p > best || (p != p && best == best)) {
-          best = p;
-          e = j;
-        }
-      }
-    }
-    // rank among the lanes of this warp routed to the same expert
-    const unsigned peers = __match_any_sync(0xffffffffu, e);
-    const int wrank = __popc(peers & ((1u << lane) - 1u));
-    if (e >= 0 && lane == __ffs(peers) - 1) wcount[warp * E + e] = __popc(peers);
-    __syncthreads();
-    if (e >= 0) {
-      int p = cursor[e] + wrank;
-      for (int w = 0; w < warp; ++w) p += wcount[w * E + e];
-      idx_out[t] = e;
-      pos_out[t] = p;
-      keep_out[t] = p < capacity ? 1 : 0;
-    }
-    __syncthreads();
-    // advance the cursors past this tile and clear its counts
-    for (int j = tid; j < E; j += blockDim.x) {
-      int c = 0;
-      for (int w = 0; w < kRouteWarps; ++w) {
-        c += wcount[w * E + j];
-        wcount[w * E + j] = 0;
-      }
-      cursor[j] += c;
-    }
-    __syncthreads();
-  }
-}
 
 template <typename U>
 __global__ void a2a_combine_kernel(const U* __restrict__ ys,
@@ -135,24 +71,17 @@ void launch_combine(const void* ys, const int* idx, const unsigned char* keep,
 
 extern "C" {
 
-// Shared memory the route kernel needs for E experts, in bytes.
-long long a2a_route_smem_bytes(int E) {
-  return static_cast<long long>(E) * (kRouteWarps + 1) * sizeof(int);
+// Shared memory of a route block of `threads` over `tt` tokens, bytes.
+long long a2a_route_smem_bytes(int tt, int E, int threads) {
+  return route::route_smem_words(tt, E, 1, threads) * 4;
 }
 
 int a2a_route_launch(const float* logits, int T, int E, int capacity,
-                     int* idx, int* pos, unsigned char* keep, void* stream) {
-  const long long smem = a2a_route_smem_bytes(E);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        a2a_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  a2a_route_kernel<<<1, kRouteThreads, static_cast<size_t>(smem),
-                     static_cast<cudaStream_t>(stream)>>>(
-      logits, T, E, capacity, idx, pos, keep);
-  return static_cast<int>(cudaGetLastError());
+                     int blocks, int tt, int threads, int* idx, int* pos,
+                     unsigned char* keep, int* workspace, void* stream) {
+  return route::launch<true>(logits, T, E, 1, capacity, blocks, tt, threads,
+                             nullptr, idx, pos, keep, workspace,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // `unit` is the copy width in bytes (16, 8, 4, 2 or 1); it must divide

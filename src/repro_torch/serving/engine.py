@@ -233,6 +233,22 @@ def _insert(st: _BatchState, cache1, slot: int, tok: torch.Tensor,
     st.pos[slot].fill_(prompt_len)
 
 
+def confidence(logits: torch.Tensor) -> torch.Tensor:
+    """The early-exit confidence of each row of ``logits`` ``(B, 1, V)``:
+    its largest softmax probability, rounded as the reference's jitted
+    ``jnp.max(jax.nn.softmax(logits[:, -1, :]))`` rounds it on the CPU: in
+    the logits' type (bf16) ``x - max`` and ``exp`` of it, the sum taken
+    over the fp32 exponentials (XLA's fusion never rounds them to bf16)
+    and rounded once, the division in bf16.  Returned as float32 (exact),
+    so the host copy is a numpy array; a device op only, so the decode
+    step queues it without a host wait."""
+    x = logits[:, -1, :]
+    d = x - x.amax(-1, keepdim=True)
+    e = torch.exp(d.float())
+    s = e.sum(-1, keepdim=True).to(x.dtype)
+    return (e.to(x.dtype) / s).amax(-1).float()
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """``a`` on ``device``; to the card through a pinned buffer, queued
     without waiting for the work ahead of it on the stream."""
@@ -613,8 +629,7 @@ class InferenceEngine:
 
         def _decode(p, caches, batch):
             nt, logits, caches = decode_step(p, caches, batch)
-            conf = torch.softmax(logits[:, -1, :].float(), dim=-1).amax(-1)
-            return nt, conf, caches
+            return nt, confidence(logits), caches
 
         self._acct = _Accounting()
         self._slo = _SLOState(slo or SLOPolicy())

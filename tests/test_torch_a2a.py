@@ -21,11 +21,16 @@ import torch
 
 from repro.kernels.a2a_fused import a2a_fused as jax_a2a_fused
 from repro.kernels.ref import a2a_fused_ref as jax_a2a_fused_ref
+from repro.kernels.ops import router_topk as jax_router_topk_pallas
 from repro.kernels.ref import router_topk_ref as jax_router_topk_ref
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_fused, a2a_route,
                                            a2a_route_plain)
+from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
+                                             THREAD_PATH_MAX_E,
+                                             TOKENS_PER_BLOCK, launch_plan,
+                                             tile_positions)
 
 torch.set_num_threads(1)
 
@@ -128,6 +133,53 @@ def test_route_matches_reference(E, cap_kind):
     assert np.array_equal(idx.numpy(), np.asarray(idx_j)[:, 0])
     assert np.array_equal(pos.numpy(), np.asarray(pos_j)[:, 0])
     assert np.array_equal(keep.numpy(), np.asarray(keep_j)[:, 0])
+
+
+# the route kernel's grid and positions: the top-1 case of the router's
+# multi-block scan, at the edges of its tiles and of its one-block case
+# (test_torch_router.edge_ts), with all tokens on one expert and capacities
+# 0, 1 and T
+ROUTE_EDGES = [(T, E) for E in (1, 8, 384)
+               for T in sorted({tt + d for tt in (TOKENS_PER_BLOCK[
+                   "warp" if E > THREAD_PATH_MAX_E else "thread"],)
+                   for d in (-1, 0, 1, 2 * tt + 5)}
+                   | ({ONE_BLOCK_MAX_T, ONE_BLOCK_MAX_T + 1}
+                      if E <= THREAD_PATH_MAX_E else set()))]
+
+
+@pytest.mark.parametrize("one_expert", [False, True])
+@pytest.mark.parametrize("T,E", ROUTE_EDGES)
+def test_route_tile_positions_at_tile_edges(T, E, one_expert):
+    """``tile_positions`` on the route's plan (K = 1) gives the plain
+    version's positions, and the Pallas kernel's keep flags in interpret
+    mode (the whole hop for E <= 8, with identity-scaled experts; the
+    router kernel at K = 1 for E = 384, whose hop would trace 384
+    experts)."""
+    logits, xs = _inputs(T, E, 2, "float32", seed=T + E)
+    if one_expert:
+        logits[:, 0] += 30.0
+    plan = launch_plan(T, E, 1)
+    one_block = T <= (ONE_BLOCK_MAX_T if E <= THREAD_PATH_MAX_E
+                      else TOKENS_PER_BLOCK["warp"])
+    assert (plan.blocks == 1) == one_block
+    idx, pos, _keep = a2a_route_plain(torch.from_numpy(logits), T)
+    assert torch.equal(tile_positions(idx[:, None], E, plan)[:, 0], pos)
+    for cap in (0, 1, T):
+        assert torch.equal(a2a_route(torch.from_numpy(logits), cap)[2],
+                           pos < cap)
+    if one_expert:
+        assert bool((idx == 0).all()) and pos.tolist() == list(range(T))
+    if E <= 8:
+        _out, keep_j = jax_a2a_fused(jnp.asarray(logits), jnp.asarray(xs),
+                                     _experts(E, "float32"), 1, block_t=T,
+                                     interpret=True)
+        assert np.array_equal((pos < 1).numpy(), np.asarray(keep_j))
+    else:
+        _w, jidx, jpos, _k = (np.array(t) for t in jax_router_topk_pallas(
+            jnp.asarray(logits), 1, 1, T))
+        assert np.array_equal(jidx[:, 0], idx.numpy())
+        assert np.array_equal(
+            tile_positions(torch.from_numpy(jidx), E, plan).numpy(), jpos)
 
 
 def test_route_ties_take_first_index():

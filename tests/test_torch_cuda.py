@@ -2,7 +2,9 @@
 
 Every test here but one needs a CUDA device and skips without one (the
 one checks in plain Python that the ``ssd_scan`` cases reach every branch
-of the kernel's tiling).  The module
+of the kernel's tiling).  The routing kernels (``router_topk``,
+``a2a_route``) are also held at their tiles' edges, under CUDA-graph replay
+and on two streams at once.  The module
 imports only torch and the port, so on a machine without JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,7 +17,13 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+from repro_torch.kernels import a2a_fused as a2a_module
+from repro_torch.kernels import router_topk as router_module
+from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
+                                             THREAD_PATH_MAX_E,
+                                             TOKENS_PER_BLOCK, router_topk,
+                                             router_topk_plain)
+from repro_torch.kernels.router_topk import launch_plan as route_plan
 from repro_torch.kernels.ssd_scan import launch_plan, ssd_scan, \
     ssd_scan_plain
 
@@ -146,7 +154,8 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 8, 37, 2048, 5000])
-@pytest.mark.parametrize("E,K", [(8, 2), (64, 8), (256, 8), (384, 1)])
+@pytest.mark.parametrize("E,K", [(8, 2), (64, 8), (256, 8), (256, 4),
+                                 (384, 1), (384, 8)])
 def test_router_kernel_matches_plain(cuda, T, E, K):
     g = torch.Generator().manual_seed(T * E + K)
     logits = (torch.randn(T, E, generator=g) * 2).to(cuda)
@@ -166,6 +175,224 @@ def test_router_kernel_counts_launches_and_rejects_too_many_experts(cuda):
     assert router_topk.launches == 1
     with pytest.raises(ValueError, match="shared memory"):
         router_topk(torch.zeros(2, 8192, device=cuda), 2, 2)
+
+
+# -- the routing kernels' many blocks (csrc/route_scan.cuh) --------------------
+def _tile(E):
+    return TOKENS_PER_BLOCK["warp" if E > THREAD_PATH_MAX_E else "thread"]
+
+
+def _edge_ts(E):
+    """T at the tiles' edges (tt - 1, tt, tt + 1, 3 tt + 5) and at the
+    one-block case's (its largest T and the next)."""
+    tt = _tile(E)
+    one = ONE_BLOCK_MAX_T if E <= THREAD_PATH_MAX_E else tt
+    return sorted({tt - 1, tt, tt + 1, 3 * tt + 5, one, one + 1})
+
+
+# those T for E in {1, 8, 384} and K in {1, 2, 8}; then chip_smoke.py's
+# ROUTER_CASES and (5000, 384, 8)
+ROUTE_EDGE_CASES = [(T, E, K)
+                    for E, K in ((1, 1), (8, 1), (8, 2), (8, 8), (384, 1),
+                                 (384, 2), (384, 8))
+                    for T in _edge_ts(E)]
+ROUTER_SMOKE_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
+                      (5000, 8, 2), (8, 64, 8),
+                      (2048, 64, 8), (2048, 256, 8), (5000, 256, 4),
+                      (5000, 384, 8)]
+
+
+def _route_logits(T, E, one_expert, device, seed=0):
+    """Logits at scale 2 from a seed; with ``one_expert`` every token's
+    first pick is expert 0 (a +30 bias)."""
+    g = torch.Generator().manual_seed(seed + T * 1000 + E)
+    x = torch.randn(T, E, generator=g) * 2
+    if one_expert:
+        x[:, 0] += 30.0
+    return x.to(device)
+
+
+def _router_equal(got, want):
+    w, idx, pos, keep = got
+    assert torch.equal(idx, want[1]) and torch.equal(pos, want[2])
+    assert torch.equal(keep, want[3])
+    torch.testing.assert_close(w, want[0], rtol=0, atol=1.2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_expert", [False, True])
+@pytest.mark.parametrize("T,E,K", ROUTE_EDGE_CASES + ROUTER_SMOKE_CASES)
+def test_router_kernel_matches_plain_at_tile_edges(cuda, T, E, K,
+                                                   one_expert):
+    logits = _route_logits(T, E, one_expert, cuda)
+    for cap in (0, 1, T):
+        _router_equal(router_topk(logits, K, cap),
+                      router_topk_plain(logits, K, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_expert", [False, True])
+@pytest.mark.parametrize("T,E", sorted({(T, E) for T, E, _ in
+                                        ROUTE_EDGE_CASES + ROUTER_SMOKE_CASES}
+                                       | {(512, 8), (4096, 8)}))
+def test_route_kernel_matches_plain_at_tile_edges(cuda, T, E, one_expert):
+    logits = _route_logits(T, E, one_expert, cuda, seed=1)
+    for cap in (0, 1, T):
+        for a, b in zip(a2a_route(logits, cap), a2a_route_plain(logits, cap)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [8, 384])
+def test_route_kernel_nan_rows(cuda, E):
+    """NaN counts as the maximum: a row with a NaN (or an infinite logit,
+    whose softmax is NaN) routes to its first NaN probability, as the
+    plain version's argmax does, in every tile."""
+    tt = _tile(E)
+    logits = _route_logits(3 * tt + 5, E, False, cuda, seed=2)
+    logits[0, 3] = float("nan")
+    logits[tt - 1, E - 1] = float("nan")
+    logits[tt, :] = float("nan")
+    logits[2 * tt + 1, 5] = float("inf")
+    logits[-1, 0] = float("-inf")
+    for cap in (1, 3 * tt + 5):
+        got = a2a_route(logits, cap)
+        want = a2a_route_plain(logits, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["router_topk", "a2a_route"])
+@pytest.mark.parametrize("T,E,K", [(5000, 8, 2), (777, 5, 2), (300, 384, 8)])
+def test_routing_kernels_take_an_unaligned_view(cuda, kernel, T, E, K):
+    """Logits that start 4 bytes past an allocation (a contiguous view):
+    the tiles are staged by 4-byte loads instead of 16-byte ones."""
+    flat = _route_logits(T * E + 1, 1, False, cuda, seed=7)[:, 0]
+    logits = flat[1:].view(T, E)
+    assert logits.data_ptr() % 16 != 0
+    for cap in (1, T // 2):
+        got = _routing_call(kernel, logits, K, cap)
+        want = _routing_plain(kernel, logits, K, cap)
+        if kernel == "router_topk":
+            _router_equal(got, want)
+        else:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+def _routing_call(kernel, logits, K, cap):
+    if kernel == "router_topk":
+        return router_topk(logits, K, cap)
+    return a2a_route(logits, cap)
+
+
+def _routing_plain(kernel, logits, K, cap):
+    if kernel == "router_topk":
+        return router_topk_plain(logits, K, cap)
+    return a2a_route_plain(logits, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["router_topk", "a2a_route"])
+@pytest.mark.parametrize("E,K", [(8, 2), (384, 8)])
+def test_routing_kernels_replay_in_a_cuda_graph(cuda, kernel, E, K):
+    """One multi-block call captured in a CUDA graph and replayed three
+    times gives the same outputs each time: the capture holds the
+    workspace's zeroing, so every replay starts with a fresh ticket."""
+    T, cap = 5000, 1000
+    logits = _route_logits(T, E, False, cuda, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _routing_call(kernel, logits, K, cap)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _routing_call(kernel, logits, K, cap)
+    want = _routing_plain(kernel, logits, K, cap)
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if kernel == "router_topk":
+            _router_equal(outs, want)
+        else:
+            for a, b in zip(outs, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["router_topk", "a2a_route"])
+@pytest.mark.parametrize("E,K", [(8, 2), (384, 8)])
+def test_routing_kernels_on_two_streams_at_once(cuda, kernel, E, K):
+    """Launches on two streams at once give what the same launches give
+    one after the other: each call has its own workspace."""
+    T, cap = 5000, 700
+    a = _route_logits(T, E, False, cuda, seed=4)
+    b = _route_logits(T, E, True, cuda, seed=5)
+    want_a = _routing_call(kernel, a, K, cap)
+    want_b = _routing_call(kernel, b, K, cap)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            ga = _routing_call(kernel, a, K, cap)
+        with torch.cuda.stream(s2):
+            gb = _routing_call(kernel, b, K, cap)
+        got.append((ga, gb))
+    torch.cuda.synchronize()
+    for ga, gb in got:
+        for x, y in zip(ga + gb, want_a + want_b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["router_topk", "a2a_route"])
+@pytest.mark.parametrize("E", [8, 384])
+def test_routing_kernels_run_many_blocks(cuda, kernel, E):
+    """At T >= 2 tiles the launch runs plan.blocks blocks: each takes one
+    ticket, and every tile but the last publishes its inclusive prefix
+    (flag 2) for the tiles after it.  The library's shared-memory size
+    equals the plan's."""
+    K = 2 if kernel == "router_topk" else 1
+    T = 2 * _tile(E) + 5
+    plan = route_plan(T, E, K)
+    assert plan.blocks == 3 and plan.workspace_words > 0
+    logits = _route_logits(T, E, False, cuda, seed=6)
+    ws = torch.zeros(plan.workspace_words, dtype=torch.int32, device=cuda)
+    idx, pos = (torch.empty(T, K, dtype=torch.int32, device=cuda)
+                for _ in range(2))
+    keep = torch.empty(T, K, dtype=torch.bool, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (plan.blocks, plan.tokens_per_block, plan.threads)
+    if kernel == "router_topk":
+        lib = router_module._lib()
+        w = torch.empty(T, K, device=cuda)
+        assert lib.router_topk_smem_bytes(plan.tokens_per_block, E, K,
+                                          plan.threads) == plan.smem
+        err = lib.router_topk_launch(
+            logits.data_ptr(), T, E, K, T, *common, w.data_ptr(),
+            idx.data_ptr(), pos.data_ptr(), keep.data_ptr(), ws.data_ptr(),
+            stream)
+        want = router_topk_plain(logits, K, T)[2]
+    else:
+        lib = a2a_module._lib()
+        assert lib.a2a_route_smem_bytes(plan.tokens_per_block, E,
+                                        plan.threads) == plan.smem
+        err = lib.a2a_route_launch(
+            logits.data_ptr(), T, E, T, *common, idx.data_ptr(),
+            pos.data_ptr(), keep.data_ptr(), ws.data_ptr(), stream)
+        want = a2a_route_plain(logits, T)[1][:, None]
+    assert err == 0
+    torch.cuda.synchronize()
+    assert int(ws[0]) == plan.blocks
+    assert ws[1:1 + plan.blocks].tolist() == [2] * (plan.blocks - 1) + [0]
+    assert torch.equal(pos, want)
 
 
 @pytest.mark.cuda

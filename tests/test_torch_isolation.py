@@ -108,3 +108,35 @@ def test_kernel_choice_follows_the_tensor_device():
     assert backend.use_kernel(torch.zeros(1)) is False
     with pytest.raises(RuntimeError, match="no kernel"):
         backend.use_kernel(torch.zeros(1, device="meta"))
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """An edited ``csrc/*.cuh`` header renames the library of every source
+    that includes it (directly or through another header), so it never
+    meets a stale build; a source that does not include it keeps its
+    name."""
+    import shutil
+
+    from repro_torch.kernels import backend
+    src = tmp_path / "csrc"
+    shutil.copytree(backend.CSRC, src)
+    monkeypatch.setattr(backend, "CSRC", src)
+    names = ("router_topk", "a2a_fused", "ssd_scan", "flash_attention")
+    before = {n: backend.library_path(n) for n in names}
+    assert [p.name for p in backend.sources("router_topk")] == [
+        "router_topk.cu", "route_scan.cuh"]
+    with open(src / "route_scan.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: backend.library_path(n) for n in names}
+    assert after["router_topk"] != before["router_topk"]
+    assert after["a2a_fused"] != before["a2a_fused"]
+    assert after["ssd_scan"] == before["ssd_scan"]
+    assert after["flash_attention"] == before["flash_attention"]
+    # a header reached through another header counts too
+    (src / "inner.cuh").write_text("// inner\n")
+    with open(src / "route_scan.cuh", "a") as f:
+        f.write('#include "inner.cuh"\n')
+    nested = backend.library_path("router_topk")
+    (src / "inner.cuh").write_text("// inner, edited\n")
+    assert backend.library_path("router_topk") != nested

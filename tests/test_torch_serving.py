@@ -6,10 +6,13 @@ reference's weights (carried across with ``core.params.from_numpy``) and
 prompts from numpy seeds.  Greedy tokens must be equal
 (``tests/test_serving.py:44``), and the port's engine must batch
 continuously with results independent of the batch
-(``tests/test_serving.py:60,85``).
+(``tests/test_serving.py:60,85``).  The early-exit confidence is the
+reference's bf16 ``max(softmax(logits))`` bit for bit, and the exit policy
+fires as the reference's does (``tests/test_serving.py:226-264``).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,7 @@ from repro_torch.core.plan import single_device_plan
 from repro_torch.runtime.steps import (init_state, make_decode_step,
                                        make_prefill_step)
 from repro_torch.serving import InferenceEngine, Overloaded, Request
+from repro_torch.serving.engine import confidence
 
 torch.set_num_threads(1)
 
@@ -259,3 +263,101 @@ def test_init_state_draws_on_the_plan_device(served):
     with pytest.raises(ValueError, match="generator on"):
         init_state(tcfg, single_device_plan("meta"),
                    torch.Generator().manual_seed(3))
+
+
+# -- early exit (tests/test_serving.py:226-264) ---------------------------------
+_jconf = jax.jit(lambda x: jnp.max(jax.nn.softmax(x[:, -1, :], axis=-1), -1))
+
+
+def _conf32(logits):
+    """The confidence in fp32, as the port computed it before it followed
+    the reference's bf16 rounding."""
+    return torch.softmax(logits[:, -1, :].float(), dim=-1).amax(-1)
+
+
+@pytest.mark.parametrize("B,V,scale,seed", [(2, 4096, 3.0, 0),
+                                            (8, 32000, 3.0, 1),
+                                            (8, 32000, 8.0, 2),
+                                            (4, 32000, 1.0, 3),
+                                            (8, 4096, 20.0, 4),
+                                            (8, 50257, 3.0, 5)])
+def test_confidence_equals_the_reference_bit_for_bit(B, V, scale, seed):
+    """``confidence`` on bf16 logits equals the reference engine's jitted
+    ``jnp.max(jax.nn.softmax(logits[:, -1, :]))`` exactly (vocab 32000 is
+    Mixtral's and Zamba2's); the fp32 softmax it replaced does not."""
+    a = (np.random.default_rng(seed).standard_normal((B, 1, V))
+         * scale).astype(np.float32)
+    want = np.asarray(_jconf(jnp.asarray(a).astype(jnp.bfloat16))
+                      .astype(jnp.float32))
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    got = confidence(t)
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(_conf32(t).numpy(), want)
+    if (B, V, seed) == (2, 4096, 0):     # bf16 values, exact in float32
+        assert want.tolist() == [0.08056640625, 0.052734375]
+
+
+def test_early_exit_fires_and_caps_decode(served):
+    """With a threshold below the model's observed confidence the request
+    stops early; with an impossible threshold it runs to max_new_tokens."""
+    _, _, tcfg, plan, tp = served
+    prompt = np.random.default_rng(9).integers(0, tcfg.vocab, 6,
+                                               dtype=np.int32)
+    with InferenceEngine(tcfg, plan, tp, max_batch=1,
+                         cache_len=CACHE_LEN) as eng:
+        eng.submit(Request(prompt=prompt, max_new_tokens=3)).result(300)
+        conf = float(eng.state.last_conf[0])
+    assert 0.0 < conf < 1.0
+    with InferenceEngine(tcfg, plan, tp, max_batch=1, cache_len=CACHE_LEN,
+                         exit_threshold=conf * 0.5) as eng:
+        out = eng.submit(Request(prompt=prompt,
+                                 max_new_tokens=50)).result(300)
+    assert out.finish_reason == "early_exit"
+    assert len(out.tokens) < 50 and eng.early_exits == 1
+    with InferenceEngine(tcfg, plan, tp, max_batch=1, cache_len=CACHE_LEN,
+                         exit_threshold=2.0) as eng:    # unreachable
+        out = eng.submit(Request(prompt=prompt,
+                                 max_new_tokens=4)).result(300)
+    assert out.finish_reason == "max_tokens" and len(out.tokens) == 4
+
+
+def test_per_request_exit_threshold_overrides_engine(served):
+    _, _, tcfg, plan, tp = served
+    prompt = np.random.default_rng(10).integers(0, tcfg.vocab, 6,
+                                                dtype=np.int32)
+    with InferenceEngine(tcfg, plan, tp, max_batch=1, cache_len=CACHE_LEN,
+                         exit_threshold=2.0) as eng:
+        # the request relaxes the engine's unreachable threshold: any
+        # confidence exits on the first decode turn
+        out = eng.submit(Request(prompt=prompt, max_new_tokens=50,
+                                 exit_threshold=1e-9)).result(300)
+    assert out.finish_reason == "early_exit" and len(out.tokens) == 2
+
+
+def test_engine_exit_follows_the_bf16_confidence(served):
+    """A threshold between the fp32 and the bf16 confidence of the first
+    decode turn: the engine decides as the bf16 confidence, which equals
+    the reference's on the same logits, says."""
+    _, _, tcfg, plan, tp = served
+    prompt = np.random.default_rng(11).integers(0, tcfg.vocab, 6,
+                                                dtype=np.int32)
+    prefill = make_prefill_step(tcfg, plan, CACHE_LEN)
+    decode = make_decode_step(tcfg, plan, CACHE_LEN)
+    logits, caches = prefill(tp, {"tokens": torch.from_numpy(prompt)[None]})
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    _, logits, _ = decode(tp, caches, {"token": tok, "pos": torch.tensor(
+        len(prompt), dtype=torch.int32)})
+    assert logits.dtype == torch.bfloat16
+    c16, c32 = float(confidence(logits)[0]), float(_conf32(logits)[0])
+    assert c16 == float(np.asarray(_jconf(jnp.asarray(
+        logits.float().numpy()).astype(jnp.bfloat16)))[0])
+    assert c16 != c32
+    thr = (c16 + c32) / 2
+    with InferenceEngine(tcfg, plan, tp, max_batch=1, cache_len=CACHE_LEN,
+                         exit_threshold=thr) as eng:
+        out = eng.submit(Request(prompt=prompt,
+                                 max_new_tokens=4)).result(300)
+    first_turn_exit = out.finish_reason == "early_exit" and \
+        len(out.tokens) == 2
+    assert first_turn_exit == (c16 >= thr)
