@@ -62,12 +62,33 @@ Phases, each of which fails the run:
    random weights from a torch.Generator seeded 0, the same 16 requests;
    ``ssd_scan`` must have launched 38 x prefills times and
    ``flash_attention`` 5 x prefills;
+5c. train — ``repro_torch.runtime.driver.TrainDriver`` over
+   ``make_train_step`` (AdamW, ``cosine_warmup(3e-3, 20, 6)``, every block
+   under activation checkpointing) and ``make_pipeline(SyntheticLMSource)``
+   for 6 steps: Zamba2-1.2B at full width and depth at B4 x S2048, then
+   Mixtral-8x7B at full width cut to 1 of its 32 layers at B2 x S2048,
+   weights from seed 0.  The loss must be finite at every step and lower at
+   the last than at the first; each kernel of the path must launch twice
+   per block per step (forward and recompute: Zamba2 ``ssd_scan`` 76 and
+   ``flash_attention`` 10, Mixtral ``flash_attention`` and ``router_topk``
+   2); the driver's final checkpoint (under ``build/``, deleted after) must
+   restore bit for bit.  Prints the train tokens/s (B*S over the median
+   step after the first), each step's forward, backward and optimizer ms
+   (CUDA events), the peak memory, the checkpoint's bytes and seconds, and
+   a profile of one step with the recompute backward of attention and
+   ``ssd_scan`` (their ``record_function`` ranges) on their own.  Then one
+   loss and gradient of reduced Zamba2 and Mixtral on the card against
+   the CPU (loss within 2e-2, every leaf's cosine >= 0.99), the router's
+   weight gradient through the kernel against the plain recompute's, and
+   ff-tiny through the driver with a failure injected at step 6 (one
+   restart);
 6. times — each kernel and its plain version (CUDA events, median of
    repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
    phase-5 kernels at its shapes (attention at S 2048, Mixtral's D128 and
    Zamba2's D64, with ``scaled_dot_product_attention`` beside it),
    ``ssd_scan`` at phase 5b's
-   (B1 H64 S2048 N64 P64, chunk 256), and the phase-3 items/s; then the
+   (B1 H64 S2048 N64 P64, chunk 256), the same kernels at phase 5c's
+   training shapes, and the phase-3 items/s; then the
    routing kernels at :data:`ROUTE_TIMES` (``router_topk`` at decode's T 8,
    prefill's T 1859-5000 and wide routers; ``a2a_route`` at T 512 and 4096),
    each with its grid, beside an empty kernel's time (the latency floor)
@@ -84,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -263,6 +285,8 @@ FLASH_CASES = [
     (1, 32, 8, 5000, 5000, 128, True, 4096, BF16),   # ragged, past the window
     (1, 32, 8, 512, 4096, 128, True, 4096, BF16),    # chunked prefill
     (1, 32, 32, 2048, 2048, 64, True, 4096, BF16),  # Zamba2's shared block
+    (4, 32, 32, 2048, 2048, 64, True, 4096, BF16),  # Zamba2's training batch
+    (2, 32, 8, 2048, 2048, 128, True, 4096, BF16),  # Mixtral's training batch
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
      for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
                                   (2, 4, 2, 256, 256, 64),
@@ -303,10 +327,10 @@ def check_flash(dev: torch.device) -> tuple:
 
 
 # (T, E, K): the serving shapes (decode T = max_batch, prefill T = prompt
-# length; 300 and 512 are prompts that one block of many warps takes whole)
-# and wider routers
+# length; 300 and 512 are prompts that one block of many warps takes whole),
+# the training batch's 4096 tokens, and wider routers
 ROUTER_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
-                (5000, 8, 2), (8, 64, 8),
+                (4096, 8, 2), (5000, 8, 2), (8, 64, 8),
                 (2048, 64, 8), (2048, 256, 8), (5000, 256, 4), (5000, 384, 8)]
 
 
@@ -340,6 +364,7 @@ def check_router(dev: torch.device) -> tuple:
 SSD_ALL = ("model", "f32", "bf16")
 SSD_CASES = [
     (1, 64, 1, 2048, 64, 64, 256, SSD_ALL),
+    (4, 64, 1, 2048, 64, 64, 256, ("model",)),  # Zamba2's training batch
     (1, 64, 1, 5000, 64, 64, 256, SSD_ALL),     # ragged tail chunk
     (1, 64, 1, 100, 64, 64, 256, SSD_ALL),      # shorter than a chunk
     (4, 64, 1, 300, 64, 64, 256, SSD_ALL),      # B 4 prefill
@@ -726,11 +751,21 @@ KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
                    ("reductions (torch)", ("reduce", "scan", "softmax")))
 
 
-def device_breakdown(dev: torch.device, fn) -> str:
+def _kernel_us(event) -> float:
+    """Device time of the kernels an op and every op under it launched."""
+    return sum(k.duration for k in event.kernels) + \
+        sum(_kernel_us(c) for c in event.cpu_children)
+
+
+def device_breakdown(dev: torch.device, fn, ranges: tuple = (),
+                     out: dict = None) -> str:
     """Device time of one call of ``fn`` by kernel family (torch.profiler,
     which reads the card's kernel records through CUPTI): milliseconds and
     kernel count per family; the names of the largest kernels of no family
-    follow."""
+    follow.  For each name in ``ranges`` (a ``record_function`` range in
+    the code), the device time of the kernels launched inside it (summed
+    over the range's calls and every op under them) goes into ``out`` as
+    (ms, calls); those kernels are counted in the families too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
@@ -738,8 +773,15 @@ def device_breakdown(dev: torch.device, fn) -> str:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         sync(dev)
-    fams, others = {}, []
+    fams, others, named = {}, [], {}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == \
+                torch.autograd.DeviceType.CPU:
+            ms, calls = named.get(e.name, (0.0, 0))
+            named[e.name] = (ms + _kernel_us(e) / 1e3, calls + 1)
     for e in prof.key_averages():
+        if e.key in ranges:
+            continue
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -756,6 +798,8 @@ def device_breakdown(dev: torch.device, fn) -> str:
              for fam, (ms, c) in sorted(fams.items(), key=lambda x: -x[1][0])]
     top = "; ".join(f"{k} {us / 1e3:.3f} ms"
                     for us, k in sorted(others, reverse=True)[:3])
+    if out is not None:
+        out.update(named)
     return (f"{total:.3f} ms of kernels: " + ", ".join(parts)
             + (f" [largest other: {top}]" if top else ""))
 
@@ -803,14 +847,13 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     kernels' plain versions run."""
     from repro_torch.models.params import bytes_params, count_params
     from repro_torch.models.lm import LM
-    from repro_torch.runtime.steps import init_state, make_decode_step, \
+    from repro_torch.runtime.steps import make_decode_step, make_model, \
         make_prefill_step
     from repro_torch.serving import InferenceEngine, Request
     from repro_torch.serving.engine import _TICK, _insert
     dev = plan.device
     t0 = time.perf_counter()
-    params = init_state(cfg, plan, torch.Generator(device=dev)
-                        .manual_seed(0))["params"]
+    params = make_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     sync(dev)
     defs = LM(cfg).param_defs()
     say(f"[serve] {describe(cfg)}: {count_params(defs) / 1e9:.3f} B "
@@ -906,6 +949,507 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     return {"launches": launches, "wall_s": wall, "steps": eng.steps,
             "prefill_tok_s": rates, "decode_ms": step_ms,
             "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the training path at full width
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 6
+TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-3, 20
+TRAIN_MIXTRAL_LAYERS = 1         # of 32: 1.72 B parameters, ~20.6 GB of state
+CARD_GB = 80
+RECOMPUTE_RANGES = ("flash_attention.recompute_backward",
+                    "ssd_scan.recompute_backward", "router_topk.backward")
+
+
+def train_configs() -> list:
+    """(config, batch, seq): Zamba2-1.2B whole at B4 x S2048, Mixtral-8x7B
+    cut to 1 of its 32 layers at B2 x S2048."""
+    import dataclasses
+    from repro_torch.configs import get
+    return [(get("zamba2-1.2b"), 4, 2048),
+            (dataclasses.replace(get("mixtral-8x7b"),
+                                 n_layers=TRAIN_MIXTRAL_LAYERS), 2, 2048)]
+
+
+def train_launches_per_step(cfg) -> dict:
+    """Each kernel of the path runs twice a step: in the forward, and again
+    when activation checkpointing recomputes its block for the backward."""
+    return expected_launches(cfg, 2, 0)
+
+
+class PhaseClock:
+    """Per train step, a CUDA event as its forward (``LM.loss`` called), its
+    backward (``LM.loss`` returned) and its optimizer (the global-norm clip)
+    begin and as the step returns, read once the step's metrics are on the
+    host.  :meth:`wrap` wraps the step; within :meth:`timing` the two
+    functions the step calls record their events."""
+
+    def __init__(self):
+        self.steps = []
+
+    def mark(self, phase: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if phase == "forward":
+            self.steps.append({})
+        self.steps[-1][phase] = ev
+
+    def wrap(self, step):
+        def timed_step(state, batch):
+            out = step(state, batch)
+            self.mark("end")
+            return out
+        return timed_step
+
+    @contextlib.contextmanager
+    def timing(self):
+        import repro_torch.runtime.steps as steps
+        from repro_torch.models.lm import LM
+        loss, clip = LM.loss, steps.clip_by_global_norm
+
+        def timed_loss(model, *args, **kw):
+            self.mark("forward")
+            out = loss(model, *args, **kw)
+            self.mark("backward")
+            return out
+
+        def timed_clip(*args, **kw):
+            self.mark("optimizer")
+            return clip(*args, **kw)
+
+        LM.loss, steps.clip_by_global_norm = timed_loss, timed_clip
+        try:
+            yield
+        finally:
+            LM.loss, steps.clip_by_global_norm = loss, clip
+
+    def split(self) -> list:
+        """Per step: forward, backward and optimizer ms."""
+        names = ("forward", "backward", "optimizer", "end")
+        return [{a: s[a].elapsed_time(s[b]) for a, b in zip(names, names[1:])}
+                for s in self.steps]
+
+
+def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
+                check_launches: bool = True) -> dict:
+    """Train ``cfg`` for ``steps`` steps through ``TrainDriver``, its data
+    from ``make_pipeline(SyntheticLMSource)``; fail unless the loss is
+    finite at every step and lower at the last than at the first, the
+    kernels launched :func:`train_launches_per_step` times a step, and the
+    driver's final checkpoint (written under ``build/``, deleted after)
+    restores bit for bit.  ``check_launches=False`` is for a rehearsal on
+    the CPU."""
+    import shutil
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.data import SyntheticLMSource, make_pipeline
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import count_params
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.runtime.driver import DriverConfig, TrainDriver
+    from repro_torch.runtime.steps import init_state, make_train_step
+    dev = plan.device
+    cuda = dev.type == "cuda"
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9 if cuda else 0.0
+    t0 = time.perf_counter()
+    state = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    n_params = count_params(LM(cfg).param_defs())
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in jax_leaves(state)) / 1e9
+    say(f"[train] {describe(cfg)}: {n_params / 1e9:.3f} B parameters, "
+        f"{state_gb:.2f} GB of train state (bf16 parameters, fp32 AdamW "
+        f"moments) from seed 0 in {time.perf_counter() - t0:.1f} s; batch "
+        f"B{batch} x S{seq}, {steps} steps at cosine_warmup("
+        f"{TRAIN_PEAK_LR}, {TRAIN_WARMUP}, {steps})")
+    clock = PhaseClock() if cuda else None
+    step = make_train_step(cfg, plan, cosine_warmup(
+        TRAIN_PEAK_LR, TRAIN_WARMUP, steps))
+    pipe = make_pipeline(SyntheticLMSource(cfg.vocab, seq, batch, seed=0),
+                         plan, n_batches=steps)
+    ckpt_dir = ROOT / "build" / f"train_ckpt_{cfg.name}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    driver = TrainDriver(clock.wrap(step) if clock else step, state, pipe,
+                         DriverConfig(total_steps=steps, ckpt_every=steps + 1,
+                                      ckpt_dir=str(ckpt_dir), keep=1,
+                                      log_every=1))
+    del state
+    want = train_launches_per_step(cfg)
+    kernels = kernel_fns()
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        with clock.timing() if clock else contextlib.nullcontext():
+            out = driver.run()
+        wall = time.perf_counter() - t1
+        launches = {name: kernels[name].launches for name in want}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda \
+            else float("nan")
+        losses = [h["loss"] for h in out["history"]]
+        dts = [h["dt"] for h in out["history"]]
+        if out["final_step"] != steps or len(losses) != steps:
+            fail(f"{cfg.name}: the driver ended at step {out['final_step']} "
+                 f"with {len(losses)} steps logged")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{cfg.name}: loss not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"{cfg.name}: loss did not fall: {losses}")
+        per_step = {k: v / steps for k, v in launches.items()}
+        say(f"[train] {cfg.name}: loss {' -> '.join(f'{x:.4f}' for x in losses)}"
+            f"; kernel launches per step {per_step}, expected {want}")
+        if check_launches and per_step != want:
+            fail(f"{cfg.name}: kernel launches per step {per_step}, "
+                 f"expected {want}")
+        med = sorted(dts[1:])[len(dts[1:]) // 2]
+        tok_s = batch * seq / med
+        say(f"[train] {cfg.name}: {tok_s:.1f} train tokens/s (B*S over the "
+            f"median step after the first, synchronised: {med * 1e3:.1f} ms;"
+            f" first step {dts[0] * 1e3:.1f} ms); peak memory {peak_gb:.2f} "
+            f"GB of {CARD_GB} ({peak_gb - base_gb:.2f} GB above the "
+            f"{base_gb:.2f} GB earlier phases hold); driver run {wall:.1f} s "
+            f"with the final checkpoint")
+        split = clock.split()[:steps] if clock else []
+        for i, s in enumerate(split):
+            say(f"[train] {cfg.name} step {i}: forward {s['forward']:.1f} "
+                f"ms, backward {s['backward']:.1f} ms, optimizer "
+                f"{s['optimizer']:.1f} ms (CUDA events)")
+        ck_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                       if f.is_file())
+        say(f"[train] {cfg.name}: final checkpoint {ck_bytes / 1e9:.2f} GB "
+            f"in {driver.ckpt.save_seconds:.1f} s "
+            f"({ck_bytes / 1e9 / driver.ckpt.save_seconds:.2f} GB/s, device "
+            f"to host and to disk)")
+        tb = time.perf_counter()
+        restored, _ = driver.ckpt.restore(driver.state)
+        sync(dev)
+        restore_s = time.perf_counter() - tb
+        n = 0
+        for a, b in zip(jax_leaves(restored),
+                        jax_leaves(driver.state)):
+            if a.dtype != b.dtype or a.device != b.device \
+                    or not torch.equal(a, b):
+                fail(f"{cfg.name}: a restored leaf differs from the trained "
+                     f"state ({a.dtype} {tuple(a.shape)})")
+            n += 1
+        del restored
+        say(f"[train] {cfg.name}: the checkpoint restores into a fresh "
+            f"state bit for bit ({n} leaves) in {restore_s:.1f} s")
+        ranges = {}
+        if cuda:
+            tokens = torch.as_tensor(SyntheticLMSource(
+                cfg.vocab, seq, batch, seed=1).next_batch()["tokens"],
+                device=dev)
+
+            def one_step():
+                driver.state, _ = step(driver.state, {"tokens": tokens})
+            say(f"[profile] {cfg.name} train step B{batch} x S{seq}: "
+                f"{device_breakdown(dev, one_step, RECOMPUTE_RANGES, ranges)}")
+            say(f"[profile] {cfg.name} the same step's backward ranges "
+                f"(their kernels, also counted in the families above): "
+                + "; ".join(f"{name} {ms:.3f} ms over {c} calls"
+                            for name, (ms, c) in sorted(ranges.items())))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"launches": launches, "per_step": per_step, "tok_s": tok_s,
+            "step_ms": med * 1e3, "peak_gb": peak_gb - base_gb,
+            "split": split,
+            "ckpt_gb": ck_bytes / 1e9, "save_s": driver.ckpt.save_seconds,
+            "restore_s": restore_s, "losses": losses, "ranges": ranges}
+
+
+def loss_and_grads(cfg, params, tokens: torch.Tensor) -> tuple:
+    """``LM.loss`` and the gradient of every parameter leaf."""
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.models.lm import LM
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss, _ = LM(cfg).loss(tree_unflatten(params, leaves), {"tokens": tokens})
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+# the card's attention kernel rounds as the reference's Pallas kernel does
+# (bf16 probabilities), the CPU's plain version does not, so the router
+# logits of the two runs differ a little and a token near a tie between
+# experts may be routed differently; the CPU replays the card's routing and
+# these bound the difference: the logits' rms difference, relative to their
+# rms, in every router call (the CPU tests' bf16 loss tolerance), and the
+# share of the tokens whose own top-K on the CPU is another set of experts
+MAX_DLOGIT_REL = 2e-2
+MAX_FLIP_SHARE = 0.02
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at magnitude ``x`` (8 bits of
+    precision)."""
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(1e-30))) - 7)
+
+
+def expert_sets(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(T, K) expert ids -> (T, E) bool: the set each token is routed to."""
+    return torch.nn.functional.one_hot(idx.long(), n_experts).sum(1).bool()
+
+
+@contextlib.contextmanager
+def moe_routing(calls: list, replay: bool):
+    """Within, the MoE block's router either records each call's logits and
+    experts into ``calls`` or routes to the recorded experts in call order
+    (the weights ``routing_weights`` of this run's logits at them, the
+    positions first-come over them, as ``router_topk_plain`` counts).  A
+    record notes whether the experts are the top-K of the logits
+    (``router_topk_plain`` on the same device); a replay adds the rms
+    difference between this run's logits and the recorded ones relative to
+    the recorded ones' rms, and the tokens whose own top-K on this run's
+    logits is another set of experts, each with its margin: the logit gap
+    its own choice holds over the recorded one, in bf16 ulps of the largest
+    |logit| among the experts the two choices do not share and in rms
+    logit differences of the call."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.router_topk import (router_topk_plain,
+                                                 routing_weights)
+    real, replayed = moe.router_topk, iter(calls)
+
+    def record(logits, k, capacity):
+        out = real(logits, k, capacity)
+        E = logits.shape[1]
+        calls.append({"logits": logits.detach().cpu(), "idx": out[1].cpu(),
+                      "top_k": torch.equal(expert_sets(router_topk_plain(
+                          logits.detach(), k, logits.shape[0])[1], E),
+                          expert_sets(out[1], E))})
+        return out
+
+    def route_to(logits, k, capacity):
+        call = next(replayed)
+        idx = call["idx"].to(logits.device)
+        lg, rec = logits.detach(), call["logits"].to(logits.device)
+        E = lg.shape[1]
+        chosen = expert_sets(idx, E)
+        own = expert_sets(router_topk_plain(lg, k, lg.shape[0])[1], E)
+        diff = chosen != own
+        flipped = diff.any(-1)
+        ninf = torch.tensor(float("-inf"))
+        gap = (torch.where(own & ~chosen, lg, ninf).amax(-1)
+               + torch.where(chosen & ~own, -lg, ninf).amax(-1))
+        rms_dl = float((lg - rec).pow(2).mean().sqrt())
+        tie_ulp = bf16_ulp(torch.where(diff, lg.abs(), 0).amax(-1))
+        call.update(
+            tokens=lg.shape[0],
+            dlogit_rel=rms_dl / float(rec.pow(2).mean().sqrt()),
+            margins_ulps=(gap / tie_ulp)[flipped].tolist(),
+            margins_rms=(gap / max(rms_dl, 1e-30))[flipped].tolist())
+        onehot = torch.nn.functional.one_hot(idx.reshape(-1).long(),
+                                             E).to(torch.int32)
+        pos = ((torch.cumsum(onehot, 0) * onehot).sum(-1) - 1) \
+            .reshape(idx.shape).to(torch.int32)
+        return routing_weights(logits, idx), idx, pos, pos < capacity
+
+    moe.router_topk = route_to if replay else record
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within, the model's attention runs the plain version on the card."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    real = attention.flash_attention
+    attention.flash_attention = flash_attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def min_cosine(grads_a, grads_b) -> float:
+    worst = 1.0
+    for a, b in zip(grads_a, grads_b):
+        a, b = a.float().cpu(), b.float().cpu()
+        worst = min(worst, float((a * b).sum()
+                                 / (a.norm() * b.norm() + 1e-30)))
+    return worst
+
+
+def card_cpu_parity(arch: str, seed: int, dev: torch.device) -> dict:
+    """One loss and gradient of reduced ``arch`` on the card (kernels)
+    against the same parameters and tokens, drawn from ``seed``, on the CPU
+    (plain versions).  The CPU run routes every MoE call to the experts the
+    card picked (:func:`moe_routing`): a token the two would route
+    differently makes them compute different functions.  Returns the
+    losses, the smallest gradient cosine, the kernels' launches on the card
+    and the routing records, for :func:`parity_faults`."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.lm import LM
+    kernels = kernel_fns()
+    cfg = get(arch).reduced()
+    params = LM(cfg).init(torch.Generator().manual_seed(seed))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (2, 64), dtype=np.int32))
+    for fn in kernels.values():
+        fn.launches = 0
+    calls = []
+    with moe_routing(calls, replay=False):
+        loss_g, grads_g = loss_and_grads(
+            cfg, tree_map(lambda t: t.to(dev), params), tokens.to(dev))
+    ran = {n: f.launches for n, f in kernels.items() if f.launches}
+    with moe_routing(calls, replay=True):
+        loss_c, grads_c = loss_and_grads(cfg, params, tokens)
+    return {"arch": arch, "loss_card": loss_g, "loss_cpu": loss_c,
+            "rel": abs(loss_g - loss_c) / abs(loss_c),
+            "min_cos": min_cosine(grads_g, grads_c),
+            "leaves": len(grads_c), "ran": ran,
+            "tokens": sum(c["tokens"] for c in calls),
+            "flips": sum(len(c["margins_ulps"]) for c in calls),
+            "top_k": all(c["top_k"] for c in calls),
+            "dlogit_rel": max((c["dlogit_rel"] for c in calls), default=0.),
+            "margins_ulps": sorted(m for c in calls
+                                   for m in c["margins_ulps"]),
+            "margins_rms": sorted(m for c in calls
+                                  for m in c["margins_rms"]),
+            "per_call": [{k: c[k] for k in ("dlogit_rel", "margins_ulps",
+                                            "margins_rms")} for c in calls]}
+
+
+def parity_faults(r: dict) -> list:
+    """What :func:`card_cpu_parity`'s result breaks of the CPU tests' bf16
+    tolerances (loss within 2e-2 relative, every leaf's cosine >= 0.99)
+    and of the routing bounds: the card's experts are the top-K of its own
+    logits (so a flipped token's margin is at most the two runs' logit
+    difference at its experts), the logits agree to ``MAX_DLOGIT_REL`` and
+    the flips stay within ``MAX_FLIP_SHARE`` of the tokens."""
+    out = []
+    if r["rel"] > 2e-2:
+        out.append(f"loss differs by {r['rel']:.2e} relative")
+    if r["min_cos"] < 0.99:
+        out.append(f"a gradient leaf's cosine is {r['min_cos']:.6f}")
+    if not r["ran"]:
+        out.append("no kernel launched on the card")
+    if not r["top_k"]:
+        out.append("the card's experts are not the top-K of its logits")
+    if r["dlogit_rel"] > MAX_DLOGIT_REL:
+        out.append(f"router logits differ by {r['dlogit_rel']:.2e} of "
+                   f"their rms")
+    if r["flips"] > MAX_FLIP_SHARE * r["tokens"]:
+        out.append(f"{r['flips']} of {r['tokens']} tokens routed "
+                   f"differently")
+    return out
+
+
+def describe_parity(r: dict) -> str:
+    return (f"loss on the card {r['loss_card']:.6f}, on the CPU "
+            f"{r['loss_cpu']:.6f} (rel {r['rel']:.2e}); {r['leaves']} "
+            f"gradient leaves, min cosine {r['min_cos']:.6f}; kernels "
+            f"launched {r['ran']}"
+            + (f"; router logits within {r['dlogit_rel']:.2e} of their rms "
+               f"(bound {MAX_DLOGIT_REL}), the card's experts the top-K of "
+               f"its logits: {r['top_k']}; {r['flips']} of {r['tokens']} "
+               f"tokens would route otherwise on the CPU (bound "
+               f"{MAX_FLIP_SHARE:.0%}), margins "
+               f"{[round(m, 2) for m in r['margins_ulps']]} bf16 ulps of "
+               f"the tied logits, "
+               f"{[round(m, 2) for m in r['margins_rms']]} rms logit "
+               f"differences; the CPU routes to the card's experts"
+               if r["tokens"] else ""))
+
+
+def train_parity(dev: torch.device) -> None:
+    """:func:`card_cpu_parity` of reduced Zamba2 and reduced Mixtral, held
+    by :func:`parity_faults`; Mixtral again with the plain attention on the
+    card, printed only, to show where the router logits part; then the
+    router's weight gradient from the kernel path against the plain
+    recompute's on the card."""
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.router_topk import (router_topk,
+                                                 router_topk_plain,
+                                                 routing_weights)
+    for arch in ("zamba2-1.2b", "mixtral-8x7b"):
+        r = card_cpu_parity(arch, 1, dev)
+        say(f"[train] reduced {arch}: {describe_parity(r)}")
+        faults = parity_faults(r)
+        if faults:
+            fail(f"reduced {arch}: the card and the CPU differ: "
+                 f"{'; '.join(faults)}")
+    with plain_attention():
+        r = card_cpu_parity("mixtral-8x7b", 1, dev)
+    say(f"[train] reduced mixtral-8x7b, the plain attention on the card "
+        f"(where the logits part): {describe_parity(r)}")
+    g = torch.Generator().manual_seed(8)
+    T, E, K = 4096, 8, 2
+    logits = (torch.randn(T, E, generator=g) * 2).to(dev).requires_grad_(True)
+    gw = torch.randn(T, K, generator=g).to(dev)
+    w, idx, _, _ = router_topk(logits, K, expert_capacity(T, E, K, 1.25))
+    (got,) = torch.autograd.grad(w, logits, gw)
+    x = logits.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(routing_weights(x, idx), x, gw)
+    _, pidx, _, _ = router_topk_plain(logits, K, T)
+    err = float((got - want).abs().max())
+    if not torch.equal(idx, pidx) or err > 0:
+        fail(f"router_topk's weight gradient on the card differs from the "
+             f"plain recompute's (max |err| {err})")
+    say(f"[train] router_topk T{T} E{E} K{K}: the weight gradient through "
+        f"the kernel equals the plain recompute's (max |err| {err}, experts "
+        f"equal the plain version's)")
+
+
+def train_restart(plan) -> None:
+    """ff-tiny through ``TrainDriver`` with a failure injected at step 6:
+    one restart from the step-4 checkpoint, the run ends at step 12."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLMSource, make_pipeline
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.runtime.driver import DriverConfig, TrainDriver
+    from repro_torch.runtime.steps import init_state, make_train_step
+    cfg = get("ff-tiny")
+    state = init_state(cfg, plan, torch.Generator(device=plan.device)
+                       .manual_seed(0))
+    pipe = make_pipeline(SyntheticLMSource(cfg.vocab, 128, 8, seed=0), plan,
+                         n_batches=30)
+    fired = []
+
+    def hook(s):
+        if s == 6 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected failure (preemption)")
+
+    ckpt_dir = ROOT / "build" / "train_ckpt_restart"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        driver = TrainDriver(make_train_step(cfg, plan, cosine_warmup(
+            3e-3, 5, 12)), state, pipe, DriverConfig(
+            total_steps=12, ckpt_every=4, ckpt_dir=str(ckpt_dir),
+            retry_backoff_s=0.01, log_every=100), fault_hook=hook)
+        out = driver.run()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [h["loss"] for h in out["history"]]
+    if out["restarts"] != 1 or out["final_step"] != 12 \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"ff-tiny restart run: restarts {out['restarts']}, final step "
+             f"{out['final_step']}, losses {losses}")
+    say(f"[train] ff-tiny with a failure injected at step 6: restarted once "
+        f"from the step-4 checkpoint, ended at step 12 ({len(losses)} steps "
+        f"run, loss {losses[0]:.4f} -> {losses[-1]:.4f})")
+
+
+def phase_train_all(dev: torch.device) -> dict:
+    import gc
+    from repro_torch.core.plan import single_device_plan
+    out = {}
+    for cfg, batch, seq in train_configs():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[cfg.name] = phase_train(single_device_plan(), cfg, batch, seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity(dev)
+    train_restart(single_device_plan())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1014,8 +1558,6 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
     prompt (Mixtral: B1, H32/Hkv8, D128; Zamba2's shared block: H32/32,
     D64; both causal, window 4096) and the router over its 2048 tokens (E8,
     K2, capacity from the model's formula)."""
-    from repro_torch.core.device import expert_capacity
-    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
     g = torch.Generator().manual_seed(5)
     S = 2048
     rows = [time_flash(dev, g, "flash_attention", (1, 32, 8, S, 128, 4096),
@@ -1025,7 +1567,95 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
                        (1, 32, 32, S, 64, 4096),
                        hybrid["launches"]["flash_attention"],
                        errs["flash_attention"], card)]
-    T, E, K = S, 8, 2
+    rows.append(time_router(dev, g, "router_topk", S,
+                            serve["launches"]["router_topk"],
+                            errs["router_topk"], card))
+    return rows
+
+
+def time_train_kernels(dev: torch.device, train: dict, errs: dict,
+                       card: str) -> list:
+    """The training path's kernels at its shapes (phase 5c), each with its
+    launches in that phase's driver run: attention over Zamba2's B4 x S2048
+    (D64) and Mixtral's B2 x S2048 (D128), the router over Mixtral's 4096
+    tokens, ``ssd_scan`` over Zamba2's B4."""
+    zamba, mixtral = (train[cfg.name]["launches"]
+                      for cfg, _, _ in train_configs())
+    g = torch.Generator().manual_seed(9)
+    time_recompute_backward(dev, g, train, card)
+    return [time_flash(dev, g, "flash_attention_train_d64",
+                       (4, 32, 32, 2048, 64, 4096),
+                       zamba["flash_attention"], errs["flash_attention"],
+                       card),
+            time_flash(dev, g, "flash_attention_train_d128",
+                       (2, 32, 8, 2048, 128, 4096),
+                       mixtral["flash_attention"], errs["flash_attention"],
+                       card),
+            time_router(dev, g, "router_topk_train", 4096,
+                        mixtral["router_topk"], errs["router_topk"], card),
+            time_ssd(dev, "ssd_scan_train", 4, zamba["ssd_scan"],
+                     errs["ssd_scan"], card)]
+
+
+def time_recompute_backward(dev: torch.device, g: torch.Generator,
+                            train: dict, card: str) -> dict:
+    """Each kernel's backward on the training path (the recompute through
+    the plain version and its VJP, the port of ``kernels/ops.py``'s VJP
+    rules; the router's is the VJP of its renormalised weights) at phase
+    5c's shapes: ms per call (CUDA events around ``torch.autograd.grad``,
+    eager, median of 3 x 3), and per step (one call a block a step)."""
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.router_topk import router_topk
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    (zcfg, zb, zs), (mcfg, mb, ms_) = train_configs()
+    bf16 = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).to(dev)
+
+    q, k, v, la = ssd_inputs(g, dev, zb, 64, 1, zs, 64, 64, "model")
+    T = mb * ms_
+    cases = [
+        ("flash_attention", zcfg.name, lambda q, k, v: flash_attention(
+            q, k, v, True, 4096), [rand(zb, 32, zs, 64, dtype=bf16),
+                                   rand(zb, 32, zs, 64, dtype=bf16),
+                                   rand(zb, 32, zs, 64, dtype=bf16)]),
+        ("flash_attention", mcfg.name, lambda q, k, v: flash_attention(
+            q, k, v, True, 4096), [rand(mb, 32, ms_, 128, dtype=bf16),
+                                   rand(mb, 8, ms_, 128, dtype=bf16),
+                                   rand(mb, 8, ms_, 128, dtype=bf16)]),
+        ("ssd_scan", zcfg.name, lambda *a: ssd_scan(
+            *a, 256, out_dtype=torch.float32), [q, k, v, la]),
+        ("router_topk", mcfg.name, lambda x: router_topk(
+            x, 2, expert_capacity(T, 8, 2, 1.25))[0],
+         [rand(T, 8, scale=2.0)]),
+    ]
+    out = {}
+    for name, arch, fn, inputs in cases:
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y = fn(*leaves)
+        gy = torch.randn(y.shape, generator=g).to(y.dtype).to(dev)
+        ms = time_ms(lambda: torch.autograd.grad(y, leaves, gy,
+                                                 retain_graph=True),
+                     reps=3, iters=3)
+        calls = train[arch]["per_step"][name] / 2
+        out[name, arch] = (ms, ms * calls)
+        say(f"[time] {name} backward at {arch}'s training shape "
+            f"({' x '.join(str(tuple(t.shape)) for t in inputs)}): "
+            f"{ms:.3f} ms per call, {calls:.0f} calls a step, "
+            f"{ms * calls:.1f} ms per step (CUDA events, eager) on {card}")
+        del leaves, y, gy
+    return out
+
+
+def time_router(dev: torch.device, g: torch.Generator, name: str, T: int,
+                launches: int, err: float, card: str) -> dict:
+    """``router_topk`` over T tokens of Mixtral's router (E8, K2, capacity
+    from the model's formula) beside its plain version and its bound."""
+    from repro_torch.core.device import expert_capacity
+    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    E, K = 8, 2
     cap = expert_capacity(T, E, K, 1.25)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
     nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
@@ -1033,17 +1663,13 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
     ms = graph_ms(lambda: router_topk(logits, K, cap))
     eager = time_ms(lambda: router_topk(logits, K, cap))
     plain = time_ms(lambda: router_topk_plain(logits, K, cap))
-    rows.append(kernel_row("router_topk", "router_topk",
-                           "src/repro/kernels/router_topk.py:26",
-                           serve["launches"]["router_topk"],
-                           errs["router_topk"], ms, plain,
-                           nbytes / HBM_BYTES_PER_S * 1e3,
-                           ops / F32_FLOPS * 1e3, None))
-    say(f"[time] router_topk T{T} E{E} K{K}: {ms:.4f} ms on the device (CUDA "
+    row = kernel_row(name, "router_topk", "src/repro/kernels/router_topk.py:26",
+                     launches, err, ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
+                     ops / F32_FLOPS * 1e3, None)
+    say(f"[time] {name} T{T} E{E} K{K}: {ms:.4f} ms on the device (CUDA "
         f"graph), {eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
-        f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}, {nbytes} B) "
-        f"on {card}")
-    return rows
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} B) on {card}")
+    return row
 
 
 # (kernel, T, E, K): the router at decode (T 8, the engine's max_batch),
@@ -1127,14 +1753,16 @@ def time_routes(dev: torch.device, card: str) -> list:
     return out
 
 
-def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
-    """``ssd_scan`` at phase 5b's prefill shape: one Mamba2 layer over a
-    2048-token prompt (B1, 64 heads, one group of q/k, N = P = 64, chunk
-    256) in the block's types (bf16 q/k, f32 v, log_a and y) with the final
-    state, as ``models/ssm.py`` calls it."""
+def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
+             card: str) -> dict:
+    """``ssd_scan`` at Zamba2's shape: one Mamba2 layer over B sequences of
+    2048 tokens (64 heads, one group of q/k, N = P = 64, chunk 256; B1 is
+    phase 5b's prefill, B4 phase 5c's training batch) in the block's types
+    (bf16 q/k, f32 v, log_a and y) with the final state, as
+    ``models/ssm.py`` calls it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     g = torch.Generator().manual_seed(7)
-    B, H, G, S, N, P, Q = 1, 64, 1, 2048, 64, 64, 256
+    H, G, S, N, P, Q = 64, 1, 2048, 64, 64, 256
     q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, "model")
     f32 = torch.float32
     ms = graph_ms(lambda: ssd_scan(q, k, v, la, Q, out_dtype=f32,
@@ -1156,13 +1784,11 @@ def time_ssd(dev: torch.device, serve: dict, errs: dict, card: str) -> dict:
     flops = score_flops + f32_flops
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
         + B * H * S * P * 4 + B * H * N * P * 4          # y, state (f32)
-    row = kernel_row("ssd_scan", "ssd_scan",
-                     "src/repro/kernels/ssd_scan.py:26",
-                     serve["launches"]["ssd_scan"], errs["ssd_scan"], ms,
-                     plain, nbytes / HBM_BYTES_PER_S * 1e3,
+    row = kernel_row(name, "ssd_scan", "src/repro/kernels/ssd_scan.py:26",
+                     launches, err, ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
                      (score_flops / qk_rate + 3 * f32_flops / TF32_FLOPS)
                      * 1e3, None)
-    say(f"[time] ssd_scan B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 "
+    say(f"[time] {name} B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 "
         f"q/k, f32 v/y): {ms:.4f} ms on the device (CUDA graph), "
         f"{eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {score_flops:.4g} "
@@ -1253,10 +1879,15 @@ def main() -> int:
     hcfg = get("zamba2-1.2b")                # full width, full depth
     hybrid = phase_serve(single_device_plan(), hcfg,
                          serve_prompts(hcfg.vocab))
+    train = phase_train_all(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = kernels["max_abs_err"]
     rows = phase_times(dev, main, card["card"])
-    rows += time_serving_kernels(dev, serve, hybrid, kernels["max_abs_err"],
-                                 card["card"])
-    rows.append(time_ssd(dev, hybrid, kernels["max_abs_err"], card["card"]))
+    rows += time_serving_kernels(dev, serve, hybrid, errs, card["card"])
+    rows.append(time_ssd(dev, "ssd_scan", 1, hybrid["launches"]["ssd_scan"],
+                         errs["ssd_scan"], card["card"]))
+    rows += time_train_kernels(dev, train, errs, card["card"])
     time_routes(dev, card["card"])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))

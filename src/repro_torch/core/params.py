@@ -5,6 +5,8 @@ parameters after ``jax.tree.map(np.asarray, params)`` — into the port's
 tensors with the same nesting, so both packages compute with the same
 weights.  bf16 arrays (numpy's ``bfloat16`` extension dtype, as JAX hands
 them out) cross through float32, which holds every bf16 value exactly.
+:func:`state_from_numpy` does the same for a whole train state, so both
+packages can train from one state.
 """
 
 from __future__ import annotations
@@ -35,3 +37,13 @@ def from_numpy(tree: Any, device: Any,
     each leaf keeping its dtype (``dtype=`` casts the floating leaves)."""
     device = torch.device(device)
     return tree_map(lambda a: _leaf(a, device, dtype), tree)
+
+
+def state_from_numpy(state: Any, device: Any,
+                     dtype: Optional[torch.dtype] = None) -> Any:
+    """A reference train state as numpy (``{"params", "opt", "step"}``, e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's: the parameters as
+    :func:`from_numpy` gives them (``dtype=`` casts them), the optimizer's
+    moments and counters and the step in their own types."""
+    return {k: from_numpy(v, device, dtype if k == "params" else None)
+            for k, v in state.items()}

@@ -41,6 +41,39 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def jax_leaves(tree: Any) -> List[Any]:
+    """The leaves in ``jax.tree.leaves`` order: dict keys sorted, lists and
+    tuples in order (:func:`tree_leaves` follows insertion order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in jax_leaves(v)]
+    return [tree]
+
+
+def jax_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """``leaves``, in :func:`jax_leaves` order, in the structure of
+    ``like`` (dicts keep ``like``'s key order)."""
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            out = [build(v) for v in t]
+            return out if isinstance(t, list) else tuple(out)
+        return next(it)
+    return build(like)
+
+
+def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
+    """``leaves``, in :func:`tree_leaves` order, in the structure of
+    ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def canonical_dtype(dtype: np.dtype) -> np.dtype:
     """The dtype ``jnp.asarray`` gives a numpy array of ``dtype``."""
     return _CANON.get(np.dtype(dtype), np.dtype(dtype))

@@ -13,7 +13,9 @@ miss the f32 tolerance.
 queries aligned to the end of the keys) for CPU tensors and launches the
 kernel for CUDA tensors; ``flash_attention.launches`` counts the launches.
 As in the reference, the backward pass has no kernel: it recomputes through
-the plain version (``ops.py`` does the same with ``jax.vjp``).
+the plain version and takes its VJP, the port of ``ops.py``'s VJP rule
+(``_fa_bwd``: ``jax.vjp`` of ``ref.attention_ref``).  The profiler sees it
+as the range ``flash_attention.recompute_backward``.
 """
 
 from __future__ import annotations
@@ -125,7 +127,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "flash_attention.recompute_backward"):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = flash_attention_plain(*leaves, ctx.causal, ctx.window)
             grads = torch.autograd.grad(out, leaves, g)

@@ -1,10 +1,18 @@
 """MoE top-K router with first-come capacity positions.
 
 Port of ``src/repro/kernels/router_topk.py:router_topk`` as wrapped by
-``src/repro/kernels/ops.py:router_topk`` (routing carries no gradient: the
-logits are detached, as the reference stops the gradient).  The CUDA kernel
-is ``csrc/router_topk.cu`` over ``csrc/route_scan.cuh`` (its header gives
-the design and the bound); ``a2a_fused.a2a_route`` is its top-1 case.
+``src/repro/kernels/ops.py:router_topk``.  The CUDA kernel is
+``csrc/router_topk.cu`` over ``csrc/route_scan.cuh`` (its header gives the
+design and the bound); ``a2a_fused.a2a_route`` is its top-1 case.
+
+The choice of experts, the positions and the keep flags carry no gradient,
+as in the reference.  The weights do: the model trains through them as the
+reference's ``src/repro/models/moe.py:_route`` does, whose ``lax.top_k`` of
+the softmax passes the combine's gradient back to the router.  The
+reference has no backward kernel for that (``ops.py`` stops the gradient
+of its Pallas router), so the backward pass is the VJP XLA gives
+``_route``'s weights, recomputed in plain PyTorch from the logits at the
+chosen experts (:func:`routing_weights`).
 
 :func:`router_topk` runs :func:`router_topk_plain` for CPU tensors and
 launches the kernel for CUDA tensors; ``router_topk.launches`` counts the
@@ -205,11 +213,46 @@ def router_topk_plain(logits: torch.Tensor, top_k: int,
     return w, idx.to(torch.int32), pos, pos < capacity
 
 
+def routing_weights(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The reference's differentiable weights at the chosen experts:
+    ``softmax(logits)`` gathered at ``idx`` over ``max(sum, 1e-9)``, as
+    ``src/repro/models/moe.py:_route`` computes them."""
+    w = torch.softmax(logits.float(), dim=-1).gather(1, idx.long())
+    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+
+class _RouterTopK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, top_k, capacity):
+        if backend.use_kernel(logits):
+            if logits.shape[0] >= 2 ** 31 // top_k:
+                raise ValueError(f"router_topk: too many tokens "
+                                 f"({logits.shape[0]})")
+            plan = launch_plan(*logits.shape, top_k)
+            out = _launch(logits.detach().float().contiguous(), top_k,
+                          capacity, plan)
+        else:
+            out = router_topk_plain(logits, top_k, capacity)
+        ctx.save_for_backward(logits, out[1])
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, gw, _gidx, _gpos, _gkeep):
+        logits, idx = ctx.saved_tensors
+        with torch.enable_grad(), torch.profiler.record_function(
+                "router_topk.backward"):
+            x = logits.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(routing_weights(x, idx), x, gw)
+        return g, None, None
+
+
 def router_topk(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
     """logits ``(T, E)`` -> ``(w (T,K) float32, idx (T,K) int32, pos (T,K)
     int32, keep (T,K) bool)``: each token's top-K experts and renormalised
     weights, each (token, k) entry's first-come position in its expert's
-    lane, and whether that position is below ``capacity``."""
+    lane, and whether that position is below ``capacity``.  ``w`` carries
+    the gradient of :func:`routing_weights` back to ``logits``."""
     if logits.dim() != 2 or logits.shape[1] < 1:
         raise ValueError(f"router_topk needs logits (T, E>=1), got "
                          f"{tuple(logits.shape)}")
@@ -217,13 +260,7 @@ def router_topk(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
     if not 1 <= top_k <= min(E, MAX_K):
         raise ValueError(f"router_topk takes 1 <= top_k <= min(E, {MAX_K}); "
                          f"got top_k={top_k}, E={E}")
-    if not backend.use_kernel(logits):
-        return router_topk_plain(logits, top_k, capacity)
-    if T >= 2 ** 31 // top_k:
-        raise ValueError(f"router_topk: too many tokens ({T})")
-    plan = launch_plan(T, E, top_k)
-    x = logits.detach().float().contiguous()
-    return _launch(x, top_k, capacity, plan)
+    return _RouterTopK.apply(logits, top_k, capacity)
 
 
 def _launch(x: torch.Tensor, top_k: int, capacity: int,

@@ -18,7 +18,10 @@ runs a block per (b, h, chunk), the chunks of a head chained through the
 state; the wrapper allocates the chunk states, the last of which is the
 final state, and the kernel's zeroed ticket and flags.  As in the
 reference, the backward pass has no kernel: it recomputes through the plain
-version (``ops.py`` does the same through ``ref.ssd_scan_ref``).
+version and takes its VJP, the port of ``ops.py``'s VJP rule
+(``_ssd_bwd_rule``: ``jax.vjp`` of ``ref.ssd_scan_ref``), with the final
+state's cotangent added (autograd hands zeros when the state is unused).
+The profiler sees it as the range ``ssd_scan.recompute_backward``.
 """
 
 from __future__ import annotations
@@ -231,7 +234,8 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gstate):
         q, k, v, log_a = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "ssd_scan.recompute_backward"):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v, log_a)]
             y, state = ssd_scan_plain(*leaves, ctx.chunk,
                                       out_dtype=ctx.out_dtype)

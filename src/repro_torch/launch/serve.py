@@ -26,7 +26,7 @@ import torch
 
 from ..configs import get
 from ..core.plan import single_device_plan
-from ..runtime.steps import init_state
+from ..runtime.steps import make_model
 from ..serving import InferenceEngine, Overloaded, Request
 
 
@@ -63,7 +63,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     plan = single_device_plan(args.device)
     gen = torch.Generator(device=plan.device).manual_seed(0)
-    params = init_state(cfg, plan, gen)["params"]
+    params = make_model(cfg).init(gen)
 
     eng = InferenceEngine(cfg, plan, params, max_batch=args.max_batch,
                           cache_len=args.cache_len,

@@ -1,0 +1,88 @@
+"""Training launcher: the whole-stack driver behind ``--arch``, on the GPU
+unless ``--device`` names another device.
+
+Port of ``src/repro/launch/train.py``.  A config other than ``ff-tiny``
+runs reduced, as the reference launcher runs it; full width is reached
+through the library (``chip_smoke.py`` trains Zamba2-1.2B whole).  Weights
+are random, drawn on the device from seed 0.  ``--adaptive`` (the runtime
+supervisor) and ``--tuned`` (XLA's CPU runtime flags) are not ported yet
+and raise.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 100
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch zamba2-1.2b --steps 4 --batch 2 --seq 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+
+import torch
+
+from ..configs import get
+from ..core.plan import single_device_plan
+from ..core.tree import tree_leaves
+from ..data import SyntheticLMSource, make_pipeline
+from ..optim.schedules import cosine_warmup
+from ..runtime.driver import DriverConfig, TrainDriver
+from ..runtime.steps import init_state, make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="ff-tiny")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda:0; 'cpu' to run on "
+                         "the CPU)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-sized reduction of the arch")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--adaptive", action="store_true",
+                    help="not ported yet (the adaptive runtime supervisor)")
+    ap.add_argument("--tuned", action="store_true",
+                    help="not ported yet (tuned host runtime)")
+    args = ap.parse_args(argv)
+    for flag in ("adaptive", "tuned"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet")
+
+    cfg = get(args.arch)
+    if args.reduced or args.arch != "ff-tiny":
+        cfg = cfg.reduced()
+    plan = single_device_plan(args.device)
+    state = init_state(cfg, plan,
+                       torch.Generator(device=plan.device).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"arch={cfg.name} params={n_params/1e6:.2f}M device={plan.device}")
+
+    src = SyntheticLMSource(cfg.vocab, args.seq, args.batch, seed=0)
+    pipe = make_pipeline(src, plan, n_batches=args.steps + 8)
+    print(f"data graph: {pipe.graph.describe()}")
+    for desc, p in pipe.placements:
+        print(f"  [{p.target:6s}] {desc}")
+    step = make_train_step(cfg, plan, cosine_warmup(args.lr, 20, args.steps))
+    driver = TrainDriver(step, state, pipe,
+                         DriverConfig(total_steps=args.steps,
+                                      ckpt_every=args.ckpt_every,
+                                      ckpt_dir=args.ckpt_dir, log_every=10))
+    out = driver.run()
+    losses = [h["loss"] for h in out["history"]]
+    print(f"final step {out['final_step']}: loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}; restarts={out['restarts']} "
+          f"stragglers={out['stragglers']}")
+    print("data graph stats (svc-time EMA / items / lane depths):")
+    print("  " + json.dumps(pipe.stats(), default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    main()

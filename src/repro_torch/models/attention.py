@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import flash_attention
-from .layers import apply_rope
+from .layers import apply_rope, einsum
 from .params import ParamDef
 
 NEG_INF = -2.0e38
@@ -87,9 +87,9 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     B, S, _ = x.shape
     n_kv = cfg.n_kv_heads
     decode = isinstance(cache, dict)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.use_rope:
         pos2d = positions if positions.dim() == 2 else \
             positions[None, :].expand(B, S)
@@ -136,5 +136,5 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
                 cv = torch.nn.functional.pad(cv, pad)
             new_cache = {"k": ck, "v": cv}
 
-    o = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    o = einsum("bshk,hkd->bsd", out, p["wo"]).to(torch.bfloat16)
     return o, new_cache

@@ -3,7 +3,11 @@
 Port of ``src/repro/models/layers.py`` for one device: products run in the
 activations' type (bf16 for the models) with fp32 normalisation statistics,
 and the reference's sharding constraints (``plan.constrain``,
-``plan.gather_fsdp``) are no-ops on one device and are dropped.
+``plan.gather_fsdp``) are no-ops on one device and are dropped.  Products of
+mixed operands (bf16 activations with fp32 parameters) run in the promoted
+type, as ``jnp.einsum`` runs them (:func:`mm`, :func:`einsum`); where the
+reference asks for a bf16 product (``preferred_element_type``), the port
+rounds the product to bf16.
 ``apply_mrope`` (Qwen2-VL) comes with the slice that brings that model.
 """
 
@@ -15,6 +19,28 @@ import torch
 import torch.nn.functional as F
 
 from .params import ParamDef
+
+
+# -- products ----------------------------------------------------------------
+def _promoted(ts):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type of the two."""
+    if a.dtype != b.dtype:
+        a, b = _promoted((a, b))
+    return a @ b
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the promoted type of the operands."""
+    if any(o.dtype != ops[0].dtype for o in ops):
+        ops = _promoted(ops)
+    return torch.einsum(eq, *ops)
 
 
 # -- norms -------------------------------------------------------------------
@@ -67,9 +93,9 @@ def activation(g: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(x, p, act: str = "silu"):
-    a = x @ p["wi"]
-    g = activation(x @ p["wg"], act)
-    return (a * g) @ p["wo"]
+    a = mm(x, p["wi"])
+    g = activation(mm(x, p["wg"]), act)
+    return mm(a * g, p["wo"]).to(torch.bfloat16)
 
 
 # -- embeddings ----------------------------------------------------------------
@@ -78,10 +104,14 @@ def embed(tokens: torch.Tensor, p) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, p) -> torch.Tensor:
+    return mm(x, unembedding(p))
+
+
+def unembedding(p) -> torch.Tensor:
+    """The (d, V) output matrix: ``unemb``, or the tied embedding's
+    transpose."""
     w = p.get("unemb")
-    if w is None:
-        w = p["emb"].T
-    return x @ w
+    return p["emb"].T if w is None else w
 
 
 # -- rotary position embeddings -------------------------------------------------

@@ -2,18 +2,23 @@
 and ``shared_attn`` blocks.
 
 Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
-``_run_segments``, ``prefill``, ``decode_step``, ``_cache_write_pos``,
-``cache_defs``).  Parameters keep the reference's nesting — ``embed``,
-``final_norm``, per-kind ``stacks`` whose leaves carry a leading layer
-dimension, and the one unstacked ``shared`` block that every
+``_run_segments``, ``loss``, ``prefill``, ``decode_step``,
+``_cache_write_pos``, ``cache_defs``; ``vocab_parallel_ce`` on one device as
+:func:`cross_entropy`).  Parameters keep the reference's nesting —
+``embed``, ``final_norm``, per-kind ``stacks`` whose leaves carry a leading
+layer dimension, and the one unstacked ``shared`` block that every
 ``shared_attn`` segment calls (Zamba2) — so the reference's initialised
 tree, carried across with ``core.params.from_numpy``, loads as it is.
 Where the reference scans over the stacked layers, the port loops over them
-in Python.
+in Python, each stack's leaves unbound into per-layer views once.
+
+Training runs every block, the shared one included, under non-reentrant
+activation checkpointing (``torch.utils.checkpoint``), where the reference
+uses ``jax.checkpoint``: a block keeps only its input, and its forward —
+kernels included — runs again in the backward pass.
 
 Block kinds of later slices (``mlstm``, ``slstm``, ``enc``, ``dec``) raise
-``NotImplementedError`` naming the slice; so does ``loss`` (the training
-slice).
+``NotImplementedError`` naming the slice; so does the ``encdec`` loss.
 """
 
 from __future__ import annotations
@@ -21,10 +26,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..core.tree import tree_map
 from .attention import attention, attn_defs
-from .layers import apply_norm, embed, mlp, mlp_defs, norm_defs, unembed
+from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
+                     unembed, unembedding)
 from .moe import moe_block, moe_defs
 from .params import ParamDef, init_params
 from .ssm import mamba2_block, mamba2_defs, mamba2_state_defs
@@ -46,38 +52,76 @@ def _check_kind(kind: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# cross entropy
+# ---------------------------------------------------------------------------
+def cross_entropy(x, unemb, labels, mask, chunks: int = 1):
+    """Mean CE over the masked tokens: ``vocab_parallel_ce`` on one device.
+    The logits are the product in the activations' type, widened to fp32,
+    as ``jnp.einsum(...).astype(f32)`` gives them; ``chunks`` splits the
+    sequence as the reference's sharded path does (every token's loss is
+    the same either way)."""
+    S = x.shape[1]
+    cs = max(1, S // max(chunks, 1))
+    nll = []
+    for c0 in range(0, S, cs):
+        logits = mm(x[:, c0:c0 + cs], unemb).float()
+        lab = logits.gather(-1, labels[:, c0:c0 + cs, None].long())[..., 0]
+        nll.append(torch.logsumexp(logits, -1) - lab)
+    nll = torch.cat(nll, 1) if len(nll) > 1 else nll[0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
-                window=0, moe=False):
-    """One pre-norm block; returns (x, new_cache).  The MoE aux losses are
-    not computed: only the loss reads them, and it comes with the training
-    slice."""
+                window=0, moe=False, losses=False):
+    """One pre-norm block; returns (x, new_cache, aux).  ``aux`` holds the
+    MoE aux losses when ``losses`` (the loss reads them), else ``{}``."""
     xn = apply_norm(x, p["ln1"], cfg.norm)
     a, new_cache = attention(xn, p["attn"], cfg, positions=positions,
                              causal=True, window=window, cache=cache,
                              cache_pos=pos_offset)
     x = x + a
     xn = apply_norm(x, p["ln2"], cfg.norm)
+    aux = {}
     if moe:
-        m, _ = moe_block(xn, p["moe"], cfg, losses=False)
+        m, aux = moe_block(xn, p["moe"], cfg, losses=losses)
     else:
         m = mlp(xn, p["mlp"], cfg.act)
-    return x + m, new_cache
+    return x + m, new_cache, aux
 
 
 def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
-                pos_offset=0):
-    """Uniform block dispatch; returns (x, new_cache)."""
+                pos_offset=0, losses=False):
+    """Uniform block dispatch; returns (x, new_cache, aux)."""
     if kind == "mamba2":
-        return mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+        y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+        return y, st, {}
     if kind == "shared_attn":
         window = cfg.shared_attn_window
     else:
         window = cfg.window if cfg.attn_kind == "swa" else 0
     return dense_block(x, p, cfg, cache=cache, positions=positions,
                        pos_offset=pos_offset, window=window,
-                       moe=(kind == "moe"))
+                       moe=(kind == "moe"), losses=losses)
+
+
+def _train_block(kind, x, p, cfg, positions):
+    """A block as training runs it: no cache, the aux losses kept."""
+    y, _, aux = apply_block(kind, x, p, cfg, positions=positions, losses=True)
+    return y, aux
+
+
+def _layers(stack) -> list:
+    """The per-layer trees of a stacked tree.  Each leaf is unbound along
+    its layer dimension once, so its gradient is stacked once, where an
+    index per layer would add a full-size gradient for every layer."""
+    if isinstance(stack, dict):
+        per = {k: _layers(v) for k, v in stack.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(stack.unbind(0))
 
 
 def block_defs(kind, cfg, layers):
@@ -131,35 +175,45 @@ class LM:
     # -- segment runner ---------------------------------------------------------
     def _run_segments(self, params, x, *, mode, caches=None, positions=None,
                       pos_offset=0):
-        """Run the segment list; returns (x, caches).  Prefill builds the
-        caches (a leading dimension per kind: the layers of a stack, the
-        calls of the shared block); decode writes into the given caches in
-        place and returns them."""
+        """Run the segment list; returns (x, caches, aux).  ``train`` runs
+        every block under activation checkpointing and sums the MoE aux
+        losses over the layers (``{}`` without MoE layers); prefill builds
+        the caches (a leading dimension per kind: the layers of a stack,
+        the calls of the shared block); decode writes into the given caches
+        in place and returns them."""
         cfg = self.cfg
         offsets: Dict[str, int] = {}
+        layers: Dict[str, list] = {}
         pieces: Dict[str, list] = {}
+        aux: Dict[str, Any] = {}
         for kind, count in cfg.segments:
             _check_kind(kind)
             start = offsets.get(kind, 0)
             offsets[kind] = start + count
+            if kind != "shared_attn" and kind not in layers:
+                layers[kind] = _layers(params["stacks"][kind])
             for li in range(start, start + count):
-                if kind == "shared_attn":
-                    pl = params["shared"]
-                else:
-                    pl = tree_map(lambda t: t[li], params["stacks"][kind])
-                if mode == "prefill":
-                    cl = "init"
-                else:
-                    cl = {n: c[li] for n, c in caches[kind].items()}
-                x, nc = apply_block(kind, x, pl, cfg, cache=cl,
-                                    positions=positions,
-                                    pos_offset=pos_offset)
+                pl = params["shared"] if kind == "shared_attn" \
+                    else layers[kind][li]
+                if mode == "train":
+                    x, a = checkpoint(_train_block, kind, x, pl, cfg,
+                                      positions, use_reentrant=False,
+                                      preserve_rng_state=False)
+                    for k, v in a.items():
+                        aux[k] = aux[k] + v if k in aux else v
+                    continue
+                cl = "init" if mode == "prefill" else \
+                    {n: c[li] for n, c in caches[kind].items()}
+                x, nc, _ = apply_block(kind, x, pl, cfg, cache=cl,
+                                       positions=positions,
+                                       pos_offset=pos_offset)
                 if mode == "prefill":
                     pieces.setdefault(kind, []).append(nc)
-        if mode != "prefill":
-            return x, caches
-        return x, {kind: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-                   for kind, cs in pieces.items()}
+        if mode == "prefill":
+            caches = {kind: {n: torch.stack([c[n] for c in cs])
+                             for n in cs[0]}
+                      for kind, cs in pieces.items()}
+        return x, caches, aux
 
     # -- serving -----------------------------------------------------------------
     @torch.no_grad()
@@ -175,8 +229,8 @@ class LM:
         B, S = tokens.shape
         x = embed(tokens, params["embed"])
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, caches = self._run_segments(params, x, mode="prefill",
-                                       positions=positions)
+        x, caches, _ = self._run_segments(params, x, mode="prefill",
+                                          positions=positions)
         x = apply_norm(x, params["final_norm"], cfg.norm)
         return unembed(x[:, -1:], params["embed"]), caches
 
@@ -196,15 +250,42 @@ class LM:
         else:
             positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
         x = embed(tok, params["embed"])
-        x, caches = self._run_segments(
+        x, caches, _ = self._run_segments(
             params, x, mode="decode", caches=caches, positions=positions,
             pos_offset=self._cache_write_pos(pos))
         x = apply_norm(x, params["final_norm"], cfg.norm)
         return unembed(x, params["embed"]), caches
 
+    # -- training ----------------------------------------------------------------
     def loss(self, params, batch, plan=None):
-        raise NotImplementedError("LM.loss is not ported yet: it comes with "
-                                  "the training slice")
+        """Mean next-token CE of ``batch["tokens"]`` (B, S), plus 0.01 x the
+        load-balance and 0.001 x the router z losses summed over the MoE
+        layers; returns (loss, metrics) with ``ce`` and the aux losses."""
+        cfg = self.cfg
+        for kind, _ in cfg.segments:
+            _check_kind(kind)
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "LM.loss for the encdec family is not ported yet: it comes "
+                "with the encoder-decoder slice (Whisper)")
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed(tokens, params["embed"])
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, _, aux = self._run_segments(params, x, mode="train",
+                                       positions=positions)
+        x = apply_norm(x, params["final_norm"], cfg.norm)
+        labels = torch.roll(tokens, -1, dims=1)
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+        mask[:, -1] = 0.0
+        loss = cross_entropy(x, unembedding(params["embed"]), labels, mask,
+                             cfg.loss_chunks)
+        metrics = {"ce": loss}
+        if aux:
+            loss = loss + 0.01 * aux.get("moe_lb", 0.0) \
+                + 0.001 * aux.get("moe_z", 0.0)
+            metrics.update(aux)
+        return loss, metrics
 
     def _cache_write_pos(self, pos):
         cfg = self.cfg

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..core.device import expert_capacity
 from ..kernels.router_topk import router_topk
+from .layers import mm
 from .params import ParamDef
 
 
@@ -77,9 +78,9 @@ def moe_block(x: torch.Tensor, p, cfg, losses: bool = True):
     buf = x2.new_zeros(E * C + 1, d)
     buf.index_copy_(0, slot, x2.repeat_interleave(K, dim=0))
     h = buf[:-1].reshape(E, C, d)
-    a = torch.bmm(h, p["wi"])
-    g = F.silu(torch.bmm(h, p["wg"]))
-    y = torch.bmm(a * g, p["wo"])                             # (E, C, d)
+    a = mm(h, p["wi"])
+    g = F.silu(mm(h, p["wg"]))
+    y = mm(a * g, p["wo"])                                    # (E, C, d)
 
     # combine: gather each entry's expert output, zero the dropped ones,
     # weight and sum over k in fp32
@@ -90,7 +91,7 @@ def moe_block(x: torch.Tensor, p, cfg, losses: bool = True):
 
     if cfg.n_shared_experts:
         sp = p["shared"]
-        a = x @ sp["wi"]
-        g = F.silu(x @ sp["wg"])
-        out = out + (a * g) @ sp["wo"]
+        a = mm(x, sp["wi"])
+        g = F.silu(mm(x, sp["wg"]))
+        out = out + mm(a * g, sp["wo"]).to(torch.bfloat16)
     return out, aux

@@ -27,14 +27,37 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
-from .layers import rms_norm
+from .layers import einsum, mm, rms_norm
 from .params import ParamDef
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
+class _SiluStepwise(torch.autograd.Function):
+    """Forward and backward as XLA computes ``jax.nn.silu`` and its VJP,
+    every step out of place and rounded to x's type: y = x * s with
+    s = 1 / (1 + exp(-x)); dx = g * s + (x * g) * (s * (1 - s)), the
+    logistic's JVP rule.  Only x is saved; s is recomputed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _logistic(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = _logistic(x)
+        return g * s + (x * g) * (s * (1 - s))
 
 
 def silu_stepwise(x: torch.Tensor) -> torch.Tensor:
     """silu as ``jax.nn.silu`` computes it: x * (1 / (1 + exp(-x))), every
-    step rounded to x's type (``F.silu`` rounds once)."""
-    return x * torch.exp(-x).add_(1).reciprocal_()
+    step rounded to x's type (``F.silu`` rounds once), with the gradient
+    ``jax.grad`` gives it, rounded the same way."""
+    return _SiluStepwise.apply(x)
 
 
 def gla_step(state, q, k, v, log_a):
@@ -106,11 +129,11 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256):
     decode = isinstance(state, dict)
 
     xn = rms_norm(x, p["norm"]["w"])
-    z = xn @ p["wz"]
-    xi = xn @ p["wx"]
-    Bm = torch.einsum("bsd,dgn->bsgn", xn, p["wB"])         # (B,S,G,N) bf16
-    Cm = torch.einsum("bsd,dgn->bsgn", xn, p["wC"])
-    dt = xn @ p["wdt"] + p["dt_bias"]
+    z = mm(xn, p["wz"])
+    xi = mm(xn, p["wx"])
+    Bm = einsum("bsd,dgn->bsgn", xn, p["wB"])               # (B,S,G,N) bf16
+    Cm = einsum("bsd,dgn->bsgn", xn, p["wC"])
+    dt = mm(xn, p["wdt"]) + p["dt_bias"]
     dt = F.softplus(dt.float())                              # (B,S,H)
 
     conv_state = state["conv"] if decode else None
@@ -147,7 +170,7 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256):
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = y * silu_stepwise(z)
-    return x + y @ p["wo"], new_state
+    return x + mm(y, p["wo"]).to(torch.bfloat16), new_state
 
 
 def mamba2_state_defs(cfg, B: int, layers: int):

@@ -577,3 +577,76 @@ def test_hybrid_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert st.pos.tolist() == [3, 43, 3]
+
+
+# -- the training path ------------------------------------------------------------
+def _chip_smoke():
+    """``chip_smoke.py`` from the repo's root, for its card-against-CPU
+    training parity (one implementation for the script and this test)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b"])
+def test_train_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced config, one loss and gradient through the kernels (each runs
+    twice a block: forward and checkpoint recompute) against the plain
+    versions on the CPU, at the CPU parity tests' bf16 tolerances, the CPU
+    routing to the card's experts: the card's experts the top-K of its own
+    logits, the two runs' router logits within 2e-2 of their rms and the
+    flips within 2% of the tokens (``chip_smoke.parity_faults``)."""
+    from repro_torch.configs import get
+    smoke = _chip_smoke()
+    r = smoke.card_cpu_parity(arch, 2, cuda)
+    blocks = {"flash_attention": 0, "router_topk": 0, "ssd_scan": 0}
+    for kind, count in get(arch).reduced().segments:
+        if kind in ("moe", "shared_attn", "dense"):
+            blocks["flash_attention"] += count
+        if kind == "moe":
+            blocks["router_topk"] += count
+        if kind == "mamba2":
+            blocks["ssd_scan"] += count
+    assert r["ran"] == {n: 2 * c for n, c in blocks.items() if c}
+    assert smoke.parity_faults(r) == [], r
+
+
+@pytest.mark.cuda
+def test_router_weight_gradient_through_the_kernel_is_the_recompute(cuda):
+    T, E, K = 4096, 8, 2
+    g = torch.Generator().manual_seed(11)
+    logits = (torch.randn(T, E, generator=g) * 2).to(cuda).requires_grad_(True)
+    gw = torch.randn(T, K, generator=g).to(cuda)
+    router_topk.launches = 0
+    w, idx, _, _ = router_topk(logits, K, T)
+    assert router_topk.launches == 1 and w.requires_grad
+    (got,) = torch.autograd.grad(w, logits, gw)
+    x = logits.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(router_module.routing_weights(x, idx), x,
+                                  gw)
+    assert torch.equal(got, want)
+    assert torch.equal(idx, router_topk_plain(logits, K, T)[1])
+
+
+@pytest.mark.cuda
+def test_data_pipeline_batches_are_ordered_on_a_side_stream(cuda):
+    """``get()`` orders the batch's copy before work on the caller's current
+    stream, whichever stream that is."""
+    from repro_torch.data import DataPipeline, SyntheticLMSource
+    pipe = DataPipeline(SyntheticLMSource(1000, 512, 16, seed=4), cuda,
+                        n_batches=8, prefetch=2).start()
+    ref = SyntheticLMSource(1000, 512, 16, seed=4)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        for _ in range(8):
+            b = pipe.get(timeout=30)
+            assert b["tokens"].device == cuda
+            got = (b["tokens"].long() * 3).cpu()
+            assert torch.equal(got, torch.from_numpy(
+                ref.next_batch()["tokens"]).long() * 3)
+    assert pipe.get(timeout=30) is None

@@ -228,7 +228,7 @@ def test_later_block_kinds_raise(kind):
     cfg.segments_spec = [(kind, 1)]
     with pytest.raises(NotImplementedError, match="slice"):
         TLM(cfg).param_defs()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="slice"):
         TLM(cfg).loss({}, {})
 
 

@@ -80,11 +80,15 @@ def test_router_capacity_never_exceeded():
 
 
 def test_router_takes_no_gradient_and_launches_nothing_on_cpu():
+    """The routing itself (experts, positions, keep) takes no gradient; the
+    weights do, as the reference's ``_route`` weights do (their gradient is
+    held to the reference in ``tests/test_torch_train.py``)."""
     _, tl = _logits(3, 16, 4)
     tl.requires_grad_(True)
     before = router_topk.launches
-    w, *_ = router_topk(tl, 2, 8)
-    assert not w.requires_grad
+    w, idx, pos, keep = router_topk(tl, 2, 8)
+    assert w.requires_grad
+    assert not (idx.requires_grad or pos.requires_grad or keep.requires_grad)
     assert router_topk.launches == before
     for a, b in zip(router_topk(tl, 2, 8), router_topk_plain(tl, 2, 8)):
         assert torch.equal(a, b)
