@@ -7,26 +7,34 @@ Phases, each of which fails the run:
 
 1. card — its name and power limit; the CUDA kernels built from the sources
    in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-   source, all started together; ``cuobjdump -sass`` must find HMMA/HGMMA
-   (tensor-core) instructions in every bf16 ``flash_fwd_kernel_tc`` and in
+   source, all started together; each kernel's registers and spill bytes
+   (``-Xptxas -v``) are printed, and an attention instance that spills
+   fails the run; ``cuobjdump -sass`` must find HMMA/HGMMA (tensor-core)
+   instructions in every bf16 ``flash_fwd_kernel_tc`` (D 16-256) and in
    the ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per
    kernel is printed);
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
    ``flash_attention`` against its plain version (bf16 within 2e-2, f32
    within 2e-5) at Mixtral's attention shapes (H32/Hkv8, D128, window 4096:
-   S 2048, ragged S 5000, Sq 512 against Sk 4096), at Zamba2's shared
-   block (H32/32, D64), on the grid of ``tests/test_kernels.py`` and at the
-   kernels' tile edges (lengths 1, 15, 17, 63, 65, 129, q_offset off the
-   tile, windows whose edge falls inside a tile; D 16-128, f32 and bf16);
+   S 2048, ragged S 5000, Sq 512 against Sk 4096), at Gemma-7B's (H16/16,
+   D256, no window, the same three lengths, f32 and bf16), at Zamba2's
+   shared block (H32/32, D64), on the grid of ``tests/test_kernels.py`` and
+   at the kernels' tile edges (lengths 1, 15, 17, 63, 65, 129, q_offset off
+   the tile, windows whose edge falls inside a tile; D 16-256, f32 and
+   bf16);
    ``router_topk`` against its plain version
    (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
-   K 2, and at E 64/256/384 with K up to 8; ``ssd_scan`` against its plain
+   K 2, at E 64/256/384 with K up to 8, and at Kimi-K2's E 384 top-8 at
+   phase 5d's decode batch (T 8) and each of its prompt lengths;
+   ``ssd_scan`` against its plain
    version, y and the final state, at Zamba2's serving shapes (B1 H64, one
    group of q/k, N = P = 64, chunk 256; S 2048, ragged 5000, and 100 under
    the chunk, B 4, tail chunks of 9 and 5 steps; in the model path's types
    and in f32 and bf16), N and P past one 64 tile, on the grid of
-   ``tests/test_kernels.py`` and at xLSTM's N = P = 384 and P = 1 (f32
+   ``tests/test_kernels.py`` and at xLSTM's N = P = 384 and P = 1 (B1 H4,
+   in the mLSTM block's types at S 2048 and each of phase 5d's prompt
+   lengths, and in all three types at S 1000; f32
    within 1e-4 of the output's scale: sums in another order; a bf16 y one
    bf16 step, 2**-7 relative, more);
 3. main path — ``pipeline(pre, all_to_all([left]*2, experts), post)``
@@ -82,13 +90,27 @@ Phases, each of which fails the run:
    weight gradient through the kernel against the plain recompute's, and
    ff-tiny through the driver with a failure injected at step 6 (one
    restart);
+5d. families — the same engine and checks on six more of the repo's
+   configs in turn, at full width, each built from a torch.Generator seeded
+   0, served and freed before the next: xLSTM-125m whole (12 = 3 x (3
+   mLSTM + 1 sLSTM); ``ssd_scan`` 2 x 9 x prefills at N = P = 384 and
+   P = 1), Gemma-7B whole (28 layers, D 256 attention, gelu), Llama-3.2-3B
+   whole (28), Yi-34B at 50 of 60 layers, Mistral-Large-123B at 23 of 88
+   and Kimi-K2 at 1 of 61 (384 experts top-8 and a shared expert;
+   ``router_topk`` per prefill and decode step): 8 requests of 100-3000
+   prompt tokens (numpy seed 0), 16 new tokens each, max_batch 8,
+   cache_len 4096.  Prints each model's prefill tokens/s, decode ms per
+   step (host and device), peak memory and seconds;
 6. times — each kernel and its plain version (CUDA events, median of
    repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
    phase-5 kernels at its shapes (attention at S 2048, Mixtral's D128 and
    Zamba2's D64, with ``scaled_dot_product_attention`` beside it),
    ``ssd_scan`` at phase 5b's
    (B1 H64 S2048 N64 P64, chunk 256), the same kernels at phase 5c's
-   training shapes, and the phase-3 items/s; then the
+   training shapes, phase 5d's (attention at Gemma's D256, B1 H16 S2048,
+   beside ``scaled_dot_product_attention``; Kimi's router at E384 K8;
+   ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), and the
+   phase-3 items/s; then the
    routing kernels at :data:`ROUTE_TIMES` (``router_topk`` at decode's T 8,
    prefill's T 1859-5000 and wide routers; ``a2a_route`` at T 512 and 4096),
    each with its grid, beside an empty kernel's time (the latency floor)
@@ -150,15 +172,54 @@ def phase_card() -> dict:
     secs = backend.build_all(verbose=True)
     for name, s in secs.items():
         say(f"[build] {name}.cu {s:.2f} s")
+    check_spills(backend)
     check_tensor_cores(backend)
     return {"card": card, "build_s": secs}
+
+
+def ptxas_usage(report: str) -> dict:
+    """(registers, spill store bytes, spill load bytes) per kernel of one
+    ptxas report (``-Xptxas -v``), keyed as :func:`sass_mma_counts` keys
+    them."""
+    import re
+    usage, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            usage[fn] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            usage[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            usage[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in usage.items()}
+
+
+def check_spills(backend) -> None:
+    """Print each kernel's registers and spill bytes; fail if an instance
+    of the attention kernels spills (its D 256 layout is chosen not to).
+    A library built before this run has no report."""
+    if "flash_attention" not in backend.PTXAS_REPORT:
+        say("[build] flash_attention: built before this run, no ptxas report")
+    for name in sorted(backend.PTXAS_REPORT):
+        usage = ptxas_usage(backend.PTXAS_REPORT[name])
+        say(f"[build] {name}: (registers, spill store B, spill load B) per "
+            f"kernel {usage}")
+        spilled = {fn: u for fn, u in usage.items()
+                   if fn.startswith("flash_fwd_kernel") and (u[1] or u[2])}
+        if spilled:
+            fail(f"{name}: instances that spill: {spilled}")
 
 
 # the kernels that must run on the tensor cores: (library, name prefix,
 # count of instantiations): the bf16 flash kernel for each head dim, the
 # recurrence with bf16 q/k (template <QK_BF16, V_BF16>) for f32 and bf16 v;
 # their SASS must hold HMMA (mma.sync) or HGMMA (wgmma)
-TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_tc<", 4),
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_tc<", 5),
                        ("ssd_scan", "ssd_scan_kernel<1,", 2))
 
 
@@ -261,9 +322,11 @@ def phase_kernels(dev: torch.device) -> dict:
                         checks += 1
     say(f"[kernels] a2a_route, a2a_combine equal their plain versions "
         f"({checks} cases, max |err| {err})")
-    err["flash_attention"], n_flash = check_flash(dev)
-    err["router_topk"], n_router = check_router(dev)
-    err["ssd_scan"], n_ssd = check_ssd(dev)
+    err["flash_attention"], err["flash_attention_d256"], n_flash = \
+        check_flash(dev)
+    err["router_topk"], err["router_topk_e384"], n_router = check_router(dev)
+    err["ssd_scan"], xlstm, n_ssd = check_ssd(dev)
+    err.update(xlstm)
     return {"checks": checks + n_flash + n_router + n_ssd,
             "max_abs_err": err}
 
@@ -287,6 +350,9 @@ FLASH_CASES = [
     (1, 32, 32, 2048, 2048, 64, True, 4096, BF16),  # Zamba2's shared block
     (4, 32, 32, 2048, 2048, 64, True, 4096, BF16),  # Zamba2's training batch
     (2, 32, 8, 2048, 2048, 128, True, 4096, BF16),  # Mixtral's training batch
+    (1, 16, 16, 2048, 2048, 256, True, 0, F32),      # Gemma-7B's D 256
+    (1, 16, 16, 5000, 5000, 256, True, 0, F32),      # ragged
+    (1, 16, 16, 512, 4096, 256, True, 0, F32),       # chunked prefill
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
      for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
                                   (2, 4, 2, 256, 256, 64),
@@ -294,15 +360,17 @@ FLASH_CASES = [
                                   (1, 2, 2, 128, 128, 128),
                                   (1, 4, 2, 100, 100, 16))
      for c, w in ((True, 0), (True, 64), (False, 0))
-] + [(B, H, Hkv, Sq, Sk, D, c, w, F32) for D in (16, 32, 64, 128)
+] + [(B, H, Hkv, Sq, Sk, D, c, w, F32) for D in (16, 32, 64, 128, 256)
      for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES]
 
 
 def check_flash(dev: torch.device) -> tuple:
+    """The worst bf16 error over every case, over those at D 256 (the
+    ``flash_attention_d256`` row), and the number of cases."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     g = torch.Generator().manual_seed(3)
-    worst, n = 0.0, 0
+    worst, d256, n = 0.0, 0.0, 0
     for B, H, Hkv, Sq, Sk, D, causal, window, dtypes in FLASH_CASES:
         for dtype in dtypes:
             q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(dev)
@@ -319,26 +387,37 @@ def check_flash(dev: torch.device) -> tuple:
                      f"max |err| {e}")
             if dtype == torch.bfloat16:
                 worst = max(worst, e)
+                if D == 256:
+                    d256 = max(d256, e)
             n += 1
             del q, k, v, got, want
     say(f"[kernels] flash_attention equals its plain version ({n} cases, "
-        f"max |err| {worst:.3g} in bf16, within 2e-2; f32 within 2e-5)")
-    return worst, n
+        f"max |err| {worst:.3g} in bf16, at D 256 {d256:.3g}, within 2e-2; "
+        f"f32 within 2e-5)")
+    return worst, d256, n
 
 
+# the prompt lengths of phase 5d's requests (serve_prompts at numpy seed 0:
+# 8 of 100-3000 tokens), and the length its kernels are timed at
+FAMILY_LENS = (2567, 1947, 1582, 882, 993, 218, 318, 147)
 # (T, E, K): the serving shapes (decode T = max_batch, prefill T = prompt
 # length; 300 and 512 are prompts that one block of many warps takes whole),
-# the training batch's 4096 tokens, and wider routers
+# the training batch's 4096 tokens, and wider routers; then Kimi-K2's E384
+# top-8 at phase 5d's decode batch, its prefills and the timed 2048
 ROUTER_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
                 (4096, 8, 2), (5000, 8, 2), (8, 64, 8),
-                (2048, 64, 8), (2048, 256, 8), (5000, 256, 4), (5000, 384, 8)]
+                (2048, 64, 8), (2048, 256, 8), (5000, 256, 4), (5000, 384, 8),
+                (8, 384, 8), (2048, 384, 8)] + [(T, 384, 8)
+                                                for T in FAMILY_LENS]
 
 
 def check_router(dev: torch.device) -> tuple:
+    """The worst weight error over every case, over those at Kimi-K2's E384
+    top-8 (the ``router_topk_e384`` row), and the number of cases."""
     from repro_torch.core.device import expert_capacity
     from repro_torch.kernels.router_topk import router_topk, router_topk_plain
     g = torch.Generator().manual_seed(4)
-    worst, n = 0.0, 0
+    worst, kimi, n = 0.0, 0.0, 0
     for T, E, K in ROUTER_CASES:
         logits = (torch.randn(T, E, generator=g) * 2).to(dev)
         for cap in (expert_capacity(T, E, K, 1.25), T, 1):
@@ -347,20 +426,25 @@ def check_router(dev: torch.device) -> tuple:
             if not (torch.equal(idx, pidx) and torch.equal(pos, ppos)
                     and torch.equal(keep, pkeep)):
                 fail(f"router_topk != plain at T={T} E={E} K={K} cap={cap}")
-            worst = max(worst, float((w - pw).abs().max()))
+            e = float((w - pw).abs().max())
+            worst = max(worst, e)
+            if (E, K) == (384, 8):
+                kimi = max(kimi, e)
             n += 1
     if worst > 1.2e-7:               # one ulp of a weight near 1
         fail(f"router_topk weights differ from plain by {worst}")
     say(f"[kernels] router_topk equals its plain version ({n} cases: "
-        f"experts, positions, keep equal; max |w err| {worst:.3g})")
-    return worst, n
+        f"experts, positions, keep equal; max |w err| {worst:.3g}, at E384 "
+        f"K8 {kimi:.3g})")
+    return worst, kimi, n
 
 
 # (B, H, G, S, N, P, chunk, types): Zamba2's prefill (one group of q/k for
 # 64 heads), the grid of tests/test_kernels.py:61-66, and xLSTM-125m's mLSTM
-# (4 heads of N = P = 384, and its P = 1 normaliser).  Types: "model" is the
-# Mamba2 block's call (bf16 q/k, f32 v and log_a, f32 y), "f32" and "bf16"
-# give every tensor that type.
+# (4 heads of N = P = 384, and its P = 1 normaliser) at phase 5d's prompt
+# lengths and the timed 2048.  Types: "model" is the Mamba2 and mLSTM
+# blocks' call (bf16 q/k, f32 v and log_a, f32 y), "f32" and "bf16" give
+# every tensor that type.
 SSD_ALL = ("model", "f32", "bf16")
 SSD_CASES = [
     (1, 64, 1, 2048, 64, 64, 256, SSD_ALL),
@@ -374,9 +458,10 @@ SSD_CASES = [
     (1, 2, 2, 128, 16, 32, 64, ("f32", "bf16")),
     (2, 3, 3, 256, 32, 64, 128, ("f32", "bf16")),
     (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
-    (1, 4, 4, 1000, 384, 384, 256, ("f32", "bf16")),
-    (1, 4, 4, 1000, 384, 1, 256, ("f32", "bf16")),
-]
+    (1, 4, 4, 1000, 384, 384, 256, SSD_ALL),
+    (1, 4, 4, 1000, 384, 1, 256, SSD_ALL),
+] + [(1, 4, 4, S, 384, P, 256, ("model",))
+     for S in (2048,) + FAMILY_LENS for P in (384, 1)]
 # f32: both versions sum in fp32, in other orders; a bf16 y may round to the
 # other side of one bf16 step (2**-7 relative) on top
 SSD_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
@@ -396,9 +481,13 @@ def ssd_inputs(g: torch.Generator, dev: torch.device, B: int, H: int,
 
 
 def check_ssd(dev: torch.device) -> tuple:
+    """The worst error over every case, a dict of the worst over xLSTM's
+    model-type cases by timing row (``ssd_scan_xlstm`` at P = 384,
+    ``ssd_scan_xlstm_p1`` at P = 1), and the number of cases."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     g = torch.Generator().manual_seed(6)
     worst, n = 0.0, 0
+    xlstm = {"ssd_scan_xlstm": 0.0, "ssd_scan_xlstm_p1": 0.0}
     for B, H, G, S, N, P, chunk, types in SSD_CASES:
         for t in types:
             q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, t)
@@ -422,12 +511,16 @@ def check_ssd(dev: torch.device) -> tuple:
                          f"N{N} P{P} chunk {chunk} ({t}): max |err| {e}, "
                          f"scale {scale}")
                 worst = max(worst, e)
+                if N == 384 and t == "model":
+                    row = "ssd_scan_xlstm" + ("_p1" if P == 1 else "")
+                    xlstm[row] = max(xlstm[row], e)
             n += 1
             del q, k, v, la, y, st, py, pst
     say(f"[kernels] ssd_scan equals its plain version ({n} cases, y and "
-        f"state; max |err| {worst:.3g}; f32 within 1e-4 of the scale, bf16 y "
-        f"within 2**-7)")
-    return worst, n
+        f"state; max |err| {worst:.3g}, xLSTM's model types "
+        f"{ {r: float(f'{e:.3g}') for r, e in xlstm.items()} }; f32 within "
+        f"1e-4 of the scale, bf16 y within 2**-7)")
+    return worst, xlstm, n
 
 
 # ---------------------------------------------------------------------------
@@ -672,18 +765,19 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Launches the serving path must make: attention once per attention
     block per prefill (decode attention is plain), the router once per MoE
     layer per prefill and decode step, the recurrence once per Mamba2 layer
-    per prefill (decode runs the plain step)."""
-    blocks = {"attn": 0, "moe": 0, "mamba2": 0}
+    and twice per mLSTM layer (numerator and normaliser) per prefill
+    (decode runs the plain step)."""
+    blocks = {"attn": 0, "moe": 0, "mamba2": 0, "mlstm": 0}
     for kind, count in cfg.segments:
         if kind in ("dense", "moe", "shared_attn"):
             blocks["attn"] += count
-        if kind in ("moe", "mamba2"):
+        if kind in ("moe", "mamba2", "mlstm"):
             blocks[kind] += count
     want = {"flash_attention": blocks["attn"] * prefills}
     if blocks["moe"]:
         want["router_topk"] = blocks["moe"] * (prefills + steps)
-    if blocks["mamba2"]:
-        want["ssd_scan"] = blocks["mamba2"] * prefills
+    if blocks["mamba2"] or blocks["mlstm"]:
+        want["ssd_scan"] = (blocks["mamba2"] + 2 * blocks["mlstm"]) * prefills
     return want
 
 
@@ -702,10 +796,18 @@ def describe(cfg) -> str:
         parts.append(f"{kinds['mamba2']} mamba2 layers of {H} SSM heads "
                      f"(N {cfg.ssm_state}, P {cfg.ssm_headdim}, d_inner "
                      f"{d_inner}, chunk {cfg.gla_chunk})")
+    if "mlstm" in kinds:
+        from repro_torch.models.xlstm import mlstm_dims
+        d_inner, H, P = mlstm_dims(cfg)
+        parts.append(f"{kinds['mlstm']} mlstm layers of {H} heads (N = P = "
+                     f"{P}, d_inner {d_inner}, chunk {cfg.gla_chunk}), "
+                     f"{kinds.get('slstm', 0)} slstm layers")
     if "shared_attn" in kinds:
         parts.append(f"a shared {cfg.act} block called "
                      f"{kinds['shared_attn']} times (window "
                      f"{cfg.shared_attn_window}, d_ff {cfg.d_ff})")
+    if cfg.family == "dense":
+        parts.append(f"{cfg.act} MLP of {cfg.d_ff}")
     parts.append(f"vocab {cfg.vocab}, window {cfg.window}")
     return ", ".join(parts) + f"; segments {kinds}"
 
@@ -714,11 +816,14 @@ def serve_prompts(vocab: int, n: int = SERVE_REQUESTS,
                   lens: tuple = PROMPT_LENS, long: int = LONG_PROMPT,
                   seed: int = 0) -> list:
     """n prompts from numpy seed 0: n-1 of ragged length in ``lens`` and one
-    of ``long`` tokens in the middle."""
+    of ``long`` tokens in the middle (n of ragged length if ``long`` is
+    None)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    sizes = [int(x) for x in rng.integers(lens[0], lens[1] + 1, n - 1)]
-    sizes.insert(n // 2, long)
+    sizes = [int(x) for x in rng.integers(lens[0], lens[1] + 1,
+                                          n - (long is not None))]
+    if long is not None:
+        sizes.insert(n // 2, long)
     return [rng.integers(0, vocab, m, dtype=np.int32) for m in sizes]
 
 
@@ -839,12 +944,14 @@ def manual_greedy(cfg, plan, params, prompt, n_new: int, batch: int,
 
 def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
                 max_batch: int = SERVE_BATCH, cache_len: int = SERVE_CACHE,
-                check_launches: bool = True) -> dict:
+                check_launches: bool = True, tag: str = "serve") -> dict:
     """Serve ``prompts`` through the engine; fail unless every request
     finishes with ``max_new`` tokens, the kernels launched as
     :func:`expected_launches` says, and request 0's tokens equal the manual
     loop.  ``check_launches=False`` is for a rehearsal on the CPU, where the
-    kernels' plain versions run."""
+    kernels' plain versions run.  Prints the peak device memory above what
+    earlier phases hold and the seconds the model took, all checks
+    included."""
     from repro_torch.models.params import bytes_params, count_params
     from repro_torch.models.lm import LM
     from repro_torch.runtime.steps import make_decode_step, make_model, \
@@ -853,10 +960,14 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     from repro_torch.serving.engine import _TICK, _insert
     dev = plan.device
     t0 = time.perf_counter()
+    base = 0
+    if dev.type == "cuda":
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     params = make_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     sync(dev)
     defs = LM(cfg).param_defs()
-    say(f"[serve] {describe(cfg)}: {count_params(defs) / 1e9:.3f} B "
+    say(f"[{tag}] {describe(cfg)}: {count_params(defs) / 1e9:.3f} B "
         f"parameters, {bytes_params(defs) / 1e9:.2f} GB of weights from "
         f"seed 0 in {time.perf_counter() - t0:.1f} s")
     eng = InferenceEngine(cfg, plan, params, max_batch=max_batch,
@@ -879,7 +990,7 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
             fail(f"request {i} ended as {out!r}")
         if not all(0 <= t < cfg.vocab for t in out.tokens):
             fail(f"request {i}: token out of the vocabulary: {out.tokens}")
-    say(f"[serve] {cfg.name}: {n} requests, {n_prompt} prompt tokens, "
+    say(f"[{tag}] {cfg.name}: {n} requests, {n_prompt} prompt tokens, "
         f"{n * max_new} generated in {wall:.2f} s ({eng.steps} decode "
         f"steps); kernel launches {launches}, expected {want}")
     if check_launches and launches != want:
@@ -889,7 +1000,7 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
                            cache_len)
     if manual != outs[0].tokens:
         fail(f"engine tokens {outs[0].tokens} != manual loop {manual}")
-    say(f"[serve] {cfg.name} request 0 ({len(prompts[0])} prompt tokens): "
+    say(f"[{tag}] {cfg.name} request 0 ({len(prompts[0])} prompt tokens): "
         f"engine tokens "
         f"equal the manual prefill + decode loop ({max_new} tokens)")
 
@@ -931,7 +1042,7 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
         _insert(st, cache1, 0, tok, len(p))
         eng._decode_node.svc(_TICK)
     sync(dev)
-    say(f"[serve] {cfg.name} prefill "
+    say(f"[{tag}] {cfg.name} prefill "
         f"{', '.join(f'{r:.1f} tokens/s at {m}' for m, r in rates.items())} "
         f"(B=1, median of 3); decode {step_ms:.2f} ms per step at batch "
         f"{max_batch} (mean of 10), {max_batch / step_ms * 1e3:.1f} "
@@ -946,9 +1057,65 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
                          (f"decode step at batch {max_batch}",
                           lambda: decode(params, st.caches, batch))):
             say(f"[profile] {cfg.name} {what}: {device_breakdown(dev, fn)}")
+    peak_gb = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9
+               if dev.type == "cuda" else float("nan"))
+    model_s = time.perf_counter() - t0
+    total_gb = (torch.cuda.get_device_properties(dev).total_memory / 1e9
+                if dev.type == "cuda" else float("nan"))
+    say(f"[{tag}] {cfg.name}: peak {peak_gb:.2f} GB of device memory above "
+        f"the {base / 1e9:.2f} GB earlier phases hold, of the card's "
+        f"{total_gb:.2f} GB; {model_s:.1f} s for "
+        f"the model (weights, engine run, checks, rates, profile)")
     return {"launches": launches, "wall_s": wall, "steps": eng.steps,
             "prefill_tok_s": rates, "decode_ms": step_ms,
-            "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms}
+            "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms,
+            "peak_gb": peak_gb, "model_s": model_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the decoder-only families at full width
+# ---------------------------------------------------------------------------
+# (config, layers on one 80 GB card: None = whole).  Depths are cut only as
+# far as the card's 85.0e9 bytes force, with ~10 GB left for the allocator
+# and the earlier phases' ~3.3 GB: a layer takes its bf16 weights and two
+# KV caches of 8 x 4096 positions (the engine's and the manual loop's,
+# 0.27 GB at 8 KV heads of 128): Yi-34B 1.12 + 0.27 GB a layer, so 50 of 60
+# peak near 72 GB above the earlier phases; Mistral-Large-123B 2.77 + 0.27
+# GB, 23 of 88 near 72 GB; Kimi-K2 35 GB a layer (34.2 GB of its 384
+# experts) beside 4.7 GB of embeddings, so a second layer cannot fit
+FAMILIES = (("xlstm-125m", None), ("gemma-7b", None), ("llama3.2-3b", None),
+            ("yi-34b", 50), ("mistral-large-123b", 23),
+            ("kimi-k2-1t-a32b", 1))
+FAMILY_REQUESTS, FAMILY_NEW = 8, 16
+
+
+def family_config(name: str, layers):
+    import dataclasses
+    from repro_torch.configs import get
+    cfg = get(name)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                         n_layers=layers)
+
+
+def phase_families(plan) -> dict:
+    """Each config of :data:`FAMILIES` in turn through the serving engine
+    (:func:`phase_serve`'s checks: every request's tokens, the launch
+    counts, request 0 against the manual loop, no host wait in the decode
+    tick), 8 requests of 100-3000 prompt tokens and 16 new tokens each;
+    each model is freed before the next is built."""
+    import gc
+    out = {}
+    for name, layers in FAMILIES:
+        cfg = family_config(name, layers)
+        prompts = serve_prompts(cfg.vocab, n=FAMILY_REQUESTS, long=None)
+        if tuple(len(p) for p in prompts) != FAMILY_LENS:
+            fail(f"phase 5d's prompt lengths {[len(p) for p in prompts]} "
+                 f"are not FAMILY_LENS, at which phase 2 holds the kernels")
+        out[name] = phase_serve(plan, cfg, prompts, max_new=FAMILY_NEW,
+                                tag="families")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1519,9 +1686,9 @@ def kernel_row(name: str, cu: str, replaces: str, launches: int, err: float,
 
 def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
                launches: int, err: float, card: str) -> dict:
-    """``flash_attention`` over one 2048-token bf16 prompt, causal with a
-    4096 window, beside its plain version and
-    ``scaled_dot_product_attention``."""
+    """``flash_attention`` over 2048-token bf16 prompts, causal with the
+    window of ``shape`` (4096, which does not bind, or none), beside its
+    plain version and ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1597,6 +1764,29 @@ def time_train_kernels(dev: torch.device, train: dict, errs: dict,
                      errs["ssd_scan"], card)]
 
 
+def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
+                        card: str) -> list:
+    """Phase 5d's kernels at its shapes, each with its launches in that
+    phase's engine run: attention at Gemma-7B's D 256 (B1 H16/16 S2048,
+    causal, no window) beside ``scaled_dot_product_attention``, Kimi-K2's
+    router (E384 top-8) over 2048 tokens, and xLSTM's two ``ssd_scan``
+    calls per mLSTM layer (B1 H4 S2048, N = P = 384 and P = 1; the run's
+    launches are split evenly between them)."""
+    g = torch.Generator().manual_seed(11)
+    xl = fams["xlstm-125m"]["launches"]["ssd_scan"]
+    return [time_flash(dev, g, "flash_attention_d256",
+                       (1, 16, 16, 2048, 256, 0),
+                       fams["gemma-7b"]["launches"]["flash_attention"],
+                       errs["flash_attention_d256"], card),
+            time_router(dev, g, "router_topk_e384", 2048,
+                        fams["kimi-k2-1t-a32b"]["launches"]["router_topk"],
+                        errs["router_topk_e384"], card, E=384, K=8),
+            time_ssd(dev, "ssd_scan_xlstm", 1, xl // 2,
+                     errs["ssd_scan_xlstm"], card, H=4, G=4, N=384, P=384),
+            time_ssd(dev, "ssd_scan_xlstm_p1", 1, xl // 2,
+                     errs["ssd_scan_xlstm_p1"], card, H=4, G=4, N=384, P=1)]
+
+
 def time_recompute_backward(dev: torch.device, g: torch.Generator,
                             train: dict, card: str) -> dict:
     """Each kernel's backward on the training path (the recompute through
@@ -1650,12 +1840,13 @@ def time_recompute_backward(dev: torch.device, g: torch.Generator,
 
 
 def time_router(dev: torch.device, g: torch.Generator, name: str, T: int,
-                launches: int, err: float, card: str) -> dict:
-    """``router_topk`` over T tokens of Mixtral's router (E8, K2, capacity
-    from the model's formula) beside its plain version and its bound."""
+                launches: int, err: float, card: str, E: int = 8,
+                K: int = 2) -> dict:
+    """``router_topk`` over T tokens of a router of E experts, top-K
+    (Mixtral's E8 K2 unless given; capacity from the model's formula)
+    beside its plain version and its bound."""
     from repro_torch.core.device import expert_capacity
     from repro_torch.kernels.router_topk import router_topk, router_topk_plain
-    E, K = 8, 2
     cap = expert_capacity(T, E, K, 1.25)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
     nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
@@ -1754,15 +1945,18 @@ def time_routes(dev: torch.device, card: str) -> list:
 
 
 def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
-             card: str) -> dict:
-    """``ssd_scan`` at Zamba2's shape: one Mamba2 layer over B sequences of
-    2048 tokens (64 heads, one group of q/k, N = P = 64, chunk 256; B1 is
-    phase 5b's prefill, B4 phase 5c's training batch) in the block's types
-    (bf16 q/k, f32 v, log_a and y) with the final state, as
-    ``models/ssm.py`` calls it."""
+             card: str, H: int = 64, G: int = 1, N: int = 64,
+             P: int = 64) -> dict:
+    """``ssd_scan`` over B sequences of 2048 tokens, chunk 256, in the
+    blocks' types (bf16 q/k, f32 v, log_a and y) with the final state: by
+    default Zamba2's Mamba2 layer (64 heads, one group of q/k, N = P = 64;
+    B1 is phase 5b's prefill, B4 phase 5c's training batch) as
+    ``models/ssm.py`` calls it; xLSTM's mLSTM layer is H = G = 4,
+    N = P = 384 (numerator) or P = 1 (normaliser), as ``models/xlstm.py``
+    calls it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     g = torch.Generator().manual_seed(7)
-    H, G, S, N, P, Q = 64, 1, 2048, 64, 64, 256
+    S, Q = 2048, 256
     q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, "model")
     f32 = torch.float32
     ms = graph_ms(lambda: ssd_scan(q, k, v, la, Q, out_dtype=f32,
@@ -1882,12 +2076,14 @@ def main() -> int:
     train = phase_train_all(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    fams = phase_families(single_device_plan())
     errs = kernels["max_abs_err"]
     rows = phase_times(dev, main, card["card"])
     rows += time_serving_kernels(dev, serve, hybrid, errs, card["card"])
     rows.append(time_ssd(dev, "ssd_scan", 1, hybrid["launches"]["ssd_scan"],
                          errs["ssd_scan"], card["card"]))
     rows += time_train_kernels(dev, train, errs, card["card"])
+    rows += time_family_kernels(dev, fams, errs, card["card"])
     time_routes(dev, card["card"])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))

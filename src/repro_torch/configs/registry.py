@@ -29,7 +29,9 @@ def names():
 
 
 def _load_all():
-    from . import mixtral_8x7b, zamba2_1_2b, ff_tiny  # noqa: F401
+    from . import (mixtral_8x7b, zamba2_1_2b, xlstm_125m, gemma_7b,  # noqa: F401
+                   llama3_2_3b, yi_34b, mistral_large_123b, kimi_k2_1t_a32b,
+                   ff_tiny)
 
 
 _load_all()

@@ -36,6 +36,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# ptxas's report (registers, spills per kernel) of each verbose build
+PTXAS_REPORT: Dict[str, str] = {}
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -88,7 +90,8 @@ def library_path(name: str) -> pathlib.Path:
 def build(name: str, verbose: bool = False) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` into its shared library unless it exists.
     The library is written under a temporary name and renamed into place, so
-    concurrent builders never load a half-written file."""
+    concurrent builds never load a half-written file.  ``verbose`` keeps
+    ptxas's report in ``PTXAS_REPORT[name]``."""
     out = library_path(name)
     if out.exists():
         return out
@@ -103,8 +106,8 @@ def build(name: str, verbose: bool = False) -> pathlib.Path:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
-        if verbose and res.stderr:
-            print(res.stderr.strip())
+        if verbose:
+            PTXAS_REPORT[name] = res.stderr
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

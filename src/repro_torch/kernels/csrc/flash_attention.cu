@@ -13,7 +13,7 @@
 // tiles the causal and window predicates can reach (the TPU kernel's
 // `pl.when` skip, made into loop bounds).  Any Sq and Sk: q rows past Sq are
 // computed on zeros and not stored, keys past Sk are masked.  D is a
-// template parameter (16, 32, 64, 128).
+// template parameter (16, 32, 64, 128, 256).
 //
 // bf16: `flash_fwd_kernel_tc`, on the tensor cores (FlashAttention-2's
 // forward pass).  4 warps, each owning 16 of the block's 64 query rows.  The
@@ -31,6 +31,19 @@
 // q tiles in reverse, so the longest causal tiles of every head start first
 // and the tail of the last wave runs short tiles.
 //
+// Head dim 256 (Gemma) changes two things.  A warp's O accumulator is
+// 128 fp32 registers a thread (16 rows x 256 columns over 32 lanes); Q's
+// fragments kept in registers would add 64 and the S tile of 64 keys 32, past
+// the 255-register limit, so the kernel would spill.  At D 256 the kernel
+// therefore (a) reads Q's A-fragments from shared memory at each k-step
+// (ldmatrix, 16 a KV tile per warp) instead of holding them, and (b) takes
+// KV tiles of 32 keys, so S is 16 registers.  ptxas gives the instance 240
+// registers a thread and no spill (chip_smoke.py prints its report per
+// instance).  The shared memory is then (64 + 4 x 32) rows x 264 x 2 B =
+// 101,376 B, where 64-key tiles would take 168,960 B, one block to an SM.
+// Two blocks fit an SM only while the registers allow it too: 240 x 128
+// threads x 2 = 61,440 of the SM's 65,536; past 256 a thread, one block.
+//
 // Numerics of the bf16 kernel.  The reference scales q by 1/sqrt(D) in fp32
 // before the product; scaling the bf16 q would add a rounding, so the kernel
 // multiplies the fp32 scores instead: with x = s * (log2(e) / sqrt(D)) it
@@ -38,7 +51,8 @@
 // rounded to bf16 only as the operand of P V; l sums the fp32 P.
 //
 // f32: `flash_fwd_kernel`, fp32 FMAs from shared memory (one block of 256
-// threads, four lanes sharing a query row, K/V tiles staged as fp32).  This
+// threads, four lanes sharing a query row, K/V tiles staged as fp32; 32-key
+// tiles from D 128 up, so D 256 takes 34,976 floats, 139,904 B).  This
 // is a dispatch by type, not a fallback: the serving path is bf16, and
 // TF32 tensor cores would miss the f32 tolerance (2e-5).
 //
@@ -65,11 +79,11 @@ constexpr float kNegInf = -1.0e38f;     // the TPU kernel's NEG_INF
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 128;         // 4 warps x 16 query rows
 constexpr int kTcBQ = 64;               // query rows per block
-constexpr int kTcBK = 64;               // keys per KV tile
-
 template <int D> struct TcTile {
   static constexpr int LD = D + 8;      // padded bf16 row: 16 bytes extra
-  static constexpr int smem_bytes = (kTcBQ + 4 * kTcBK) * LD * 2;
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr bool kQReg = D <= 128;        // Q's fragments in registers
+  static constexpr int smem_bytes = (kTcBQ + 4 * BK) * LD * 2;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -127,16 +141,16 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// rows [row0, row0 + 64) of a (rows, D) bf16 matrix into a padded tile,
+// rows [row0, row0 + R) of a (rows, D) bf16 matrix into a padded tile,
 // zero-filling rows at or past `rows`
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int row0,
                                           int rows) {
   constexpr int CPR = D / 8;            // 16-byte chunks per row
   constexpr int LD = TcTile<D>::LD;
 #pragma unroll
-  for (int i = threadIdx.x; i < 64 * CPR; i += kTcThreads) {
+  for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
     const int r = i / CPR, c = (i % CPR) * 8;
     const bool ok = row0 + r < rows;
     cp_async16(dst + r * LD + c,
@@ -152,13 +166,16 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq,
                     int Sk, int causal, int window, float scale_log2) {
   constexpr int LD = TcTile<D>::LD;
+  constexpr int BK = TcTile<D>::BK;
+  constexpr bool kQReg = TcTile<D>::kQReg;
   constexpr int KS = D / 16;            // k-steps of Q K^T
-  constexpr int NS = kTcBK / 8;         // 8-key column blocks of S
+  constexpr int KQ = kQReg ? KS : 1;    // Q fragments held at once
+  constexpr int NS = BK / 8;            // 8-key column blocks of S
   constexpr int ND = D / 8;             // 8-wide column blocks of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kTcBQ * LD;  // [2][kTcBK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * kTcBK * LD;
+  __nv_bfloat16* Ks = Qs + kTcBQ * LD;  // [2][BK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;
 
   const int h = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;   // longest first
@@ -177,14 +194,13 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
   const int q_last = min(q0 + kTcBQ, Sq) - 1 + q_offset;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  k_begin = (k_begin / kTcBK) * kTcBK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK
-                                      : 0;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  load_tile<D>(Qs, qg, q0, Sq);
+  load_tile<D, kTcBQ>(Qs, qg, q0, Sq);
   if (n_tiles > 0) {
-    load_tile<D>(Ks, kg, k_begin, Sk);
-    load_tile<D>(Vs, vg, k_begin, Sk);
+    load_tile<D, BK>(Ks, kg, k_begin, Sk);
+    load_tile<D, BK>(Vs, vg, k_begin, Sk);
   }
   cp_async_commit();
 
@@ -198,27 +214,29 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  uint32_t qf[KS][4];
+  uint32_t qf[KQ][4];
+  const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD +
+                              (lane >> 4) * 8;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * kTcBK;
+    const int k0 = k_begin + it * BK;
     const int buf = it & 1;
     // one barrier a tile: past it, tile it has landed and every warp is
     // done with tile it-1, whose buffers then take tile it+1
     cp_async_wait<0>();
     __syncthreads();
     if (it + 1 < n_tiles) {
-      load_tile<D>(Ks + (buf ^ 1) * kTcBK * LD, kg, k0 + kTcBK, Sk);
-      load_tile<D>(Vs + (buf ^ 1) * kTcBK * LD, vg, k0 + kTcBK, Sk);
+      load_tile<D, BK>(Ks + (buf ^ 1) * BK * LD, kg, k0 + BK, Sk);
+      load_tile<D, BK>(Vs + (buf ^ 1) * BK * LD, vg, k0 + BK, Sk);
       cp_async_commit();
     }
-    const __nv_bfloat16* Kt = Ks + buf * kTcBK * LD;
-    const __nv_bfloat16* Vt = Vs + buf * kTcBK * LD;
-    if (it == 0) {
+    const __nv_bfloat16* Kt = Ks + buf * BK * LD;
+    const __nv_bfloat16* Vt = Vs + buf * BK * LD;
+    if constexpr (kQReg) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], qrow + kk * 16);
+      }
     }
 
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys
@@ -229,19 +247,21 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (!kQReg) ldsm_x4(qf[0], qrow + kk * 16);
+      const uint32_t (&qa)[4] = qf[kQReg ? kk : 0];
 #pragma unroll
       for (int j2 = 0; j2 < NS / 2; ++j2) {
         uint32_t bk[4];
         ldsm_x4(bk, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j2], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * j2 + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * j2], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * j2 + 1], qa, bk[2], bk[3]);
       }
     }
 
     // scale, mask (only on tiles that straddle an edge), online softmax
-    const bool edge = k0 + kTcBK > Sk ||
-                      (causal && k0 + kTcBK - 1 > q_first) ||
+    const bool edge = k0 + BK > Sk ||
+                      (causal && k0 + BK - 1 > q_first) ||
                       (window > 0 && k0 <= q_last - window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -284,7 +304,7 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
 
     // O += P V: P as bf16 A-fragments straight from the S accumulators
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
       pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
@@ -524,6 +544,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 32: return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
     case 64: return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
     case 128: return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
+    case 256: return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

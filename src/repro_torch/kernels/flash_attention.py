@@ -28,7 +28,7 @@ import torch
 from . import backend
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 

@@ -4,13 +4,15 @@ lifecycle), on the GPU unless ``--device`` names another device.
 
 Port of ``src/repro/launch/serve.py`` (without ``--tuned``, which tunes
 XLA's CPU runtime).  ``--layers`` cuts the depth of a config built from
-``n_layers`` and is refused for one built from a segment list (Zamba2); a
-config other than ``ff-tiny`` runs reduced, as the reference launcher runs
-it.  Weights are random, drawn on the device from seed 0.
+``n_layers`` and is refused for one built from a segment list (Zamba2,
+xLSTM); a config other than ``ff-tiny`` runs reduced, as the reference
+launcher runs it.  Weights are random, drawn on the device from seed 0.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \\
         --max-new 6 --layers 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
         --device cpu
 """
 

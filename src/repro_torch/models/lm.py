@@ -1,5 +1,5 @@
-"""Language-model backbone on one device: the ``dense``, ``moe``, ``mamba2``
-and ``shared_attn`` blocks.
+"""Language-model backbone on one device: the ``dense``, ``moe``, ``mamba2``,
+``shared_attn``, ``mlstm`` and ``slstm`` blocks.
 
 Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
 ``_run_segments``, ``loss``, ``prefill``, ``decode_step``,
@@ -17,7 +17,7 @@ activation checkpointing (``torch.utils.checkpoint``), where the reference
 uses ``jax.checkpoint``: a block keeps only its input, and its forward —
 kernels included — runs again in the backward pass.
 
-Block kinds of later slices (``mlstm``, ``slstm``, ``enc``, ``dec``) raise
+Block kinds of a later slice (``enc``, ``dec``) raise
 ``NotImplementedError`` naming the slice; so does the ``encdec`` loss.
 """
 
@@ -34,11 +34,11 @@ from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
 from .moe import moe_block, moe_defs
 from .params import ParamDef, init_params
 from .ssm import mamba2_block, mamba2_defs, mamba2_state_defs
+from .xlstm import (mlstm_block, mlstm_defs, mlstm_state_defs, slstm_block,
+                    slstm_defs, slstm_state_defs)
 
-KINDS = ("dense", "moe", "mamba2", "shared_attn")
+KINDS = ("dense", "moe", "mamba2", "shared_attn", "mlstm", "slstm")
 _LATER = {
-    "mlstm": "the xLSTM slice (with the ssd_scan kernel)",
-    "slstm": "the xLSTM slice",
     "enc": "the encoder-decoder slice (Whisper)",
     "dec": "the encoder-decoder slice (Whisper)",
 }
@@ -98,6 +98,12 @@ def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
     if kind == "mamba2":
         y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
         return y, st, {}
+    if kind == "mlstm":
+        y, st = mlstm_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+        return y, st, {}
+    if kind == "slstm":
+        y, st = slstm_block(x, p, cfg, state=cache)
+        return y, st, {}
     if kind == "shared_attn":
         window = cfg.shared_attn_window
     else:
@@ -128,6 +134,10 @@ def block_defs(kind, cfg, layers):
     _check_kind(kind)
     if kind == "mamba2":
         return mamba2_defs(cfg, layers)
+    if kind == "mlstm":
+        return mlstm_defs(cfg, layers)
+    if kind == "slstm":
+        return slstm_defs(cfg, layers)
     d = {
         "ln1": norm_defs(cfg.d_model, cfg.norm, layers),
         "ln2": norm_defs(cfg.d_model, cfg.norm, layers),
@@ -301,8 +311,10 @@ class LM:
         out = {}
         for kind, total in cfg.stack_sizes().items():
             _check_kind(kind)
-            if kind == "mamba2":
-                out[kind] = mamba2_state_defs(cfg, B, total)
+            states = {"mamba2": mamba2_state_defs, "mlstm": mlstm_state_defs,
+                      "slstm": slstm_state_defs}.get(kind)
+            if states is not None:
+                out[kind] = states(cfg, B, total)
                 continue
             shape = (total, B, S_eff, cfg.n_kv_heads, cfg.head_dim)
             out[kind] = {"k": (shape, torch.bfloat16),

@@ -17,6 +17,8 @@ import torch
 
 from ..core.tree import tree_leaves, tree_map
 
+_DRAW = 1 << 28                  # elements drawn at once: 1 GiB of fp32
+
 
 @dataclasses.dataclass
 class ParamDef:
@@ -41,9 +43,16 @@ def _init_leaf(d: ParamDef, gen: torch.Generator,
     std = d.scale / math.sqrt(max(fan_in, 1))
     if d.init == "embed":
         std = d.scale
-    x = torch.empty(d.shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * std).to(d.dtype)
+    # drawn in fp32 pieces of at most _DRAW elements, so a leaf of tens of
+    # GB (Kimi-K2's expert stacks) needs no fp32 twin of itself
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _DRAW):
+        x = torch.empty(min(_DRAW, flat.numel() - i), dtype=torch.float32,
+                        device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        flat[i:i + x.numel()] = x * std
+    return out
 
 
 def init_params(defs: Any, gen: torch.Generator) -> Any:

@@ -6,11 +6,13 @@ Port of ``src/repro/serving/engine.py`` onto the port's host runtime
 (or the CPU, when the plan names it).  Each ``jax.jit``-ed step of the
 reference is an eager call here; the batched cache insert is an in-place
 write into the slot (whatever the block kind keeps: KV caches, a Mamba2
-layer's fp32 ``ssm`` and bf16 ``conv`` state); device-to-host reads go
-through pinned buffers.  On the card every prefill runs the
-``flash_attention`` kernel in every attention block and the ``ssd_scan``
-kernel in every Mamba2 layer, and every prefill and decode step the
-``router_topk`` kernel in every MoE layer.
+layer's fp32 ``ssm`` and bf16 ``conv`` state, an mLSTM layer's fp32 ``C``
+and ``n`` and bf16 ``conv``, an sLSTM layer's fp32 ``c`` and ``n``);
+device-to-host reads go through pinned buffers.  On the card every prefill
+runs the ``flash_attention`` kernel in every attention block and the
+``ssd_scan`` kernel in every Mamba2 layer and twice in every mLSTM layer,
+and every prefill and decode step the ``router_topk`` kernel in every MoE
+layer.
 
 The engine is a streaming network compiled through the staged compiler
 (``compile(config=CompileConfig(...))``):

@@ -75,21 +75,29 @@ def test_combine_kernel_matches_plain(cuda, dtype):
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+# (B, H, Hkv, Sq, Sk, D, causal, window): ragged q and kv tails, chunked
+# prefill with a window, a length past the window and no mask at every head
+# dim; then Gemma-7B's prefill attention (H16/16 of D 256, causal, no
+# window: S 2048, a ragged 5000, and a chunk of 512 queries on 4096 keys)
+FLASH_KERNEL_CASES = [
+    (2, H, Hkv, Sq, Sk, D, causal, window) for D in (16, 32, 64, 128, 256)
+    for H, Hkv, Sq, Sk, causal, window in ((4, 2, 130, 130, True, 0),
+                                           (4, 1, 37, 300, True, 64),
+                                           (2, 2, 200, 200, True, 50),
+                                           (4, 4, 65, 65, False, 0))
+] + [(1, 16, 16, Sq, Sk, 256, True, 0)
+     for Sq, Sk in ((2048, 2048), (5000, 5000), (512, 4096))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,Sq,Sk,causal,window", [
-    (4, 2, 130, 130, True, 0),       # ragged q and kv tails
-    (4, 1, 37, 300, True, 64),       # chunked prefill, window
-    (2, 2, 200, 200, True, 50),      # longer than the window
-    (4, 4, 65, 65, False, 0),
-])
-def test_flash_kernel_matches_plain(cuda, D, dtype, H, Hkv, Sq, Sk, causal,
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", FLASH_KERNEL_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal,
                                     window):
     g = torch.Generator().manual_seed(D + Sq)
-    q = torch.randn(2, H, Sq, D, generator=g).to(dtype).to(cuda)
-    k = torch.randn(2, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
-    v = torch.randn(2, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
+    q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
     got = flash_attention(q, k, v, causal, window)
     want = flash_attention_plain(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -99,7 +107,7 @@ def test_flash_kernel_matches_plain(cuda, D, dtype, H, Hkv, Sq, Sk, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window", [
     (1, 2, 2, 1, 1, True, 0),        # one query, one key
@@ -191,15 +199,19 @@ def _edge_ts(E):
 
 
 # those T for E in {1, 8, 384} and K in {1, 2, 8}; then chip_smoke.py's
-# ROUTER_CASES and (5000, 384, 8)
+# ROUTER_CASES: (5000, 384, 8), and Kimi-K2's E 384 top-8 at the serving
+# engine's decode batch, its timed 2048 tokens and the prompt lengths that
+# chip_smoke.py's phase 5d prefills
 ROUTE_EDGE_CASES = [(T, E, K)
                     for E, K in ((1, 1), (8, 1), (8, 2), (8, 8), (384, 1),
                                  (384, 2), (384, 8))
                     for T in _edge_ts(E)]
+FAMILY_LENS = (2567, 1947, 1582, 882, 993, 218, 318, 147)
 ROUTER_SMOKE_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
                       (5000, 8, 2), (8, 64, 8),
                       (2048, 64, 8), (2048, 256, 8), (5000, 256, 4),
-                      (5000, 384, 8)]
+                      (5000, 384, 8), (8, 384, 8), (2048, 384, 8)] + [
+                          (T, 384, 8) for T in FAMILY_LENS]
 
 
 def _route_logits(T, E, one_expert, device, seed=0):
@@ -504,10 +516,17 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, H, G, S, N, P, chunk):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_model_path_types(cuda):
-    """Zamba2's prefill: bf16 q/k of one group, fp32 v and log_a, fp32 y."""
-    g = torch.Generator().manual_seed(7)
-    q, k, v, la = _ssd_inputs(g, 1, 64, 1, 333, 64, 64, torch.bfloat16,
+@pytest.mark.parametrize("B,H,G,S,N,P", [
+    (1, 64, 1, 333, 64, 64)] + [(1, 4, 4, S, 384, P)
+                                for S in (2048,) + FAMILY_LENS
+                                for P in (384, 1)])
+def test_ssd_kernel_model_path_types(cuda, B, H, G, S, N, P):
+    """The blocks' call, bf16 q/k, fp32 v and log_a, fp32 y: Zamba2's
+    prefill (one group of q/k for 64 heads) and xLSTM-125m's mLSTM prefill
+    (4 heads of N = P = 384 and the P = 1 normaliser) at the served prompt
+    lengths."""
+    g = torch.Generator().manual_seed(7 if S == 333 else S + P)
+    q, k, v, la = _ssd_inputs(g, B, H, G, S, N, P, torch.bfloat16,
                               torch.float32, cuda)
     y, state = ssd_scan(q, k, v, la, 256, out_dtype=torch.float32,
                         return_state=True)
@@ -577,6 +596,48 @@ def test_hybrid_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert st.pos.tolist() == [3, 43, 3]
+
+
+@pytest.mark.cuda
+def test_xlstm_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
+    """xLSTM's prefill runs ``ssd_scan`` twice per mLSTM layer; its decode
+    step (plain mLSTM and sLSTM steps, written in place) and the slot
+    insert of the fp32 ``C``, ``n``, ``c`` states only queue work."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.core.plan import single_device_plan
+    from repro_torch.runtime.steps import (init_state, make_decode_step,
+                                           make_prefill_step)
+    from repro_torch.serving.engine import _BatchState, _insert, _to_device
+    cfg = get("xlstm-125m").reduced()
+    plan = single_device_plan(cuda)
+    params = init_state(cfg, plan, torch.Generator(device=cuda)
+                        .manual_seed(0))["params"]
+    prompt = torch.arange(40, device=cuda, dtype=torch.int32)[None]
+    ssd_scan.launches = 0
+    _, cache1 = make_prefill_step(cfg, plan, 32)(params, {"tokens": prompt})
+    assert ssd_scan.launches == 2 * sum(c for k, c in cfg.segments
+                                        if k == "mlstm")
+    decode = make_decode_step(cfg, plan, 32)
+    st = _BatchState(cfg, 3, 32, cuda)
+    st.active_mask[:] = True
+    tok = torch.tensor([[7]], dtype=torch.int32)
+    decode(params, st.caches, {"token": st.cur_tok, "pos": st.pos})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _insert(st, cache1, 1, tok, 40)
+        for _ in range(3):
+            nt, _, st.caches = decode(params, st.caches,
+                                      {"token": st.cur_tok, "pos": st.pos})
+            st.cur_tok = nt
+            st.pos = st.pos + _to_device(st.active_mask.astype(np.int32),
+                                         cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.pos.tolist() == [3, 43, 3]
+    assert bool(torch.isfinite(st.caches["mlstm"]["C"]).all())
 
 
 # -- the training path ------------------------------------------------------------

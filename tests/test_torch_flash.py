@@ -40,12 +40,13 @@ def _close(got: torch.Tensor, want, tol: float) -> None:
                                rtol=tol, atol=tol)
 
 
-# the grid of tests/test_kernels.py:22-30
+# the grid of tests/test_kernels.py:22-30, and Gemma-7B's head dim 256
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
     (1, 2, 2, 128, 128, 64),
     (2, 4, 2, 256, 256, 64),     # GQA 2:1
     (1, 4, 1, 128, 256, 32),     # MQA, chunked-prefill alignment
     (1, 2, 2, 128, 128, 128),
+    (1, 2, 1, 128, 128, 256),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
                                            (False, 0)])
@@ -67,6 +68,8 @@ def test_flash_attention_matches_pallas_kernel(B, H, Hkv, Sq, Sk, D, causal,
     (1, 2, 2, 70, 70, 16, True, 32),      # longer than the window
     (1, 4, 2, 9, 200, 64, True, 64),      # window, q at the end of the keys
     (1, 2, 1, 33, 33, 128, False, 0),
+    (1, 2, 1, 70, 70, 256, True, 0),      # Gemma-7B's head dim
+    (1, 2, 1, 6, 70, 256, True, 0),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_ragged_matches_reference_oracle(
@@ -113,10 +116,12 @@ def test_shapes_that_do_not_fit_raise():
 def _tc_kernel_emulation(q, k, v, causal, window):
     """The bf16 tensor-core kernel's rounding, in torch on the CPU: q.k from
     the bf16 inputs summed in fp32, the scale (with log2 e) applied to the
-    fp32 scores, 64-key tiles in order with an fp32 running max and sum in
-    base 2, P rounded to bf16 only as the operand of P V, l summed from the
-    fp32 P, the output divided by max(l, 1e-30) and rounded to bf16."""
+    fp32 scores, 64-key tiles (32 at D 256) in order with an fp32 running
+    max and sum in base 2, P rounded to bf16 only as the operand of P V, l
+    summed from the fp32 P, the output divided by max(l, 1e-30) and rounded
+    to bf16."""
     B, H, Sq, D = q.shape
+    BK = 32 if D > 128 else 64
     Hkv, Sk = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(H // Hkv, dim=1)
     vf = v.float().repeat_interleave(H // Hkv, dim=1)
@@ -126,10 +131,10 @@ def _tc_kernel_emulation(q, k, v, causal, window):
     m = torch.full((B, H, Sq), -1.0e38)
     l = torch.zeros(B, H, Sq)
     acc = torch.zeros(B, H, Sq, D)
-    for k0 in range(0, Sk, 64):
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + 64]) \
+    for k0 in range(0, Sk, BK):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + BK]) \
             * scale_log2
-        kpos = torch.arange(k0, min(k0 + 64, Sk))[None, :]
+        kpos = torch.arange(k0, min(k0 + BK, Sk))[None, :]
         ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
         if causal:
             ok &= kpos <= qpos
@@ -142,7 +147,7 @@ def _tc_kernel_emulation(q, k, v, causal, window):
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
-            vf[:, :, k0:k0 + 64])
+            vf[:, :, k0:k0 + BK])
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
 
@@ -152,6 +157,7 @@ def _tc_kernel_emulation(q, k, v, causal, window):
     (1, 4, 1, 128, 256, 32),     # MQA, q at the end of the keys
     (1, 2, 2, 128, 128, 128),
     (1, 2, 1, 128, 128, 16),
+    (1, 2, 1, 64, 128, 256),     # Gemma's D 256: 32-key tiles
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
                                            (False, 0)])

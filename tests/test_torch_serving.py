@@ -1,7 +1,9 @@
 """The port's serving engine against the reference's, on the CPU.
 
-Both engines serve the reduced Mixtral-8x7B, and the reduced Zamba2-1.2B
-(the hybrid: Mamba2 layers and a shared attention block), with the
+Both engines serve the reduced Mixtral-8x7B, the reduced Zamba2-1.2B (the
+hybrid: Mamba2 layers and a shared attention block), the reduced
+xLSTM-125m (mLSTM and sLSTM layers) and the reduced Kimi-K2 at 32 experts
+top-8 with a shared expert, with the
 reference's weights (carried across with ``core.params.from_numpy``) and
 prompts from numpy seeds.  Greedy tokens must be equal
 (``tests/test_serving.py:44``), and the port's engine must batch
@@ -36,13 +38,19 @@ torch.set_num_threads(1)
 
 ARCH = "mixtral-8x7b"
 HYBRID = "zamba2-1.2b"
+XLSTM = "xlstm-125m"
+KIMI = "kimi-k2-1t-a32b"
+# Kimi-K2's router at a width reduced() cuts away (E4 top-2)
+KIMI_WIDE = {"n_experts": 32, "top_k": 8, "n_shared_experts": 1}
 CACHE_LEN = 64
 
 
-def _both(arch):
-    jcfg = jget(arch).reduced()
+def _both(arch, **kw):
+    jcfg, tcfg = jget(arch).reduced(), tget(arch).reduced()
+    for c in (jcfg, tcfg):
+        for k, v in kw.items():
+            setattr(c, k, v)
     params = jinit_state(jcfg, jplan(), jax.random.PRNGKey(0))["params"]
-    tcfg = tget(arch).reduced()
     tp = from_numpy(jax.tree.map(np.asarray, params), "cpu")
     return jcfg, params, tcfg, single_device_plan("cpu"), tp
 
@@ -55,6 +63,16 @@ def served():
 @pytest.fixture(scope="module")
 def served_hybrid():
     return _both(HYBRID)
+
+
+@pytest.fixture(scope="module")
+def served_xlstm():
+    return _both(XLSTM)
+
+
+@pytest.fixture(scope="module")
+def served_kimi():
+    return _both(KIMI, **KIMI_WIDE)
 
 
 def _prompts(seed, n, lengths=(8,)):
@@ -166,6 +184,73 @@ def test_hybrid_batch_state_holds_the_recurrent_state(served_hybrid):
     assert st.pos.tolist() == [0, 13, 0] and st.cur_tok[1, 0] == 5
 
 
+def test_xlstm_engine_tokens_equal_the_reference_engine(served_xlstm):
+    """xLSTM: every request's greedy tokens equal the reference engine's,
+    on prompts the reference's ``chunked_gla`` takes (shorter than, or a
+    multiple of, ``gla_chunk`` 16), and request 0's equal the manual
+    prefill + decode loop."""
+    jcfg, jparams, tcfg, plan, tp = served_xlstm
+    prompts = _prompts(8, 3, lengths=(16, 7, 32))
+    want = _serve(JEngine(jcfg, jplan(), jparams, max_batch=2,
+                          cache_len=CACHE_LEN), JRequest, prompts, 6,
+                  eos=JFF_EOS)
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 6)
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for i in range(3):
+        assert got[i].tokens == want[i].tokens, i
+    assert got[0].tokens == _manual_greedy(tcfg, plan, tp, prompts[0], 6)
+
+
+def test_xlstm_batch_state_holds_the_recurrent_state(served_xlstm):
+    """The batched state takes the mLSTM's fp32 ``C`` and ``n`` and bf16
+    ``conv``, and the sLSTM's fp32 ``c`` and ``n``; the slot insert writes
+    a prefilled request into one slot only, and the engine's tokens on
+    ragged prompts equal the manual loop's."""
+    from repro_torch.serving.engine import _BatchState, _insert
+    _, _, tcfg, plan, tp = served_xlstm
+    st = _BatchState(tcfg, 3, CACHE_LEN, plan.device)
+    mC, mn = st.caches["mlstm"]["C"], st.caches["mlstm"]["n"]
+    P = 2 * tcfg.d_model // tcfg.n_heads
+    assert mC.dtype == mn.dtype == torch.float32
+    assert tuple(mC.shape) == (2, 3, tcfg.n_heads, P, P)
+    assert tuple(mn.shape) == (2, 3, tcfg.n_heads, P, 1)
+    assert st.caches["mlstm"]["conv"].dtype == torch.bfloat16
+    assert tuple(st.caches["slstm"]["c"].shape) == (1, 3, tcfg.d_model)
+    prefill = make_prefill_step(tcfg, plan, CACHE_LEN)
+    _, cache1 = prefill(tp, {"tokens": torch.from_numpy(
+        _prompts(9, 1, lengths=(13,))[0])[None]})
+    _insert(st, cache1, 2, torch.tensor([[7]], dtype=torch.int32), 13)
+    for kind, leaves in cache1.items():
+        for n, c in leaves.items():
+            assert torch.equal(st.caches[kind][n][:, 2], c[:, 0])
+            assert not st.caches[kind][n][:, :2].any()
+    assert st.pos.tolist() == [0, 0, 13] and st.cur_tok[2, 0] == 7
+    prompts = _prompts(10, 3, lengths=(21, 9, 40))
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 5)
+    for i in range(3):
+        assert got[i].tokens == _manual_greedy(tcfg, plan, tp, prompts[i],
+                                               5), i
+
+
+def test_kimi_engine_tokens_equal_the_reference_engine(served_kimi):
+    """Kimi-K2 at E32 top-8 with a shared expert: the router on every
+    prefill and decode step; every request's tokens equal the reference
+    engine's and request 0's the manual loop's."""
+    jcfg, jparams, tcfg, plan, tp = served_kimi
+    prompts = _prompts(11, 3, lengths=(8, 21, 40))
+    want = _serve(JEngine(jcfg, jplan(), jparams, max_batch=2,
+                          cache_len=CACHE_LEN), JRequest, prompts, 6,
+                  eos=JFF_EOS)
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 6)
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for i in range(3):
+        assert got[i].tokens == want[i].tokens, i
+    assert got[0].tokens == _manual_greedy(tcfg, plan, tp, prompts[0], 6)
+
+
 def test_engine_matches_its_manual_loop(served):
     _, _, tcfg, plan, tp = served
     prompt = _prompts(1, 1)[0]
@@ -251,6 +336,19 @@ def test_serve_launcher_refuses_layers_for_a_segmented_config(capsys):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--arch", HYBRID, "--layers", "1"])
+    assert "segment" in capsys.readouterr().err
+
+
+def test_serve_launcher_runs_xlstm_and_refuses_its_layers(capsys):
+    """The reduced xLSTM serves here; ``--layers`` is refused for it, as
+    for Zamba2: its depth is its segment list."""
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", XLSTM, "--requests",
+                       "2", "--max-new", "3", "--max-batch", "2",
+                       "--prompt-len", "21"]) == 0
+    assert "served 2/2 requests, 6 tokens" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--arch", XLSTM, "--layers", "2"])
     assert "segment" in capsys.readouterr().err
 
 
