@@ -19,10 +19,14 @@ Phases, each of which fails the run:
    within 2e-5) at Mixtral's attention shapes (H32/Hkv8, D128, window 4096:
    S 2048, ragged S 5000, Sq 512 against Sk 4096), at Gemma-7B's (H16/16,
    D256, no window, the same three lengths, f32 and bf16), at Zamba2's
-   shared block (H32/32, D64), on the grid of ``tests/test_kernels.py`` and
-   at the kernels' tile edges (lengths 1, 15, 17, 63, 65, 129, q_offset off
-   the tile, windows whose edge falls inside a tile; D 16-256, f32 and
-   bf16);
+   shared block (H32/32, D64), at phase 5e's shapes (Qwen2-VL's H12/2
+   D128 S2048, a GQA group of 6; Whisper's encoder, H16/16 D64 without a
+   mask over 1500 frames at B8 and 4096 at B1, and its cross attention,
+   32 and 1 queries against 1500 frames at B8), on the grid of
+   ``tests/test_kernels.py`` and at the kernels' tile edges (lengths 1,
+   15, 17, 63, 65, 129, q_offset off the tile, windows whose edge falls
+   inside a tile, a group of 6, one query against 65 keys without a mask;
+   D 16-256, f32 and bf16);
    ``router_topk`` against its plain version
    (experts, positions and keep flags equal) at T 8/2048/5000 with E 8,
    K 2, at E 64/256/384 with K up to 8, and at Kimi-K2's E 384 top-8 at
@@ -101,6 +105,22 @@ Phases, each of which fails the run:
    prompt tokens (numpy seed 0), 16 new tokens each, max_batch 8,
    cache_len 4096.  Prints each model's prefill tokens/s, decode ms per
    step (host and device), peak memory and seconds;
+5e. front ends — Qwen2-VL-2B whole (28 layers, 12/2 heads of 128, M-RoPE)
+   through the same engine and checks with phase 5d's requests (text), then
+   through ``make_prefill_step`` / ``make_decode_step`` at B4 x S2048 with
+   N(0, 0.1²) vision embeddings (16 text tokens, a 32 x 32 grid, text) and
+   their M-RoPE ids, 16 decode steps; Whisper-medium whole (24 + 24
+   layers, LayerNorm, gelu) through the steps: B8 clips of 1500 frames,
+   32-token prompts, 64 greedy steps (cache 448), then B1 x 4096 frames.
+   ``flash_attention`` must launch once a layer a prefill (Whisper: encoder,
+   decoder self and cross) and, for Whisper, once a decoder layer a decode
+   step; logits must be finite; every decoder block's decode step at
+   position S must equal its prefill's row S within 3e-2 of its scale
+   (``block_walk``: the random models are chaotic, so whole-model
+   decode-versus-prefill numbers are printed, not held); and both models,
+   reduced, must match the port on the CPU block by block.  Prints
+   prefill tokens/s, encoder frames/s, decoder tokens/s, decode ms per
+   step (host and device), peak memory and seconds;
 6. times — each kernel and its plain version (CUDA events, median of
    repeats) beside its bound: the a2a kernels at the phase-3 shapes, the
    phase-5 kernels at its shapes (attention at S 2048, Mixtral's D128 and
@@ -109,8 +129,10 @@ Phases, each of which fails the run:
    (B1 H64 S2048 N64 P64, chunk 256), the same kernels at phase 5c's
    training shapes, phase 5d's (attention at Gemma's D256, B1 H16 S2048,
    beside ``scaled_dot_product_attention``; Kimi's router at E384 K8;
-   ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), and the
-   phase-3 items/s; then the
+   ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), phase 5e's
+   (attention at Qwen2-VL's group of 6, Whisper's encoder and its cross
+   attention at Sq 32 and 1, beside ``scaled_dot_product_attention``), and
+   the phase-3 items/s; then the
    routing kernels at :data:`ROUTE_TIMES` (``router_topk`` at decode's T 8,
    prefill's T 1859-5000 and wide routers; ``a2a_route`` at T 512 and 4096),
    each with its grid, beside an empty kernel's time (the latency floor)
@@ -322,12 +344,15 @@ def phase_kernels(dev: torch.device) -> dict:
                         checks += 1
     say(f"[kernels] a2a_route, a2a_combine equal their plain versions "
         f"({checks} cases, max |err| {err})")
-    err["flash_attention"], err["flash_attention_d256"], n_flash = \
+    err["flash_attention"], err["flash_attention_d256"], rows, n_flash = \
         check_flash(dev)
+    err.update(rows)
     err["router_topk"], err["router_topk_e384"], n_router = check_router(dev)
     err["ssd_scan"], xlstm, n_ssd = check_ssd(dev)
     err.update(xlstm)
-    return {"checks": checks + n_flash + n_router + n_ssd,
+    gelu, n_gelu = check_gelu(dev)
+    err.update(gelu)
+    return {"checks": checks + n_flash + n_router + n_ssd + n_gelu,
             "max_abs_err": err}
 
 
@@ -342,7 +367,9 @@ FLASH_EDGES = [(1, 2, 2, 1, 1, True, 0), (2, 4, 2, 15, 15, True, 0),
                (1, 4, 1, 17, 129, True, 0), (1, 2, 2, 63, 63, False, 0),
                (1, 4, 2, 65, 65, True, 7), (1, 4, 4, 129, 129, True, 100),
                (1, 2, 1, 1, 65, True, 0), (1, 8, 2, 100, 1000, True, 300),
-               (2, 2, 2, 65, 129, False, 0), (1, 4, 2, 129, 200, True, 33)]
+               (2, 2, 2, 65, 129, False, 0), (1, 4, 2, 129, 200, True, 33),
+               (1, 12, 2, 65, 129, True, 0),     # a GQA group of 6
+               (1, 2, 2, 1, 65, False, 0)]       # one query, every key
 FLASH_CASES = [
     (1, 32, 8, 2048, 2048, 128, True, 4096, BF16),
     (1, 32, 8, 5000, 5000, 128, True, 4096, BF16),   # ragged, past the window
@@ -353,6 +380,11 @@ FLASH_CASES = [
     (1, 16, 16, 2048, 2048, 256, True, 0, F32),      # Gemma-7B's D 256
     (1, 16, 16, 5000, 5000, 256, True, 0, F32),      # ragged
     (1, 16, 16, 512, 4096, 256, True, 0, F32),       # chunked prefill
+    (1, 12, 2, 2048, 2048, 128, True, 0, BF16),      # Qwen2-VL's group of 6
+    (8, 16, 16, 1500, 1500, 64, False, 0, F32),      # Whisper's encoder
+    (1, 16, 16, 4096, 4096, 64, False, 0, F32),      # at its enc_len
+    (8, 16, 16, 32, 1500, 64, False, 0, F32),        # cross attention:
+    (8, 16, 16, 1, 1500, 64, False, 0, F32),         # prefill, decode
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
      for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
                                   (2, 4, 2, 256, 256, 64),
@@ -364,13 +396,40 @@ FLASH_CASES = [
      for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES]
 
 
+# the cases at phase 5e's shapes, by the ``kernels`` row that reports them
+FLASH_ROWS = {(1, 12, 2, 2048, 2048, 128, True, 0): "flash_attention_gqa6",
+              (8, 16, 16, 1500, 1500, 64, False, 0):
+              "flash_attention_encoder",
+              (8, 16, 16, 32, 1500, 64, False, 0):
+              "flash_attention_cross_prefill",
+              (8, 16, 16, 1, 1500, 64, False, 0):
+              "flash_attention_cross_decode"}
+
+
+# bf16 also held against the output's scale: max |err| / max |want|.  At
+# Sk >= 1500 with every key visible the outputs are small (std ~0.04, a
+# weighted mean over 1500 unit-normal values), so 2e-2 absolute is half a
+# typical value; there the scale check is what would see a dropped key tile,
+# and each such case also plants one (the plain version without the keys
+# past the last whole 64-key tile, 28 of 1500 or 64 of 4096), which must
+# land past the limit.  Read on the card (NVIDIA H100 80GB HBM3, 700.00 W):
+# every sound bf16 case within 0.0075 of the scale, the planted ones
+# 0.2967-0.4287; the limit sits 6.7x over the one and 5.9x under the other
+FLASH_SCALE_TOL = 5e-2
+
+
 def check_flash(dev: torch.device) -> tuple:
     """The worst bf16 error over every case, over those at D 256 (the
-    ``flash_attention_d256`` row), and the number of cases."""
+    ``flash_attention_d256`` row) and at each shape of :data:`FLASH_ROWS`
+    (a dict by row), and the number of cases.  bf16 is also held to
+    :data:`FLASH_SCALE_TOL` of the output's scale, and with every key
+    visible over Sk >= 1500 a planted tail-drop must fail that limit."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     g = torch.Generator().manual_seed(3)
     worst, d256, n = 0.0, 0.0, 0
+    rows = {name: 0.0 for name in FLASH_ROWS.values()}
+    scaled, planted = 0.0, []
     for B, H, Hkv, Sq, Sk, D, causal, window, dtypes in FLASH_CASES:
         for dtype in dtypes:
             q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(dev)
@@ -381,20 +440,93 @@ def check_flash(dev: torch.device) -> tuple:
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
             tol = FLASH_TOL[dtype]
+            where = (f"B{B} H{H}/{Hkv} Sq{Sq} Sk{Sk} D{D} causal={causal} "
+                     f"window={window} {dtype}")
             if not torch.allclose(got, want, rtol=tol, atol=tol):
-                fail(f"flash_attention != plain at B{B} H{H}/{Hkv} Sq{Sq} "
-                     f"Sk{Sk} D{D} causal={causal} window={window} {dtype}: "
-                     f"max |err| {e}")
+                fail(f"flash_attention != plain at {where}: max |err| {e}")
             if dtype == torch.bfloat16:
+                rel = e / float(want.abs().max())
+                scaled = max(scaled, rel)
+                if rel > FLASH_SCALE_TOL:
+                    fail(f"flash_attention != plain at {where}: max |err| "
+                         f"{e} is {rel:.4f} of the output's scale, above "
+                         f"{FLASH_SCALE_TOL}")
+                if not causal and Sk >= 1500:
+                    keep = Sk - (Sk % 64 or 64)
+                    drop = flash_attention_plain(q, k[:, :, :keep],
+                                                 v[:, :, :keep], False,
+                                                 0).float()
+                    fault = float((got - drop).abs().max()
+                                  / drop.abs().max())
+                    planted.append(round(fault, 4))
+                    if fault <= FLASH_SCALE_TOL:
+                        fail(f"the scale check does not see a dropped key "
+                             f"tail at {where}: {fault:.4f}")
                 worst = max(worst, e)
                 if D == 256:
                     d256 = max(d256, e)
+                row = FLASH_ROWS.get((B, H, Hkv, Sq, Sk, D, causal, window))
+                if row:
+                    rows[row] = max(rows[row], e)
             n += 1
             del q, k, v, got, want
     say(f"[kernels] flash_attention equals its plain version ({n} cases, "
-        f"max |err| {worst:.3g} in bf16, at D 256 {d256:.3g}, within 2e-2; "
-        f"f32 within 2e-5)")
-    return worst, d256, n
+        f"max |err| {worst:.3g} in bf16, at D 256 {d256:.3g}, at phase "
+        f"5e's shapes {rows}, within 2e-2; f32 within 2e-5); bf16 within "
+        f"{scaled:.4f} of the output's scale (limit {FLASH_SCALE_TOL}); "
+        f"the kernel against the plain version without the keys past the "
+        f"last whole 64-key tile, non-causal at Sk >= 1500: {planted} of "
+        f"the scale (each must exceed the limit)")
+    return worst, d256, rows, n
+
+
+# (shape, dtype, storage offset, kernels row or None): the main paths'
+# gelu calls (Whisper's MLP over B8 x 1500 frames and a decode step,
+# Gemma-7B's 2567-token prefill, Zamba2's shared block at its training
+# batch, there in f32 as a model with fp32 parameters runs it), then sizes
+# under and off the kernel's 16-byte vectors and an unaligned view; a row
+# "wide" draws magnitudes from 2**-140 to 2**100 (subnormal products,
+# overflow to infinity, rounding carries into the exponent)
+GELU_CASES = [((8, 1500, 4096), torch.bfloat16, 0, "gelu_stepwise"),
+              ((8, 1, 4096), torch.bfloat16, 0, None),
+              ((1, 2567, 24576), torch.bfloat16, 0, "gelu_stepwise_gemma"),
+              ((4, 2048, 8192), torch.float32, 0, None),
+              ((1,), torch.bfloat16, 0, None), ((7,), torch.float32, 0, None),
+              ((3, 37, 64), torch.bfloat16, 0, None),
+              ((5, 333), torch.bfloat16, 1, None),
+              ((5, 333), torch.float32, 1, None),
+              ((1 << 20,), torch.bfloat16, 0, "wide"),
+              ((1 << 20,), torch.float32, 0, "wide")]
+
+
+def check_gelu(dev: torch.device) -> tuple:
+    """``gelu_stepwise`` against its plain version, bit for bit (each step
+    rounds to the type in both); the worst error by ``kernels`` row and
+    the number of cases."""
+    from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
+                                                   gelu_stepwise_plain)
+    g = torch.Generator().manual_seed(17)
+    rows = {}
+    for shape, dtype, offset, row in GELU_CASES:
+        n = math.prod(shape)
+        x = torch.randn(n + offset, generator=g) * 4
+        if row == "wide":
+            x = x * torch.exp2(torch.randint(-140, 100, x.shape,
+                                             generator=g).float())
+        x = x.to(dtype).to(dev)[offset:].view(shape)
+        got, want = gelu_stepwise(x), gelu_stepwise_plain(x)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"gelu_stepwise != plain at {shape} {dtype} offset "
+                 f"{offset}: max |err| {e}, "
+                 f"{int((got != want).sum())} of {n} elements differ")
+        if row and row != "wide":
+            rows[row] = e
+        del x, got, want
+    say(f"[kernels] gelu_stepwise equals its plain version bit for bit "
+        f"({len(GELU_CASES)} cases)")
+    return rows, len(GELU_CASES)
 
 
 # the prompt lengths of phase 5d's requests (serve_prompts at numpy seed 0:
@@ -753,31 +885,56 @@ def serve_config():
 
 
 def kernel_fns() -> dict:
-    """The serving path's kernel wrappers, each with its launch count."""
+    """The model paths' kernel wrappers, each with its launch count."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gelu_stepwise import gelu_stepwise
     from repro_torch.kernels.router_topk import router_topk
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"flash_attention": flash_attention, "router_topk": router_topk,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "gelu_stepwise": gelu_stepwise}
+
+
+def zero_launches() -> dict:
+    kernels = kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    return kernels
+
+
+def read_launches(kernels: dict) -> dict:
+    """The kernels that launched, with their counts."""
+    return {n: f.launches for n, f in kernels.items() if f.launches}
+
+
+def nonzero(want: dict) -> dict:
+    return {n: c for n, c in want.items() if c}
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
-    """Launches the serving path must make: attention once per attention
-    block per prefill (decode attention is plain), the router once per MoE
-    layer per prefill and decode step, the recurrence once per Mamba2 layer
-    and twice per mLSTM layer (numerator and normaliser) per prefill
-    (decode runs the plain step)."""
-    blocks = {"attn": 0, "moe": 0, "mamba2": 0, "mlstm": 0}
+    """Launches a model path must make over ``prefills`` prefills and
+    ``steps`` decode steps: attention once per attention block per prefill
+    (decode's self-attention is plain; a ``dec`` block adds its cross
+    attention, which runs the kernel at every decode step too), the router
+    once per MoE layer per prefill and decode step, the recurrence once per
+    Mamba2 layer and twice per mLSTM layer (numerator and normaliser) per
+    prefill (decode runs the plain step), and for a gelu model the gelu
+    once per dense MLP per prefill and decode step (the encoder's at
+    prefill only)."""
+    n = {}
     for kind, count in cfg.segments:
-        if kind in ("dense", "moe", "shared_attn"):
-            blocks["attn"] += count
-        if kind in ("moe", "mamba2", "mlstm"):
-            blocks[kind] += count
-    want = {"flash_attention": blocks["attn"] * prefills}
-    if blocks["moe"]:
-        want["router_topk"] = blocks["moe"] * (prefills + steps)
-    if blocks["mamba2"] or blocks["mlstm"]:
-        want["ssd_scan"] = (blocks["mamba2"] + 2 * blocks["mlstm"]) * prefills
+        n[kind] = n.get(kind, 0) + count
+    dense = n.get("dense", 0) + n.get("shared_attn", 0)
+    enc, dec = n.get("enc", 0), n.get("dec", 0)
+    want = {"flash_attention": (dense + n.get("moe", 0) + enc + 2 * dec)
+            * prefills + dec * steps}
+    if n.get("moe"):
+        want["router_topk"] = n["moe"] * (prefills + steps)
+    if n.get("mamba2") or n.get("mlstm"):
+        want["ssd_scan"] = (n.get("mamba2", 0) + 2 * n.get("mlstm", 0)) \
+            * prefills
+    if cfg.act == "gelu" and dense + enc + dec:
+        want["gelu_stepwise"] = (dense + enc + dec) * prefills \
+            + (dense + dec) * steps
     return want
 
 
@@ -806,7 +963,14 @@ def describe(cfg) -> str:
         parts.append(f"a shared {cfg.act} block called "
                      f"{kinds['shared_attn']} times (window "
                      f"{cfg.shared_attn_window}, d_ff {cfg.d_ff})")
-    if cfg.family == "dense":
+    if "enc" in kinds:
+        parts.append(f"{kinds['enc']} encoder and {kinds['dec']} decoder "
+                     f"layers (cross attention over up to {cfg.enc_len} "
+                     f"frames), {cfg.norm} norm"
+                     + ("" if cfg.use_rope else ", no RoPE"))
+    if cfg.mrope:
+        parts.append(f"M-RoPE (theta {cfg.rope_theta:g})")
+    if cfg.family in ("dense", "vlm", "encdec"):
         parts.append(f"{cfg.act} MLP of {cfg.d_ff}")
     parts.append(f"vocab {cfg.vocab}, window {cfg.window}")
     return ", ".join(parts) + f"; segments {kinds}"
@@ -973,9 +1137,7 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     eng = InferenceEngine(cfg, plan, params, max_batch=max_batch,
                           cache_len=cache_len)
     n_prompt = sum(len(p) for p in prompts)
-    kernels = kernel_fns()
-    for fn in kernels.values():
-        fn.launches = 0
+    kernels = zero_launches()
     t1 = time.perf_counter()
     with eng:
         handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
@@ -1011,14 +1173,8 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     rates = {}
     for p in (max(prompts, key=len), sorted(prompts, key=len)[n // 2]):
         tokens = torch.as_tensor(p, dtype=torch.int32, device=dev)[None]
-        secs = []
-        for _ in range(3):
-            sync(dev)
-            t = time.perf_counter()
-            logits, cache1 = prefill(params, {"tokens": tokens})
-            sync(dev)
-            secs.append(time.perf_counter() - t)
-        rates[len(p)] = len(p) / sorted(secs)[1]
+        rates[len(p)] = len(p) / prefill_secs(dev, prefill, params,
+                                              {"tokens": tokens})
 
     # decode on the engine's caches: the host's time to queue a step, the
     # synchronised step and its device time alone (CUDA graph) split what a
@@ -1026,16 +1182,9 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
     # tick must queue their work without a host wait
     st = eng.state
     batch = {"token": st.cur_tok, "pos": st.pos}
-    decode(params, st.caches, batch)
-    sync(dev)
-    t = time.perf_counter()
-    for _ in range(10):
-        decode(params, st.caches, batch)
-    queue_ms = (time.perf_counter() - t) / 10 * 1e3
-    sync(dev)
-    step_ms = (time.perf_counter() - t) / 10 * 1e3
-    dev_ms = (graph_ms(lambda: decode(params, st.caches, batch), reps=3,
-                       iters=5) if dev.type == "cuda" else float("nan"))
+    r = decode_rates(dev, decode, params, st.caches, batch)
+    queue_ms, step_ms, dev_ms = r["queue_ms"], r["step_ms"], r["device_ms"]
+    logits, cache1 = prefill(params, {"tokens": tokens})
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None].cpu()
     with no_host_wait(dev):
         decode(params, st.caches, batch)
@@ -1115,6 +1264,542 @@ def phase_families(plan) -> dict:
                                 tag="families")
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the families with front ends at full width
+# ---------------------------------------------------------------------------
+# Qwen2-VL-2B through the steps: B4 rows of 16 text tokens, a 32 x 32 grid
+# of vision embeddings, then text to 2048; 16 decode steps after them
+VLM_B, VLM_S, VLM_TEXT, VLM_GRID, VLM_NEW = 4, 2048, 16, 32, 16
+# Whisper-medium: B8 clips of 1500 frames, its 30-second window (3000 mel
+# frames after the stride-2 convolution, arXiv:2212.04356 §2.2), prompts of
+# 32 tokens, 64 greedy steps in a cache of 448 (its text context); then one
+# clip at the config's enc_len, 4096 frames, with 8 steps
+WHISPER_B, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW = 8, 1500, 32, 64
+WHISPER_CACHE, WHISPER_LONG_NEW = 448, 8
+MODEL_TOL = 3e-2                 # tests/test_models.py:70-88, of the scale
+# the limit of the block walk's decode step against the prefill
+# (:func:`check_blocks`), of the output's scale, set between two readings
+# on the card (NVIDIA H100 80GB HBM3, 700.00 W): the largest sound one,
+# 0.0288 (Whisper, B1 x 4096 frames, its first decoder block), and the
+# smallest planted fault, 0.1805 (the same clip's cross k/v without its
+# last 64 keys); 2.4x over the one and 2.6x under the other
+WALK_TOL = 7e-2
+# the reduced card-against-CPU runs: Qwen2-VL at its 12 query heads over 2
+# (a group of 6), rows of 4 text tokens, a 4 x 6 grid, text to 40
+PARITY_VLM_HEADS, PARITY_S, PARITY_GRID = 12, 40, (4, 4, 6)
+
+
+def mrope_ids(B: int, S: int, before: int, rows: int, cols: int,
+              dev: torch.device) -> tuple:
+    """(3, B, S) int32 M-RoPE ids of rows of ``before`` text tokens, a rows
+    x cols grid of vision embeddings, then text to S (arXiv:2409.12191
+    §2.1): text ids are the index before the grid; on it (t, h, w) =
+    (before, before + row, before + col); after it text goes on from
+    before + max(rows, cols) on all three streams.  Also the shift: the
+    text token at position p past the grid takes id p - shift."""
+    n = rows * cols
+    i = torch.arange(S, dtype=torch.int32, device=dev)
+    cell = (i - before).clamp(0, n - 1)
+    grid = (i >= before) & (i < before + n)
+    shift = n - max(rows, cols)
+    text = torch.where(i < before, i, i - shift)
+    ids = torch.stack([torch.where(grid, before, text),
+                       torch.where(grid, before + cell // cols, text),
+                       torch.where(grid, before + cell % cols, text)])
+    return ids.to(torch.int32)[:, None].expand(3, B, S).contiguous(), shift
+
+
+def scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the output's scale (at least 1)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def decode_rates(dev: torch.device, decode, params, caches, batch) -> dict:
+    """One decode step on ``caches``: the host's time to queue it (mean of
+    10), the synchronised step (the same 10) and its device time (CUDA
+    graph, median of 3)."""
+    decode(params, caches, batch)
+    sync(dev)
+    t = time.perf_counter()
+    for _ in range(10):
+        decode(params, caches, batch)
+    queue_ms = (time.perf_counter() - t) / 10 * 1e3
+    sync(dev)
+    step_ms = (time.perf_counter() - t) / 10 * 1e3
+    dev_ms = (graph_ms(lambda: decode(params, caches, batch), reps=3,
+                       iters=5) if dev.type == "cuda" else float("nan"))
+    return {"queue_ms": queue_ms, "step_ms": step_ms, "device_ms": dev_ms}
+
+
+def prefill_secs(dev: torch.device, prefill, params, batch) -> float:
+    """A synchronised prefill, median of 3 (seconds)."""
+    secs = []
+    for _ in range(3):
+        sync(dev)
+        t = time.perf_counter()
+        prefill(params, batch)
+        sync(dev)
+        secs.append(time.perf_counter() - t)
+    return sorted(secs)[1]
+
+
+# the planted faults of the block walk's decode step (:func:`block_walk`),
+# by family: each must move some block's output past WALK_TOL
+# (a decode step that writes its k/v one slot early is not among them: the
+# random model's nearly one-hot attention puts almost no weight on the
+# newest keys, so no output moves)
+WALK_FAULTS = {"vlm": ("rope_for_mrope", "mrope_id_plus_1"),
+               "encdec": ("cross_next_layer", "cross_tail_dropped")}
+
+
+@contextlib.contextmanager
+def launches_inside(owner, attr: str, kernel, pick=None):
+    """Within, ``counts[0]`` sums ``kernel``'s launches made inside the calls
+    of ``owner.attr`` that ``pick(*args, **kw)`` accepts (every call
+    without ``pick``): how :func:`whisper_clip` reads the encoder's and the
+    cross attention's share of a prefill's launches."""
+    real = getattr(owner, attr)
+    counts = [0]
+
+    def counted(*args, **kw):
+        if pick is not None and not pick(*args, **kw):
+            return real(*args, **kw)
+        before = kernel.launches
+        out = real(*args, **kw)
+        counts[0] += kernel.launches - before
+        return out
+    setattr(owner, attr, counted)
+    try:
+        yield counts
+    finally:
+        setattr(owner, attr, real)
+
+
+def block_walk(cfg, params, batch: dict, S: int, dev: torch.device,
+               forced: dict = None, fault: str = None) -> dict:
+    """The model block by block on ``dev`` over ``batch`` (S+1 positions:
+    Qwen2-VL's ``embeds`` and ``mrope_positions``, Whisper's ``frames`` and
+    ``tokens``) as a prefill, and at every decoder block one decode step for
+    position S on that block's own prefill cache (M-RoPE id, cache slot and
+    mask at S; Whisper's cross attention on the cached k/v).  Returns, per
+    block, its input, its prefill output and its decode output (None for an
+    encoder block), and the logits of row S from the last block's prefill
+    and decode outputs, all on the CPU.  The prefill cache's slot S is
+    zeroed before the decode step, which must write its own k/v there.
+    With ``forced`` (another walk's
+    result) every block takes that walk's input instead of its own last
+    output, so each block is held alone: a random model at these widths is
+    chaotic (its q and k are drawn at the fan-in of their head axis, so
+    attention is nearly one-hot), and a one-ulp difference grows about
+    twofold a layer (``tools/decode_drift.py``).  ``fault`` plants one of
+    :data:`WALK_FAULTS` in every decode step: RoPE at position S in place
+    of M-RoPE, the M-RoPE id one too far, the cross k/v of the next
+    decoder layer (a nested cache sliced at the wrong layer), the cross
+    k/v without the ragged tail past the last whole 64-key tile (a whole
+    tile when there is none)."""
+    import dataclasses
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import lm as L
+    from repro_torch.models.attention import cross_kv
+    from repro_torch.models.layers import apply_norm, embed, unembed
+    cfg = dataclasses.replace(cfg, cache_len=S + 1)
+    p = tree_map(lambda t: t.to(dev), params)
+    b = tree_map(lambda t: t.to(dev), batch)
+    out = {"inputs": [], "prefill": [], "decode": []}
+
+    def take(x):
+        if forced is not None:
+            x = forced["inputs"][len(out["inputs"])].to(dev)
+        out["inputs"].append(x.cpu())
+        return x
+    enc_out, mr = None, b.get("mrope_positions")
+    if cfg.family == "encdec":
+        x = b["frames"].to(torch.bfloat16)
+        B, Se = x.shape[:2]
+        pos = torch.arange(Se, device=dev)[None].expand(B, Se)
+        for pl in L._layers(p["stacks"]["enc"]):
+            x, _, _ = L.apply_block("enc", take(x), pl, cfg, positions=pos)
+            out["prefill"].append(x.cpu())
+            out["decode"].append(None)
+        enc_out = take(apply_norm(x, p["enc_norm"], cfg.norm))
+        x, kind = embed(b["tokens"], p["embed"]), "dec"
+    else:
+        x, kind = b["embeds"].to(torch.bfloat16), "dense"
+    B = x.shape[0]
+    pos = torch.arange(S + 1, device=dev)[None].expand(B, S + 1)
+    pos1 = torch.full((B, 1), S, dtype=torch.int32, device=dev)
+    mr1 = None if mr is None else mr[:, :, S:S + 1]
+    if fault == "rope_for_mrope":
+        mr1 = None
+    elif fault == "mrope_id_plus_1":
+        mr1 = mr1 + 1
+    layers = L._layers(p["stacks"][kind])
+    for i, pl in enumerate(layers):
+        x = take(x)
+        y, cache, _ = L.apply_block(kind, x, pl, cfg, cache="init",
+                                    positions=pos, mrope_positions=mr,
+                                    enc_out=enc_out)
+        # the decode step must write position S's k/v itself
+        own = cache["self"] if kind == "dec" else cache
+        own["k"][:, S] = 0
+        own["v"][:, S] = 0
+        if fault == "cross_next_layer":
+            cache = {"self": cache["self"], "cross": cross_kv(
+                enc_out, layers[(i + 1) % len(layers)]["xattn"])}
+        elif fault == "cross_tail_dropped":
+            k, v = cache["cross"]["k"], cache["cross"]["v"]
+            keep = k.shape[1] - (k.shape[1] % 64 or 64)
+            cache = {"self": cache["self"],
+                     "cross": {"k": k[:, :keep], "v": v[:, :keep]}}
+        yd, _, _ = L.apply_block(
+            kind, x[:, S:S + 1], pl, cfg, cache=cache, positions=pos1,
+            pos_offset=pos1[:, 0], enc_out=enc_out, mrope_positions=mr1)
+        out["prefill"].append(y.cpu())
+        out["decode"].append(yd.cpu())
+        x = y
+    out["logits"] = [unembed(apply_norm(h, p["final_norm"], cfg.norm),
+                             p["embed"]).float().cpu()
+                     for h in (x[:, S:S + 1], yd)]
+    return out
+
+
+def walk_decode_err(w: dict, S: int) -> tuple:
+    """The worst, over the decoder blocks and the logits, of the decode
+    step's output against the prefill's row S, over its scale, and where
+    (block index or "logits")."""
+    errs = [(scale_err(d[:, 0], pre[:, S]), i)
+            for i, (pre, d) in enumerate(zip(w["prefill"], w["decode"]))
+            if d is not None]
+    errs.append((scale_err(w["logits"][1], w["logits"][0]), "logits"))
+    return max(errs, key=lambda e: e[0])
+
+
+def walk_pair_err(a: dict, b: dict) -> float:
+    """The worst, over the blocks' prefill and decode outputs and both
+    logits, of walk ``a`` against walk ``b``, over the output's scale."""
+    errs = [scale_err(x, y) for x, y in zip(a["prefill"], b["prefill"])]
+    errs += [scale_err(x, y) for x, y in zip(a["decode"], b["decode"])
+             if y is not None]
+    return max(errs + [scale_err(x, y) for x, y in zip(a["logits"],
+                                                       b["logits"])])
+
+
+def check_blocks(tag: str, cfg, params, batch: dict, S: int,
+                 dev: torch.device) -> dict:
+    """The block walk's decode-against-prefill check, sound and with each
+    planted fault of the family: the sound walk must stay within
+    :data:`WALK_TOL` and every faulted one must exceed it."""
+    err, at = walk_decode_err(block_walk(cfg, params, batch, S, dev), S)
+    faults = {f: walk_decode_err(block_walk(cfg, params, batch, S, dev,
+                                            fault=f), S)[0]
+              for f in WALK_FAULTS[cfg.family]}
+    say(f"[front-ends] {tag}: every block's decode step at position S "
+        f"within {err:.4f} of its scale of the prefill's row S, the logits "
+        f"included (worst at block {at}; tolerance {WALK_TOL}); with a "
+        f"planted fault in the decode step: "
+        + ", ".join(f"{f} {e:.4f}" for f, e in faults.items())
+        + f" (each must exceed {WALK_TOL})")
+    if err > WALK_TOL:
+        fail(f"{tag}: a block's decode step is {err:.4f} of its scale from "
+             f"the prefill's row S, above {WALK_TOL}")
+    missed = [f for f, e in faults.items() if e <= WALK_TOL]
+    if missed:
+        fail(f"{tag}: the block walk does not see the planted faults "
+             f"{missed}: {faults}")
+    return {"err": err, "at": at, "faults": faults}
+
+
+def vlm_steps(plan, cfg, params) -> dict:
+    """Qwen2-VL through ``make_prefill_step`` / ``make_decode_step`` with
+    vision embeddings and M-RoPE ids: a B4 x S2048 prefill (16 text tokens,
+    a 32 x 32 grid, text), then 16 decode steps, each with its embedding
+    and the next text id.  The kernels must launch as
+    :func:`expected_launches` says (attention once a layer for the prefill,
+    never in decode: decode attention is plain), counted for the prefill
+    and for the decode steps apart; the logits must be finite, and at every
+    block the decode step at position S must equal the prefill's row S over
+    S+1 positions (:func:`check_blocks`)."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    dev = plan.device
+    B, S = VLM_B, VLM_S
+    g = torch.Generator(device=dev).manual_seed(1)
+    embeds = (torch.randn(B, S + VLM_NEW, cfg.d_model, generator=g,
+                          device=dev) * 0.1).to(torch.bfloat16)
+    ids, shift = mrope_ids(B, S + VLM_NEW, VLM_TEXT, VLM_GRID, VLM_GRID,
+                           dev)
+    prefill = make_prefill_step(cfg, plan, SERVE_CACHE)
+    decode = make_decode_step(cfg, plan, SERVE_CACHE)
+    batch = {"embeds": embeds[:, :S], "mrope_positions": ids[:, :, :S]}
+
+    def step_batch(tok, pos, i):
+        return {"token": tok, "pos": pos,
+                "embeds": embeds[:, S + i:S + i + 1],
+                "mrope_positions": ids[:, :, S + i:S + i + 1]}
+    kernels = zero_launches()
+    logits, caches = prefill(params, batch)
+    sync(dev)
+    pre = read_launches(kernels)
+    kernels = zero_launches()
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    finite = bool(torch.isfinite(logits).all())
+    for i in range(VLM_NEW):
+        tok, lg, caches = decode(params, caches, step_batch(tok, pos, i))
+        finite &= bool(torch.isfinite(lg).all())
+        pos = pos + 1
+    sync(dev)
+    dec = read_launches(kernels)
+    want_pre = nonzero(expected_launches(cfg, 1, 0))
+    want_dec = nonzero(expected_launches(cfg, 0, VLM_NEW))
+    after = VLM_TEXT + VLM_GRID ** 2
+    say(f"[front-ends] {cfg.name} steps: B{B} x S{S} (text ids 0-"
+        f"{VLM_TEXT - 1}, a {VLM_GRID} x {VLM_GRID} grid of vision "
+        f"embeddings, text from position {after} with id "
+        f"{int(ids[0, 0, after])}), {VLM_NEW} decode steps with embeddings "
+        f"and M-RoPE ids (step 0 at position {S}, id {S - shift}); "
+        f"launches in the prefill {pre}, expected {want_pre}; in the decode "
+        f"steps {dec}, expected {want_dec}; logits finite: {finite}")
+    if dev.type == "cuda" and (pre != want_pre or dec != want_dec):
+        fail(f"{cfg.name} steps: launches {pre} / {dec}, expected "
+             f"{want_pre} / {want_dec}")
+    if not finite:
+        fail(f"{cfg.name} steps: logits not finite")
+    walk = check_blocks(f"{cfg.name} steps", cfg, params,
+                        {"embeds": embeds[:, :S + 1],
+                         "mrope_positions": ids[:, :, :S + 1]}, S, dev)
+    prefill_s = prefill_secs(dev, prefill, params, batch)
+    rates = decode_rates(dev, decode, params, caches,
+                         step_batch(tok, pos, VLM_NEW - 1))
+    say(f"[front-ends] {cfg.name} steps: "
+        f"prefill {B * S / prefill_s:.1f} tokens/s at B{B} x S{S} (median "
+        f"of 3); decode {rates['step_ms']:.2f} ms a step at B{B}: "
+        f"{rates['queue_ms']:.2f} ms of host time to queue it, "
+        f"{rates['device_ms']:.2f} ms of device time (CUDA graph)")
+    return {"launches": {"prefill": pre, "decode": dec}, "walk": walk,
+            "prefill_tok_s": B * S / prefill_s, **rates}
+
+
+def whisper_clip(plan, cfg, params, B: int, frames_len: int, n_new: int,
+                 seed: int, profile: bool = False) -> dict:
+    """B clips of ``frames_len`` N(0, 0.1²) bf16 frames and 32-token
+    prompts through ``make_prefill_step``, then ``n_new`` greedy steps
+    through ``make_decode_step`` on the nested cache.  The kernels'
+    launches are read after the prefill and after the decode steps apart,
+    and within the prefill the attention's launches inside the encoder
+    segment and inside the cross attention (:func:`launches_inside`); each
+    must be what :func:`expected_launches` and the config say (24 encoder,
+    24 decoder self and 24 cross attention calls and 48 gelus a prefill;
+    24 cross attention calls and 24 gelus a step).  The logits must be
+    finite, and at every decoder block the decode step at position 32 must
+    equal the prefill's row 32 over the prompt and the first greedy token
+    (:func:`check_blocks`)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import lm as L
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    dev = plan.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    frames = (torch.randn(B, frames_len, cfg.d_model, generator=g,
+                          device=dev) * 0.1).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (B, WHISPER_PROMPT), generator=g,
+                           device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(cfg, plan, WHISPER_CACHE)
+    decode = make_decode_step(cfg, plan, WHISPER_CACHE)
+    batch = {"frames": frames, "tokens": tokens}
+
+    def encoder(model, *args, segments=None, **kw):
+        return segments is not None and segments[0][0] == "enc"
+    with launches_inside(L.LM, "_run_segments", flash_attention,
+                         encoder) as enc, \
+            launches_inside(L, "cross_attention", flash_attention) as cross:
+        kernels = zero_launches()
+        logits, caches = prefill(params, batch)
+        sync(dev)
+        pre = read_launches(kernels)
+        counted = {"encoder": enc[0], "cross_prefill": cross[0]}
+        kernels = zero_launches()
+        cross[0] = 0
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        tok0 = tok
+        pos = torch.full((B,), WHISPER_PROMPT, dtype=torch.int32,
+                         device=dev)
+        finite = bool(torch.isfinite(logits).all())
+        for i in range(n_new):
+            tok, lg, caches = decode(params, caches,
+                                     {"token": tok, "pos": pos})
+            finite &= bool(torch.isfinite(lg).all())
+            pos = pos + 1
+        sync(dev)
+        dec = read_launches(kernels)
+        counted["cross_decode"] = cross[0]
+    want = {"prefill": nonzero(expected_launches(cfg, 1, 0)),
+            "decode": nonzero(expected_launches(cfg, 0, n_new)),
+            "encoder": cfg.enc_layers, "cross_prefill": cfg.dec_layers,
+            "cross_decode": cfg.dec_layers * n_new}
+    got = {"prefill": pre, "decode": dec, **counted}
+    say(f"[front-ends] {cfg.name} B{B} x {frames_len} frames, "
+        f"{WHISPER_PROMPT}-token prompts, {n_new} greedy steps (cache "
+        f"{WHISPER_CACHE}, cross {frames_len}): launches {got}, expected "
+        f"{want}; logits finite: {finite}")
+    if dev.type == "cuda" and got != want:
+        fail(f"{cfg.name}: launches {got}, expected {want}")
+    if not finite:
+        fail(f"{cfg.name}: logits not finite")
+    walk = check_blocks(
+        f"{cfg.name} B{B} x {frames_len} frames", cfg, params,
+        {"frames": frames, "tokens": torch.cat([tokens, tok0], 1)},
+        WHISPER_PROMPT, dev)
+    prefill_s = prefill_secs(dev, prefill, params, batch)
+    step = {"token": tok, "pos": pos - 1}
+    rates = decode_rates(dev, decode, params, caches, step)
+    say(f"[front-ends] {cfg.name} B{B} x {frames_len} frames: prefill "
+        f"(encoder and prompt) {prefill_s * 1e3:.2f} ms, "
+        f"{B * frames_len / prefill_s:.1f} encoder frames/s (median of 3); "
+        f"decode {rates['step_ms']:.2f} ms a step at B{B}, "
+        f"{B / rates['step_ms'] * 1e3:.1f} decoder tokens/s: "
+        f"{rates['queue_ms']:.2f} ms of host time to queue it, "
+        f"{rates['device_ms']:.2f} ms of device time (CUDA graph)")
+    if profile and dev.type == "cuda":
+        for what, fn in ((f"prefill of B{B} x {frames_len} frames",
+                          lambda: prefill(params, batch)),
+                         (f"decode step at B{B}",
+                          lambda: decode(params, caches, step))):
+            say(f"[profile] {cfg.name} {what}: {device_breakdown(dev, fn)}")
+    return {"launches": got, "walk": walk, "prefill_ms": prefill_s * 1e3,
+            "frames_s": B * frames_len / prefill_s,
+            "decoder_tok_s": B / rates["step_ms"] * 1e3, **rates}
+
+
+def front_end_parity(arch: str, dev: torch.device, seed: int = 0) -> dict:
+    """Reduced ``arch`` on the card (kernels) against the port on the CPU
+    (plain versions), the same parameters (a CPU generator seeded ``seed``)
+    and inputs: Qwen2-VL at 12/2 heads with vision embeddings and M-RoPE
+    ids over 41 positions, Whisper with 48 frames and 41 tokens.  Held:
+    every block on the card against the CPU given the CPU's input, prefill
+    and a decode step at position 40 (:func:`block_walk`), with the
+    kernels' launches.  The whole model through the steps is not held: the
+    reduced random Whisper is chaotic, one ulp at a block's input moves its
+    logits by hundredths (``tools/decode_drift.py --parity`` measures it)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM
+    cfg = get(arch).reduced()
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_heads=PARITY_VLM_HEADS)
+    params = LM(cfg).init(torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    B, S, cpu = 2, PARITY_S, torch.device("cpu")
+    # drawn for S+4 positions, the walk takes S+1
+    tokens = torch.randint(0, cfg.vocab, (B, S + 4), generator=g,
+                           dtype=torch.int32)
+    if cfg.family == "encdec":
+        walk = {"frames": (torch.randn(B, 48, cfg.d_model, generator=g)
+                           * 0.1).to(torch.bfloat16),
+                "tokens": tokens[:, :S + 1]}
+    else:
+        e = (torch.randn(B, S + 4, cfg.d_model, generator=g)
+             * 0.1).to(torch.bfloat16)
+        walk = {"embeds": e[:, :S + 1], "mrope_positions":
+                mrope_ids(B, S + 4, *PARITY_GRID, cpu)[0][:, :, :S + 1]}
+    with torch.no_grad():
+        on_cpu = block_walk(cfg, params, walk, S, cpu)
+        kernels = zero_launches()
+        on_card = block_walk(cfg, params, walk, S, dev, forced=on_cpu)
+        ran = read_launches(kernels)
+    return {"arch": arch, "err": walk_pair_err(on_card, on_cpu), "ran": ran,
+            "heads": (cfg.n_heads, cfg.n_kv_heads)}
+
+
+def parity_launches(arch: str) -> dict:
+    """The kernels' launches in :func:`front_end_parity`'s walk on the
+    card: a prefill and one decode step at each block."""
+    from repro_torch.configs import get
+    return nonzero(expected_launches(get(arch).reduced(), 1, 1))
+
+
+def free_and_mark(dev: torch.device) -> None:
+    """Free what the last model left and restart the peak-memory count."""
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def phase_front_ends(plan) -> dict:
+    """Qwen2-VL-2B whole through the engine (:func:`phase_serve`'s checks,
+    phase 5d's 8 requests, text only) and through the steps with vision
+    embeddings and M-RoPE (:func:`vlm_steps`), then Whisper-medium whole,
+    B8 x 1500 frames and B1 x 4096 (:func:`whisper_clip`), each model
+    freed before the next; then both reduced on the card against the CPU
+    (:func:`front_end_parity`)."""
+    from repro_torch.configs import get
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import bytes_params, count_params
+    from repro_torch.runtime.steps import make_model
+    dev = plan.device
+    out = {}
+    cfg = get("qwen2-vl-2b")
+    prompts = serve_prompts(cfg.vocab, n=FAMILY_REQUESTS, long=None)
+    if tuple(len(p) for p in prompts) != FAMILY_LENS:
+        fail(f"phase 5e's prompt lengths {[len(p) for p in prompts]} are "
+             f"not FAMILY_LENS")
+    t0 = time.perf_counter()
+    out["qwen2-vl-2b"] = phase_serve(plan, cfg, prompts, max_new=FAMILY_NEW,
+                                     check_launches=dev.type == "cuda",
+                                     tag="front-ends")
+    free_and_mark(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    params = make_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    steps = vlm_steps(plan, cfg, params)
+    steps["peak_gb"] = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9
+                        if dev.type == "cuda" else float("nan"))
+    out["qwen2-vl-2b"]["steps"] = steps
+    out["qwen2-vl-2b"]["model_s"] = time.perf_counter() - t0
+    say(f"[front-ends] {cfg.name} steps: peak {steps['peak_gb']:.2f} GB of "
+        f"device memory above the {base / 1e9:.2f} GB earlier phases hold; "
+        f"{out['qwen2-vl-2b']['model_s']:.1f} s for the model (engine run "
+        f"and steps, checks, rates, profile)")
+    del params
+    free_and_mark(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    cfg = get("whisper-medium")
+    params = make_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    defs = LM(cfg).param_defs()
+    say(f"[front-ends] {describe(cfg)}: {count_params(defs) / 1e9:.3f} B "
+        f"parameters, {bytes_params(defs) / 1e9:.2f} GB of weights from seed "
+        f"0 in {time.perf_counter() - t0:.1f} s")
+    w = {"clip": whisper_clip(plan, cfg, params, WHISPER_B, WHISPER_FRAMES,
+                              WHISPER_NEW, seed=2, profile=True),
+         "long": whisper_clip(plan, cfg, params, 1, cfg.enc_len,
+                              WHISPER_LONG_NEW, seed=3)}
+    peak_gb = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9
+               if dev.type == "cuda" else float("nan"))
+    w["peak_gb"], w["model_s"] = peak_gb, time.perf_counter() - t0
+    say(f"[front-ends] {cfg.name}: peak {peak_gb:.2f} GB of device memory "
+        f"above the {base / 1e9:.2f} GB earlier phases hold; "
+        f"{w['model_s']:.1f} s for the model (weights, both clips, checks, "
+        f"rates, profile)")
+    out["whisper-medium"] = w
+    del params
+    free_and_mark(dev)
+    for arch in ("qwen2-vl-2b", "whisper-medium"):
+        r = front_end_parity(arch, dev)
+        want = parity_launches(arch) if dev.type == "cuda" else {}
+        say(f"[front-ends] reduced {arch} (H{r['heads'][0]}/{r['heads'][1]})"
+            f" on the card against the CPU: every block (prefill over 41 "
+            f"positions and a decode step at 40) and the logits within "
+            f"{r['err']:.4f} of their scale given the CPU's block inputs "
+            f"(tolerance {MODEL_TOL}); launches {r['ran']}, expected {want}")
+        if r["err"] > MODEL_TOL or r["ran"] != want:
+            fail(f"reduced {arch} on the card against the CPU: {r}")
+        out[arch]["parity"] = r
     return out
 
 
@@ -1242,10 +1927,8 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
                                       log_every=1))
     del state
     want = train_launches_per_step(cfg)
-    kernels = kernel_fns()
     try:
-        for fn in kernels.values():
-            fn.launches = 0
+        kernels = zero_launches()
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         t1 = time.perf_counter()
@@ -1452,18 +2135,16 @@ def card_cpu_parity(arch: str, seed: int, dev: torch.device) -> dict:
     from repro_torch.configs import get
     from repro_torch.core.tree import tree_map
     from repro_torch.models.lm import LM
-    kernels = kernel_fns()
     cfg = get(arch).reduced()
     params = LM(cfg).init(torch.Generator().manual_seed(seed))
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (2, 64), dtype=np.int32))
-    for fn in kernels.values():
-        fn.launches = 0
+    kernels = zero_launches()
     calls = []
     with moe_routing(calls, replay=False):
         loss_g, grads_g = loss_and_grads(
             cfg, tree_map(lambda t: t.to(dev), params), tokens.to(dev))
-    ran = {n: f.launches for n, f in kernels.items() if f.launches}
+    ran = read_launches(kernels)
     with moe_routing(calls, replay=True):
         loss_c, grads_c = loss_and_grads(cfg, params, tokens)
     return {"arch": arch, "loss_card": loss_g, "loss_cpu": loss_c,
@@ -1685,31 +2366,38 @@ def kernel_row(name: str, cu: str, replaces: str, launches: int, err: float,
 
 
 def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
-               launches: int, err: float, card: str) -> dict:
-    """``flash_attention`` over 2048-token bf16 prompts, causal with the
-    window of ``shape`` (4096, which does not bind, or none), beside its
-    plain version and ``scaled_dot_product_attention``."""
+               launches: int, err: float, card: str, sq: int = None,
+               causal: bool = True) -> dict:
+    """``flash_attention`` over bf16 q (B, H, Sq, D) and k, v (B, Hkv, S, D),
+    Sq = ``sq`` or S, causal with the window of ``shape`` (4096, which does
+    not bind, or none) or with every key visible, beside its plain version
+    and ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     B, H, Hkv, S, D, W = shape
-    q = torch.randn(B, H, S, D, generator=g).to(torch.bfloat16).to(dev)
+    Sq = sq or S
+    q = torch.randn(B, H, Sq, D, generator=g).to(torch.bfloat16).to(dev)
     k = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
     v = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
-    pairs = S * (S + 1) // 2                # causal; the window does not bind
+    # query i (aligned to the end of the keys) sees S - Sq + i + 1 keys when
+    # causal (the window does not bind), all S otherwise
+    pairs = (Sq * (2 * S - Sq + 1) // 2) if causal else Sq * S
     flops = 4 * D * pairs * B * H           # q.k and p.v, 2 FLOP per MAC
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    ms = graph_ms(lambda: flash_attention(q, k, v, True, W))
-    eager = time_ms(lambda: flash_attention(q, k, v, True, W))
-    plain = time_ms(lambda: flash_attention_plain(q, k, v, True, W),
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal, W))
+    eager = time_ms(lambda: flash_attention(q, k, v, causal, W))
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, causal, W),
                     reps=3, iters=5)
+    # SDPA's causal mask is aligned to the start of the keys: only Sq == S
     lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        q, k, v, is_causal=causal and Sq == S, enable_gqa=True))
     row = kernel_row(name, "flash_attention",
                      "src/repro/kernels/flash_attention.py:35", launches, err,
                      ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
                      flops / BF16_FLOPS * 1e3, lib)
-    say(f"[time] {name} B{B} H{H}/{Hkv} S{S} D{D} bf16 causal: "
+    say(f"[time] {name} B{B} H{H}/{Hkv} Sq{Sq} Sk{S} D{D} bf16 "
+        f"{'causal' if causal else 'non-causal'}: "
         f"{ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms per eager "
         f"call, plain {plain:.4f} ms, scaled_dot_product_attention "
         f"{lib:.4f} ms, bound {row['bound_ms']:.6f} ms "
@@ -1771,7 +2459,8 @@ def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
     causal, no window) beside ``scaled_dot_product_attention``, Kimi-K2's
     router (E384 top-8) over 2048 tokens, and xLSTM's two ``ssd_scan``
     calls per mLSTM layer (B1 H4 S2048, N = P = 384 and P = 1; the run's
-    launches are split evenly between them)."""
+    launches are split evenly between them), and Gemma-7B's gelu over its
+    2567-token prompt's 24576-wide MLP activations."""
     g = torch.Generator().manual_seed(11)
     xl = fams["xlstm-125m"]["launches"]["ssd_scan"]
     return [time_flash(dev, g, "flash_attention_d256",
@@ -1784,7 +2473,76 @@ def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
             time_ssd(dev, "ssd_scan_xlstm", 1, xl // 2,
                      errs["ssd_scan_xlstm"], card, H=4, G=4, N=384, P=384),
             time_ssd(dev, "ssd_scan_xlstm_p1", 1, xl // 2,
-                     errs["ssd_scan_xlstm_p1"], card, H=4, G=4, N=384, P=1)]
+                     errs["ssd_scan_xlstm_p1"], card, H=4, G=4, N=384, P=1),
+            time_gelu(dev, g, "gelu_stepwise_gemma", (1, 2567, 24576),
+                      fams["gemma-7b"]["launches"]["gelu_stepwise"],
+                      errs["gelu_stepwise_gemma"], card)]
+
+
+def time_front_end_kernels(dev: torch.device, fronts: dict, errs: dict,
+                           card: str) -> list:
+    """Phase 5e's attention instances at its shapes beside
+    ``scaled_dot_product_attention``: Qwen2-VL's prefill (B1 H12/2 S2048
+    D128, causal; launches in the engine run and the steps' prefill),
+    Whisper's encoder (B8 H16/16 S1500 D64, every key) and its cross
+    attention at prefill (Sq 32) and decode (Sq 1) against the 1500 frames,
+    each with the launches the B8 clip counted inside the encoder segment,
+    inside the cross attention at prefill and over the decode steps; and
+    the gelu over Whisper's B8 x 1500 x 4096 MLP activations with the
+    clip's launches (prefill and decode)."""
+    g = torch.Generator().manual_seed(13)
+    qwen = fronts["qwen2-vl-2b"]
+    clip = fronts["whisper-medium"]["clip"]["launches"]
+    return [time_flash(dev, g, "flash_attention_gqa6",
+                       (1, 12, 2, 2048, 128, 0),
+                       qwen["launches"]["flash_attention"]
+                       + qwen["steps"]["launches"]["prefill"]
+                       ["flash_attention"],
+                       errs["flash_attention_gqa6"], card),
+            time_flash(dev, g, "flash_attention_encoder",
+                       (WHISPER_B, 16, 16, WHISPER_FRAMES, 64, 0),
+                       clip["encoder"], errs["flash_attention_encoder"],
+                       card, causal=False),
+            time_flash(dev, g, "flash_attention_cross_prefill",
+                       (WHISPER_B, 16, 16, WHISPER_FRAMES, 64, 0),
+                       clip["cross_prefill"],
+                       errs["flash_attention_cross_prefill"], card,
+                       sq=WHISPER_PROMPT, causal=False),
+            time_flash(dev, g, "flash_attention_cross_decode",
+                       (WHISPER_B, 16, 16, WHISPER_FRAMES, 64, 0),
+                       clip["cross_decode"],
+                       errs["flash_attention_cross_decode"], card, sq=1,
+                       causal=False),
+            time_gelu(dev, g, "gelu_stepwise", (WHISPER_B, WHISPER_FRAMES,
+                                                4096),
+                      clip["prefill"]["gelu_stepwise"]
+                      + clip["decode"]["gelu_stepwise"],
+                      errs["gelu_stepwise"], card)]
+
+
+def time_gelu(dev: torch.device, g: torch.Generator, name: str,
+              shape: tuple, launches: int, err: float, card: str) -> dict:
+    """``gelu_stepwise`` over bf16 activations of ``shape`` beside its plain
+    version and ``F.gelu`` (the one PyTorch call for gelu's tanh form; it
+    rounds once, so it is not the same function to the last bit).  Bound:
+    the bytes, each element read and written once; ~10 fp32 operations an
+    element (nine steps and the tanh) are far under it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
+                                                   gelu_stepwise_plain)
+    x = (torch.randn(*shape, generator=g) * 4).to(torch.bfloat16).to(dev)
+    n = x.numel()
+    ms = graph_ms(lambda: gelu_stepwise(x))
+    plain = time_ms(lambda: gelu_stepwise_plain(x), reps=3, iters=5)
+    lib = graph_ms(lambda: F.gelu(x, approximate="tanh"))
+    row = kernel_row(name, "gelu_stepwise", "src/repro/models/layers.py:71",
+                     launches, err, ms, plain, 2 * n * 2 / HBM_BYTES_PER_S
+                     * 1e3, 10 * n / F32_FLOPS * 1e3, lib)
+    say(f"[time] {name} {tuple(shape)} bf16: {ms:.4f} ms on the device "
+        f"(CUDA graph), plain (nine eager ops) {plain:.4f} ms, F.gelu "
+        f"{lib:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+        f"{4 * n} B), {row['bound_ms'] / ms:.1%} of the bound on {card}")
+    return row
 
 
 def time_recompute_backward(dev: torch.device, g: torch.Generator,
@@ -2077,6 +2835,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fams = phase_families(single_device_plan())
+    fronts = phase_front_ends(single_device_plan())
     errs = kernels["max_abs_err"]
     rows = phase_times(dev, main, card["card"])
     rows += time_serving_kernels(dev, serve, hybrid, errs, card["card"])
@@ -2084,6 +2843,7 @@ def main() -> int:
                          errs["ssd_scan"], card["card"]))
     rows += time_train_kernels(dev, train, errs, card["card"])
     rows += time_family_kernels(dev, fams, errs, card["card"])
+    rows += time_front_end_kernels(dev, fronts, errs, card["card"])
     time_routes(dev, card["card"])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))

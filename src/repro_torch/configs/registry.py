@@ -1,8 +1,8 @@
 """--arch <id> registry of the configs the port runs.
 
-A copy of ``src/repro/configs/registry.py``; ``_load_all`` imports only the
-config modules the port has (the model slices that bring the other
-architectures bring their configs).
+A copy of ``src/repro/configs/registry.py``: ``_load_all`` imports every
+config module the reference has, so ``ASSIGNED`` lists its ten
+architectures.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def names():
 def _load_all():
     from . import (mixtral_8x7b, zamba2_1_2b, xlstm_125m, gemma_7b,  # noqa: F401
                    llama3_2_3b, yi_34b, mistral_large_123b, kimi_k2_1t_a32b,
-                   ff_tiny)
+                   qwen2_vl_2b, whisper_medium, ff_tiny)
 
 
 _load_all()

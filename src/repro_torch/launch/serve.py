@@ -7,6 +7,9 @@ XLA's CPU runtime).  ``--layers`` cuts the depth of a config built from
 ``n_layers`` and is refused for one built from a segment list (Zamba2,
 xLSTM); a config other than ``ff-tiny`` runs reduced, as the reference
 launcher runs it.  Weights are random, drawn on the device from seed 0.
+Qwen2-VL serves text prompts (the engine passes tokens only, as the
+reference's does); Whisper is refused, since its prefill also takes frames:
+``runtime.steps.make_prefill_step`` / ``make_decode_step`` run it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \\
         --max-new 6 --layers 4
@@ -56,6 +59,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get(args.arch)
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch}: the engine serves token prompts and "
+                 f"an encoder-decoder model also takes frames; run it with "
+                 f"runtime.steps.make_prefill_step / make_decode_step on "
+                 f"{{'frames', 'tokens'}}")
     if args.arch != "ff-tiny":
         cfg = cfg.reduced()
     if args.layers is not None:

@@ -1,18 +1,24 @@
-"""GQA attention block on one device.
+"""GQA attention block and encoder-decoder cross attention on one device.
 
 Port of ``src/repro/models/attention.py`` (``attn_defs``, ``_group``,
-``attention``).  Prefill runs the hand-written ``flash_attention`` kernel
-(``kernels/flash_attention.py``) on q, k, v in its (B, H, S, D) layout,
-where the reference runs its XLA streaming path; both compute the same
-blocked softmax.  Decode stays plain torch, as the reference computes it
-outside any kernel: the per-row write into the cache, the ring-buffer
-validity of a warm sliding-window cache, and the cache roll at prefill.
+``attention``, ``cross_attention``, ``cross_kv``).  Prefill runs the
+hand-written ``flash_attention`` kernel (``kernels/flash_attention.py``) on
+q, k, v in its (B, H, S, D) layout, where the reference runs its XLA
+streaming path; both compute the same blocked softmax.  Decode's
+self-attention stays plain torch, as the reference computes it outside any
+kernel: the per-row write into the cache, the ring-buffer validity of a
+warm sliding-window cache, and the cache roll at prefill.  Cross attention
+(Whisper) runs the kernel, non-causal, at prefill and at decode alike, as
+the reference runs its streaming path in both; its k/v come from
+``cross_kv`` over the encoder's output (cached at prefill).  With
+``mrope_positions`` (Qwen2-VL) q and k rotate by M-RoPE's three position
+streams; the cache slot and the decode validity mask still take the 1-D
+``positions``/``cache_pos``.
 
 One difference from the reference, for memory: decode writes the new k/v
 into the cache tensors in place (and returns them), instead of returning
 updated copies.  The reference's sharding constraints are no-ops on one
-device and are dropped.  ``cross_attention``/``cross_kv`` (Whisper) come
-with the slice that brings that model.
+device and are dropped.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import flash_attention
-from .layers import apply_rope, einsum
+from .layers import apply_mrope, apply_rope, einsum
 from .params import ParamDef
 
 NEG_INF = -2.0e38
@@ -74,7 +80,7 @@ def _write_decode(cache: torch.Tensor, new: torch.Tensor,
 
 
 def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
-              cache_pos=None):
+              cache_pos=None, mrope_positions=None):
     """Attention block: projections + grouped SDPA + output projection.
 
     prefill:  cache=None or 'init' -> (out, None or {k, v} padded to
@@ -83,6 +89,9 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     decode:   cache={k, v} (B, S_cache, kv, D) -> (out, the same cache with
               this token written at ``cache_pos``); x is (B, 1, d),
               ``positions`` (B, 1) global positions.
+
+    ``mrope_positions`` (3, B, S): rotate q and k by M-RoPE instead of
+    RoPE.
     """
     B, S, _ = x.shape
     n_kv = cfg.n_kv_heads
@@ -90,7 +99,10 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     k = einsum("bsd,dhk->bshk", x, p["wk"])
     v = einsum("bsd,dhk->bshk", x, p["wv"])
-    if cfg.use_rope:
+    if mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta)
+    elif cfg.use_rope:
         pos2d = positions if positions.dim() == 2 else \
             positions[None, :].expand(B, S)
         q = apply_rope(q, pos2d, cfg.rope_theta)
@@ -138,3 +150,21 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
 
     o = einsum("bshk,hkd->bsd", out, p["wo"]).to(torch.bfloat16)
     return o, new_cache
+
+
+def cross_attention(x, p, enc_kv):
+    """Encoder-decoder cross attention (Whisper): q from the decoder's x,
+    k/v precomputed from the encoder's output (``cross_kv``, cached at
+    prefill), every key visible.  The output stays in the promoted type of
+    the product, as the reference's einsum leaves it."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    out = flash_attention(_heads_first(q), _heads_first(enc_kv["k"]),
+                          _heads_first(enc_kv["v"]), False, 0)
+    return einsum("bshk,hkd->bsd", out.transpose(1, 2), p["wo"])
+
+
+def cross_kv(enc_out, p):
+    """The cross attention's k/v, (B, S_enc, kv, D) each, from the
+    encoder's output."""
+    return {"k": einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            "v": einsum("bsd,dhk->bshk", enc_out, p["wv"])}

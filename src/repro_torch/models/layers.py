@@ -1,4 +1,4 @@
-"""Common layers: norms, GLU MLPs, embeddings, RoPE.
+"""Common layers: norms, GLU MLPs, embeddings, RoPE and M-RoPE.
 
 Port of ``src/repro/models/layers.py`` for one device: products run in the
 activations' type (bf16 for the models) with fp32 normalisation statistics,
@@ -8,7 +8,6 @@ mixed operands (bf16 activations with fp32 parameters) run in the promoted
 type, as ``jnp.einsum`` runs them (:func:`mm`, :func:`einsum`); where the
 reference asks for a bf16 product (``preferred_element_type``), the port
 rounds the product to bf16.
-``apply_mrope`` (Qwen2-VL) comes with the slice that brings that model.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels.gelu_stepwise import gelu_stepwise
 from .params import ParamDef
 
 
@@ -88,8 +88,8 @@ def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
 
 
 def activation(g: torch.Tensor, act: str) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
+    # jax.nn.gelu rounds each of its steps; the kernel does so in one pass
+    return gelu_stepwise(g) if act == "gelu" else F.silu(g)
 
 
 def mlp(x, p, act: str = "silu"):
@@ -133,3 +133,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
+                theta: float = 1e4, sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: head_dim/2 split into (t, h, w) frequency sections,
+    each rotated by its own position id.  x: (B, S, H, D); positions_thw:
+    (3, B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)                  # (half,)
+    # the sections scaled to half (at head_dim 16: 2, 3, 3), the last
+    # taking the remainder
+    scaled = [int(round(s / sum(sections) * half)) for s in sections]
+    scaled[-1] = half - sum(scaled[:-1])
+    # (B,S,half): the t, h or w position stream each frequency takes
+    psel = torch.cat([positions_thw[i, ..., None].float().expand(
+        *positions_thw.shape[1:], n) for i, n in enumerate(scaled)], -1)
+    ang = psel * freqs
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)

@@ -1,24 +1,33 @@
 """Language-model backbone on one device: the ``dense``, ``moe``, ``mamba2``,
-``shared_attn``, ``mlstm`` and ``slstm`` blocks.
+``shared_attn``, ``mlstm``, ``slstm``, ``enc`` and ``dec`` blocks.
 
 Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
 ``_run_segments``, ``loss``, ``prefill``, ``decode_step``,
-``_cache_write_pos``, ``cache_defs``; ``vocab_parallel_ce`` on one device as
-:func:`cross_entropy`).  Parameters keep the reference's nesting —
-``embed``, ``final_norm``, per-kind ``stacks`` whose leaves carry a leading
-layer dimension, and the one unstacked ``shared`` block that every
-``shared_attn`` segment calls (Zamba2) — so the reference's initialised
-tree, carried across with ``core.params.from_numpy``, loads as it is.
-Where the reference scans over the stacked layers, the port loops over them
-in Python, each stack's leaves unbound into per-layer views once.
+``_cache_write_pos``, ``cache_defs``; ``_embed_in``, ``_encdec_loss`` and
+``_encdec_prefill`` as one :meth:`LM._forward`; ``vocab_parallel_ce`` on
+one device as :func:`cross_entropy`).  Parameters
+keep the reference's nesting — ``embed``, ``final_norm``, per-kind
+``stacks`` whose leaves carry a leading layer dimension, the one unstacked
+``shared`` block that every ``shared_attn`` segment calls (Zamba2), and
+``enc_norm`` for the encoder-decoder family — so the reference's
+initialised tree, carried across with ``core.params.from_numpy``, loads as
+it is.  Where the reference scans over the stacked layers, the port loops
+over them in Python, each stack's leaves unbound into per-layer views once.
+
+The two families with stub front ends take precomputed embeddings, as the
+reference does: ``vlm`` (Qwen2-VL) reads ``batch["embeds"]`` (B, S, d) in
+place of the token embedding when it is there, and ``mrope_positions``
+(3, B, S) for M-RoPE; ``encdec`` (Whisper) runs ``batch["frames"]``
+(B, S_enc, d) through the ``enc`` blocks (non-causal, no cache) and
+``enc_norm``, then the tokens through the ``dec`` blocks (self-attention,
+cross attention on the encoder's k/v, MLP).  A ``dec`` layer's cache is
+nested, ``{"self": {k, v}, "cross": {k, v}}``; decode runs the ``dec``
+segment alone on it.
 
 Training runs every block, the shared one included, under non-reentrant
 activation checkpointing (``torch.utils.checkpoint``), where the reference
 uses ``jax.checkpoint``: a block keeps only its input, and its forward —
 kernels included — runs again in the backward pass.
-
-Block kinds of a later slice (``enc``, ``dec``) raise
-``NotImplementedError`` naming the slice; so does the ``encdec`` loss.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import attention, attn_defs
+from ..core.tree import tree_map
+from .attention import attention, attn_defs, cross_attention, cross_kv
 from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
                      unembed, unembedding)
 from .moe import moe_block, moe_defs
@@ -36,20 +46,6 @@ from .params import ParamDef, init_params
 from .ssm import mamba2_block, mamba2_defs, mamba2_state_defs
 from .xlstm import (mlstm_block, mlstm_defs, mlstm_state_defs, slstm_block,
                     slstm_defs, slstm_state_defs)
-
-KINDS = ("dense", "moe", "mamba2", "shared_attn", "mlstm", "slstm")
-_LATER = {
-    "enc": "the encoder-decoder slice (Whisper)",
-    "dec": "the encoder-decoder slice (Whisper)",
-}
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: it comes with "
-            f"{_LATER.get(kind, 'a later slice')}")
-
 
 # ---------------------------------------------------------------------------
 # cross entropy
@@ -75,13 +71,15 @@ def cross_entropy(x, unemb, labels, mask, chunks: int = 1):
 # blocks
 # ---------------------------------------------------------------------------
 def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
-                window=0, moe=False, losses=False):
+                mrope_positions=None, causal=True, window=0, moe=False,
+                losses=False):
     """One pre-norm block; returns (x, new_cache, aux).  ``aux`` holds the
     MoE aux losses when ``losses`` (the loss reads them), else ``{}``."""
     xn = apply_norm(x, p["ln1"], cfg.norm)
     a, new_cache = attention(xn, p["attn"], cfg, positions=positions,
-                             causal=True, window=window, cache=cache,
-                             cache_pos=pos_offset)
+                             causal=causal, window=window, cache=cache,
+                             cache_pos=pos_offset,
+                             mrope_positions=mrope_positions)
     x = x + a
     xn = apply_norm(x, p["ln2"], cfg.norm)
     aux = {}
@@ -92,8 +90,32 @@ def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
     return x + m, new_cache, aux
 
 
+def dec_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
+              enc_out=None):
+    """Whisper's decoder block: causal self-attention, cross attention on
+    the encoder's k/v (``cross_kv`` of ``enc_out`` at prefill and in
+    training, the cached ``cache["cross"]`` at decode), then the MLP.
+    Returns (x, new_cache, {}); ``cache`` is None (training), "init"
+    (prefill) or ``{"self": {k, v}, "cross": {k, v}}`` (decode)."""
+    decode = isinstance(cache, dict)
+    xn = apply_norm(x, p["ln1"], cfg.norm)
+    a, new_self = attention(xn, p["attn"], cfg, positions=positions,
+                            causal=True, window=0,
+                            cache=cache["self"] if decode else cache,
+                            cache_pos=pos_offset)
+    x = x + a
+    xn = apply_norm(x, p["ln_x"], cfg.norm)
+    ckv = cache["cross"] if decode else cross_kv(enc_out, p["xattn"])
+    x = x + cross_attention(xn, p["xattn"], ckv)
+    xn = apply_norm(x, p["ln2"], cfg.norm)
+    x = x + mlp(xn, p["mlp"], cfg.act)
+    new_cache = None if cache is None else {"self": new_self, "cross": ckv}
+    return x, new_cache, {}
+
+
 def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
-                pos_offset=0, losses=False):
+                pos_offset=0, mrope_positions=None, enc_out=None,
+                losses=False):
     """Uniform block dispatch; returns (x, new_cache, aux)."""
     if kind == "mamba2":
         y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
@@ -104,18 +126,28 @@ def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
     if kind == "slstm":
         y, st = slstm_block(x, p, cfg, state=cache)
         return y, st, {}
+    if kind == "dec":
+        return dec_block(x, p, cfg, cache=cache, positions=positions,
+                         pos_offset=pos_offset, enc_out=enc_out)
+    if kind == "enc":
+        return dense_block(x, p, cfg, positions=positions, causal=False)
     if kind == "shared_attn":
-        window = cfg.shared_attn_window
-    else:
-        window = cfg.window if cfg.attn_kind == "swa" else 0
+        return dense_block(x, p, cfg, cache=cache, positions=positions,
+                           pos_offset=pos_offset,
+                           window=cfg.shared_attn_window)
+    if kind not in ("dense", "moe"):
+        raise ValueError(kind)
     return dense_block(x, p, cfg, cache=cache, positions=positions,
-                       pos_offset=pos_offset, window=window,
+                       pos_offset=pos_offset, mrope_positions=mrope_positions,
+                       window=cfg.window if cfg.attn_kind == "swa" else 0,
                        moe=(kind == "moe"), losses=losses)
 
 
-def _train_block(kind, x, p, cfg, positions):
+def _train_block(kind, x, p, cfg, positions, mrope_positions, enc_out):
     """A block as training runs it: no cache, the aux losses kept."""
-    y, _, aux = apply_block(kind, x, p, cfg, positions=positions, losses=True)
+    y, _, aux = apply_block(kind, x, p, cfg, positions=positions,
+                            mrope_positions=mrope_positions, enc_out=enc_out,
+                            losses=True)
     return y, aux
 
 
@@ -131,13 +163,23 @@ def _layers(stack) -> list:
 
 
 def block_defs(kind, cfg, layers):
-    _check_kind(kind)
     if kind == "mamba2":
         return mamba2_defs(cfg, layers)
     if kind == "mlstm":
         return mlstm_defs(cfg, layers)
     if kind == "slstm":
         return slstm_defs(cfg, layers)
+    if kind == "dec":
+        return {
+            "ln1": norm_defs(cfg.d_model, cfg.norm, layers),
+            "ln_x": norm_defs(cfg.d_model, cfg.norm, layers),
+            "ln2": norm_defs(cfg.d_model, cfg.norm, layers),
+            "attn": attn_defs(cfg, layers),
+            "xattn": attn_defs(cfg, layers),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, layers),
+        }
+    if kind not in ("dense", "moe", "shared_attn", "enc"):
+        raise ValueError(kind)
     d = {
         "ln1": norm_defs(cfg.d_model, cfg.norm, layers),
         "ln2": norm_defs(cfg.d_model, cfg.norm, layers),
@@ -176,6 +218,8 @@ class LM:
             else:
                 stacks[kind] = block_defs(kind, cfg, total)
         d["stacks"] = stacks
+        if cfg.family == "encdec":
+            d["enc_norm"] = norm_defs(cfg.d_model, cfg.norm)
         return d
 
     def init(self, gen: torch.Generator):
@@ -184,20 +228,22 @@ class LM:
 
     # -- segment runner ---------------------------------------------------------
     def _run_segments(self, params, x, *, mode, caches=None, positions=None,
-                      pos_offset=0):
-        """Run the segment list; returns (x, caches, aux).  ``train`` runs
-        every block under activation checkpointing and sums the MoE aux
-        losses over the layers (``{}`` without MoE layers); prefill builds
-        the caches (a leading dimension per kind: the layers of a stack,
-        the calls of the shared block); decode writes into the given caches
-        in place and returns them."""
+                      pos_offset=0, mrope_positions=None, enc_out=None,
+                      segments=None):
+        """Run ``segments`` (the config's list unless given); returns (x,
+        caches, aux).  ``train`` runs every block under activation
+        checkpointing and sums the MoE aux losses over the layers (``{}``
+        without MoE layers); prefill builds the caches (each leaf with a
+        leading dimension per kind: the layers of a stack, the calls of the
+        shared block; a ``dec`` layer's cache nested as ``self`` and
+        ``cross``; the ``enc`` blocks keep none); decode writes into the
+        given caches in place and returns them."""
         cfg = self.cfg
         offsets: Dict[str, int] = {}
         layers: Dict[str, list] = {}
         pieces: Dict[str, list] = {}
         aux: Dict[str, Any] = {}
-        for kind, count in cfg.segments:
-            _check_kind(kind)
+        for kind, count in cfg.segments if segments is None else segments:
             start = offsets.get(kind, 0)
             offsets[kind] = start + count
             if kind != "shared_attn" and kind not in layers:
@@ -207,48 +253,86 @@ class LM:
                     else layers[kind][li]
                 if mode == "train":
                     x, a = checkpoint(_train_block, kind, x, pl, cfg,
-                                      positions, use_reentrant=False,
+                                      positions, mrope_positions, enc_out,
+                                      use_reentrant=False,
                                       preserve_rng_state=False)
                     for k, v in a.items():
                         aux[k] = aux[k] + v if k in aux else v
                     continue
                 cl = "init" if mode == "prefill" else \
-                    {n: c[li] for n, c in caches[kind].items()}
+                    tree_map(lambda c: c[li], caches[kind])
                 x, nc, _ = apply_block(kind, x, pl, cfg, cache=cl,
                                        positions=positions,
-                                       pos_offset=pos_offset)
-                if mode == "prefill":
+                                       pos_offset=pos_offset,
+                                       mrope_positions=mrope_positions,
+                                       enc_out=enc_out)
+                if mode == "prefill" and nc is not None:
                     pieces.setdefault(kind, []).append(nc)
         if mode == "prefill":
-            caches = {kind: {n: torch.stack([c[n] for c in cs])
-                             for n in cs[0]}
+            caches = {kind: tree_map(lambda *ls: torch.stack(ls), *cs)
                       for kind, cs in pieces.items()}
         return x, caches, aux
+
+    def _embed_in(self, params, batch, tokens):
+        """The block input: ``batch["embeds"]`` in bf16 for the ``vlm``
+        family when it is there (the reference's stub front end), else the
+        embedding of ``tokens``."""
+        if self.cfg.family == "vlm" and "embeds" in batch:
+            return batch["embeds"].to(torch.bfloat16)
+        return embed(tokens, params["embed"])
+
+    def _mrope(self, batch):
+        return batch.get("mrope_positions") if self.cfg.mrope else None
+
+    def _forward(self, params, batch, mode):
+        """The backbone over a prompt or a training batch (``mode`` prefill
+        or train); returns the final-normed activations (B, S, d), the
+        caches (prefill) and the aux losses (train).  For ``encdec`` the
+        frames (B, S_enc, d) run through the ``enc`` segment and
+        ``enc_norm`` first, and the tokens through the ``dec`` segment on
+        that output."""
+        cfg = self.cfg
+        enc_out, segments = None, None
+        if cfg.family == "encdec":
+            frames = batch["frames"].to(torch.bfloat16)
+            B, S = frames.shape[:2]
+            pos = torch.arange(S, device=frames.device)[None].expand(B, S)
+            enc_x, _, _ = self._run_segments(
+                params, frames, mode=mode, positions=pos,
+                segments=[("enc", cfg.enc_layers)])
+            enc_out = apply_norm(enc_x, params["enc_norm"], cfg.norm)
+            segments = [("dec", cfg.dec_layers)]
+        x = self._embed_in(params, batch, batch.get("tokens"))
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, caches, aux = self._run_segments(
+            params, x, mode=mode, positions=positions,
+            mrope_positions=self._mrope(batch), enc_out=enc_out,
+            segments=segments)
+        return apply_norm(x, params["final_norm"], cfg.norm), caches, aux
 
     # -- serving -----------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, params, batch, plan=None,
                 cache_len: Optional[int] = None):
-        """Process the prompt; returns (last-position logits (B,1,V),
-        caches padded to ``cache_len``)."""
+        """Process the prompt (``tokens``; for ``vlm`` also ``embeds`` and
+        ``mrope_positions``; for ``encdec`` ``frames`` and the decoder's
+        ``tokens``); returns (last-position logits (B,1,V), caches padded
+        to ``cache_len``; an ``encdec`` cache's ``cross`` holds the
+        encoder's S_enc positions)."""
         cfg = self.cfg
         if cache_len is not None:
             cfg.cache_len = (min(cache_len, cfg.window)
                              if cfg.attn_kind == "swa" else cache_len)
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed(tokens, params["embed"])
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, caches, _ = self._run_segments(params, x, mode="prefill",
-                                          positions=positions)
-        x = apply_norm(x, params["final_norm"], cfg.norm)
+        x, caches, _ = self._forward(params, batch, "prefill")
         return unembed(x[:, -1:], params["embed"]), caches
 
     @torch.no_grad()
     def decode_step(self, params, caches, batch, plan=None):
         """One token for every sequence.  batch: {'token': (B,1), 'pos': ()
-        or (B,)}.  Returns (logits (B,1,V), caches), the caches written in
-        place."""
+        or (B,)}, for ``vlm`` optionally ``embeds`` (B,1,d) and
+        ``mrope_positions`` (3,B,1).  Returns (logits (B,1,V), caches), the
+        caches written in place."""
         cfg = self.cfg
         tok = batch["token"]
         B = tok.shape[0]
@@ -259,10 +343,13 @@ class LM:
             positions = pos[:, None].to(torch.int32)
         else:
             positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
-        x = embed(tok, params["embed"])
+        x = self._embed_in(params, batch, tok)
+        segments = [("dec", cfg.dec_layers)] if cfg.family == "encdec" \
+            else None
         x, caches, _ = self._run_segments(
             params, x, mode="decode", caches=caches, positions=positions,
-            pos_offset=self._cache_write_pos(pos))
+            pos_offset=self._cache_write_pos(pos),
+            mrope_positions=self._mrope(batch), segments=segments)
         x = apply_norm(x, params["final_norm"], cfg.norm)
         return unembed(x, params["embed"]), caches
 
@@ -270,21 +357,14 @@ class LM:
     def loss(self, params, batch, plan=None):
         """Mean next-token CE of ``batch["tokens"]`` (B, S), plus 0.01 x the
         load-balance and 0.001 x the router z losses summed over the MoE
-        layers; returns (loss, metrics) with ``ce`` and the aux losses."""
+        layers; returns (loss, metrics) with ``ce`` and the aux losses.
+        The ``vlm`` family reads ``embeds`` and ``mrope_positions`` as
+        :meth:`prefill` does; ``encdec`` reads ``frames`` (no aux
+        losses)."""
         cfg = self.cfg
-        for kind, _ in cfg.segments:
-            _check_kind(kind)
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "LM.loss for the encdec family is not ported yet: it comes "
-                "with the encoder-decoder slice (Whisper)")
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = embed(tokens, params["embed"])
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x, _, aux = self._run_segments(params, x, mode="train",
-                                       positions=positions)
-        x = apply_norm(x, params["final_norm"], cfg.norm)
+        x, _, aux = self._forward(params, batch, "train")
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
         mask[:, -1] = 0.0
@@ -304,19 +384,26 @@ class LM:
         return pos
 
     def cache_defs(self, B: int, S_max: int):
-        """Tree of (shape, dtype) for the decode caches."""
+        """Tree of (shape, dtype) for the decode caches: a ``dec`` stack's
+        ``self`` at the cache length and ``cross`` at ``cfg.enc_len``; the
+        ``enc`` blocks keep none."""
         cfg = self.cfg
         S_eff = min(S_max, cfg.window) if cfg.attn_kind == "swa" else S_max
         cfg.cache_len = S_eff
         out = {}
         for kind, total in cfg.stack_sizes().items():
-            _check_kind(kind)
+            if kind == "enc":
+                continue
             states = {"mamba2": mamba2_state_defs, "mlstm": mlstm_state_defs,
                       "slstm": slstm_state_defs}.get(kind)
             if states is not None:
                 out[kind] = states(cfg, B, total)
                 continue
-            shape = (total, B, S_eff, cfg.n_kv_heads, cfg.head_dim)
-            out[kind] = {"k": (shape, torch.bfloat16),
-                         "v": (shape, torch.bfloat16)}
+
+            def kv(S):
+                shape = (total, B, S, cfg.n_kv_heads, cfg.head_dim)
+                return {"k": (shape, torch.bfloat16),
+                        "v": (shape, torch.bfloat16)}
+            out[kind] = ({"self": kv(S_eff), "cross": kv(cfg.enc_len)}
+                         if kind == "dec" else kv(S_eff))
         return out

@@ -56,7 +56,9 @@ def make_train_step(cfg: Config, plan: TorchPlan, lr_fn: Callable,
     def grads_of(params, batch):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         loss, metrics = model.loss(tree_unflatten(params, leaves), batch, plan)
-        grads = torch.autograd.grad(loss, leaves)
+        # zeros for a leaf the loss does not read (a vlm batch's embeds
+        # replace the token embedding), as jax.grad gives
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             tree_unflatten(params, list(grads))
 

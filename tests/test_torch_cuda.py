@@ -17,6 +17,8 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
+                                               gelu_stepwise_plain)
 from repro_torch.kernels import a2a_fused as a2a_module
 from repro_torch.kernels import router_topk as router_module
 from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
@@ -73,12 +75,16 @@ def test_combine_kernel_matches_plain(cuda, dtype):
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SCALE_TOL = 5e-2          # bf16, of the output's scale
 
 
 # (B, H, Hkv, Sq, Sk, D, causal, window): ragged q and kv tails, chunked
 # prefill with a window, a length past the window and no mask at every head
 # dim; then Gemma-7B's prefill attention (H16/16 of D 256, causal, no
-# window: S 2048, a ragged 5000, and a chunk of 512 queries on 4096 keys)
+# window: S 2048, a ragged 5000, and a chunk of 512 queries on 4096 keys);
+# then chip_smoke.py phase 5e's: Qwen2-VL's prefill (H12/2, a GQA group of
+# 6), Whisper's encoder (every key, 1500 frames at B8 and its enc_len 4096)
+# and its cross attention (32 and 1 queries against 1500 frames)
 FLASH_KERNEL_CASES = [
     (2, H, Hkv, Sq, Sk, D, causal, window) for D in (16, 32, 64, 128, 256)
     for H, Hkv, Sq, Sk, causal, window in ((4, 2, 130, 130, True, 0),
@@ -86,7 +92,12 @@ FLASH_KERNEL_CASES = [
                                            (2, 2, 200, 200, True, 50),
                                            (4, 4, 65, 65, False, 0))
 ] + [(1, 16, 16, Sq, Sk, 256, True, 0)
-     for Sq, Sk in ((2048, 2048), (5000, 5000), (512, 4096))]
+     for Sq, Sk in ((2048, 2048), (5000, 5000), (512, 4096))
+] + [(1, 12, 2, 2048, 2048, 128, True, 0),
+     (8, 16, 16, 1500, 1500, 64, False, 0),
+     (1, 16, 16, 4096, 4096, 64, False, 0),
+     (8, 16, 16, 32, 1500, 64, False, 0),
+     (8, 16, 16, 1, 1500, 64, False, 0)]
 
 
 @pytest.mark.cuda
@@ -104,6 +115,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal,
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        # against the output's scale, and a planted dropped key tail past
+        # it (chip_smoke.py's FLASH_SCALE_TOL)
+        err = (got.float() - want.float()).abs().max() / want.abs().max()
+        assert float(err) <= FLASH_SCALE_TOL
+        if not causal and Sk >= 1500:
+            keep = Sk - (Sk % 64 or 64)
+            drop = flash_attention_plain(q, k[:, :, :keep], v[:, :, :keep],
+                                         False, 0).float()
+            fault = (got.float() - drop).abs().max() / drop.abs().max()
+            assert float(fault) > FLASH_SCALE_TOL
 
 
 @pytest.mark.cuda
@@ -120,6 +142,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal,
     (1, 8, 2, 100, 1000, True, 300),
     (2, 2, 2, 65, 129, False, 0),
     (1, 4, 2, 129, 200, True, 33),
+    (1, 12, 2, 65, 129, True, 0),    # a GQA group of 6
+    (1, 2, 2, 1, 65, False, 0),      # one query, every key
 ])
 def test_flash_kernel_matches_plain_at_tile_edges(cuda, D, dtype, B, H, Hkv,
                                                   Sq, Sk, causal, window):
@@ -158,6 +182,59 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
                         dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
         flash_attention(a, a, a)
     assert flash_attention.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((1,), 0), ((7,), 0), ((3, 37, 64), 0),       # under and off a vector
+    ((2, 1500, 4096), 0),                          # Whisper's MLP
+    ((2567, 24576), 0),                            # Gemma-7B's prefill
+    ((8, 1, 4096), 0),                             # a decode step
+    ((5, 333), 1),                                 # an unaligned view
+    ((1 << 20,), -1),                              # magnitudes 2**-140..2**100
+])
+def test_gelu_kernel_matches_plain(cuda, dtype, shape, offset):
+    """Bit for bit the plain version's nine eager ops: each step rounds to
+    the type in both (the kernel's products and sums are not contracted
+    into FMAs), wide values included: subnormal products, overflow to
+    infinity, roundings that carry into the exponent (offset -1)."""
+    g = torch.Generator().manual_seed(len(shape) * 100 + shape[-1])
+    n = 1
+    for d in shape:
+        n *= d
+    flat = torch.randn(n + max(offset, 0), generator=g) * 4
+    if offset < 0:
+        flat = flat * torch.exp2(torch.randint(-140, 100, flat.shape,
+                                               generator=g).float())
+    x = flat.to(dtype).to(cuda)[max(offset, 0):].view(shape)
+    got = gelu_stepwise(x)
+    want = gelu_stepwise_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want) or (
+        torch.equal(got.isnan(), want.isnan())
+        and torch.equal(got[~got.isnan()], want[~want.isnan()]))
+
+
+@pytest.mark.cuda
+def test_gelu_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    x = torch.randn(4, 8, device=cuda, dtype=torch.bfloat16)
+    gelu_stepwise.launches = 0
+    gelu_stepwise(x)
+    assert gelu_stepwise.launches == 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gelu_stepwise(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gelu_stepwise(x.t())
+    assert gelu_stepwise.launches == 1
+    # the backward recomputes the plain version: no launch
+    a = x.float().requires_grad_(True)
+    gelu_stepwise(a).sum().backward()
+    b = x.float().requires_grad_(True)
+    gelu_stepwise_plain(b).sum().backward()
+    assert gelu_stepwise.launches == 2
+    assert torch.equal(a.grad, b.grad)
 
 
 @pytest.mark.cuda
@@ -643,7 +720,7 @@ def test_xlstm_decode_step_and_slot_insert_never_wait_on_the_card(cuda):
 # -- the training path ------------------------------------------------------------
 def _chip_smoke():
     """``chip_smoke.py`` from the repo's root, for its card-against-CPU
-    training parity (one implementation for the script and this test)."""
+    parity runs (one implementation for the script and these tests)."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -657,7 +734,8 @@ def _chip_smoke():
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b"])
 def test_train_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
     """Reduced config, one loss and gradient through the kernels (each runs
-    twice a block: forward and checkpoint recompute) against the plain
+    twice a block: forward and checkpoint recompute; Zamba2's shared block
+    adds its gelu) against the plain
     versions on the CPU, at the CPU parity tests' bf16 tolerances, the CPU
     routing to the card's experts: the card's experts the top-K of its own
     logits, the two runs' router logits within 2e-2 of their rms and the
@@ -665,16 +743,24 @@ def test_train_loss_and_grads_on_the_card_match_the_cpu(cuda, arch):
     from repro_torch.configs import get
     smoke = _chip_smoke()
     r = smoke.card_cpu_parity(arch, 2, cuda)
-    blocks = {"flash_attention": 0, "router_topk": 0, "ssd_scan": 0}
-    for kind, count in get(arch).reduced().segments:
-        if kind in ("moe", "shared_attn", "dense"):
-            blocks["flash_attention"] += count
-        if kind == "moe":
-            blocks["router_topk"] += count
-        if kind == "mamba2":
-            blocks["ssd_scan"] += count
-    assert r["ran"] == {n: 2 * c for n, c in blocks.items() if c}
+    assert r["ran"] == smoke.nonzero(
+        smoke.train_launches_per_step(get(arch).reduced()))
     assert smoke.parity_faults(r) == [], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-medium"])
+def test_front_end_models_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced Qwen2-VL (12/2 heads, vision embeddings and M-RoPE ids) and
+    Whisper (frames, the nested cache), block by block: each block's
+    prefill and decode step through the kernels against the plain versions
+    on the CPU given the CPU's input, and the logits, within 3e-2 of their
+    scale (``chip_smoke.front_end_parity``, which phase 5e runs), with the
+    attention kernel's and the gelu's launches."""
+    smoke = _chip_smoke()
+    r = smoke.front_end_parity(arch, cuda)
+    assert r["ran"] == smoke.parity_launches(arch)
+    assert r["err"] <= smoke.MODEL_TOL, r
 
 
 @pytest.mark.cuda

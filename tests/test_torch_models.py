@@ -211,10 +211,18 @@ def test_lm_prefill_then_four_decode_steps(arch, kw, S, jplan):
           f"of their scale (tolerance {TOL})")
 
 
-@pytest.mark.parametrize("arch,kw", LM_CASES + [(HYBRID, {}),
-                                                 ("xlstm-125m", {})],
-                         ids=[a + ("-E32K8" if kw else "") for a, kw in
-                              LM_CASES + [(HYBRID, {}), ("xlstm-125m", {})]])
+# the families with stub front ends, whose trees LM_CASES does not cover:
+# Whisper's enc/dec stacks and enc_norm (LayerNorm w and b), Qwen2-VL's
+# dense stack at its 12/2 heads
+FRONT_END_CASES = [("whisper-medium", {}),
+                   ("qwen2-vl-2b", {"n_heads": 12, "n_kv_heads": 2,
+                                    "n_kv_eff": 2})]
+TREE_CASES = LM_CASES + [(HYBRID, {}), ("xlstm-125m", {})] + FRONT_END_CASES
+
+
+@pytest.mark.parametrize("arch,kw", TREE_CASES,
+                         ids=[a + ("-E32K8" if "top_k" in kw else "")
+                              for a, kw in TREE_CASES])
 def test_param_tree_matches_reference_nesting(arch, kw):
     jc, tc = _cfgs(arch, **kw)
     jp = JLM(jc).init(jax.random.PRNGKey(0))
@@ -247,16 +255,6 @@ def test_init_draws_from_a_torch_generator():
     # truncated at two standard deviations of the fan-in scaled normal
     assert float(w.float().abs().max()) <= 2.0 / tc.d_model ** 0.5 + 1e-3
     assert float(a["final_norm"]["w"].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("kind", ["enc", "dec"])
-def test_later_block_kinds_raise(kind):
-    cfg = tget("ff-tiny").reduced()
-    cfg.segments_spec = [(kind, 1)]
-    with pytest.raises(NotImplementedError, match="slice"):
-        TLM(cfg).param_defs()
-    with pytest.raises(NotImplementedError, match="slice"):
-        TLM(cfg).loss({}, {})
 
 
 # -- Mamba2 block and the hybrid model (Zamba2) --------------------------------

@@ -2,8 +2,9 @@
 
 Both engines serve the reduced Mixtral-8x7B, the reduced Zamba2-1.2B (the
 hybrid: Mamba2 layers and a shared attention block), the reduced
-xLSTM-125m (mLSTM and sLSTM layers) and the reduced Kimi-K2 at 32 experts
-top-8 with a shared expert, with the
+xLSTM-125m (mLSTM and sLSTM layers), the reduced Kimi-K2 at 32 experts
+top-8 with a shared expert and the reduced Qwen2-VL at its 12/2 heads (text
+prompts, as the reference's engine serves it), with the
 reference's weights (carried across with ``core.params.from_numpy``) and
 prompts from numpy seeds.  Greedy tokens must be equal
 (``tests/test_serving.py:44``), and the port's engine must batch
@@ -42,6 +43,9 @@ XLSTM = "xlstm-125m"
 KIMI = "kimi-k2-1t-a32b"
 # Kimi-K2's router at a width reduced() cuts away (E4 top-2)
 KIMI_WIDE = {"n_experts": 32, "top_k": 8, "n_shared_experts": 1}
+VLM = "qwen2-vl-2b"
+# Qwen2-VL's 12 query heads over 2 KV heads (a GQA group of 6)
+VLM_WIDE = {"n_heads": 12, "n_kv_heads": 2, "n_kv_eff": 2}
 CACHE_LEN = 64
 
 
@@ -73,6 +77,11 @@ def served_xlstm():
 @pytest.fixture(scope="module")
 def served_kimi():
     return _both(KIMI, **KIMI_WIDE)
+
+
+@pytest.fixture(scope="module")
+def served_vlm():
+    return _both(VLM, **VLM_WIDE)
 
 
 def _prompts(seed, n, lengths=(8,)):
@@ -251,6 +260,24 @@ def test_kimi_engine_tokens_equal_the_reference_engine(served_kimi):
     assert got[0].tokens == _manual_greedy(tcfg, plan, tp, prompts[0], 6)
 
 
+def test_vlm_engine_tokens_equal_the_reference_engine(served_vlm):
+    """Qwen2-VL at 12/2 heads, text prompts through both engines (RoPE on
+    the sequence index: the engine passes tokens only, as the reference's
+    does); every request's tokens equal the reference engine's and request
+    0's the manual loop's."""
+    jcfg, jparams, tcfg, plan, tp = served_vlm
+    prompts = _prompts(13, 3, lengths=(8, 21, 40))
+    want = _serve(JEngine(jcfg, jplan(), jparams, max_batch=2,
+                          cache_len=CACHE_LEN), JRequest, prompts, 6,
+                  eos=JFF_EOS)
+    got = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                 cache_len=CACHE_LEN), Request, prompts, 6)
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for i in range(3):
+        assert got[i].tokens == want[i].tokens, i
+    assert got[0].tokens == _manual_greedy(tcfg, plan, tp, prompts[0], 6)
+
+
 def test_engine_matches_its_manual_loop(served):
     _, _, tcfg, plan, tp = served
     prompt = _prompts(1, 1)[0]
@@ -350,6 +377,19 @@ def test_serve_launcher_runs_xlstm_and_refuses_its_layers(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--arch", XLSTM, "--layers", "2"])
     assert "segment" in capsys.readouterr().err
+
+
+def test_serve_launcher_runs_qwen2_vl_and_refuses_whisper(capsys):
+    """Qwen2-VL serves text prompts here, as the reference's launcher serves
+    it; Whisper, whose prefill also takes frames, is refused with the steps
+    that run it."""
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", VLM, "--requests", "2",
+                       "--max-new", "3", "--max-batch", "2"]) == 0
+    assert "served 2/2 requests, 6 tokens" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--arch", "whisper-medium"])
+    assert "make_prefill_step" in capsys.readouterr().err
 
 
 def test_init_state_draws_on_the_plan_device(served):
