@@ -1,7 +1,7 @@
 """The staged graph compiler: ``normalize -> annotate -> place -> emit``.
 
-Port of ``src/repro/core/compiler.py`` for the host-thread and device
-tiers:
+Port of ``src/repro/core/compiler.py`` for the host-thread, host-process
+and device tiers:
 
 1. **normalize** — the :meth:`FFGraph.optimize` normal-form rewrites;
 2. **annotate** — a :class:`CostEstimate` per IR node from the paper's
@@ -9,17 +9,26 @@ tiers:
    ``costs=``, ``ff_cost``/``ff_flops``/``ff_bytes`` attributes, or timing
    the node on a ``sample`` item; device time from the H100 roofline when
    FLOPs are declared;
-3. **place** — a :class:`Placement` per top-level stage: host *threads* or
-   the *device*, from the roofline comparison (with the dispatch amortized
-   over each run of adjacent device candidates), overridable per node;
-4. **emit** — all-host -> :class:`~repro_torch.core.graph.HostRunner`;
+3. **place** — a :class:`Placement` per top-level stage: host *threads*,
+   host *processes* (``host_process``: a farm of GIL-bound workers when true
+   parallelism over the calibrated shared-memory hop beats threads), or the
+   *device*, from the roofline comparison (with the dispatch amortized over
+   each run of adjacent device candidates), overridable per node;
+4. **emit** — process-placed farm and ``all_to_all`` stages first become
+   :class:`~repro_torch.core.process.ProcessFarmNode` /
+   :class:`~repro_torch.core.process.ProcessA2ANode` boundary nodes (OS
+   processes over the shared-memory rings of ``core/shm.py``), host stages
+   to the rest of emit; then all-host -> :class:`ProcessRunner` (with
+   process stages) or :class:`~repro_torch.core.graph.HostRunner`;
    all-device -> :class:`~repro_torch.core.graph.DeviceRunner`; mixed ->
    :class:`HybridRunner`, host stages over SPSC queues feeding fused device
    segments through :class:`_DeviceStageNode` boundary nodes.
 
-The process and remote host tiers, ``adaptive=True`` and ``remote_workers``
-are later slices of the port: ``compile_graph`` raises "not ported yet" for
-them.
+Process workers fork from the parent, which may have initialised CUDA: they
+run numpy callables and never touch torch (``core/process.py``).  The
+remote host tier (``host_remote``, ``mode="remote"``, ``remote_workers``)
+and ``adaptive=True`` are later slices of the port: ``compile_graph``
+raises "not ported yet" for them.
 """
 
 from __future__ import annotations
@@ -36,8 +45,9 @@ from . import perf_model as pm
 from .fuse import FusedSegment, fuse_device_segments, segment_key
 from .graph import (A2AG, DeviceRunner, FarmG, FFGraph, GraphError,
                     HostRunner, MapG, PipeG, SeqG, StageHandle, _copy_streams,
-                    _device_fn, _is_pure_seq, _Landing, _to_device)
+                    _device_fn, _is_pure_seq, _Landing, _pure_of, _to_device)
 from .node import GO_ON, FFNode
+from .process import ProcessA2ANode, ProcessFarmNode, fn_picklable
 from .tree import tree_leaves, tree_map
 
 # Baked-in cost-model fallbacks, used until perf_model.calibrate() has run
@@ -45,8 +55,8 @@ from .tree import tree_leaves, tree_map
 DEVICE_DISPATCH_S = 2e-5
 DEFAULT_T_TASK_S = 5e-5
 
-_TARGETS = ("host", "device")
-_NOT_PORTED = ("host_process", "host_remote")
+_TARGETS = ("host", "host_process", "device")
+_NOT_PORTED = ("host_remote",)
 
 
 @dataclasses.dataclass
@@ -71,6 +81,13 @@ class CompileConfig:
     ``device_overlap:window`` record, else 2).  Feedback (``wrap_around``)
     graphs always compile the synchronous boundary.
 
+    The process tier: ``transport`` (a
+    :class:`~repro_torch.core.shm.TransportConfig` or a dict of its fields)
+    tunes every shared-memory lane a process stage builds — ring depths,
+    slot size, arena size, bounded or uSPSC lanes, the batch flush policy;
+    without it ``shm_slot_bytes`` sizes the slots and the rest takes the
+    defaults (see :func:`emit`).
+
     ``adaptive`` and ``remote_workers`` exist so a caller gets "not ported
     yet" rather than a silent host run."""
 
@@ -87,8 +104,10 @@ class CompileConfig:
     device_batch: Optional[int] = None
     a2a_capacity_factor: Optional[float] = None
     normalize: bool = True
+    shm_slot_bytes: int = 1 << 16
     adaptive: bool = False
     remote_workers: Optional[Any] = None
+    transport: Any = None
     fuse: bool = True
     overlap: bool = True
     microbatch: Optional[int] = None
@@ -101,7 +120,8 @@ class CostEstimate:
 
     ``releases_gil`` is the GIL-sensitivity signal: ``True`` when the node's
     work runs concurrently under CPython threads, ``False`` when it
-    serializes on the GIL, ``None`` when undeclared and unmeasured."""
+    serializes on the GIL (the process tier's reason to exist), ``None``
+    when undeclared and unmeasured."""
 
     t_task: float = DEFAULT_T_TASK_S
     flops: float = 0.0
@@ -115,6 +135,11 @@ class CostEstimate:
         if self.releases_gil is False:
             return self.t_task
         return self.t_task / max(1, width)
+
+    def process_time(self, width: int = 1, hop_s: float = 2e-4) -> float:
+        """Per-item service time on a ``width``-worker *process* farm: true
+        parallelism, floored by the shared-memory lane hop."""
+        return max(self.t_task / max(1, width), hop_s)
 
     def device_time(self, n_chips: int = 1,
                     dispatch_s: float = DEVICE_DISPATCH_S) -> Optional[float]:
@@ -130,10 +155,10 @@ class CostEstimate:
 @dataclasses.dataclass
 class Placement:
     """Where one top-level stage runs.  ``width`` is the farm worker count
-    (threads, or the device count); ``reason`` records the cost-model
-    comparison for reports/tests."""
+    (threads, processes, or the device count); ``reason`` records the
+    cost-model comparison for reports/tests."""
 
-    target: str = "host"    # "host" | "device"
+    target: str = "host"    # "host" | "host_process" | "device"
     width: Optional[int] = None
     reason: str = ""
 
@@ -316,6 +341,39 @@ def _device_eligible(n: Any) -> bool:
         return False
 
 
+def _process_ineligible_reason(n: Any) -> Optional[str]:
+    """Why this stage cannot run on the process tier (None when it can).
+
+    The process tier ships each worker's ``svc`` callable to a child once at
+    startup, so it needs pure (stateless-callable) workers: a farm with
+    pure-or-absent emitter/collector and the default round-robin schedule
+    (``autoscale`` is fine — the process farm carries its own AutoscaleLB
+    over the shm lanes), or an ``all_to_all`` whose left/right workers and
+    router all pickle."""
+    if isinstance(n, A2AG):
+        fns = [_pure_of(x) for x in (*n.left, *n.right)]
+        if any(f is None for f in fns):
+            return "a2a workers must be pure callables to ship to a process"
+        if not all(fn_picklable(f) for f in fns):
+            return "a2a worker callable is not picklable for process startup"
+        if n.router is not None and not fn_picklable(n.router):
+            return "a2a router is not picklable for process startup"
+        return None
+    if not isinstance(n, FarmG):
+        return "only farm and all_to_all stages process-lower"
+    if n.lb is not None or n.ondemand is not None:
+        return "custom lb/ondemand schedules are thread-tier only"
+    fns = [n.fn] if n.fn is not None else [_pure_of(w) for w in n.workers]
+    if any(f is None for f in fns):
+        return "stateful workers cannot ship to a worker process"
+    for part in (n.emitter, n.collector):
+        if part is not None and _pure_of(part) is None:
+            return "process farm needs pure emitter/collector"
+    if not all(fn_picklable(f) for f in fns):
+        return "worker callable is not picklable for process startup"
+    return None
+
+
 def _mesh_axis_size(plan: Any, axis: str) -> int:
     return int(dict(plan.mesh.shape).get(axis, 1))
 
@@ -327,18 +385,35 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
     """Assign each top-level stage a :class:`Placement` (in place).
 
     A stage goes to the *device* when it can lower there, a plan was given,
-    and the roofline estimate beats the host service time; everything else
-    runs on host *threads*, farm widths from
-    :func:`~repro_torch.core.perf_model.choose_farm_width`.  ``overrides``
-    maps a stage index or worker object to a :class:`Placement` (or
-    ``"host"``/``"device"``).  A ``wrap_around`` graph places on the device
-    only as a whole and only when ``feedback_steps`` or ``feedback_cond``
-    bounds the loop."""
+    and the roofline estimate beats the best host service time; a farm (or
+    ``all_to_all``) of GIL-bound workers goes to the *process* tier when
+    true parallelism over the calibrated shared-memory hop beats
+    GIL-serialized threads; everything else runs on host *threads*.  Widths
+    come from :func:`~repro_torch.core.perf_model.choose_farm_width` over
+    the calibrated channel costs.  ``overrides`` maps a stage index or
+    worker object to a :class:`Placement` (or ``"host"``/``"host_process"``
+    /``"device"``).  A ``wrap_around`` graph places on the device only as
+    a whole and only when ``feedback_steps`` or ``feedback_cond`` bounds
+    the loop."""
     overrides = overrides or {}
     stages = _top_stages(graph)
     n_cpu = max(1, os.cpu_count() or 1)
     n_chips = _mesh_axis_size(plan, axis) if plan is not None else 1
-    calib = pm.get_calibration(measure=False)
+
+    # calibrated channel constants: the (one-time, disk-cached) measurement
+    # only triggers when a decision could use the process tier — a stage
+    # must be process-eligible AND measurably GIL-bound (the tier is
+    # unreachable on an unknown signal); otherwise the cached-or-default
+    # lookup suffices
+    def _gil_bound(s: Any) -> bool:
+        c = s.cost
+        return isinstance(c, CostEstimate) and c.releases_gil is False
+
+    need_measure = mode == "process" or (
+        mode == "auto" and not graph._wrap
+        and any(_process_ineligible_reason(s) is None and _gil_bound(s)
+                for s in stages))
+    calib = pm.get_calibration(measure=need_measure)
 
     def override_for(i: int, s: Any) -> Optional[Placement]:
         # keys are stage indices or the hashable user objects a stage wraps
@@ -391,6 +466,7 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
     for i, s in enumerate(stages):
         ov = override_for(i, s)
         c = s.cost if isinstance(s.cost, CostEstimate) else CostEstimate()
+        proc_reason = _process_ineligible_reason(s)
         if isinstance(s, FarmG) and not s.autoscale:
             t_emit = getattr(getattr(s.emitter, "cost", None), "t_task", 0.0)
             t_coll = getattr(getattr(s.collector, "cost", None), "t_task", 0.0)
@@ -399,18 +475,42 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
                                                t_emit=t_emit,
                                                t_collect=t_coll,
                                                overhead=calib.queue_hop_s))
+            proc_width = (len(s.workers) if not s.n_auto else
+                          pm.choose_farm_width(
+                              c.t_task, n_cpu, t_emit=t_emit,
+                              t_collect=t_coll,
+                              overhead=calib.proc_hop_effective_s()))
         elif isinstance(s, FarmG):
             host_width = len(s.workers) if not s.n_auto else n_cpu
+            proc_width = host_width
+        elif isinstance(s, A2AG):
+            # both sides' widths are fixed by the graph; "width" reports the
+            # total worker-process count of the stage
+            host_width = 1
+            proc_width = len(s.left) + len(s.right)
         else:
             host_width = 1
+            proc_width = 1
         if ov is not None:
+            if ov.target == "host_process" and proc_reason is not None:
+                raise GraphError(f"stage {i} ({s.describe()}) cannot be "
+                                 f"process-placed: {proc_reason}")
             if ov.width is None:
-                w = n_chips if ov.target == "device" else host_width
+                w = {"device": n_chips, "host_process": proc_width,
+                     "host": host_width}[ov.target]
                 ov = dataclasses.replace(ov, width=w)
             s.placement = ov
             continue
         if mode == "host":
             s.placement = Placement("host", host_width, "forced host")
+            continue
+        if mode == "process":
+            if proc_reason is None:
+                s.placement = Placement("host_process", proc_width,
+                                        "forced process")
+            else:
+                s.placement = Placement("host", host_width,
+                                        f"forced process, but {proc_reason}")
             continue
         if mode == "device":
             s.placement = Placement("device", n_chips, "forced device")
@@ -421,9 +521,11 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
                 target, n_chips if target == "device" else host_width,
                 "feedback loop lowers as one unit")
             continue
+        # -- cost-driven three-way decision --------------------------------
         # autoscale is a host-runtime request (grow/shrink the active worker
         # set from observed lane depth): a device farm has no lanes to
-        # observe, so autoscale drops the device candidate
+        # observe, so autoscale drops the device candidate but keeps the
+        # thread-vs-process comparison
         autoscale = isinstance(s, FarmG) and s.autoscale
         host_t = max(c.host_time(host_width), calib.queue_hop_s)
         dev_dispatch = (calib.device_dispatch_s / max(1, run_len[i])
@@ -439,12 +541,50 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
                 1.0 / (calib.h2d_bw_gbs * 1e9)
                 + 1.0 / (calib.d2h_bw_gbs * 1e9)) if c.bytes > 0 else 0.0
             dev_t = calib.boundary_time(xfer, dev_t)
-        if dev_t is not None and dev_t < host_t:
+        # the process tier only pays off for demonstrably GIL-bound work
+        # wide enough to parallelize (an unknown signal stays on threads),
+        # and only past a hysteresis margin over the thread estimate — a
+        # candidate inside the margin drops out entirely rather than
+        # vetoing the host/device comparison
+        proc_t = None
+        if proc_reason is None and c.releases_gil is False \
+                and proc_width >= 2:
+            if isinstance(s, A2AG):
+                # the two sides pipeline across the shm grid: service time
+                # is the slower side over its width, floored by the hops
+                nL, nR = len(s.left), len(s.right)
+                t_l = sum(getattr(x.cost, "t_task", DEFAULT_T_TASK_S)
+                          for x in s.left) / nL
+                t_r = sum(getattr(x.cost, "t_task", DEFAULT_T_TASK_S)
+                          for x in s.right) / nR
+                # the farm/a2a lanes are batched (push_many/pop_many), so
+                # the amortized hop is the honest per-item price here
+                t = pm.a2a_service_time(t_l, t_r, nL, nR,
+                                        calib.proc_hop_effective_s())
+            else:
+                t = c.process_time(proc_width, calib.proc_hop_effective_s())
+            if t < 0.8 * host_t:
+                proc_t = t
+        candidates = {"host": host_t}
+        if dev_t is not None:
+            candidates["device"] = dev_t
+        if proc_t is not None:
+            candidates["host_process"] = proc_t
+        target = min(candidates, key=candidates.get)
+        if target == "device":
             s.placement = Placement(
                 "device", n_chips,
                 f"roofline {dev_t*1e6:.1f}us < host {host_t*1e6:.1f}us"
                 + (f" (dispatch amortized over fused run of {run_len[i]})"
                    if run_len[i] > 1 else ""))
+        elif target == "host_process":
+            s.placement = Placement(
+                "host_process", proc_width,
+                ("autoscale on the process tier: " if autoscale else "")
+                + f"GIL-bound: {proc_width} processes {proc_t*1e6:.1f}us < "
+                f"threads {host_t*1e6:.1f}us "
+                f"(calibrated hop {calib.proc_hop_effective_s()*1e6:.1f}us, "
+                f"{calib.source})")
         else:
             host_reason = "autoscale requested (host runtime)" \
                 if autoscale else ("stateful/host-only"
@@ -749,8 +889,9 @@ class DeviceBoundaryHandle(StageHandle):
 
 class HybridRunner(HostRunner):
     """A mixed-placement graph: host stages over SPSC queues feeding device
-    segments through :class:`_DeviceStageNode` boundary nodes.
-    Same surface as :class:`HostRunner`; ``placements`` records the
+    segments through :class:`_DeviceStageNode` boundary nodes (and
+    possibly process farms through
+    :class:`~repro_torch.core.process.ProcessFarmNode`).  Same surface as :class:`HostRunner`; ``placements`` records the
     compiler's per-stage decisions."""
 
     def shutdown(self, timeout: float = 10.0) -> None:
@@ -765,6 +906,46 @@ class HybridRunner(HostRunner):
             if isinstance(st, _DeviceStageNode):
                 st.abandon()
         super().shutdown(timeout)
+
+
+class ProcessRunner(HostRunner):
+    """A host network whose process-placed farm stages run their workers as
+    OS processes over the shared-memory SPSC rings of ``core/shm.py`` — the
+    multicore-true host tier.  Same surface as :class:`HostRunner`; thread
+    stages and process farms share one streaming network."""
+
+
+def _lower_process_stage(s: Any, p: Placement, capacity: int,
+                         transport: Any) -> SeqG:
+    """Replace a process-placed farm or all_to_all with its boundary node:
+    to the rest of the (thread-tier) network it is one ordinary host
+    stage.  ``transport`` (a :class:`~repro_torch.core.shm.TransportConfig`)
+    caps the ring depths (``ring_slots`` per farm lane, ``grid_slots`` per
+    a2a grid segment — the grid is nL x nR eagerly allocated, so shallower)
+    and sizes the slots and the slab arena."""
+    reason = _process_ineligible_reason(s)
+    if reason is not None:
+        raise GraphError(f"cannot process-lower {s.describe()}: {reason}")
+    if isinstance(s, A2AG):
+        lfns = [_pure_of(x) for x in s.left]
+        rfns = [_pure_of(x) for x in s.right]
+        node = ProcessA2ANode(
+            lfns, rfns, router=s.router,
+            capacity=capacity, transport=transport,
+            label=f"process_a2a[{len(lfns)}x{len(rfns)}]")
+        return SeqG(node)
+    width = max(1, p.width or len(s.workers))
+    fns = [s.fn] * width if s.fn is not None \
+        else [_pure_of(w) for w in s.workers]
+    pre = _pure_of(s.emitter) if s.emitter is not None else None
+    post = _pure_of(s.collector) if s.collector is not None else None
+    node = ProcessFarmNode(
+        fns, pre=pre, post=post,
+        capacity=capacity, transport=transport,
+        autoscale=s.autoscale,
+        label=f"process_farm[{len(fns)}]"
+        + ("@autoscale" if s.autoscale else ""))
+    return SeqG(node)
 
 
 def _materialize_widths(n: Any) -> None:
@@ -787,6 +968,7 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
          feedback_cond: Optional[Callable] = None,
          device_batch: Optional[int] = None,
          a2a_capacity_factor: Optional[float] = None,
+         shm_slot_bytes: int = 1 << 16, transport: Any = None,
          fuse: bool = True, overlap: bool = True,
          microbatch: Optional[int] = None,
          inflight: Optional[int] = None) -> Any:
@@ -798,11 +980,42 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
     graphs) or as a single :class:`~repro_torch.core.graph.DeviceRunner`
     part (all-device graphs).  ``fuse=False`` lowers one segment per device
     stage.  ``overlap``/``microbatch``/``inflight`` shape the boundary those
-    segments run behind; see :class:`CompileConfig`."""
+    segments run behind; see :class:`CompileConfig`.
+
+    Process-placed stages lower first, into boundary nodes that the rest of
+    emit sees as host stages.  ``transport`` (a
+    :class:`~repro_torch.core.shm.TransportConfig`, or a dict of its fields)
+    tunes every shared-memory lane they build: ``ring_slots`` (farm-lane
+    depth cap, default 64), ``grid_slots`` (a2a grid-segment depth cap,
+    default 32), ``slot_bytes`` (fixed slot payload, default 64 KiB),
+    ``arena_bytes`` (slab arena for oversize ndarrays, default 4 MiB),
+    ``bounded`` (False grows uSPSC segment chains instead of
+    back-pressuring), and ``batch``/``flush_s`` (vectored-lane flush
+    policy).  When omitted, ``shm_slot_bytes`` sizes the slots and
+    everything else takes the defaults."""
+    from .shm import TransportConfig, as_transport
+    tc = (as_transport(transport) if transport is not None
+          else TransportConfig(slot_bytes=shm_slot_bytes))
     stages = _top_stages(graph)
     placements = [s.placement if isinstance(s.placement, Placement)
                   else Placement("host") for s in stages]
     report = list(zip([s.describe() for s in stages], placements))
+
+    # process-placed farms and a2a stages lower first, into
+    # ProcessFarmNode / ProcessA2ANode boundary stages: from here on the
+    # rest of emit sees them as host stages, which is what lets thread ->
+    # process -> device programs compose freely
+    has_process = any(p.target == "host_process" for p in placements)
+    if has_process:
+        lowered = [(_lower_process_stage(s, p, capacity, tc)
+                    if p.target == "host_process" else s)
+                   for s, p in zip(stages, placements)]
+        g2 = FFGraph(lowered[0] if len(lowered) == 1 else PipeG(lowered))
+        g2._wrap = graph._wrap
+        graph, stages = g2, lowered
+        placements = [dataclasses.replace(p, target="host")
+                      if p.target == "host_process" else p
+                      for p in placements]
     targets = {p.target for p in placements}
 
     if targets == {"device"}:
@@ -814,9 +1027,10 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
                               microbatch=microbatch, inflight=inflight)
     elif targets == {"host"}:
         _materialize_widths(graph.root)
-        runner = HostRunner(graph, capacity=capacity,
-                            results_capacity=results_capacity,
-                            feedback_cond=feedback_cond)
+        cls = ProcessRunner if has_process else HostRunner
+        runner = cls(graph, capacity=capacity,
+                     results_capacity=results_capacity,
+                     feedback_cond=feedback_cond)
     else:
         # in a feedback loop items circulate one at a time: a buffering
         # boundary node would starve the loop waiting for a full microbatch
@@ -885,10 +1099,11 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
         except TypeError as e:
             raise TypeError(f"compile_graph(): {e}; see CompileConfig for "
                             "the supported knobs") from None
-    if cfg.mode in ("process", "remote"):
-        raise GraphError(f"compile(mode={cfg.mode!r}) is not ported yet: "
-                         "the port has the host-thread and device tiers")
-    if cfg.mode not in ("auto", "host", "device"):
+    if cfg.mode == "remote":
+        raise GraphError("compile(mode='remote') is not ported yet: the "
+                         "port has the host-thread, host-process and device "
+                         "tiers")
+    if cfg.mode not in ("auto", "host", "process", "device"):
         raise GraphError(f"unknown compile mode {cfg.mode!r}")
     if cfg.adaptive:
         raise GraphError("compile(adaptive=True) is not ported yet")
@@ -911,5 +1126,6 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
                 feedback_cond=cfg.feedback_cond,
                 device_batch=cfg.device_batch,
                 a2a_capacity_factor=cfg.a2a_capacity_factor,
+                shm_slot_bytes=cfg.shm_slot_bytes, transport=cfg.transport,
                 fuse=cfg.fuse, overlap=cfg.overlap,
                 microbatch=cfg.microbatch, inflight=cfg.inflight)

@@ -446,10 +446,12 @@ class FFGraph:
         * ``annotate`` — per-node :class:`~repro_torch.core.compiler.
           CostEstimate` from ``costs=``, ``ff_cost``/``ff_flops``
           attributes, or timing the node on ``sample=``;
-        * ``place`` — host *threads* or the *device* per top-level stage,
-          overridable via ``placements={stage_index_or_worker: ...}``;
-        * ``emit`` — :class:`HostRunner`, :class:`DeviceRunner`, or the
-          hybrid runner (host stages over SPSC queues feeding fused device
+        * ``place`` — host *threads*, host *processes* (``host_process``)
+          or the *device* per top-level stage, overridable via
+          ``placements={stage_index_or_worker: ...}``;
+        * ``emit`` — :class:`HostRunner`, the process runner (process farms
+          over shared-memory rings), :class:`DeviceRunner`, or the hybrid
+          runner (host stages over SPSC queues feeding fused device
           segments through device boundary nodes).
 
         ``feedback_steps=K`` lets a ``wrap_around`` graph lower onto the
@@ -457,9 +459,9 @@ class FFGraph:
         makes the loop data-dependent (``core.device.feedback_while``, with
         ``feedback_steps`` as an optional cap).  ``a2a_capacity_factor``
         bounds the device all_to_all expert lanes (default: lossless).
-        ``mode`` forces placement: "host", "device", or cost-driven "auto";
-        the process and remote tiers and ``adaptive=True`` are not ported
-        yet and raise."""
+        ``mode`` forces placement: "host", "process", "device", or
+        cost-driven "auto"; the remote tier and ``adaptive=True`` are not
+        ported yet and raise."""
         from .compiler import CompileConfig, compile_graph
         if config is not None:
             if plan is not None:

@@ -8,9 +8,11 @@ The paper's algebra:
 The compiler's ``annotate``/``place`` passes use that algebra for farm widths
 and a roofline of the target card (:data:`H100_SXM`, NVIDIA's data-sheet
 figures) for device time.  :func:`calibrate` measures the host constants —
-one core's FLOP/s, the thread-queue hop — and the CUDA dispatch cost, and
-caches them in the port's own file ``torch_calibration.json``; the
-reference's ``calibration.json`` holds TPU-side constants and is never read.
+one core's FLOP/s, the thread-queue hop, the process tier's shared-memory
+hop (per item and batched) and its slab arena's bandwidth — and the CUDA
+dispatch cost, and caches them in the port's own file
+``torch_calibration.json``; the reference's ``calibration.json`` holds
+TPU-side constants and is never read.
 """
 
 from __future__ import annotations
@@ -164,6 +166,14 @@ class HostCalibration:
     peak_flops: float           # useful numpy FLOP/s of one host core
     queue_hop_s: float          # per-item thread-tier SPSC push+pop cost
     device_dispatch_s: float    # per-microbatch host<->device boundary cost
+    # per-item process-lane (shm ring) hop cost
+    proc_hop_s: float = 2e-4
+    # per-item cost of the *vectored* process lane (push_many/pop_many
+    # amortize the index traffic and the pickling over a batch) — what the
+    # batched farm transport actually pays per item
+    shm_batched_hop_s: float = 5e-5
+    # streaming bandwidth of the slab arena (oversize-ndarray path), GB/s
+    arena_bw_gbs: float = 2.0
     # marginal per-stage cost of one extra stage inside a fused device
     # segment (PyTorch runs eagerly: one more kernel launch, not measured
     # yet — the default stands)
@@ -179,6 +189,13 @@ class HostCalibration:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def proc_hop_effective_s(self) -> float:
+        """The per-item process-lane cost placement should charge.  The
+        farm transport is batched, so the amortized hop is the honest
+        per-item price; capped by ``proc_hop_s`` so a noisy batched probe
+        can never make the process tier look *worse* than per-item."""
+        return min(self.proc_hop_s, self.shm_batched_hop_s)
+
     def boundary_time(self, transfer_s: float, compute_s: float) -> float:
         """Cost of one fused device run behind the overlapped boundary:
         ``max(transfer, compute)`` plus the unhidden share of the smaller."""
@@ -191,7 +208,9 @@ DEFAULT_CALIBRATION = HostCalibration(
     peak_flops=5e10, queue_hop_s=2e-5, device_dispatch_s=2e-5,
     source="default")
 
-_CALIB_VERSION = 1
+# version 2: the process tier's proc_hop_s, shm_batched_hop_s and
+# arena_bw_gbs joined — older caches must miss cleanly
+_CALIB_VERSION = 2
 _calibration: Optional[HostCalibration] = None
 
 
@@ -230,6 +249,163 @@ def _measure_queue_hop() -> float:
     return max((time.perf_counter() - t0) / n, 1e-9)
 
 
+def _echo_main(in_lane, out_lane) -> None:
+    """Calibration child: bounce items straight back (proc-lane hop probe)."""
+    from .node import EOS
+    while True:
+        item = in_lane.pop()
+        if item is EOS:
+            break
+        out_lane.push(item)
+    out_lane.push_eos()
+
+
+def _measure_proc_hop(n: int = 200) -> float:
+    import numpy as np
+    from .process import _mp_context, _quiet_fork
+    from .shm import ShmSPSCQueue
+    ping = ShmSPSCQueue(capacity=16)
+    pong = ShmSPSCQueue(capacity=16)
+    proc = _mp_context().Process(target=_echo_main, args=(ping, pong),
+                                 daemon=True, name="ff-calibrate-echo")
+    with _quiet_fork():
+        proc.start()
+    payload = np.arange(64, dtype=np.float32)
+    try:
+        ping.push(payload, timeout=5.0)         # warm both directions
+        pong.pop(timeout=5.0)
+        # streaming, not ping-pong: the farm emitter pushes a stream while
+        # the collector drains, so the relevant hop cost is the pipelined
+        # per-item cost, not the one-item round-trip latency.  Items ride
+        # bare, like the farm protocol, so this measures the raw-slab path.
+        sent = recv = 0
+        deadline = time.monotonic() + 10.0
+        t0 = time.perf_counter()
+        while recv < n:
+            progressed = False
+            if sent < n and ping.try_push(payload):
+                sent += 1
+                progressed = True
+            ok, _ = pong.try_pop()
+            if ok:
+                recv += 1
+                progressed = True
+            if not progressed:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("proc-hop calibration stalled")
+                time.sleep(1e-6)
+        rtt = 2.0 * (time.perf_counter() - t0) / n  # keep rtt/2 == per hop
+    finally:
+        try:
+            ping.push_eos(timeout=1.0)
+        except TimeoutError:
+            pass
+        proc.join(timeout=5.0)
+        if proc.is_alive():
+            proc.terminate()
+        ping.destroy()
+        pong.destroy()
+    return max(rtt / 2.0, 1e-9)
+
+
+def _echo_many_main(in_lane, out_lane, batch: int) -> None:
+    """Calibration child: bounce items back in vectored batches (batched
+    proc-lane hop probe — same pop_many/push_many path the farm workers use)."""
+    from .node import EOS
+    done = False
+    while not done:
+        out = []
+        for item, _seq in in_lane.pop_many(batch):
+            if item is EOS:
+                done = True
+                break
+            out.append(item)
+        if out:
+            out_lane.push_many(out)
+    out_lane.push_eos()
+
+
+def _measure_shm_batched_hop(n: int = 2000, batch: int = 32) -> float:
+    """Per-item cost of the *vectored* process lane: same streaming echo
+    shape as :func:`_measure_proc_hop`, but both sides move items with
+    ``try_push_many``/``try_pop_many`` so the index traffic and the pickling
+    amortize over the batch.  This is what a batched farm hop actually costs
+    per item, and what ``place`` should charge for the process tier."""
+    from .process import _mp_context, _quiet_fork
+    from .shm import ShmSPSCQueue
+    ping = ShmSPSCQueue(capacity=64)
+    pong = ShmSPSCQueue(capacity=64)
+    proc = _mp_context().Process(target=_echo_many_main,
+                                 args=(ping, pong, batch),
+                                 daemon=True, name="ff-calibrate-echo-many")
+    with _quiet_fork():
+        proc.start()
+    items = list(range(batch))                  # small items: the batch win
+    try:
+        ping.push_many(items, timeout=5.0)      # warm both directions
+        got = 0
+        deadline = time.monotonic() + 5.0
+        while got < batch:
+            got += len(pong.try_pop_many(batch))
+            if time.monotonic() > deadline:
+                raise TimeoutError("batched-hop calibration warmup stalled")
+        sent = recv = 0
+        deadline = time.monotonic() + 10.0
+        t0 = time.perf_counter()
+        while recv < n:
+            progressed = False
+            if sent < n:
+                k = ping.try_push_many(items[:min(batch, n - sent)])
+                sent += k
+                progressed = progressed or k > 0
+            k = len(pong.try_pop_many(batch))
+            recv += k
+            progressed = progressed or k > 0
+            if not progressed:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("batched-hop calibration stalled")
+                time.sleep(1e-6)
+        rtt = 2.0 * (time.perf_counter() - t0) / n  # keep rtt/2 == per hop
+    finally:
+        try:
+            ping.push_eos(timeout=1.0)
+        except TimeoutError:
+            pass
+        proc.join(timeout=5.0)
+        if proc.is_alive():
+            proc.terminate()
+        ping.destroy()
+        pong.destroy()
+    return max(rtt / 2.0, 1e-9)
+
+
+def _measure_arena_bw(nbytes: int = 4 << 20, reps: int = 5) -> float:
+    """Streaming bandwidth (GB/s) of the slab-arena path: one oversize
+    ndarray through an arena-backed lane per rep (producer copy in + consumer
+    copy out), in-process so it measures memory bandwidth, not scheduling."""
+    import numpy as np
+    from .shm import ShmSPSCQueue
+    q = ShmSPSCQueue(capacity=4, slot_bytes=1024, arena_bytes=2 * nbytes)
+    try:
+        a = np.zeros(nbytes // 4, dtype=np.float32)
+        q.try_push(a)                           # warm the mappings
+        q.try_pop()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            if not q.try_push(a):
+                break
+            ok, _ = q.try_pop()
+            if not ok:
+                break
+            best = min(best, time.perf_counter() - t0)
+        if not (best < float("inf")) or q.arena_pushes == 0:
+            return DEFAULT_CALIBRATION.arena_bw_gbs
+        return max(nbytes / best / 1e9, 1e-3)
+    finally:
+        q.destroy()
+
+
 def measure_cuda_dispatch(n: int = 200) -> float:
     """Seconds the card takes per launch of a tiny kernel, back to back,
     timed with CUDA events (what one extra device step costs)."""
@@ -250,9 +426,11 @@ def measure_cuda_dispatch(n: int = 200) -> float:
 
 def calibrate(cache: bool = True) -> HostCalibration:
     """Measure the constants on this machine and (optionally) persist them:
-    one core's numpy FLOP/s, the thread-queue hop, and — where a CUDA
-    device exists — the dispatch cost.  An unwritable cache location keeps
-    the constants in memory with a warning."""
+    one core's numpy FLOP/s, the thread-queue hop, the shared-memory
+    process-lane hop per item and batched (an echo child forked for each),
+    the slab arena's bandwidth, and — where a CUDA device exists — the
+    dispatch cost.  An unwritable cache location keeps the constants in
+    memory with a warning."""
     global _calibration
     import torch
     c = HostCalibration(
@@ -261,6 +439,9 @@ def calibrate(cache: bool = True) -> HostCalibration:
         device_dispatch_s=(measure_cuda_dispatch()
                            if torch.cuda.is_available()
                            else DEFAULT_CALIBRATION.device_dispatch_s),
+        proc_hop_s=_measure_proc_hop(),
+        shm_batched_hop_s=_measure_shm_batched_hop(),
+        arena_bw_gbs=_measure_arena_bw(),
         source="measured")
     _calibration = c
     if cache:
@@ -315,6 +496,17 @@ def get_calibration(measure: bool = True) -> HostCalibration:
     if not measure:
         return DEFAULT_CALIBRATION
     return calibrate()
+
+
+def fn_key(fn) -> Optional[str]:
+    """Stable-ish identity for a worker callable (``module.qualname``), as
+    the process farm's stats report it.  None for objects without one
+    (partials, odd callables)."""
+    mod = getattr(fn, "__module__", None)
+    qn = getattr(fn, "__qualname__", None)
+    if not mod or not qn:
+        return None
+    return f"{mod}.{qn}"
 
 
 def reset_calibration() -> None:

@@ -25,24 +25,40 @@ its copy has run.
 Where the reference places an optional pure ``compute`` stage after the
 device put (so its compiler may place it on the mesh), the port runs it
 before: it transforms the host batch, and the compiler may still place it
-on the card (its results come back to the host).  A farm of compute workers
-(``compute_workers > 1``, the process tier) and the adaptive supervisor
-(``adaptive=True``) are later slices and raise "not ported yet".
+on the card (its results come back to the host).
+
+With ``compute_workers > 1`` the compute stage becomes a *process-placed
+farm* before the device put, as in the reference: OS-process workers over
+shared-memory SPSC lanes (``core.process.ProcessFarmNode``), so CPU-bound
+augmentation scales with cores instead of serializing on the GIL.  The
+process farm's collector reorders by sequence number, which is what
+licenses farming here at all: the training loop consumes an ordered stream
+and the checkpoint cursor assumes it (a *thread* farm's collector is
+arrival-ordered and must keep width 1).  The workers are forked from a
+process that may have initialised CUDA, so ``compute`` must be a numpy
+function of the batch dict and never touch torch; only the parent's device
+put makes tensors.  The adaptive supervisor (``adaptive=True``) is a later
+slice and raises "not ported yet".
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.compiler import CompileConfig
-from ..core.graph import FFGraph, GraphError, pipeline as ff_pipeline, \
-    seq as ff_seq
+from ..core.graph import (FFGraph, GraphError, farm as ff_farm,
+                          pipeline as ff_pipeline, seq as ff_seq)
 from ..core.node import FFNode
 from ..core.plan import resolve_device, single_device_plan
 from ..core.tree import canonical_dtype
+
+# the process farm's shm slot, as the reference's pipeline sizes it: a
+# pickled batch dict rides one slot, and 1 MiB holds ~256k int32 tokens
+# where the compiler's default 64 KiB holds ~16k
+_SHM_SLOT_BYTES = 1 << 20
 
 
 class _ReaderNode(FFNode):
@@ -114,23 +130,31 @@ class DataPipeline:
     def __init__(self, source, device: Any = None,
                  n_batches: Optional[int] = None, prefetch: int = 2,
                  compute: Optional[Callable] = None, plan=None,
-                 compute_workers: int = 1, adaptive: bool = False):
-        if compute_workers not in (None, 1):
-            raise GraphError("DataPipeline(compute_workers > 1) is not "
-                             "ported yet: it needs the process tier")
+                 compute_workers: Union[int, str] = 1,
+                 adaptive: bool = False):
         if adaptive:
             raise GraphError("DataPipeline(adaptive=True) is not ported yet")
         self.source = source
         self.device = resolve_device(device)
+        placements = None
         stages = [_ReaderNode(source, n_batches)]
-        if compute is not None:
+        if compute is not None and compute_workers not in (None, 1):
+            # a farm is only admissible here when its collector keeps the
+            # stream ordered: the process tier reorders by sequence
+            # number, so pin the stage there.  Worker processes transform
+            # raw numpy batches; only the parent touches the card.
+            stages.append(ff_farm(compute, n=compute_workers))
+            placements = {compute: "host_process"}
+        elif compute is not None:
             stages.append(ff_seq(compute, pure=True))
         stages.append(_DevicePutNode(self.device))
         self.graph: FFGraph = ff_pipeline(*stages)
         self._runner = self.graph.compile(config=CompileConfig(
             plan=plan if compute is not None else None,
             capacity=max(2, prefetch), results_capacity=max(2, prefetch),
-            device_batch=1, overlap=True, inflight=max(2, prefetch)))
+            device_batch=1, placements=placements,
+            shm_slot_bytes=_SHM_SLOT_BYTES, overlap=True,
+            inflight=max(2, prefetch)))
         self.placements = getattr(self._runner, "placements", [])
 
     def start(self) -> "DataPipeline":
@@ -153,7 +177,7 @@ class DataPipeline:
 
 def make_pipeline(source, plan=None, n_batches=None, prefetch: int = 2,
                   compute: Optional[Callable] = None,
-                  compute_workers: int = 1,
+                  compute_workers: Union[int, str] = 1,
                   adaptive: bool = False) -> DataPipeline:
     """A started :class:`DataPipeline` onto ``plan``'s device (default: the
     first CUDA device)."""

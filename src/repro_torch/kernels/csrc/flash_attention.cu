@@ -24,9 +24,9 @@
 // products; rows past Sq or Sk are zero-filled (src-size 0).  S = Q K^T is
 // mma.sync m16n8k16 bf16 -> fp32; the online softmax runs on the
 // accumulator fragments (a row's max and sum over the four lanes of a quad,
-// by shuffles; fp32 m and l); P is rounded to bf16 in registers and fed as
-// the A-fragment of P V, V read with ldmatrix.trans: no round trip through
-// shared memory.  Masks are applied only on tiles that straddle the
+// by shuffles; fp32 m and l); P is split in registers into two bf16
+// A-fragments (hi and lo, below) for P V, V read with ldmatrix.trans: no
+// round trip through shared memory.  Masks are applied only on tiles that straddle the
 // diagonal, the window's edge or Sk.  The grid is (H, q tiles, B) with the
 // q tiles in reverse, so the longest causal tiles of every head start first
 // and the tail of the last wave runs short tiles.
@@ -37,18 +37,27 @@
 // the 255-register limit, so the kernel would spill.  At D 256 the kernel
 // therefore (a) reads Q's A-fragments from shared memory at each k-step
 // (ldmatrix, 16 a KV tile per warp) instead of holding them, and (b) takes
-// KV tiles of 32 keys, so S is 16 registers.  ptxas gives the instance 240
-// registers a thread and no spill (chip_smoke.py prints its report per
-// instance).  The shared memory is then (64 + 4 x 32) rows x 264 x 2 B =
+// KV tiles of 32 keys, so S is 16 registers.  ptxas gives the instance 254
+// registers a thread and no spill (240 before P V took P's two bf16
+// halves; chip_smoke.py prints its report per instance and fails on a
+// spill).  The shared memory is then (64 + 4 x 32) rows x 264 x 2 B =
 // 101,376 B, where 64-key tiles would take 168,960 B, one block to an SM.
-// Two blocks fit an SM only while the registers allow it too: 240 x 128
-// threads x 2 = 61,440 of the SM's 65,536; past 256 a thread, one block.
+// Two blocks fit an SM only while the registers allow it too: 256 (254
+// rounded up) x 128 threads x 2 = 65,536, the whole register file; past
+// 256 a thread, one block.
 //
 // Numerics of the bf16 kernel.  The reference scales q by 1/sqrt(D) in fp32
 // before the product; scaling the bf16 q would add a rounding, so the kernel
 // multiplies the fp32 scores instead: with x = s * (log2(e) / sqrt(D)) it
-// takes p = 2^(x - m), which is exp(s/sqrt(D) - m') in another base.  P is
-// rounded to bf16 only as the operand of P V; l sums the fp32 P.
+// takes p = 2^(x - m), which is exp(s/sqrt(D) - m') in another base.  The
+// reference computes P V in fp32 (its Pallas kernel casts v to fp32 for the
+// product, its model path's streaming attention likewise), so P is not
+// rounded to bf16 as the operand: each fp32 p is split into hi = bf16(p) and
+// lo = bf16(p - hi), and hi V + lo V go into the same fp32 accumulator.  V is
+// bf16, exact in fp32, so the two products carry about 16 bits of P where
+// one bf16 P carries 8 (and TF32 would carry 11); P V then costs two mma
+// instructions where it cost one, the kernel's products about 1.5x.  l sums
+// the fp32 P.
 //
 // f32: `flash_fwd_kernel`, fp32 FMAs from shared memory (one block of 256
 // threads, four lanes sharing a query row, K/V tiles staged as fp32; 32-key
@@ -130,9 +139,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// (a, b) -> their bf16 pair hi and the bf16 pair of what hi leaves out,
+// lo = bf16(x - float(hi)): hi + lo carries about 16 bits of each value
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -302,21 +317,25 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
         l[e >> 1] += p;
       }
 
-    // O += P V: P as bf16 A-fragments straight from the S accumulators
+    // O += P V: P split into two bf16 A-fragments straight from the S
+    // accumulators, hi = bf16(p) and lo = bf16(p - hi), both against the
+    // same V fragment into the same fp32 sums
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
       for (int j2 = 0; j2 < ND / 2; ++j2) {
         uint32_t bv[4];
         ldsm_x4_t(bv, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                LD + j2 * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * j2], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * j2 + 1], pa, bv[2], bv[3]);
+        mma_bf16(acc[2 * j2], ph, bv[0], bv[1]);
+        mma_bf16(acc[2 * j2], pl, bv[0], bv[1]);
+        mma_bf16(acc[2 * j2 + 1], ph, bv[2], bv[3]);
+        mma_bf16(acc[2 * j2 + 1], pl, bv[2], bv[3]);
       }
     }
   }

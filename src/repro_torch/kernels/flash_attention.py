@@ -4,9 +4,10 @@ Port of ``src/repro/kernels/flash_attention.py:flash_attention`` as wrapped
 by ``src/repro/kernels/ops.py:flash_attention``.  The CUDA kernel is
 ``csrc/flash_attention.cu`` (its header gives the design and the bound).
 The kernel is chosen by type, not as a fallback: bfloat16 runs on the tensor
-cores (``mma.sync``, fp32 accumulation, P rounded to bf16 only as the
-operand of P V), float32 on the FMA units, since TF32 tensor cores would
-miss the f32 tolerance.
+cores (``mma.sync``, fp32 accumulation; P V at the reference's fp32
+precision, P split into two bf16 halves, hi and lo, whose products sum into
+one fp32 accumulator), float32 on the FMA units, since TF32 tensor cores
+would miss the f32 tolerance.
 
 :func:`flash_attention` runs the plain PyTorch version
 (:func:`flash_attention_plain`, the reference's ``ref.attention_ref`` with

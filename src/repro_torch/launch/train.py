@@ -4,9 +4,10 @@ unless ``--device`` names another device.
 Port of ``src/repro/launch/train.py``.  A config other than ``ff-tiny``
 runs reduced, as the reference launcher runs it; full width is reached
 through the library (``chip_smoke.py`` trains Zamba2-1.2B whole).  Weights
-are random, drawn on the device from seed 0.  ``--adaptive`` (the runtime
-supervisor) and ``--tuned`` (XLA's CPU runtime flags) are not ported yet
-and raise.
+are random, drawn on the device from seed 0.  ``--tuned`` re-execs once
+with tcmalloc preloaded (where installed) and one intra-op thread
+(``launch/tuned.py``); ``--adaptive`` (the runtime supervisor) is not
+ported yet and raises.
 
     PYTHONPATH=src python -m repro_torch.launch.train --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -49,11 +50,15 @@ def main(argv=None):
     ap.add_argument("--adaptive", action="store_true",
                     help="not ported yet (the adaptive runtime supervisor)")
     ap.add_argument("--tuned", action="store_true",
-                    help="not ported yet (tuned host runtime)")
+                    help="tuned host runtime: tcmalloc LD_PRELOAD when "
+                         "installed, one OpenMP/MKL thread a process "
+                         "(re-execs once; see repro_torch.launch.tuned)")
     args = ap.parse_args(argv)
-    for flag in ("adaptive", "tuned"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.adaptive:
+        raise NotImplementedError("--adaptive is not ported yet")
+    if args.tuned:
+        from .tuned import apply_tuned
+        apply_tuned()
 
     cfg = get(args.arch)
     if args.reduced or args.arch != "ff-tiny":

@@ -797,3 +797,61 @@ def test_data_pipeline_batches_are_ordered_on_a_side_stream(cuda):
             assert torch.equal(got, torch.from_numpy(
                 ref.next_batch()["tokens"]).long() * 3)
     assert pipe.get(timeout=30) is None
+
+
+@pytest.mark.cuda
+def test_accelerator_results_equal_synchronous_calls(cuda):
+    """``TorchAccelerator`` on the card: its dispatcher queues each call on
+    a stream of its own, from pinned copies of numpy inputs, and the
+    results, ordered on the caller's stream, equal the same calls made
+    synchronously, bit for bit."""
+    import numpy as np
+    from repro_torch.core import FF_EOS, TorchAccelerator
+    w = torch.randn(512, 512, generator=torch.Generator().manual_seed(9)) \
+        .to(cuda)
+
+    def fn(x):
+        return torch.relu(x @ w).sum(dim=1)
+
+    xs = [np.random.default_rng(i).standard_normal((256, 512))
+          .astype(np.float32) for i in range(16)]
+    want = [fn(torch.from_numpy(x).to(cuda)) for x in xs]
+    acc = TorchAccelerator(fn, max_inflight=4, device=cuda)
+    acc.run_then_freeze()
+    for x in xs:
+        acc.offload(x)
+    acc.offload(FF_EOS)
+    got = []
+    while True:
+        ok, r = acc.load_result(timeout=60)
+        if not ok:
+            break
+        got.append(r.clone())          # on the caller's stream
+    assert acc.wait(60) == 0 and acc.error is None
+    assert len(got) == len(want)
+    for g, e in zip(got, want):
+        assert g.device == cuda and torch.equal(g, e)
+
+
+def _numpy_square(x):
+    import numpy as np
+    return np.square(x) + 1.0
+
+
+@pytest.mark.cuda
+def test_process_farm_forked_after_cuda_init_runs_to_the_end(cuda):
+    """A ``host_process`` farm whose workers fork after CUDA is up in the
+    parent: its numpy workers never touch the card and finish the stream,
+    in order."""
+    import numpy as np
+    import repro_torch.core as T
+    torch.cuda.init()
+    torch.ones(1, device=cuda).sum().item()     # a live context
+    xs = [np.full(64, i, np.float32) for i in range(40)]
+    r = T.pipeline(T.farm(_numpy_square, n=3)).compile(
+        config=T.CompileConfig(placements={0: "host_process"}))
+    assert type(r).__name__ == "ProcessRunner"
+    out = r.run(xs, timeout=60)
+    assert len(out) == len(xs)
+    for o, x in zip(out, xs):
+        np.testing.assert_array_equal(o, _numpy_square(x))

@@ -100,7 +100,9 @@ def test_pipeline_compute_stage_transforms_the_host_batch():
     assert pipe.get(timeout=10) is None
 
 
-@pytest.mark.parametrize("knob", [{"compute_workers": 2},
+# compute_workers > 1 runs on the process tier now
+# (tests/test_torch_process.py); with adaptive=True it still raises
+@pytest.mark.parametrize("knob", [{"compute_workers": 2, "adaptive": True},
                                   {"adaptive": True}])
 def test_pipeline_unported_options_raise(knob):
     with pytest.raises(GraphError, match="not ported yet"):
@@ -294,5 +296,7 @@ def test_train_launcher_runs_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "final step 3" in out and "device=cpu" in out
     assert latest_step(tmp_path) == 3
+    # --tuned re-execs the program (launch/tuned.py, tested in
+    # tests/test_torch_process.py); --adaptive is not ported yet
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--device", "cpu", "--tuned"])
+        main(["--device", "cpu", "--adaptive"])

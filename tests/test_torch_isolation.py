@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor anything of
-the reference package, its entry points default to the GPU, and the tiers it
-has not ported refuse instead of running elsewhere."""
+the reference package, its entry points default to the GPU, the process
+tier compiles and runs, and the tiers it has not ported refuse instead of
+running elsewhere."""
 
 import ast
 import pathlib
@@ -26,7 +27,13 @@ def _modules():
         for p in PKG.rglob("*.py"))
 
 
+# the host tiers' modules, which the import checks must walk too
+TIER_MODULES = ("repro_torch.core.shm", "repro_torch.core.process",
+                "repro_torch.core.accelerator", "repro_torch.launch.tuned")
+
+
 def test_importing_every_module_loads_no_jax_and_no_reference():
+    assert set(TIER_MODULES) <= set(_modules())
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
@@ -44,7 +51,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 def test_no_source_file_imports_jax_or_the_reference():
     bad = []
-    for path in PKG.rglob("*.py"):
+    paths = sorted(PKG.rglob("*.py"))
+    assert {PKG.joinpath(*m.split(".")[1:]).with_suffix(".py")
+            for m in TIER_MODULES} <= set(paths)
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -72,11 +82,22 @@ def test_the_plan_defaults_to_cuda():
     assert hash(plan.mesh) == hash(single_device_plan(device="cpu").mesh)
 
 
+def _runs_on_processes(runner) -> None:
+    # the process tier is ported: its farm is one ProcessFarmNode whose
+    # collector keeps the input order
+    assert type(runner).__name__ == "ProcessRunner"
+    assert runner.placements[0][1].target == "host_process"
+    assert runner.run(list(range(20))) == [i + 1 for i in range(20)]
+
+
 @pytest.mark.parametrize("knob", [{"mode": "process"}, {"mode": "remote"},
                                   {"adaptive": True},
                                   {"remote_workers": ["localhost:1"]}])
 def test_unported_tiers_raise(knob):
     g = T.pipeline(T.farm(lambda x: x + 1, n=2))
+    if knob.get("mode") == "process":
+        _runs_on_processes(g.compile(config=T.CompileConfig(**knob)))
+        return
     with pytest.raises(T.GraphError, match="not ported yet"):
         g.compile(config=T.CompileConfig(**knob))
 
@@ -85,6 +106,10 @@ def test_unported_tiers_raise(knob):
 def test_unported_placements_raise(target):
     g = T.pipeline(T.farm(lambda x: x + 1, n=2))
     for value in (target, Placement(target)):
+        if target == "host_process":
+            _runs_on_processes(g.compile(config=T.CompileConfig(
+                placements={0: value})))
+            continue
         with pytest.raises(T.GraphError, match="not ported yet"):
             g.compile(config=T.CompileConfig(placements={0: value}))
 
