@@ -153,8 +153,30 @@ Phases, each of which fails the run:
    ``make_pipeline(compute_workers=4)`` (a process farm) and twice by one
    compute stage: the same batches bit for bit, losses as close as the two
    single-stage runs are, ``ssd_scan`` and ``flash_attention`` launched
-   twice a block a step.  Prints tasks/s, items/s on threads and
-   processes, the calibrated shm hop and train tokens/s of each feed.
+   twice a block a step; and the reference's 2 x 2 heterogeneous
+   ``all_to_all`` on 4 worker processes (2000 items, routed by value and
+   round-robin: in input order, equal to the expected outputs; the thread
+   and device runs the same multisets).  Prints tasks/s, items/s on threads
+   and processes, the calibrated shm hop and train tokens/s of each feed;
+8. the adaptive runtime — phase 7's featuriser graph compiled with
+   ``adaptive=True`` (the farm an ``AdaptiveFarmNode`` on host threads, the
+   hop on the device, microbatch 512, 4 in flight) under
+   ``Supervisor(runner, interval=0.02)``: the Supervisor must migrate the
+   farm to ``host_process`` while the stream runs, the output must be in
+   stream order and byte-equal to phase 7's process run, and the a2a
+   kernels must launch; afterwards the compiler's annotate and place
+   passes, without overrides or a sample, must read the featuriser's cost
+   from the observed table.  Mixtral-8x7B at 4 of 32 layers through
+   ``InferenceEngine(adaptive=True, max_pending=8)`` under a burst of phase
+   5's 16 requests: the Supervisor's events must show a pressure change
+   and a later restore, every request end as a ``Request`` or an
+   ``Overloaded``, request 0 give phase 5's tokens, ``flash_attention``
+   and ``router_topk`` launch.  Zamba2-1.2B whole through ``TrainDriver``
+   at B4 x S2048 for 3 steps fed by ``make_pipeline(compute_workers=4,
+   adaptive=True)``: batches and losses bit for bit phase 7's process-fed
+   run; then ``launch/train.py --adaptive`` on ff-tiny for 6 steps.
+   Prints items/s beside phase 7's, the migration's time and latency,
+   every event, the Supervisor's loop time, tokens/s and the count shed.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -168,7 +190,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import threading
@@ -1263,7 +1287,8 @@ def phase_serve(plan, cfg, prompts: list, max_new: int = SERVE_NEW,
         f"{total_gb:.2f} GB; {model_s:.1f} s for "
         f"the model (weights, engine run, checks, rates, profile)")
     return {"launches": launches, "wall_s": wall, "steps": eng.steps,
-            "prefill_tok_s": rates, "decode_ms": step_ms,
+            "tokens0": outs[0].tokens, "prefill_tok_s": rates,
+            "decode_ms": step_ms,
             "decode_queue_ms": queue_ms, "decode_device_ms": dev_ms,
             "peak_gb": peak_gb, "model_s": model_s}
 
@@ -3066,7 +3091,103 @@ def phase_process_hop(main: dict, check_launches: bool = True,
     return {"launches": launches, "threads_items_s": max(rates["host"]),
             "process_items_s": max(rates["host_process"]),
             "proc_hop_s": calib.proc_hop_s,
-            "shm_batched_hop_s": calib.shm_batched_hop_s}
+            "shm_batched_hop_s": calib.shm_batched_hop_s,
+            "process_out": proc, "want": want}
+
+
+# the reference's heterogeneous 2 x 2 all_to_all (tests/test_process_a2a.py):
+# numpy workers and router, which run in forked workers
+A2A_ITEMS = 2000
+
+
+def a2a_l_scale(x):
+    return x * 10.0
+
+
+def a2a_l_shift(x):
+    return x + 1.0
+
+
+def a2a_r_dec(y):
+    return y - 1.0
+
+
+def a2a_r_double(y):
+    return y * 2.0
+
+
+def a2a_route_by_value(y, n_right):
+    # numpy in the process workers, a torch tensor under the device
+    # lowering's vmap
+    if isinstance(y, torch.Tensor):
+        return y.to(torch.int32) % n_right
+    return y.astype("int32") % n_right
+
+
+def a2a_expected(n: int, lefts: list, rights: list, router) -> list:
+    """What the hop gives, in input order: item s goes to left worker
+    s % nL, then to the routed right worker (round-robin per left worker
+    without a router, as every backend's feeder does)."""
+    import numpy as np
+    out, rr = [], [i % len(rights) for i in range(len(lefts))]
+    for seq in range(n):
+        i = seq % len(lefts)
+        y = lefts[i](np.float32(seq + 1))
+        if router is not None:
+            j = int(router(y, len(rights))) % len(rights)
+        else:
+            j, rr[i] = rr[i], (rr[i] + 1) % len(rights)
+        out.append(float(rights[j](y)))
+    return out
+
+
+def phase_process_a2a(plan, n: int = A2A_ITEMS,
+                      card: str = "the CPU") -> None:
+    """The reference's 2 x 2 heterogeneous ``all_to_all`` on the port's
+    process tier: two left and two right worker processes over the shm grid,
+    so each right worker ends only after one EOS from every left worker
+    (the multi-left EOS fan-out of ``ProcessA2ANode``, which the CPU tests,
+    cut to one left worker, do not reach).  Once routed by value, once
+    round-robin, ``n`` items each (past the grid's 32-slot segments).
+    Fails unless each process run equals the expected outputs in input
+    order, and the thread run (and, routed, the run on the device) the same
+    multiset."""
+    import numpy as np
+    from repro_torch.core import CompileConfig, ProcessRunner, all_to_all
+    lefts, rights = [a2a_l_scale, a2a_l_shift], [a2a_r_dec, a2a_r_double]
+    xs = [np.float32(i) for i in range(1, n + 1)]
+    secs = {}
+    for label, router in (("routed", a2a_route_by_value),
+                          ("round_robin", None)):
+        want = a2a_expected(n, lefts, rights, router)
+        r = all_to_all(lefts, rights, router=router).compile(
+            config=CompileConfig(mode="process"))
+        if not isinstance(r, ProcessRunner) or \
+                [p.width for _, p in r.placements] != [4]:
+            fail(f"2 x 2 process a2a ({label}) compiled to "
+                 f"{type(r).__name__} {r.placements}")
+        t0 = time.perf_counter()
+        got = [float(v) for v in r.run(xs, timeout=120)]
+        secs[label] = time.perf_counter() - t0
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"2 x 2 process a2a ({label}): {len(got)} items for {n}, "
+                 f"{len(bad)} differ, the first at {bad[:1]}")
+        host = all_to_all(lefts, rights, router=router).compile(
+            config=CompileConfig(mode="host")).run(xs, timeout=120)
+        if sorted(float(v) for v in host) != sorted(want):
+            fail(f"2 x 2 a2a ({label}): the thread run's items differ")
+        if router is not None:
+            dev = all_to_all(lefts, rights, router=router).compile(
+                config=CompileConfig(plan=plan, mode="device")).run(xs)
+            if sorted(float(v) for v in dev) != sorted(want):
+                fail(f"2 x 2 a2a ({label}): the device run's items differ")
+    say(f"[process] all_to_all 2 x 2 (the reference's heterogeneous "
+        f"workers) on 4 worker processes, {n} items routed by value and "
+        f"round-robin: each in input order, equal to the expected outputs; "
+        f"the thread runs (and the routed run on {plan.device}) the same "
+        f"multisets; {n / secs['routed']:.1f} / "
+        f"{n / secs['round_robin']:.1f} items/s on {card}")
 
 
 def augment(batch: dict, vocab: int) -> dict:
@@ -3113,10 +3234,11 @@ class _Recorded:
 
 
 def process_train_run(plan, cfg, batch: int, seq: int, steps: int,
-                      workers: int) -> dict:
+                      workers: int, adaptive: bool = False) -> dict:
     """One ``TrainDriver`` run of ``cfg`` fed by ``make_pipeline(...,
-    compute=augment, compute_workers=workers)``: its losses, the batches it
-    delivered, its train tokens/s and the kernels' launches a step."""
+    compute=augment, compute_workers=workers, adaptive=adaptive)``: its
+    losses, the batches it delivered, its train tokens/s, the kernels'
+    launches a step and, adaptive, the Supervisor's events and stats."""
     import functools
     import gc
     from repro_torch.data import SyntheticLMSource, make_pipeline
@@ -3130,7 +3252,7 @@ def process_train_run(plan, cfg, batch: int, seq: int, steps: int,
     pipe = _Recorded(make_pipeline(
         SyntheticLMSource(cfg.vocab, seq, batch, seed=0), plan,
         n_batches=steps, compute=functools.partial(augment, vocab=cfg.vocab),
-        compute_workers=workers))
+        compute_workers=workers, adaptive=adaptive))
     driver = TrainDriver(step, state, pipe, DriverConfig(
         total_steps=steps, ckpt_every=steps + 1, log_every=steps + 1))
     driver.ckpt = _NoCheckpoint()
@@ -3138,6 +3260,7 @@ def process_train_run(plan, cfg, batch: int, seq: int, steps: int,
     kernels = zero_launches()
     sync(dev)
     out = driver.run()
+    pipe.pipe.stop()                 # joins an adaptive run's Supervisor
     want = train_launches_per_step(cfg)
     per_step = {name: kernels[name].launches / steps for name in want}
     dts = [h["dt"] for h in out["history"]]
@@ -3146,7 +3269,10 @@ def process_train_run(plan, cfg, batch: int, seq: int, steps: int,
            "batches": pipe.batches, "tok_s": batch * seq / med,
            "per_step": per_step, "want": want,
            "launches": {k: kernels[k].launches for k in want},
-           "placements": [p.target for _, p in pipe.pipe.placements]}
+           "placements": [p.target for _, p in pipe.pipe.placements],
+           "reasons": [p.reason for _, p in pipe.pipe.placements],
+           "events": pipe.pipe.replacement_events(),
+           "supervisor": pipe.pipe.stats().get("supervisor")}
     del driver, pipe
     gc.collect()
     if dev.type == "cuda":
@@ -3198,7 +3324,228 @@ def phase_process_train(plan, cfg, batch: int = 4, seq: int = 2048,
         f"{b['tok_s']:.1f} with one compute stage on {card}")
     return {"launches": c["launches"], "tok_s": c["tok_s"],
             "tok_s_single": (a["tok_s"], b["tok_s"]), "loss_diff": diff,
-            "loss_noise": noise}
+            "loss_noise": noise, "batches": c["batches"],
+            "losses": c["losses"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the adaptive runtime in front of the kernels
+# ---------------------------------------------------------------------------
+ADAPT_INTERVAL = 0.02            # the Supervisor's sampling interval (s)
+ADAPT_PENDING = 8                # the adaptive engine's max_pending
+
+
+def show_events(events: list) -> str:
+    return "; ".join(str(e) for e in events) or "none"
+
+
+def phase_adaptive_hop(main: dict, hop: dict, check_launches: bool = True,
+                       card: str = "the CPU") -> dict:
+    """Phase 7's graph compiled with ``adaptive=True``: the featuriser farm
+    an ``AdaptiveFarmNode`` starting on host threads, the hop on the device
+    (microbatch 512, 4 in flight), run under ``Supervisor(runner,
+    interval=ADAPT_INTERVAL)``.  Fails unless the Supervisor migrated the
+    farm to ``host_process`` while the stream ran, the output is in stream
+    order and byte-equal to phase 7's static process run (and within
+    ``REL_TOL`` of the hop on the featurised stream), and the a2a kernels
+    launched.  Then the compiler's annotate and place passes run on the
+    same graph with no placement override and no sample: the featuriser's
+    cost must come from the observed table."""
+    import numpy as np
+    from repro_torch.core import CompileConfig, Supervisor
+    from repro_torch.core.compiler import _top_stages, annotate, place
+    from repro_torch.kernels.a2a_fused import a2a_combine, a2a_route
+    fns, plan, stream = main["fns"], main["plan"], main["stream"]
+    runner = process_graph(fns).compile(config=CompileConfig(
+        plan=plan, placements={0: "host", 1: "device", 2: "device",
+                               3: "device"},
+        microbatch=512, inflight=4, normalize=False, adaptive=True))
+    where = [p.target for _, p in runner.placements]
+    if where != ["host", "device", "device", "device"] or \
+            "adaptive" not in runner.placements[0][1].reason:
+        fail(f"adaptive hop placed as {runner.placements}")
+    sup = Supervisor(runner, interval=ADAPT_INTERVAL)
+    a2a_route.launches = a2a_combine.launches = 0
+    sup.start()
+    t_wall, t0 = time.time(), time.perf_counter()
+    out = runner.run(stream, timeout=600)
+    secs = time.perf_counter() - t0
+    sup.stop()
+    launches = {"a2a_route": a2a_route.launches,
+                "a2a_combine": a2a_combine.launches}
+    moves = [e for e in sup.events if e.kind == "migrate"]
+    failed = [e for e in moves if "failed" in e.detail]
+    swaps = runner.replacement_events()      # the node's own, timed inside
+    if failed or not any(e.detail.startswith("-> host_process")
+                         for e in moves) or not swaps:
+        fail(f"adaptive hop: no live thread -> process migration: "
+             f"{show_events(sup.events)}")
+    if check_launches and not all(launches.values()):
+        fail(f"adaptive hop: the a2a kernels did not launch: {launches}")
+    static = hop["process_out"]
+    if len(out) != len(stream) or any(a.tobytes() != b.tobytes()
+                                      for a, b in zip(out, static)):
+        fail("adaptive hop: the output differs from phase 7's static "
+             "process run (stream order, bytes)")
+    err = compare("adaptive hop vs the hop on the featurised stream", out,
+                  torch.from_numpy(np.stack(hop["want"])).to(plan.device))
+    first = swaps[0]
+    st = sup.stats()
+    say(f"[adaptive] pipeline(farm(featurise, n={PROC_WORKERS}), pre, "
+        f"all_to_all, post), {len(stream)} tokens, compile(adaptive=True), "
+        f"the farm on host threads under Supervisor(interval="
+        f"{ADAPT_INTERVAL}): migrated {first.detail} {first.t - t_wall:.3f} "
+        f"s after the stream started, the swap (drain + fork of "
+        f"{PROC_WORKERS} workers) {first.latency_ms:.1f} ms; in stream "
+        f"order, byte-equal to phase 7's process run, within {err:.3g} of "
+        f"the hop on the featurised stream; a2a launches {launches}; "
+        f"{len(stream) / secs:.1f} items/s supervised against phase 7's "
+        f"{hop['threads_items_s']:.1f} on threads and "
+        f"{hop['process_items_s']:.1f} on processes "
+        f"({len(stream) / secs / hop['process_items_s']:.0%} of the "
+        f"process rate); Supervisor {st['ticks']} ticks, loop "
+        f"{st['loop_time_s'] * 1e3:.1f} ms in all, {st['observed_facts']} "
+        f"observed facts; events: {show_events(sup.events)} on {card}")
+    g = process_graph(fns)
+    annotate(g)
+    place(g, plan)
+    farm = _top_stages(g)[0]
+    if farm.cost.source != "observed":
+        fail(f"adaptive hop: after the Supervisor stopped, the featuriser's "
+             f"cost came from {farm.cost.source!r}, not the observed table")
+    say(f"[adaptive] recompiled without overrides or sample=: featuriser "
+        f"cost {farm.cost.t_task * 1e6:.1f} us an item from the observed "
+        f"table (releases_gil {farm.cost.releases_gil}); place() put the "
+        f"farm on {farm.placement.target} x{farm.placement.width} "
+        f"({farm.placement.reason})")
+    return {"launches": launches}
+
+
+def phase_adaptive_serve(plan, cfg, prompts: list, tokens0: list,
+                         max_new: int = SERVE_NEW,
+                         max_batch: int = SERVE_BATCH,
+                         cache_len: int = SERVE_CACHE,
+                         check_launches: bool = True,
+                         card: str = "the CPU") -> dict:
+    """``InferenceEngine(adaptive=True, max_pending=ADAPT_PENDING)`` on
+    ``cfg`` (phase 5's Mixtral), weights from seed 0, its Supervisor
+    sampling every ``ADAPT_INTERVAL`` s, under a burst of ``prompts``
+    (phase 5's).  Fails unless the Supervisor's events show a pressure
+    change (degrade or shed) and a later restore, every request ends as a
+    ``Request`` or an ``Overloaded``, request 0 (admitted at level 0) gives
+    phase 5's ``tokens0``, and ``flash_attention`` and ``router_topk``
+    launched."""
+    import gc
+    from repro_torch.runtime.steps import make_model
+    from repro_torch.serving import InferenceEngine, Overloaded, Request
+    dev = plan.device
+    params = make_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    eng = InferenceEngine(cfg, plan, params, max_batch=max_batch,
+                          cache_len=cache_len, adaptive=True,
+                          max_pending=ADAPT_PENDING)
+    eng.supervisor.interval = ADAPT_INTERVAL
+    kernels = zero_launches()
+    t0 = time.perf_counter()
+    with eng:
+        handles = [eng.submit(Request(prompt=p, max_new_tokens=max_new))
+                   for p in prompts]
+        outs = [h.result(timeout=900) for h in handles]
+    wall = time.perf_counter() - t0
+    launches = {n: kernels[n].launches
+                for n in ("flash_attention", "router_topk")}
+    events = eng.replacement_events()
+    kinds = [e.kind for e in events]
+    pressed = [i for i, k in enumerate(kinds) if k in ("degrade", "shed")]
+    if not pressed or "restore" not in kinds[pressed[0]:]:
+        fail(f"adaptive serve: no pressure change and later restore: "
+             f"{show_events(events)}")
+    if not all(isinstance(o, (Request, Overloaded)) for o in outs):
+        fail(f"adaptive serve: outcomes {[type(o).__name__ for o in outs]}")
+    first = outs[0]
+    if not isinstance(first, Request) or first.degraded or \
+            first.tokens != tokens0:
+        fail(f"adaptive serve: request 0 gave {first!r}, phase 5 "
+             f"{tokens0}")
+    if check_launches and not all(launches.values()):
+        fail(f"adaptive serve: kernels did not launch: {launches}")
+    served = [o for o in outs if isinstance(o, Request)]
+    shed = len(outs) - len(served)
+    degraded = sum(o.degraded for o in served)
+    n_tok = sum(len(o.tokens) for o in served)
+    st = eng.stats()["supervisor"]
+    say(f"[adaptive] {cfg.name} at {cfg.n_layers} layers, InferenceEngine("
+        f"adaptive=True, max_pending={ADAPT_PENDING}), a burst of "
+        f"{len(prompts)} of phase 5's requests: {len(served)} served "
+        f"({degraded} degraded to {eng._slo.policy.degrade_tokens} tokens), "
+        f"{shed} shed; {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} "
+        f"generated tokens/s); request 0 equals phase 5's {len(tokens0)} "
+        f"tokens; launches {launches}; Supervisor {st['ticks']} ticks; "
+        f"events: {show_events(events)} on {card}")
+    del eng, params, handles, outs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_adaptive_train(plan, cfg, ptrain: dict, batch: int = 4,
+                         seq: int = 2048, steps: int = 3,
+                         check_launches: bool = True,
+                         card: str = "the CPU") -> dict:
+    """``TrainDriver`` on ``cfg`` (Zamba2-1.2B whole) fed by
+    ``make_pipeline(compute_workers=PROC_WORKERS, adaptive=True)``: fails
+    unless the compute farm became an adaptive stage, its batches and the
+    losses equal phase 7's process-fed run's bit for bit and the kernels
+    launched twice a block a step.  Then ``launch/train.py --adaptive``
+    trains ff-tiny on ``plan``'s device for a few steps."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train as train_launcher
+    d = process_train_run(plan, cfg, batch, seq, steps, PROC_WORKERS,
+                          adaptive=True)
+    if d["placements"][1] != "host_process" or \
+            "adaptive" not in d["reasons"][1]:
+        fail(f"adaptive-fed training placed as {d['placements']} "
+             f"{d['reasons']}")
+    if len(d["batches"]) != steps:
+        fail(f"adaptive-fed training delivered {len(d['batches'])} batches")
+    for i, (x, y) in enumerate(zip(d["batches"], ptrain["batches"])):
+        if x.keys() != y.keys() or not all(torch.equal(x[k], y[k])
+                                           for k in x):
+            fail(f"adaptive-fed training: batch {i} differs from phase 7's")
+    if d["losses"] != ptrain["losses"]:
+        fail(f"adaptive-fed training: losses {d['losses']}, phase 7's "
+             f"{ptrain['losses']}")
+    if check_launches and d["per_step"] != d["want"]:
+        fail(f"adaptive-fed training: kernel launches per step "
+             f"{d['per_step']}, expected {d['want']}")
+    say(f"[adaptive] {describe(cfg)} TrainDriver B{batch} x S{seq}, {steps} "
+        f"steps fed by make_pipeline(compute_workers={PROC_WORKERS}, "
+        f"adaptive=True): batches and losses "
+        f"{' -> '.join(f'{x:.4f}' for x in d['losses'])} bit for bit "
+        f"phase 7's process-fed run; kernel launches per step "
+        f"{d['per_step']}; {d['tok_s']:.1f} train tokens/s against "
+        f"{ptrain['tok_s']:.1f} in phase 7; Supervisor {d['supervisor']}; "
+        f"events: {show_events(d['events'])} on {card}")
+    ckpt = ROOT / "build" / "train_ckpt_adaptive"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_launcher.main(["--device", str(plan.device), "--steps",
+                                 "6", "--adaptive", "--ckpt-dir", str(ckpt),
+                                 "--ckpt-every", "100"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    final = [ln for ln in lines if ln.startswith("final step 6")]
+    report = [ln for ln in lines if ln.startswith("re-placement events")]
+    if not final or not report:
+        fail("launch/train.py --adaptive did not finish: "
+             + " | ".join(lines[-5:]))
+    say(f"[adaptive] launch/train.py --adaptive --device {plan.device} "
+        f"(ff-tiny, 6 steps): {final[0]}; {report[0]}")
+    return {"launches": d["launches"]}
 
 
 def path_rows(rows: list, paths: list) -> list:
@@ -3214,6 +3561,11 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # the cost model's cache (calibration, observed costs) inside the
+    # checkout, fresh for the run: phase 8 writes the observed table
+    cache = ROOT / "build" / "ff_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    os.environ["REPRO_FF_CACHE"] = str(cache)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -3251,6 +3603,7 @@ def main() -> int:
     acc = phase_accelerator(single_device_plan(), get("mixtral-8x7b"),
                             card=card["card"])
     hop = phase_process_hop(main, card=card["card"])
+    phase_process_a2a(single_device_plan(), card=card["card"])
     ptrain = phase_process_train(single_device_plan(), get("zamba2-1.2b"),
                                  card=card["card"])
     rows += a2a_rows(dev, 512, 512, hop["launches"], errs, card["card"],
@@ -3262,6 +3615,28 @@ def main() -> int:
         ("ssd_scan_process_train", "ssd_scan_train",
          ptrain["launches"]["ssd_scan"])])
     say(f"[process] phase 7 {time.perf_counter() - t7:.1f} s on "
+        f"{card['card']}")
+    t8 = time.perf_counter()
+    ahop = phase_adaptive_hop(main, hop, card=card["card"])
+    aserve = phase_adaptive_serve(single_device_plan(), cfg,
+                                  serve_prompts(cfg.vocab), serve["tokens0"],
+                                  card=card["card"])
+    atrain = phase_adaptive_train(single_device_plan(), get("zamba2-1.2b"),
+                                  ptrain, card=card["card"])
+    rows += path_rows(rows, [
+        ("a2a_route_adaptive", "a2a_route_process",
+         ahop["launches"]["a2a_route"]),
+        ("a2a_combine_adaptive", "a2a_combine_process",
+         ahop["launches"]["a2a_combine"]),
+        ("flash_attention_adaptive_serve", "flash_attention",
+         aserve["launches"]["flash_attention"]),
+        ("router_topk_adaptive_serve", "router_topk",
+         aserve["launches"]["router_topk"]),
+        ("flash_attention_adaptive_train", "flash_attention_train_d64",
+         atrain["launches"]["flash_attention"]),
+        ("ssd_scan_adaptive_train", "ssd_scan_train",
+         atrain["launches"]["ssd_scan"])])
+    say(f"[adaptive] phase 8 {time.perf_counter() - t8:.1f} s on "
         f"{card['card']}")
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -25,9 +25,14 @@ Layers ported so far:
 * ``core.perf_model`` — the Sec. 13 algebra, the H100 roofline and the
   calibrated host constants (the shm hop among them);
 * ``core.accelerator`` — :class:`TorchAccelerator`, the paper's software
-  accelerator (Sec. 9) on a CUDA stream.
+  accelerator (Sec. 9) on a CUDA stream;
+* ``core.runtime`` — the adaptive runtime (copied): ``compile(adaptive=
+  True)`` lowers eligible farms into :class:`AdaptiveFarmNode` stages
+  whose thread (:class:`ThreadFarmNode`) or process engine a
+  :class:`Supervisor` resizes and migrates while the stream runs, feeding
+  what it observes back into ``perf_model``'s cost table.
 
-The remote tier and the adaptive runtime are later slices.
+The remote tier is a later slice.
 """
 
 from .node import EOS, GO_ON, FFNode, FnNode
@@ -37,7 +42,7 @@ from .shm import (BatchedLaneWriter, ShmArena, ShmMPMCGrid, ShmMPSCQueue,
                   as_transport)
 from .skeletons import (FF_EOS, AutoscaleLB, BroadcastLB, Farm, FFMap,
                         LoadBalancer, OnDemandLB, Pipeline, RoundRobinLB,
-                        Skeleton)
+                        Skeleton, ThreadFarmNode)
 from .graph import (A2ASkeleton, Deliver, DeviceRunner, FFGraph, GraphError,
                     HostRunner, Runner, StageHandle, all_to_all, farm, ffmap,
                     pipeline, seq)
@@ -45,6 +50,8 @@ from .process import ProcessA2ANode, ProcessFarmNode, WorkerCrashed
 from .compiler import (CompileConfig, CostEstimate, HybridRunner, Placement,
                        ProcessRunner, annotate, compile_graph, emit, place)
 from .accelerator import TorchAccelerator
+from .runtime import (AdaptiveFarmNode, ReplacementEvent, SLOPolicy,
+                      Supervisor)
 from .plan import TorchPlan, single_device_plan
 from .params import from_numpy
 from . import device, perf_model
@@ -57,13 +64,14 @@ __all__ = [
     "as_transport",
     "Pipeline", "Farm", "FFMap", "Skeleton",
     "LoadBalancer", "RoundRobinLB", "OnDemandLB", "BroadcastLB",
-    "AutoscaleLB",
+    "AutoscaleLB", "ThreadFarmNode",
     "FFGraph", "GraphError", "Deliver", "Runner", "StageHandle",
     "HostRunner", "DeviceRunner", "HybridRunner", "ProcessRunner",
     "A2ASkeleton", "ProcessFarmNode", "ProcessA2ANode", "WorkerCrashed",
     "seq", "pipeline", "farm", "ffmap", "all_to_all",
     "CompileConfig", "CostEstimate", "Placement", "annotate", "place",
     "emit", "compile_graph",
-    "TorchAccelerator", "TorchPlan", "single_device_plan", "from_numpy",
+    "TorchAccelerator", "AdaptiveFarmNode", "ReplacementEvent",
+    "SLOPolicy", "Supervisor", "TorchPlan", "single_device_plan", "from_numpy",
     "device", "perf_model",
 ]

@@ -24,11 +24,16 @@ and device tiers:
    :class:`HybridRunner`, host stages over SPSC queues feeding fused device
    segments through :class:`_DeviceStageNode` boundary nodes.
 
+With ``adaptive=True`` emit first lowers every eligible farm into a
+:class:`~repro_torch.core.runtime.AdaptiveFarmNode`, whose thread or
+process engine a :class:`~repro_torch.core.runtime.Supervisor` can resize
+and migrate while the stream runs.
+
 Process workers fork from the parent, which may have initialised CUDA: they
 run numpy callables and never touch torch (``core/process.py``).  The
 remote host tier (``host_remote``, ``mode="remote"``, ``remote_workers``)
-and ``adaptive=True`` are later slices of the port: ``compile_graph``
-raises "not ported yet" for them.
+is a later slice of the port: ``compile_graph`` raises "not ported yet"
+for it.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from .graph import (A2AG, DeviceRunner, FarmG, FFGraph, GraphError,
                     _device_fn, _is_pure_seq, _Landing, _pure_of, _to_device)
 from .node import GO_ON, FFNode
 from .process import ProcessA2ANode, ProcessFarmNode, fn_picklable
+from .runtime import AdaptiveFarmNode
 from .tree import tree_leaves, tree_map
 
 # Baked-in cost-model fallbacks, used until perf_model.calibrate() has run
@@ -88,8 +94,13 @@ class CompileConfig:
     without it ``shm_slot_bytes`` sizes the slots and the rest takes the
     defaults (see :func:`emit`).
 
-    ``adaptive`` and ``remote_workers`` exist so a caller gets "not ported
-    yet" rather than a silent host run."""
+    ``adaptive=True`` lowers every eligible farm (one replicated pure
+    worker, pure-or-absent emitter/collector, the default schedule) into an
+    :class:`~repro_torch.core.runtime.AdaptiveFarmNode` whose collector is
+    sequence-ordered on both tiers; attach a
+    :class:`~repro_torch.core.runtime.Supervisor` to re-place it live.
+    ``remote_workers`` exists so a caller gets "not ported yet" rather
+    than a silent host run."""
 
     plan: Any = None
     mode: str = "auto"
@@ -126,7 +137,8 @@ class CostEstimate:
     t_task: float = DEFAULT_T_TASK_S
     flops: float = 0.0
     bytes: float = 0.0
-    source: str = "default"  # default | declared | given | measured | derived
+    source: str = "default"  # default | declared | given | observed |
+    #                           measured | derived
     releases_gil: Optional[bool] = None
 
     def host_time(self, width: int = 1) -> float:
@@ -215,11 +227,11 @@ def _probe_gil_release(fn: Callable, sample: Any,
 
 def _estimate(key: Any, costs: Dict, sample: Any) -> CostEstimate:
     """Cost for one worker object: explicit ``costs=`` entry > declared
-    ``ff_cost``/``ff_flops`` attributes > timing on ``sample`` > default
-    (the reference's observed-cost table comes with the adaptive runtime).
-    The GIL signal comes from a declared ``ff_releases_gil`` attribute, or —
-    when the node was timed on a sample anyway — from the two-thread
-    concurrency probe."""
+    ``ff_cost``/``ff_flops`` attributes > the observed-cost table
+    (``perf_model.observe``) > timing on ``sample`` > default.  The GIL
+    signal comes from a declared ``ff_releases_gil`` attribute, the observed
+    table, or — when the node was timed on a sample anyway — from the
+    two-thread concurrency probe."""
     if key is not None:
         rg = getattr(key, "ff_releases_gil", None)
         if rg is not None:
@@ -243,6 +255,16 @@ def _estimate(key: Any, costs: Dict, sample: Any) -> CostEstimate:
             peak = pm.get_calibration(measure=False).peak_flops
             return CostEstimate(fl / peak, fl, by, "declared",
                                 releases_gil=rg)
+        if callable(key):
+            # runtime history beats a fresh sample probe: the adaptive
+            # supervisor's perf_model.observe() feeds measured service
+            # times + GIL signals back per callable, so re-compiling a
+            # previously-run worker needs no sample= at all
+            obs = pm.lookup_observed(pm.fn_key(key))
+            if obs is not None:
+                org = rg if rg is not None else obs.get("releases_gil")
+                return CostEstimate(float(obs["t_task"]), source="observed",
+                                    releases_gil=org)
         if sample is not None and callable(key):
             try:
                 solo = _measure(key, sample)
@@ -948,6 +970,46 @@ def _lower_process_stage(s: Any, p: Placement, capacity: int,
     return SeqG(node)
 
 
+def _maybe_adaptive_node(s: Any, p: Placement, capacity: int,
+                         slot_bytes: int,
+                         transport: Any = None) -> Optional[Any]:
+    """``compile(adaptive=True)``: lower an eligible farm stage to an
+    :class:`~repro_torch.core.runtime.AdaptiveFarmNode` — one host boundary
+    node whose engine (thread farm / process farm) the runtime supervisor
+    can resize and migrate live.  Eligible = a farm built from one
+    replicated pure worker with pure-or-absent emitter/collector and the
+    default schedule (the same shape ``autoscale`` requires); anything else
+    returns None and lowers exactly as without ``adaptive``.
+
+    Note the semantics opt-in: an adaptive farm's collector is
+    sequence-ordered on BOTH tiers (output order == input order, matching
+    the process/device lowerings and making migration order-safe), which is
+    stricter than the plain thread farm's arrival order."""
+    if not isinstance(s, FarmG) or p.target == "device":
+        return None
+    if s.fn is None or s.lb is not None or s.ondemand is not None:
+        return None
+    for part in (s.emitter, s.collector):
+        if part is not None and _pure_of(part) is None:
+            return None
+    can_proc = _process_ineligible_reason(s) is None
+    width = max(1, p.width or len(s.workers))
+    return AdaptiveFarmNode(
+        s.fn, width,
+        pre=_pure_of(s.emitter) if s.emitter is not None else None,
+        post=_pure_of(s.collector) if s.collector is not None else None,
+        tier=("host_process" if (p.target == "host_process" and can_proc)
+              else "host"),
+        # SHALLOW engine lanes on purpose: a migration drains whatever is
+        # already inside the engine on the OLD tier, so bounding in-flight
+        # work keeps the drain (and reconfig latency) cheap — the rest of
+        # the backlog waits in the node's input queue, which survives the
+        # swap.  A few items per lane is all throughput needs.
+        capacity=max(2, min(capacity, 8)), slot_bytes=slot_bytes,
+        transport=transport,
+        label=f"adaptive_farm[{width}]", can_process=can_proc)
+
+
 def _materialize_widths(n: Any) -> None:
     """Host-side auto farms get their cost-chosen width before building."""
     if isinstance(n, PipeG):
@@ -968,8 +1030,8 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
          feedback_cond: Optional[Callable] = None,
          device_batch: Optional[int] = None,
          a2a_capacity_factor: Optional[float] = None,
-         shm_slot_bytes: int = 1 << 16, transport: Any = None,
-         fuse: bool = True, overlap: bool = True,
+         shm_slot_bytes: int = 1 << 16, adaptive: bool = False,
+         transport: Any = None, fuse: bool = True, overlap: bool = True,
          microbatch: Optional[int] = None,
          inflight: Optional[int] = None) -> Any:
     """Build the runner for a placed graph (stage 4).
@@ -982,8 +1044,10 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
     stage.  ``overlap``/``microbatch``/``inflight`` shape the boundary those
     segments run behind; see :class:`CompileConfig`.
 
-    Process-placed stages lower first, into boundary nodes that the rest of
-    emit sees as host stages.  ``transport`` (a
+    ``adaptive=True`` lowers eligible farms first, into
+    :class:`~repro_torch.core.runtime.AdaptiveFarmNode` stages (see
+    :func:`_maybe_adaptive_node`).  Process-placed stages lower next, into
+    boundary nodes that the rest of emit sees as host stages.  ``transport`` (a
     :class:`~repro_torch.core.shm.TransportConfig`, or a dict of its fields)
     tunes every shared-memory lane they build: ``ring_slots`` (farm-lane
     depth cap, default 64), ``grid_slots`` (a2a grid-segment depth cap,
@@ -1001,7 +1065,28 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
                   else Placement("host") for s in stages]
     report = list(zip([s.describe() for s in stages], placements))
 
-    # process-placed farms and a2a stages lower first, into
+    # adaptive mode lowers eligible farms FIRST, into AdaptiveFarmNode
+    # boundary stages that carry their own (re-placeable) tier engine; the
+    # rest of emit sees them as plain host stages
+    adaptive_proc = False
+    if adaptive:
+        lowered = []
+        for i, (s, p) in enumerate(zip(stages, placements)):
+            node = _maybe_adaptive_node(s, p, capacity, tc.slot_bytes,
+                                        transport=tc)
+            if node is None:
+                lowered.append(s)
+                continue
+            lowered.append(SeqG(node))
+            adaptive_proc = adaptive_proc or node.tier == "host_process"
+            reason = (p.reason + "; adaptive").lstrip("; ")
+            report[i] = (report[i][0], dataclasses.replace(p, reason=reason))
+            placements[i] = dataclasses.replace(p, target="host")
+        g2 = FFGraph(lowered[0] if len(lowered) == 1 else PipeG(lowered))
+        g2._wrap = graph._wrap
+        graph, stages = g2, lowered
+
+    # process-placed farms and a2a stages lower next, into
     # ProcessFarmNode / ProcessA2ANode boundary stages: from here on the
     # rest of emit sees them as host stages, which is what lets thread ->
     # process -> device programs compose freely
@@ -1027,7 +1112,8 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
                               microbatch=microbatch, inflight=inflight)
     elif targets == {"host"}:
         _materialize_widths(graph.root)
-        cls = ProcessRunner if has_process else HostRunner
+        cls = ProcessRunner if (has_process or adaptive_proc) \
+            else HostRunner
         runner = cls(graph, capacity=capacity,
                      results_capacity=results_capacity,
                      feedback_cond=feedback_cond)
@@ -1105,8 +1191,6 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
                          "tiers")
     if cfg.mode not in ("auto", "host", "process", "device"):
         raise GraphError(f"unknown compile mode {cfg.mode!r}")
-    if cfg.adaptive:
-        raise GraphError("compile(adaptive=True) is not ported yet")
     if cfg.remote_workers:
         raise GraphError("compile(remote_workers=...) is not ported yet")
     if cfg.mode == "device" and cfg.plan is None:
@@ -1126,6 +1210,7 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
                 feedback_cond=cfg.feedback_cond,
                 device_batch=cfg.device_batch,
                 a2a_capacity_factor=cfg.a2a_capacity_factor,
-                shm_slot_bytes=cfg.shm_slot_bytes, transport=cfg.transport,
+                shm_slot_bytes=cfg.shm_slot_bytes, adaptive=cfg.adaptive,
+                transport=cfg.transport,
                 fuse=cfg.fuse, overlap=cfg.overlap,
                 microbatch=cfg.microbatch, inflight=cfg.inflight)

@@ -460,8 +460,9 @@ class FFGraph:
         ``feedback_steps`` as an optional cap).  ``a2a_capacity_factor``
         bounds the device all_to_all expert lanes (default: lossless).
         ``mode`` forces placement: "host", "process", "device", or
-        cost-driven "auto"; the remote tier and ``adaptive=True`` are not
-        ported yet and raise."""
+        cost-driven "auto"; ``adaptive=True`` lowers eligible farms into
+        stages a ``core.runtime.Supervisor`` re-places live; the remote
+        tier is not ported yet and raises."""
         from .compiler import CompileConfig, compile_graph
         if config is not None:
             if plan is not None:

@@ -12,7 +12,10 @@ one core's FLOP/s, the thread-queue hop, the process tier's shared-memory
 hop (per item and batched) and its slab arena's bandwidth — and the CUDA
 dispatch cost, and caches them in the port's own file
 ``torch_calibration.json``; the reference's ``calibration.json`` holds
-TPU-side constants and is never read.
+TPU-side constants and is never read.  :func:`observe` folds runtime stats
+(the adaptive runtime's Supervisor samples them) into the same file: the
+shm hop, and an observed per-callable cost table the next ``annotate``
+reads before it falls back to a sample probe.
 """
 
 from __future__ import annotations
@@ -430,7 +433,8 @@ def calibrate(cache: bool = True) -> HostCalibration:
     process-lane hop per item and batched (an echo child forked for each),
     the slab arena's bandwidth, and — where a CUDA device exists — the
     dispatch cost.  An unwritable cache location keeps the constants in
-    memory with a warning."""
+    memory with a warning.  The file's observed-cost and autotune tables
+    are kept."""
     global _calibration
     import torch
     c = HostCalibration(
@@ -445,17 +449,9 @@ def calibrate(cache: bool = True) -> HostCalibration:
         source="measured")
     _calibration = c
     if cache:
-        path = _calib_cache_path()
-        try:
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "w") as f:
-                json.dump({"version": _CALIB_VERSION,
-                           "cpu_count": os.cpu_count(), **c.as_dict(),
-                           "autotune": _load_autotune()}, f)
-        except OSError as e:
-            warnings.warn(f"perf_model: cache {path!r} is not writable "
-                          f"({e}); keeping the calibration in memory only",
-                          RuntimeWarning, stacklevel=2)
+        # the observed and autotune tables ride in the same file: a fresh
+        # calibration must not erase what earlier runs observed
+        _save_cache_tables("the calibration")
     return c
 
 
@@ -499,9 +495,10 @@ def get_calibration(measure: bool = True) -> HostCalibration:
 
 
 def fn_key(fn) -> Optional[str]:
-    """Stable-ish identity for a worker callable (``module.qualname``), as
-    the process farm's stats report it.  None for objects without one
-    (partials, odd callables)."""
+    """Stable-ish identity for a worker callable in the observed-cost table
+    (``module.qualname``), as the farms' stats report it.  None for objects
+    without one (partials, odd callables) — those simply never match an
+    observation."""
     mod = getattr(fn, "__module__", None)
     qn = getattr(fn, "__qualname__", None)
     if not mod or not qn:
@@ -513,6 +510,147 @@ def reset_calibration() -> None:
     """Drop the in-memory calibration (tests)."""
     global _calibration
     _calibration = None
+
+
+# --------------------------------------------------------------------------
+# Online refinement — runner stats fed back into the calibration cache
+# --------------------------------------------------------------------------
+# ``observe()`` folds runtime stats (sampled by core/runtime.Supervisor, or
+# passed in by hand) into the channel constants (the shared-memory hop EMA)
+# and into a per-callable table of measured service times and GIL signals,
+# so the *next* compile()'s annotate/place pass starts from what actually
+# happened rather than a fresh sample probe.  The table is keyed by
+# ``fn_key`` (module.qualname: stable across runs of the same code,
+# best-effort across edits) and persists in the port's own cache file.
+
+_OBSERVE_MIN_ITEMS = 8      # ignore records with fewer processed items
+_observed: Optional[Dict[str, dict]] = None
+
+
+def _load_observed() -> Dict[str, dict]:
+    global _observed
+    if _observed is None:
+        d = _read_cache()
+        obs = d.get("observed")
+        _observed = ({str(k): dict(v) for k, v in obs.items()
+                      if isinstance(v, dict)}
+                     if isinstance(obs, dict)
+                     and d.get("cpu_count") == os.cpu_count() else {})
+    return _observed
+
+
+def lookup_observed(key: Optional[str],
+                    min_items: int = _OBSERVE_MIN_ITEMS) -> Optional[dict]:
+    """The observed cost record for a callable key, or None when there is no
+    (sufficiently substantiated) history.  Consumed by the compiler's
+    ``annotate`` stage: a callable with runtime history no longer needs a
+    ``sample=`` probe to be cost-placed."""
+    if not key:
+        return None
+    rec = _load_observed().get(key)
+    if rec and rec.get("items", 0) >= min_items \
+            and float(rec.get("t_task", 0.0)) > 0.0:
+        return dict(rec)
+    return None
+
+
+def reset_observed() -> None:
+    """Drop the in-memory observed-cost table (tests)."""
+    global _observed
+    _observed = None
+
+
+def _save_cache_tables(what: str = "observed costs") -> None:
+    """Persist the calibration and the observed and autotune tables into
+    the one cache file; a read-only location degrades to in-memory with a
+    warning."""
+    path = _calib_cache_path()
+    c = get_calibration(measure=False)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"version": _CALIB_VERSION,
+                       "cpu_count": os.cpu_count(), **c.as_dict(),
+                       "observed": _load_observed(),
+                       "autotune": _load_autotune()}, f)
+    except OSError as e:
+        warnings.warn(
+            f"perf_model: calibration cache {path!r} is not writable ({e}); "
+            f"keeping {what} in memory only",
+            RuntimeWarning, stacklevel=2)
+
+
+def _save_observed() -> None:
+    _save_cache_tables("observed costs")
+
+
+def _stat_records(x, out: list) -> None:
+    """Collect node-stat dicts from an arbitrarily nested stats() tree."""
+    if isinstance(x, dict):
+        if "svc_cpu_ema_s" in x or "hop_ema_s" in x or "fn_key" in x:
+            out.append(x)
+        for v in x.values():
+            _stat_records(v, out)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _stat_records(v, out)
+
+
+def observe(stats: dict, alpha: float = 0.25, write: bool = False) -> int:
+    """Fold one ``runner.stats()`` snapshot (or any nested stats tree) into
+    the calibration state; returns the number of facts absorbed.
+
+    - farm records carrying a ``fn_key`` and a per-item CPU-time EMA update
+      the observed per-callable service time — thread-tier records from the
+      parent's own measurement, process-tier records from the worker-side
+      :class:`~repro_torch.core.shm.WorkerStats` CPU clocks shipped back
+      over the result lanes; a thread record's ``gil_ratio`` (CPU/wall)
+      measured under >=2 concurrently active workers also settles the
+      callable's GIL signal — below 0.7 the workers were serializing on the
+      GIL (``releases_gil=False``), above 0.9 they truly ran in parallel
+      (``True``);
+    - process-tier records with a parent-side ``hop_ema_s`` refine the
+      calibrated shared-memory lane hop with an EMA.
+
+    ``write=True`` persists the refreshed calibration + observed table into
+    the on-disk cache (the supervisor writes once at ``stop()``; periodic
+    in-memory merges stay cheap)."""
+    global _calibration
+    recs: list = []
+    _stat_records(stats, recs)
+    table = _load_observed()
+    absorbed = 0
+    for r in recs:
+        items = int(r.get("items", 0) or 0)
+        if items < _OBSERVE_MIN_ITEMS:
+            continue
+        key = r.get("fn_key")
+        cpu = float(r.get("svc_cpu_ema_s", 0.0) or 0.0)
+        backend = r.get("backend")
+        if key and cpu > 0.0 and backend in ("thread", "process"):
+            prev = table.get(key)
+            rg = prev.get("releases_gil") if prev else None
+            ratio = r.get("gil_ratio")     # thread records only
+            if ratio is not None and int(r.get("active", 1) or 1) >= 2:
+                if ratio < 0.7:
+                    rg = False
+                elif ratio > 0.9:
+                    rg = True
+            t = cpu if prev is None else \
+                (1.0 - alpha) * float(prev["t_task"]) + alpha * cpu
+            table[key] = {"t_task": t, "releases_gil": rg,
+                          "items": max(items, prev["items"] if prev else 0)}
+            absorbed += 1
+        hop = float(r.get("hop_ema_s", 0.0) or 0.0)
+        if hop > 0.0 and backend == "process":
+            c = get_calibration(measure=False)
+            _calibration = dataclasses.replace(
+                c, proc_hop_s=(1.0 - alpha) * c.proc_hop_s + alpha * hop,
+                source="observed")
+            absorbed += 1
+    if write and absorbed:
+        _save_observed()
+    return absorbed
 
 
 # --------------------------------------------------------------------------
@@ -537,6 +675,21 @@ def lookup_autotuned(key: Optional[str]) -> Optional[dict]:
         return None
     rec = _load_autotune().get(key)
     return dict(rec) if rec else None
+
+
+def record_autotuned(entries: Dict[str, dict], write: bool = True) -> int:
+    """Merge sweep winners into the autotune table; ``write=True`` persists
+    them (with the calibration + observed tables) into the on-disk cache.
+    Returns the number of records absorbed."""
+    table = _load_autotune()
+    n = 0
+    for k, v in entries.items():
+        if isinstance(v, dict):
+            table[str(k)] = dict(v)
+            n += 1
+    if write and n:
+        _save_cache_tables("autotune results")
+    return n
 
 
 def reset_autotuned() -> None:

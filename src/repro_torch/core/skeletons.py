@@ -11,8 +11,9 @@ core/queues.py and carry the data pipeline and the serving front-end of the
 framework.  Their device-side lowering (the same patterns expressed as
 batched PyTorch programs on a CUDA device) lives in core/device.py.
 
-This module is the port's own copy of the reference host skeletons; the
-thread-tier ``ThreadFarmNode`` engine comes with the adaptive runtime.
+This module is the port's own copy of the reference host skeletons,
+``ThreadFarmNode`` (the thread-tier engine of the adaptive runtime's
+``AdaptiveFarmNode``) included.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import time
 from typing import Any, Callable, List, Optional, Sequence
 
 from .node import EOS, GO_ON, FFNode, FnNode, spawn_drainer
-from .queues import MPSCQueue, SPMCQueue, SPSCQueue
+from .queues import MPSCQueue, QueueClosed, SPMCQueue, SPSCQueue
 
 FF_EOS = EOS  # paper's name for the end-of-stream mark
 
@@ -603,3 +604,255 @@ class FFMap(Skeleton):
     def stats(self) -> dict:
         return {"type": "map", **{k: v for k, v in self._exec.stats().items()
                                   if k != "type"}}
+
+
+# ---------------------------------------------------------------------------
+# Thread-tier farm-as-one-node: the drainable/resizable engine behind the
+# adaptive runtime (core/runtime.py)
+# ---------------------------------------------------------------------------
+class _WorkerFailure:
+    """A worker-thread exception shipped through the result lanes (the
+    thread-tier twin of ``shm.ShmError``)."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+class ThreadFarmNode(FFNode):
+    """A farm stage embedded as ONE host node: worker *threads* over
+    SPMC/MPSC lanes with a sequence-ordered collector — the thread-tier twin
+    of :class:`~repro_torch.core.process.ProcessFarmNode`, sharing its surface
+    (``svc`` routes, a collector thread reorders by sequence number and
+    forwards via ``ff_send_out``, ``svc_end`` drains to a quiescent
+    boundary).
+
+    The shared surface is what makes live tier migration possible: the
+    adaptive runtime (``core/runtime.py``) hot-swaps one of these for a
+    ``ProcessFarmNode`` (or back) behind the node's boundary queues.
+    Output order follows *input* order — stricter than the arrival-ordered
+    ``Farm`` collector, matching the process and device lowerings, so a
+    migration can never reorder the stream.
+
+    ``set_active(k)`` moves the round-robin routing boundary between 1 and
+    the built width (the :class:`AutoscaleLB` mechanism, driven externally):
+    an inactive worker parks on the blocking pop of its empty lane.  Workers
+    measure both wall and CPU time per call (``time.thread_time``), so
+    ``node_stats`` exposes a ``gil_ratio`` — CPU/wall, ~1 when calls truly
+    run in parallel, ~1/width when they serialize on the GIL — the signal
+    the supervisor's thread->process migration policy keys on."""
+
+    def __init__(self, fns: List[Callable], pre: Optional[Callable] = None,
+                 post: Optional[Callable] = None, capacity: int = 64,
+                 label: str = "thread_farm",
+                 active: Optional[int] = None):
+        super().__init__()
+        if not fns:
+            raise ValueError("thread farm with no workers")
+        self._fns = list(fns)
+        self._pre = pre
+        self._post = post
+        self._n = len(self._fns)
+        self._label = label
+        self._active = min(active or self._n, self._n)
+        self._spmc = SPMCQueue(self._n, capacity)
+        self._mpsc = MPSCQueue(self._n, capacity)
+        self._seq = 0
+        self._delivered = 0
+        self._routed = [0] * self._n
+        self._fn_calls = 0
+        self._wall_warm: List[float] = []
+        self._cpu_warm: List[float] = []
+        self._wall_ema = 0.0
+        self._cpu_ema = 0.0
+        self._hop_ema = 0.0
+        self._gap_ema = 0.0
+        self._last_delivery: Optional[float] = None
+        self._threads: List[threading.Thread] = []
+        self._collector: Optional[threading.Thread] = None
+        self._started = False
+
+    @property
+    def width(self) -> int:
+        return self._n
+
+    @property
+    def active_workers(self) -> int:
+        return self._active
+
+    def set_active(self, k: int) -> None:
+        """Move the routing boundary: new items go to workers [0, k)."""
+        self._active = max(1, min(int(k), self._n))
+
+    # -- worker / collector threads -----------------------------------------
+    def _record_fn_time(self, wall: float, cpu: float) -> None:
+        with self._stats_lock:
+            self._fn_calls += 1
+            if len(self._wall_warm) < 5:
+                self._wall_warm.append(wall)
+                self._cpu_warm.append(cpu)
+                self._wall_ema = \
+                    sorted(self._wall_warm)[len(self._wall_warm) // 2]
+                self._cpu_ema = \
+                    sorted(self._cpu_warm)[len(self._cpu_warm) // 2]
+            else:
+                self._wall_ema = 0.8 * self._wall_ema + 0.2 * wall
+                self._cpu_ema = 0.8 * self._cpu_ema + 0.2 * cpu
+
+    def _worker_loop(self, i: int, fn: Callable) -> None:
+        lane = self._spmc.lanes[i]
+        out = self._mpsc.lane(i)
+        early = False
+        try:
+            while True:
+                got = lane.pop()
+                if got is EOS:
+                    break
+                seq, item = got
+                w0 = time.perf_counter()
+                c0 = time.thread_time()
+                try:
+                    y = fn(item)
+                except BaseException as e:     # noqa: BLE001 - to the parent
+                    out.push((seq, _WorkerFailure(e)))
+                    early = True
+                    break
+                self._record_fn_time(time.perf_counter() - w0,
+                                     time.thread_time() - c0)
+                out.push((seq, y))
+        except QueueClosed:
+            early = True
+        finally:
+            try:
+                out.push(EOS)
+            except QueueClosed:
+                pass
+            if early:
+                # keep the input lane draining so the emitter can never
+                # wedge on a dead worker's full lane
+                spawn_drainer(lane.pop)
+
+    def _collect(self) -> None:
+        hold = {}
+        nxt = 0
+        eos_seen = 0
+        try:
+            while eos_seen < self._n:
+                item, _lane = self._mpsc.pop_any()
+                if item is EOS:
+                    eos_seen += 1
+                    continue
+                seq, y = item
+                if isinstance(y, _WorkerFailure):
+                    if self.error is None:
+                        self.error = y.error
+                    continue
+                hold[seq] = y
+                while nxt in hold:
+                    res = hold.pop(nxt)
+                    nxt += 1
+                    if self._post is not None:
+                        res = self._post(res)
+                    now = time.perf_counter()
+                    with self._stats_lock:
+                        if self._last_delivery is not None:
+                            gap = now - self._last_delivery
+                            self._gap_ema = gap if self._gap_ema == 0.0 \
+                                else 0.8 * self._gap_ema + 0.2 * gap
+                        self._last_delivery = now
+                        self._delivered += 1
+                    self.ff_send_out(res)
+        except BaseException as e:             # noqa: BLE001
+            if self.error is None:
+                self.error = e
+
+    # -- node protocol --------------------------------------------------------
+    def svc_init(self) -> int:
+        if self._started:
+            return 0
+        self._started = True
+        self._collector = threading.Thread(
+            target=self._collect, daemon=True, name=f"{self._label}-collector")
+        self._collector.start()
+        for i, fn in enumerate(self._fns):
+            t = threading.Thread(target=self._worker_loop, args=(i, fn),
+                                 daemon=True, name=f"{self._label}-{i}")
+            t.start()
+            self._threads.append(t)
+        return 0
+
+    def svc(self, item: Any) -> Any:
+        if self.error is not None:
+            raise self.error
+        if self._pre is not None:
+            item = self._pre(item)
+        with self._stats_lock:
+            seq = self._seq
+            self._seq += 1
+        idx = seq % max(1, min(self._active, self._n))
+        t0 = time.perf_counter()
+        if self._spmc.lanes[idx].try_push((seq, item)):
+            # the hop EMA is the *channel* cost: only uncontended pushes
+            # count (a wait on a full lane measures back-pressure instead)
+            hop = time.perf_counter() - t0
+            with self._stats_lock:
+                self._routed[idx] += 1
+                self._hop_ema = hop if self._hop_ema == 0.0 \
+                    else 0.9 * self._hop_ema + 0.1 * hop
+        else:
+            self._spmc.lanes[idx].push((seq, item))
+            with self._stats_lock:
+                self._routed[idx] += 1
+        return GO_ON
+
+    def svc_end(self) -> None:
+        """Drain to a quiescent boundary: EOS to every worker lane, join
+        workers and the collector — every accepted item is delivered (or the
+        error surfaced) before this returns, which is the barrier live
+        migration relies on.  A worker that refuses to quiesce (fn wedged on
+        a lock / IO past the join timeout) surfaces as an error rather than
+        silently returning with the barrier broken — a migration must abort
+        instead of letting a zombie worker's late output interleave with the
+        replacement engine's stream."""
+        try:
+            self._spmc.broadcast(EOS)
+        except QueueClosed:
+            pass
+        for t in self._threads:
+            t.join(timeout=30.0)
+        if self._collector is not None:
+            self._collector.join(timeout=30.0)
+        stuck = [t.name for t in self._threads if t.is_alive()]
+        if self._collector is not None and self._collector.is_alive():
+            stuck.append(self._collector.name)
+        if stuck and self.error is None:
+            self.error = RuntimeError(
+                f"{self._label}: drain did not quiesce within 30s "
+                f"(stuck: {', '.join(stuck)})")
+
+    # -- stats ---------------------------------------------------------------
+    def node_stats(self) -> dict:
+        from .perf_model import fn_key
+        depths = [len(l) for l in self._spmc.lanes]
+        with self._stats_lock:
+            wall, cpu = self._wall_ema, self._cpu_ema
+            return {
+                "node": self._label,
+                "backend": "thread",
+                "workers": self._n,
+                "active": self._active,
+                "items": self._seq,
+                "delivered": self._delivered,
+                "routed_per_worker": list(self._routed),
+                "svc_time_ema_s": wall,
+                "svc_wall_ema_s": wall,
+                "svc_cpu_ema_s": cpu,
+                "gil_ratio": (cpu / wall) if wall > 0.0 else None,
+                "hop_ema_s": self._hop_ema,
+                "delivery_gap_ema_s": self._gap_ema,
+                "lane_depths": depths,
+                "max_lane_depth": max(
+                    (l.max_depth for l in self._spmc.lanes), default=0),
+                "fn_key": fn_key(self._fns[0]),
+            }

@@ -37,8 +37,16 @@ and the checkpoint cursor assumes it (a *thread* farm's collector is
 arrival-ordered and must keep width 1).  The workers are forked from a
 process that may have initialised CUDA, so ``compute`` must be a numpy
 function of the batch dict and never touch torch; only the parent's device
-put makes tensors.  The adaptive supervisor (``adaptive=True``) is a later
-slice and raises "not ported yet".
+put makes tensors.
+
+With ``adaptive=True`` the farm lowers into an
+:class:`~repro_torch.core.runtime.AdaptiveFarmNode` and a
+:class:`~repro_torch.core.runtime.Supervisor` samples the runner: it
+re-places the compute farm live (width, thread/process tier) from observed
+stats and feeds ``perf_model.observe`` so the next compile's placement
+improves.  The ordered-stream contract holds: an adaptive farm's collector
+is sequence-ordered on both tiers.  ``stop()`` joins the supervisor and
+persists what it observed.
 """
 
 from __future__ import annotations
@@ -49,17 +57,12 @@ import numpy as np
 import torch
 
 from ..core.compiler import CompileConfig
-from ..core.graph import (FFGraph, GraphError, farm as ff_farm,
-                          pipeline as ff_pipeline, seq as ff_seq)
+from ..core.graph import (FFGraph, farm as ff_farm, pipeline as ff_pipeline,
+                          seq as ff_seq)
 from ..core.node import FFNode
 from ..core.plan import resolve_device, single_device_plan
+from ..core.runtime import Supervisor
 from ..core.tree import canonical_dtype
-
-# the process farm's shm slot, as the reference's pipeline sizes it: a
-# pickled batch dict rides one slot, and 1 MiB holds ~256k int32 tokens
-# where the compiler's default 64 KiB holds ~16k
-_SHM_SLOT_BYTES = 1 << 20
-
 
 class _ReaderNode(FFNode):
     def __init__(self, source, n_batches: Optional[int]):
@@ -125,15 +128,19 @@ class DataPipeline:
     calls ``get()``; EOS -> None.  ``self.graph`` is the FFGraph program and
     ``self.placements`` the compiler's per-stage decisions.  ``device``
     defaults to ``cuda:0`` and raises without a card unless the caller
-    names the CPU."""
+    names the CPU.
+
+    ``shm_slot_bytes`` sizes the process farm's shared-memory slots (a
+    pickled batch dict rides one slot: the default 1 MiB holds ~256k int32
+    tokens); ``transport`` (a :class:`~repro_torch.core.shm.TransportConfig`
+    or a dict of its fields) tunes its lanes in full and overrides it."""
 
     def __init__(self, source, device: Any = None,
                  n_batches: Optional[int] = None, prefetch: int = 2,
                  compute: Optional[Callable] = None, plan=None,
                  compute_workers: Union[int, str] = 1,
-                 adaptive: bool = False):
-        if adaptive:
-            raise GraphError("DataPipeline(adaptive=True) is not ported yet")
+                 shm_slot_bytes: int = 1 << 20, adaptive: bool = False,
+                 transport: Optional[Any] = None):
         self.source = source
         self.device = resolve_device(device)
         placements = None
@@ -153,12 +160,17 @@ class DataPipeline:
             plan=plan if compute is not None else None,
             capacity=max(2, prefetch), results_capacity=max(2, prefetch),
             device_batch=1, placements=placements,
-            shm_slot_bytes=_SHM_SLOT_BYTES, overlap=True,
-            inflight=max(2, prefetch)))
+            shm_slot_bytes=shm_slot_bytes, adaptive=adaptive,
+            transport=transport, overlap=True, inflight=max(2, prefetch)))
         self.placements = getattr(self._runner, "placements", [])
+        self.supervisor = None
+        if adaptive:
+            self.supervisor = Supervisor(self._runner)
 
     def start(self) -> "DataPipeline":
         self._runner.start_stream()
+        if self.supervisor is not None:
+            self.supervisor.start()
         return self
 
     def get(self, timeout: Optional[float] = None):
@@ -172,7 +184,23 @@ class DataPipeline:
 
     def stats(self) -> dict:
         """Runner stats: per-node service-time EMA, items, lane depths."""
-        return self._runner.stats()
+        s = self._runner.stats()
+        if self.supervisor is not None:
+            s["supervisor"] = self.supervisor.stats()
+        return s
+
+    def replacement_events(self):
+        """Re-placement events (for the launcher's placement report)."""
+        if self.supervisor is not None:
+            return list(self.supervisor.events)
+        return self._runner.replacement_events()
+
+    def stop(self) -> None:
+        """Join the supervisor and persist what it observed.  Idempotent;
+        the stream itself drains on its own (sources are finite, or the
+        process exits with the daemon threads)."""
+        if self.supervisor is not None:
+            self.supervisor.stop()
 
 
 def make_pipeline(source, plan=None, n_batches=None, prefetch: int = 2,

@@ -2,8 +2,11 @@
 client API (``submit`` -> ``RequestHandle``, ``results()``, context-manager
 lifecycle), on the GPU unless ``--device`` names another device.
 
-Port of ``src/repro/launch/serve.py`` (without ``--tuned``, which tunes
-XLA's CPU runtime).  ``--layers`` cuts the depth of a config built from
+Port of ``src/repro/launch/serve.py``.  ``--adaptive`` attaches the
+runtime Supervisor (SLO pressure levels, cost-model observation) and
+prints its events; ``--tuned`` re-execs once with tcmalloc preloaded
+(where installed) and one intra-op thread (``launch/tuned.py``).
+``--layers`` cuts the depth of a config built from
 ``n_layers`` and is refused for one built from a segment list (Zamba2,
 xLSTM); a config other than ``ff-tiny`` runs reduced, as the reference
 launcher runs it.  Weights are random, drawn on the device from seed 0.
@@ -56,7 +59,18 @@ def main(argv=None):
                     help="FastBERT-style early exit: stop decoding a "
                          "request once next-token confidence (max softmax "
                          "prob) reaches this")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="attach the runtime Supervisor: live stage stats "
+                         "sampling, SLO pressure-level control, cost-model "
+                         "observation (events land in the report)")
+    ap.add_argument("--tuned", action="store_true",
+                    help="tuned host runtime: tcmalloc LD_PRELOAD when "
+                         "installed, one OpenMP/MKL thread a process "
+                         "(re-execs once; see repro_torch.launch.tuned)")
     args = ap.parse_args(argv)
+    if args.tuned:
+        from .tuned import apply_tuned
+        apply_tuned()
 
     cfg = get(args.arch)
     if cfg.family == "encdec":
@@ -76,7 +90,7 @@ def main(argv=None):
     params = make_model(cfg).init(gen)
 
     eng = InferenceEngine(cfg, plan, params, max_batch=args.max_batch,
-                          cache_len=args.cache_len,
+                          cache_len=args.cache_len, adaptive=args.adaptive,
                           exit_threshold=args.exit_threshold)
     print(f"engine graph on {plan.device}: {eng.graph.describe()}")
     for desc, p in eng.placements:
@@ -106,6 +120,13 @@ def main(argv=None):
           f"shed={eng.shed_count}")
     print("engine graph stats (svc-time EMA / cache occupancy / SLO):")
     print("  " + json.dumps(eng.stats(), default=str))
+    if args.adaptive:
+        events = eng.replacement_events()
+        print(f"re-placement events: {len(events)}"
+              + (f" (supervisor {eng.supervisor.stats()})"
+                 if eng.supervisor else ""))
+        for e in events:
+            print(f"  {e}")
     return 0
 
 

@@ -6,8 +6,8 @@ runs reduced, as the reference launcher runs it; full width is reached
 through the library (``chip_smoke.py`` trains Zamba2-1.2B whole).  Weights
 are random, drawn on the device from seed 0.  ``--tuned`` re-execs once
 with tcmalloc preloaded (where installed) and one intra-op thread
-(``launch/tuned.py``); ``--adaptive`` (the runtime supervisor) is not
-ported yet and raises.
+(``launch/tuned.py``); ``--adaptive`` attaches the runtime Supervisor to
+the data pipeline and prints its re-placement events.
 
     PYTHONPATH=src python -m repro_torch.launch.train --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -48,14 +48,14 @@ def main(argv=None):
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--adaptive", action="store_true",
-                    help="not ported yet (the adaptive runtime supervisor)")
+                    help="adaptive data pipeline: a runtime Supervisor "
+                         "re-places eligible farm stages live and feeds "
+                         "observed costs back into the calibration cache")
     ap.add_argument("--tuned", action="store_true",
                     help="tuned host runtime: tcmalloc LD_PRELOAD when "
                          "installed, one OpenMP/MKL thread a process "
                          "(re-execs once; see repro_torch.launch.tuned)")
     args = ap.parse_args(argv)
-    if args.adaptive:
-        raise NotImplementedError("--adaptive is not ported yet")
     if args.tuned:
         from .tuned import apply_tuned
         apply_tuned()
@@ -70,7 +70,8 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n_params/1e6:.2f}M device={plan.device}")
 
     src = SyntheticLMSource(cfg.vocab, args.seq, args.batch, seed=0)
-    pipe = make_pipeline(src, plan, n_batches=args.steps + 8)
+    pipe = make_pipeline(src, plan, n_batches=args.steps + 8,
+                         adaptive=args.adaptive)
     print(f"data graph: {pipe.graph.describe()}")
     for desc, p in pipe.placements:
         print(f"  [{p.target:6s}] {desc}")
@@ -86,6 +87,12 @@ def main(argv=None):
           f"stragglers={out['stragglers']}")
     print("data graph stats (svc-time EMA / items / lane depths):")
     print("  " + json.dumps(pipe.stats(), default=str))
+    if args.adaptive:
+        pipe.stop()                 # joins the supervisor, persists observe()
+        events = pipe.replacement_events()
+        print(f"re-placement events: {len(events)}")
+        for e in events:
+            print(f"  {e}")
     return 0
 
 

@@ -62,11 +62,13 @@ Overload policy
 ---------------
 :class:`~repro_torch.core.runtime.SLOPolicy` maps the waiting-backlog /
 ``max_pending`` ratio to a pressure level: 0 unconstrained, 1 degrade, 2
-shed.  The engine enforces the policy inline on every ``submit``; the
-stage handle takes pressure levels pushed from outside, and the effective
-level is the max of the two.  ``adaptive=True`` (the reference's
-Supervisor) is not ported yet and raises.  ``offload`` keeps the paper's
-blocking semantics; host memory is bounded by ``max_pending`` either way.
+shed.  The engine enforces the policy inline on every ``submit`` (so it
+works without a supervisor), and ``adaptive=True`` additionally attaches a
+:class:`~repro_torch.core.runtime.Supervisor` that samples the
+CacheManager's ``slo`` stats block and pushes pressure levels through the
+stage handle — the effective level is the max of the two.  ``offload``
+keeps the paper's blocking semantics; host memory is bounded by
+``max_pending`` either way.
 """
 
 from __future__ import annotations
@@ -83,10 +85,10 @@ import numpy as np
 import torch
 
 from ..core.compiler import CompileConfig
-from ..core.graph import Deliver, GraphError, StageHandle, pipeline
+from ..core.graph import Deliver, StageHandle, pipeline
 from ..core.node import EOS, GO_ON, FFNode, _Sentinel
 from ..core.plan import TorchPlan, single_device_plan
-from ..core.runtime import SLOPolicy
+from ..core.runtime import SLOPolicy, Supervisor
 from ..core.tree import tree_leaves
 from ..models.lm import LM
 from ..runtime.steps import make_decode_step, make_prefill_step
@@ -597,10 +599,6 @@ class InferenceEngine:
                  max_pending: int = 256, prefill_workers: int = 2,
                  exit_threshold: Optional[float] = None,
                  slo: Optional[SLOPolicy] = None, device: Any = None):
-        if adaptive:
-            raise GraphError("InferenceEngine(adaptive=True) is not ported "
-                             "yet: the adaptive runtime (Supervisor) is a "
-                             "later slice")
         # plan=None means single_device_plan(device): cuda:0 unless the
         # caller names another device, and an error without CUDA
         plan = plan if plan is not None else single_device_plan(device)
@@ -651,8 +649,13 @@ class InferenceEngine:
         # place() pins the feedback loop to host threads — the prefill and
         # decode steps inside the nodes are the device side
         self._runner = self.graph.compile(config=CompileConfig(
-            capacity=self.max_pending, results_capacity=1024))
+            capacity=self.max_pending, results_capacity=1024,
+            adaptive=adaptive))
         self.placements = getattr(self._runner, "placements", [])
+        self.supervisor = None
+        if adaptive:
+            self.supervisor = Supervisor(self._runner,
+                                         slo=self._slo.policy)
 
         self._ids = itertools.count(0)
         self._handles: Dict[int, RequestHandle] = {}
@@ -688,16 +691,20 @@ class InferenceEngine:
                          "admitted": self._acct.admitted,
                          "finished": self._acct.finished,
                          "shed": self._acct.shed}
+        if self.supervisor is not None:
+            s["supervisor"] = self.supervisor.stats()
         return s
 
     def replacement_events(self):
-        """Re-placement events of the runner, for reports."""
+        """Supervisor events (pressure changes, migrations) for reports."""
+        if self.supervisor is not None:
+            return list(self.supervisor.events)
         return self._runner.replacement_events()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "InferenceEngine":
-        """Start the streaming network and the result dispatcher.
-        Idempotent."""
+        """Start the streaming network, the result dispatcher, and (in
+        adaptive mode) the supervisor.  Idempotent."""
         if self._started:
             return self
         self._started = True
@@ -706,6 +713,8 @@ class InferenceEngine:
                                             daemon=True,
                                             name="ff-serve-dispatch")
         self._dispatcher.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
         return self
 
     def __enter__(self) -> "InferenceEngine":
@@ -786,7 +795,7 @@ class InferenceEngine:
 
     def close(self, timeout: Optional[float] = 60.0) -> int:
         """Stop accepting, drain in-flight requests, shut the network,
-        and dispatcher down.  Idempotent."""
+        supervisor, and dispatcher down.  Idempotent."""
         if not self._started:
             return 0
         if not self._closing:
@@ -858,6 +867,8 @@ class InferenceEngine:
             else max(0.0, deadline - time.monotonic())
         rc = self._runner.wait(remaining)
         if terminating:
+            if self.supervisor is not None:
+                self.supervisor.stop()    # idempotent — no _thread peeking
             self._dispatcher_stop.set()
             if self._dispatcher is not None:
                 self._dispatcher.join(timeout=2.0)

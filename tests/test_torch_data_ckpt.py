@@ -19,7 +19,6 @@ from repro.runtime.steps import init_state as jinit_state
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     load_checkpoint, save_checkpoint)
 from repro_torch.configs import get
-from repro_torch.core.graph import GraphError
 from repro_torch.core.params import state_from_numpy
 from repro_torch.core.plan import single_device_plan
 from repro_torch.data import (DataPipeline, MemmapTokenSource,
@@ -100,14 +99,58 @@ def test_pipeline_compute_stage_transforms_the_host_batch():
     assert pipe.get(timeout=10) is None
 
 
-# compute_workers > 1 runs on the process tier now
-# (tests/test_torch_process.py); with adaptive=True it still raises
+def _bump(batch):
+    return {"tokens": batch["tokens"] + 1}
+
+
+# compute_workers > 1 runs on the process tier (tests/test_torch_process.py)
+# and adaptive=True under the adaptive runtime (tests/test_torch_runtime.py)
 @pytest.mark.parametrize("knob", [{"compute_workers": 2, "adaptive": True},
                                   {"adaptive": True}])
 def test_pipeline_unported_options_raise(knob):
-    with pytest.raises(GraphError, match="not ported yet"):
-        DataPipeline(SyntheticLMSource(50, 8, 2), "cpu",
-                     compute=lambda b: b, **knob)
+    """An adaptive pipeline delivers the static pipeline's batches in
+    order, and its ``stop()`` and ``replacement_events()`` work."""
+    def batches(**kw):
+        pipe = DataPipeline(SyntheticLMSource(50, 8, 2, seed=4), "cpu",
+                            n_batches=6, compute=_bump, **kw).start()
+        got = []
+        while (b := pipe.get(timeout=30)) is not None:
+            got.append(b["tokens"].numpy())
+        return pipe, got
+
+    pipe, got = batches(**knob)
+    _, want = batches(compute_workers=knob.get("compute_workers", 1))
+    assert len(got) == 6
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert pipe.supervisor is not None
+    pipe.stop()
+    pipe.stop()                      # idempotent
+    assert "supervisor" in pipe.stats()
+    assert isinstance(pipe.replacement_events(), list)
+    if "compute_workers" in knob:    # the farm became one adaptive stage
+        assert "adaptive" in pipe.placements[1][1].reason
+
+
+@pytest.mark.parametrize("lanes", [{"shm_slot_bytes": 1 << 12},
+                                   {"transport": {"ring_slots": 4,
+                                                  "slot_bytes": 1 << 14}}])
+def test_pipeline_sizes_the_process_lanes(lanes):
+    """``shm_slot_bytes=`` and ``transport=`` reach the process farm's
+    lanes (reference ``src/repro/data/pipeline.py:72-76``); the batches
+    stay those of one compute stage."""
+    def batches(**kw):
+        pipe = DataPipeline(SyntheticLMSource(50, 8, 2, seed=5), "cpu",
+                            n_batches=5, compute=_bump, **kw).start()
+        got = []
+        while (b := pipe.get(timeout=30)) is not None:
+            got.append(b["tokens"].numpy())
+        return pipe, got
+
+    pipe, got = batches(compute_workers=2, **lanes)
+    _, want = batches()
+    assert [p.target for _, p in pipe.placements][1] == "host_process"
+    assert len(got) == 5 and all(np.array_equal(a, b)
+                                 for a, b in zip(got, want))
 
 
 def test_pipeline_defaults_to_cuda():
@@ -297,6 +340,9 @@ def test_train_launcher_runs_on_the_cpu(tmp_path, capsys):
     assert "final step 3" in out and "device=cpu" in out
     assert latest_step(tmp_path) == 3
     # --tuned re-execs the program (launch/tuned.py, tested in
-    # tests/test_torch_process.py); --adaptive is not ported yet
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--device", "cpu", "--adaptive"])
+    # tests/test_torch_process.py); --adaptive attaches the Supervisor
+    main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+          "--ckpt-dir", str(tmp_path / "adaptive"), "--adaptive"])
+    out = capsys.readouterr().out
+    assert "final step 2" in out and "re-placement events:" in out
+    assert '"supervisor"' in out

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor anything of
 the reference package, its entry points default to the GPU, the process
-tier compiles and runs, and the tiers it has not ported refuse instead of
-running elsewhere."""
+tier and the adaptive runtime compile and run, and the tier it has not
+ported (the remote one) refuses instead of running elsewhere."""
 
 import ast
 import pathlib
@@ -29,7 +29,8 @@ def _modules():
 
 # the host tiers' modules, which the import checks must walk too
 TIER_MODULES = ("repro_torch.core.shm", "repro_torch.core.process",
-                "repro_torch.core.accelerator", "repro_torch.launch.tuned")
+                "repro_torch.core.accelerator", "repro_torch.core.runtime",
+                "repro_torch.launch.tuned")
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -97,6 +98,15 @@ def test_unported_tiers_raise(knob):
     g = T.pipeline(T.farm(lambda x: x + 1, n=2))
     if knob.get("mode") == "process":
         _runs_on_processes(g.compile(config=T.CompileConfig(**knob)))
+        return
+    if knob.get("adaptive"):
+        # the adaptive runtime is ported: the farm becomes one
+        # AdaptiveFarmNode, whose collector keeps the input order
+        runner = g.compile(config=T.CompileConfig(**knob))
+        assert [type(st) for st in runner._top_members()] == \
+            [T.AdaptiveFarmNode]
+        assert runner.run(list(range(20))) == \
+            sorted(g.compile(config=T.CompileConfig()).run(list(range(20))))
         return
     with pytest.raises(T.GraphError, match="not ported yet"):
         g.compile(config=T.CompileConfig(**knob))

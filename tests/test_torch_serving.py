@@ -27,7 +27,7 @@ from repro.runtime.steps import init_state as jinit_state
 from repro.serving import InferenceEngine as JEngine
 from repro.serving import Request as JRequest
 from repro_torch.configs import get as tget
-from repro_torch.core import FF_EOS, GraphError
+from repro_torch.core import FF_EOS
 from repro_torch.core.params import from_numpy
 from repro_torch.core.plan import single_device_plan
 from repro_torch.runtime.steps import (init_state, make_decode_step,
@@ -333,8 +333,23 @@ def test_engine_defaults_to_cuda_and_refuses_adaptive(served):
             InferenceEngine(tcfg, None, tp)
     eng = InferenceEngine(tcfg, None, tp, device="cpu", cache_len=CACHE_LEN)
     assert eng.plan.device == torch.device("cpu")
-    with pytest.raises(GraphError, match="not ported yet"):
-        InferenceEngine(tcfg, plan, tp, adaptive=True)
+    # adaptive=True is ported: a Supervisor rides along, the engine serves
+    # the same tokens, and stopping the Supervisor twice is a no-op (as
+    # tests/test_serving.py::test_adaptive_engine_supervisor_stop_idempotent)
+    prompt = _prompts(11, 1)[0]
+    solo = _serve(InferenceEngine(tcfg, plan, tp, max_batch=2,
+                                  cache_len=CACHE_LEN), Request, [prompt],
+                  3)[0]
+    eng = InferenceEngine(tcfg, plan, tp, max_batch=2, cache_len=CACHE_LEN,
+                          adaptive=True)
+    with eng:
+        out = eng.submit(Request(prompt=prompt, max_new_tokens=3)).result(
+            timeout=300)
+    assert out.done and out.tokens == solo.tokens
+    assert eng.stats()["supervisor"]["ticks"] >= 0
+    assert isinstance(eng.replacement_events(), list)
+    eng.supervisor.stop()
+    assert eng.wait(timeout=10) == 0
     with pytest.raises(ValueError, match="params on"):
         InferenceEngine(tcfg, single_device_plan("meta"), tp)
 
@@ -347,6 +362,20 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3/3 requests, 9 tokens" in out
     assert "engine graph on cpu" in out
+
+
+def test_serve_launcher_takes_adaptive_and_tuned(capsys, monkeypatch):
+    """``--adaptive`` serves under the Supervisor and reports its events;
+    ``--tuned`` re-execs once, so with the re-exec's guard set (as in the
+    re-exec'd child) it runs on in this process."""
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_TORCH_TUNED", "1")
+    assert serve.main(["--device", "cpu", "--arch", ARCH, "--requests", "3",
+                       "--max-new", "3", "--max-batch", "2", "--layers",
+                       "1", "--adaptive", "--tuned"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3/3 requests, 9 tokens" in out
+    assert "re-placement events:" in out and "(supervisor {" in out
 
 
 def test_serve_launcher_runs_zamba2_on_the_cpu(capsys):
