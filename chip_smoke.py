@@ -176,7 +176,25 @@ Phases, each of which fails the run:
    adaptive=True)``: batches and losses bit for bit phase 7's process-fed
    run; then ``launch/train.py --adaptive`` on ff-tiny for 6 steps.
    Prints items/s beside phase 7's, the migration's time and latency,
-   every event, the Supervisor's loop time, tokens/s and the count shed.
+   every event, the Supervisor's loop time, tokens/s and the count shed;
+9. the remote tier and the device boundary — phase 7's featuriser graph
+   with ``farm(featurise, n=4)`` on 4 loopback worker pools
+   (``spawn_loopback_pool``, forked after CUDA is up; ``host_remote`` x4,
+   the hop on the device, microbatch 512, 4 in flight): the output in
+   stream order and byte-equal to phase 7's process run, the a2a kernels
+   launched; once more at ``net_credit=64``; the same graph under
+   ``Supervisor(migrate=False)``: byte-equal again, the calibration
+   ``observed`` with the net hop moved from the measured one and the
+   featuriser's observed record refreshed; ``annotate``/``place`` with the
+   pool and no override (where the cost model puts the featuriser is
+   printed, not held); ``python -m repro_torch.launch.worker`` serving one
+   lane of ``demo_fn`` (5 items squared, a ``WorkerStats`` of 5); and
+   ``perf_model.calibrate()`` on the card, whose boundary constants
+   (fused segment, h2d and d2h bandwidth, overlap efficiency) are printed
+   beside ``place()``'s per-item cost of phase 4's segment under the
+   defaults and under them (printed, not held), and phase 4's measured
+   times.  Prints items/s beside phase 7's, the net hop and the farm's
+   ``node_stats()``.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -902,6 +920,9 @@ def phase_main_path(dev: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the same segment behind host stages, overlapped
 # ---------------------------------------------------------------------------
+HYBRID_MICROBATCH = 512         # phase 4's boundary: items a microbatch
+
+
 def phase_hybrid(main: dict) -> dict:
     import numpy as np
     from repro_torch.core import CompileConfig
@@ -913,8 +934,8 @@ def phase_hybrid(main: dict) -> dict:
     for k, overlap in enumerate((True, False, True, False, False, True)):
         runner = build_graph(main["fns"], host_stages=True).compile(
             config=CompileConfig(plan=main["plan"], placements=placements,
-                                 microbatch=512, inflight=4,
-                                 overlap=overlap))
+                                 microbatch=HYBRID_MICROBATCH,
+                                 inflight=4, overlap=overlap))
         if type(runner).__name__ != "HybridRunner":
             fail(f"hybrid graph compiled to {type(runner).__name__}")
         t1 = time.perf_counter()
@@ -3548,6 +3569,272 @@ def phase_adaptive_train(plan, cfg, ptrain: dict, batch: int = 4,
     return {"launches": d["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the remote tier in front of the kernels, the boundary measured
+# ---------------------------------------------------------------------------
+REMOTE_POOLS = 4                 # loopback worker pools (one per farm worker)
+REMOTE_DEMO_ITEMS = 5            # items the worker CLI serves in 9c
+
+
+def remote_farm(runner):
+    """The runner's ``RemoteFarmNode`` stage."""
+    from repro_torch.core import RemoteFarmNode
+    nodes = [st for st in runner._top_members()
+             if isinstance(st, RemoteFarmNode)]
+    if len(nodes) != 1:
+        fail(f"remote hop: {len(nodes)} RemoteFarmNode stages in "
+             f"{[type(st).__name__ for st in runner._top_members()]}")
+    return nodes[0]
+
+
+def compile_remote(fns: dict, plan, addrs: list, credit: int = 32):
+    """Phase 7's graph with the featuriser farm on the remote pools and the
+    hop on the device (microbatch 512, 4 in flight).  A farm stage mixed
+    with device stages runs in the hybrid runner (an all-host graph with a
+    remote farm would be a ``RemoteRunner``); the farm is one
+    ``RemoteFarmNode`` stage of it."""
+    from repro_torch.core import CompileConfig
+    runner = process_graph(fns).compile(config=CompileConfig(
+        plan=plan, placements={0: "host_remote", 1: "device", 2: "device",
+                               3: "device"},
+        remote_workers=addrs, net_credit=credit, microbatch=512, inflight=4,
+        normalize=False))
+    where = [(p.target, p.width) for _, p in runner.placements]
+    if where[0] != ("host_remote", REMOTE_POOLS) or \
+            [t for t, _ in where[1:]] != ["device"] * 3:
+        fail(f"remote hop placed as {where}")
+    if type(runner).__name__ != "HybridRunner":
+        fail(f"remote hop compiled to {type(runner).__name__}")
+    return runner
+
+
+def same_bytes(out: list, want: list) -> bool:
+    return len(out) == len(want) and all(a.tobytes() == b.tobytes()
+                                         for a, b in zip(out, want))
+
+
+def serve_worker_cli(card: str) -> dict:
+    """9c: ``python -m repro_torch.launch.worker --listen 127.0.0.1:0`` as a
+    subprocess; one lane of ``demo_fn`` with 5 items and EOS must come back
+    squared, in order, with a ``WorkerStats`` record of 5 items."""
+    from repro_torch.core import EOS, NetLane
+    from repro_torch.core.net import parse_addr
+    from repro_torch.core.shm import WorkerStats
+    from repro_torch.launch.worker import demo_fn
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.worker", "--listen",
+         "127.0.0.1:0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env)
+    try:
+        line = proc.stdout.readline().strip()
+        if not line.startswith("listening "):
+            fail(f"worker CLI: first line {line!r}")
+        up = time.perf_counter() - t0
+        host, port = parse_addr(line.split()[1])
+        lane = NetLane.connect(host, port, timeout=30.0)
+        try:
+            lane.push_fn(demo_fn)
+            for i in range(REMOTE_DEMO_ITEMS):
+                lane.push(float(i), timeout=10.0, seq=i)
+            lane.push_eos()
+            got, stats = {}, None
+            while True:
+                item, seq = lane.pop_seq(timeout=60.0)
+                if item is EOS:
+                    break
+                if isinstance(item, WorkerStats):
+                    stats = item
+                    continue
+                got[seq] = item
+        finally:
+            lane.shutdown()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10.0)
+    want = {i: float(i) * float(i) for i in range(REMOTE_DEMO_ITEMS)}
+    if got != want or stats is None or stats.items != REMOTE_DEMO_ITEMS:
+        fail(f"worker CLI: results {got}, stats {stats}")
+    say(f"[remote] 9c: python -m repro_torch.launch.worker --listen "
+        f"127.0.0.1:0 up in {up:.2f} s ({line}); one lane of demo_fn, "
+        f"{REMOTE_DEMO_ITEMS} items and EOS: results {got}, {stats} on "
+        f"{card}")
+    return {"stats": stats}
+
+
+def hybrid_prediction(main: dict, calib) -> dict:
+    """``place()``'s per-item cost of phase 4's device segment (pre, the
+    hop, post: one fused run of 3, microbatch 512) under the constants
+    ``calib``: ``device_item_time``, what ``place`` charges a device
+    candidate, for each of the three, whatever ``place`` would choose.  Each
+    declares the work a lossless device run does (the SwiGLU experts on
+    every token, the norms) and the item's 16 KiB float32 that crosses the
+    boundary each way.  The synchronous boundary hides nothing: the same
+    sum at ``overlap_eff`` 0.  A prediction to print; nothing fails on
+    it."""
+    import dataclasses
+    from repro_torch.core.compiler import (CostEstimate, _top_stages,
+                                           annotate, device_item_time)
+    fns, item = main["fns"], D_MODEL * 4
+    costs = {fns["pre"]: CostEstimate(flops=D_MODEL, bytes=item),
+             fns["post"]: CostEstimate(flops=D_MODEL, bytes=item),
+             # two left workers: RMSNorm each, half the item's bytes each
+             fns["left"]: CostEstimate(flops=4 * D_MODEL, bytes=item / 2)}
+    for e in fns["experts"]:
+        costs[e] = CostEstimate(flops=6 * D_MODEL * D_FF, bytes=0.0)
+    g = build_graph(fns, host_stages=True)
+    annotate(g, costs=costs)
+    segment = _top_stages(g)[1:4]
+    serial = dataclasses.replace(calib, overlap_eff=0.0)
+    return {key: sum(device_item_time(s.cost, c, len(segment), 1,
+                                      HYBRID_MICROBATCH) for s in segment)
+            for key, c in (("overlap_s", calib), ("sync_s", serial))}
+
+
+def phase_remote(main: dict, hop: dict, hybrid: dict,
+                 check_launches: bool = True, card: str = "the CPU") -> dict:
+    """9a: phase 7's graph with ``farm(featurise, n=4)`` on 4 loopback worker
+    pools forked after CUDA init (``host_remote`` x4, the hop on the device,
+    microbatch 512, 4 in flight): the output in stream order and byte-equal
+    to phase 7's static process run, the a2a kernels launched.  9b: the same
+    graph again under ``Supervisor(runner, migrate=False)``: the output
+    again equal, the calibration ``observed`` with a net hop moved from the
+    measured one, and the featuriser's observed record refreshed; then
+    ``annotate`` and ``place`` with ``remote_pool`` and no override.  9c:
+    the worker CLI serving a lane.  9d: the boundary's constants measured on
+    the card (``calibrate``) and ``place()``'s prediction for phase 4's
+    segment under the defaults and under them, beside phase 4's times."""
+    from repro_torch.core import Supervisor, perf_model, spawn_loopback_pool
+    from repro_torch.core.compiler import _top_stages, annotate, place
+    from repro_torch.kernels.a2a_fused import a2a_combine, a2a_route
+    fns, plan, stream = main["fns"], main["plan"], main["stream"]
+    static = hop["process_out"]
+    t_phase = time.perf_counter()
+    calib = perf_model.calibrate(cache=False)
+    if plan.device.type == "cuda":
+        torch.cuda.synchronize()         # no stream runs across the fork
+    t0 = time.perf_counter()
+    addrs, procs = spawn_loopback_pool(REMOTE_POOLS)
+    pools_up = time.perf_counter() - t0
+    try:
+        # -- 9a: the static remote farm --------------------------------------
+        runner = compile_remote(fns, plan, addrs)
+        node = remote_farm(runner)
+        a2a_route.launches = a2a_combine.launches = 0
+        t0 = time.perf_counter()
+        out = runner.run(stream, timeout=600)
+        secs = time.perf_counter() - t0
+        launches = {"a2a_route": a2a_route.launches,
+                    "a2a_combine": a2a_combine.launches}
+        if check_launches and not all(launches.values()):
+            fail(f"remote hop: the a2a kernels did not launch: {launches}")
+        if not same_bytes(out, static):
+            fail("remote hop: the output differs from phase 7's static "
+                 "process run (stream order, bytes)")
+        st = node.node_stats()
+        rate = len(stream) / secs
+        say(f"[remote] 9a: pipeline(farm(featurise, n={PROC_WORKERS}), pre, "
+            f"all_to_all, post), {len(stream)} tokens of {D_MODEL}, the farm "
+            f"host_remote x{REMOTE_POOLS} on loopback pools forked after CUDA "
+            f"init ({pools_up:.2f} s to come up): in stream order, "
+            f"byte-equal to phase 7's process run; a2a launches {launches}; "
+            f"{rate:.1f} items/s against phase 7's "
+            f"{hop['threads_items_s']:.1f} on threads and "
+            f"{hop['process_items_s']:.1f} on processes "
+            f"({rate / hop['process_items_s']:.0%} of the process rate); "
+            f"calibrated net hop {calib.net_hop_s * 1e6:.2f} us an item "
+            f"(shm {calib.proc_hop_s * 1e6:.2f} us); node_stats: routed "
+            f"per worker "
+            f"{st['routed_per_worker']}, svc_cpu_ema_s "
+            f"{st['svc_cpu_ema_s']:.3g}, hop_ema_s {st['hop_ema_s']:.3g}, "
+            f"max lane depth {st['max_lane_depth']} on {card}")
+        wide = compile_remote(fns, plan, addrs, credit=64)
+        t0 = time.perf_counter()
+        out64 = wide.run(stream, timeout=600)
+        rate64 = len(stream) / (time.perf_counter() - t0)
+        if not same_bytes(out64, static):
+            fail("remote hop (net_credit 64): the output differs from phase "
+                 "7's process run")
+        depth64 = remote_farm(wide).node_stats()["max_lane_depth"]
+        say(f"[remote] 9a: net_credit 64: {rate64:.1f} items/s, byte-equal "
+            f"(max lane depth {depth64}) on {card}")
+        # -- 9b: cluster autoscaling and the feedback loop --------------------
+        key = perf_model.fn_key(featurise)
+        before = perf_model.lookup_observed(key)
+        c0 = perf_model.get_calibration(measure=False)
+        runner = compile_remote(fns, plan, addrs)
+        sup = Supervisor(runner, interval=ADAPT_INTERVAL, migrate=False)
+        sup.start()
+        t0 = time.perf_counter()
+        try:
+            out = runner.run(stream, timeout=600)
+        finally:
+            sup.stop()
+        rate_sup = len(stream) / (time.perf_counter() - t0)
+        if not same_bytes(out, static):
+            fail("supervised remote hop: the output differs from 9a's")
+        c1 = perf_model.get_calibration(measure=False)
+        after = perf_model.lookup_observed(key)
+        if c1.source != "observed" or c1.net_hop_s == c0.net_hop_s:
+            fail(f"supervised remote hop: calibration {c1.source}, net hop "
+                 f"{c1.net_hop_s} (was {c0.net_hop_s})")
+        if after is None or after == before:
+            fail(f"supervised remote hop: observed record for {key} "
+                 f"{before} -> {after}")
+        st = sup.stats()
+        say(f"[remote] 9b: the same graph under Supervisor(interval="
+            f"{ADAPT_INTERVAL}, migrate=False): {rate_sup:.1f} items/s, "
+            f"byte-equal to 9a; events: {show_events(sup.events)}; "
+            f"{st['ticks']} ticks, {st['observed_facts']} observed facts; "
+            f"calibration {c1.source}: net hop {c0.net_hop_s * 1e6:.2f} -> "
+            f"{c1.net_hop_s * 1e6:.2f} us; observed {key}: {before} -> "
+            f"{after} on {card}")
+        g = process_graph(fns)
+        annotate(g)
+        place(g, plan, remote_pool=addrs)
+        farm = _top_stages(g)[0]
+        say(f"[remote] 9b: annotate + place(remote_pool={REMOTE_POOLS} "
+            f"pools), no override: featuriser cost "
+            f"{farm.cost.t_task * 1e6:.1f} us an item ({farm.cost.source}, "
+            f"releases_gil {farm.cost.releases_gil}) -> "
+            f"{farm.placement.target} "
+            f"x{farm.placement.width} ({farm.placement.reason})")
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(timeout=10.0)
+    # -- 9c: the worker CLI --------------------------------------------------
+    serve_worker_cli(card)
+    # -- 9d: the boundary measured -------------------------------------------
+    default = hybrid_prediction(main, perf_model.DEFAULT_CALIBRATION)
+    measured = hybrid_prediction(main, calib)
+    n = len(stream)
+    seen = {k: hybrid[k] / n for k in ("overlap_s", "sync_s")}
+    say(f"[remote] 9d: calibrate(): fused_segment_s "
+        f"{calib.fused_segment_s * 1e6:.3f} us, h2d {calib.h2d_bw_gbs:.3f} "
+        f"GB/s, d2h {calib.d2h_bw_gbs:.3f} GB/s, overlap_eff "
+        f"{calib.overlap_eff:.3f}, dispatch "
+        f"{calib.device_dispatch_s * 1e6:.3f} us; net hop "
+        f"{calib.net_hop_s * 1e6:.3f} us, shm hop "
+        f"{calib.proc_hop_s * 1e6:.3f} us, batched "
+        f"{calib.shm_batched_hop_s * 1e6:.3f} us on {card}")
+    say(f"[remote] 9d: place()'s per-item cost of phase 4's segment: "
+        f"defaults {default['overlap_s'] * 1e6:.3f} us overlapped / "
+        f"{default['sync_s'] * 1e6:.3f} us synchronous "
+        f"({default['overlap_s'] / default['sync_s']:.3f}x); measured "
+        f"constants {measured['overlap_s'] * 1e6:.3f} / "
+        f"{measured['sync_s'] * 1e6:.3f} us "
+        f"({measured['overlap_s'] / measured['sync_s']:.3f}x); phase 4 "
+        f"measured {seen['overlap_s'] * 1e6:.3f} us overlapped / "
+        f"{seen['sync_s'] * 1e6:.3f} us synchronous "
+        f"({seen['overlap_s'] / seen['sync_s']:.3f}x) on {card}")
+    say(f"[remote] phase 9 {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"launches": launches, "calib": calib, "default": default,
+            "measured": measured}
+
+
 def path_rows(rows: list, paths: list) -> list:
     """Rows for kernels on a path whose shapes rows above already time:
     ``(name, row timed at the same shape, launches on the path)``."""
@@ -3573,7 +3860,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     main = phase_main_path(dev)
     main["kernels"] = kernels
-    phase_hybrid(main)
+    hyb = phase_hybrid(main)
     from repro_torch.core.plan import single_device_plan
     cfg = serve_config()
     serve = phase_serve(single_device_plan(), cfg, serve_prompts(cfg.vocab))
@@ -3638,6 +3925,12 @@ def main() -> int:
          atrain["launches"]["ssd_scan"])])
     say(f"[adaptive] phase 8 {time.perf_counter() - t8:.1f} s on "
         f"{card['card']}")
+    remote = phase_remote(main, hop, hyb, card=card["card"])
+    rows += path_rows(rows, [
+        ("a2a_route_remote", "a2a_route_process",
+         remote["launches"]["a2a_route"]),
+        ("a2a_combine_remote", "a2a_combine_process",
+         remote["launches"]["a2a_combine"])])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

@@ -1,7 +1,7 @@
 """The staged graph compiler: ``normalize -> annotate -> place -> emit``.
 
-Port of ``src/repro/core/compiler.py`` for the host-thread, host-process
-and device tiers:
+Port of ``src/repro/core/compiler.py`` for the host-thread, host-process,
+host-remote and device tiers:
 
 1. **normalize** — the :meth:`FFGraph.optimize` normal-form rewrites;
 2. **annotate** — a :class:`CostEstimate` per IR node from the paper's
@@ -11,10 +11,17 @@ and device tiers:
    FLOPs are declared;
 3. **place** — a :class:`Placement` per top-level stage: host *threads*,
    host *processes* (``host_process``: a farm of GIL-bound workers when true
-   parallelism over the calibrated shared-memory hop beats threads), or the
-   *device*, from the roofline comparison (with the dispatch amortized over
-   each run of adjacent device candidates), overridable per node;
-4. **emit** — process-placed farm and ``all_to_all`` stages first become
+   parallelism over the calibrated shared-memory hop beats threads), host
+   *remote* (``host_remote``: a worker pool on other hosts reached over the
+   TCP lanes of ``core/net.py``, unlocked by ``compile(remote_workers=
+   [...])``, when parallelism over the calibrated network hop beats both),
+   or the *device*, from the roofline comparison (with the dispatch
+   amortized over each run of adjacent device candidates), overridable per
+   node;
+4. **emit** — remote-placed farms first become
+   :class:`~repro_torch.core.net.RemoteFarmNode` boundary nodes (workers on
+   other hosts over credit-windowed TCP lanes, sequence-ordered), then
+   process-placed farm and ``all_to_all`` stages
    :class:`~repro_torch.core.process.ProcessFarmNode` /
    :class:`~repro_torch.core.process.ProcessA2ANode` boundary nodes (OS
    processes over the shared-memory rings of ``core/shm.py``), host stages
@@ -22,7 +29,8 @@ and device tiers:
    process stages) or :class:`~repro_torch.core.graph.HostRunner`;
    all-device -> :class:`~repro_torch.core.graph.DeviceRunner`; mixed ->
    :class:`HybridRunner`, host stages over SPSC queues feeding fused device
-   segments through :class:`_DeviceStageNode` boundary nodes.
+   segments through :class:`_DeviceStageNode` boundary nodes.  An all-host
+   graph with a remote farm runs in a :class:`RemoteRunner`.
 
 With ``adaptive=True`` emit first lowers every eligible farm into a
 :class:`~repro_torch.core.runtime.AdaptiveFarmNode`, whose thread or
@@ -30,10 +38,8 @@ process engine a :class:`~repro_torch.core.runtime.Supervisor` can resize
 and migrate while the stream runs.
 
 Process workers fork from the parent, which may have initialised CUDA: they
-run numpy callables and never touch torch (``core/process.py``).  The
-remote host tier (``host_remote``, ``mode="remote"``, ``remote_workers``)
-is a later slice of the port: ``compile_graph`` raises "not ported yet"
-for it.
+run numpy callables and never touch torch (``core/process.py``); so do the
+remote tier's worker pools (``core/net.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import pickle
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +58,7 @@ from .fuse import FusedSegment, fuse_device_segments, segment_key
 from .graph import (A2AG, DeviceRunner, FarmG, FFGraph, GraphError,
                     HostRunner, MapG, PipeG, SeqG, StageHandle, _copy_streams,
                     _device_fn, _is_pure_seq, _Landing, _pure_of, _to_device)
+from .net import RemoteFarmNode
 from .node import GO_ON, FFNode
 from .process import ProcessA2ANode, ProcessFarmNode, fn_picklable
 from .runtime import AdaptiveFarmNode
@@ -61,8 +69,7 @@ from .tree import tree_leaves, tree_map
 DEVICE_DISPATCH_S = 2e-5
 DEFAULT_T_TASK_S = 5e-5
 
-_TARGETS = ("host", "host_process", "device")
-_NOT_PORTED = ("host_remote",)
+_TARGETS = ("host", "host_process", "host_remote", "device")
 
 
 @dataclasses.dataclass
@@ -99,8 +106,12 @@ class CompileConfig:
     :class:`~repro_torch.core.runtime.AdaptiveFarmNode` whose collector is
     sequence-ordered on both tiers; attach a
     :class:`~repro_torch.core.runtime.Supervisor` to re-place it live.
-    ``remote_workers`` exists so a caller gets "not ported yet" rather
-    than a silent host run."""
+
+    The remote tier: ``remote_workers=["host:port", ...]`` names worker
+    pools (``python -m repro_torch.launch.worker`` or
+    :func:`~repro_torch.core.net.spawn_loopback_pool`) and unlocks the
+    ``host_remote`` target; ``net_credit`` bounds each network lane's
+    in-flight window."""
 
     plan: Any = None
     mode: str = "auto"
@@ -117,7 +128,8 @@ class CompileConfig:
     normalize: bool = True
     shm_slot_bytes: int = 1 << 16
     adaptive: bool = False
-    remote_workers: Optional[Any] = None
+    remote_workers: Optional[Sequence] = None
+    net_credit: int = 32
     transport: Any = None
     fuse: bool = True
     overlap: bool = True
@@ -153,6 +165,11 @@ class CostEstimate:
         parallelism, floored by the shared-memory lane hop."""
         return max(self.t_task / max(1, width), hop_s)
 
+    def remote_time(self, width: int = 1, hop_s: float = 5e-4) -> float:
+        """Per-item service time on a ``width``-worker *remote* farm: true
+        parallelism across hosts, floored by the network-lane hop."""
+        return self.process_time(width, hop_s)
+
     def device_time(self, n_chips: int = 1,
                     dispatch_s: float = DEVICE_DISPATCH_S) -> Optional[float]:
         """Roofline per-item time on the card (H100), or None when no work
@@ -170,21 +187,22 @@ class Placement:
     (threads, processes, or the device count); ``reason`` records the
     cost-model comparison for reports/tests."""
 
-    target: str = "host"    # "host" | "host_process" | "device"
+    target: str = "host"    # "host" | "host_process" | "host_remote" |
+    #                         "device"
     width: Optional[int] = None
     reason: str = ""
 
 
 def _as_placement(v: Any) -> Placement:
-    target = v.target if isinstance(v, Placement) else v
-    if target in _NOT_PORTED:
-        raise GraphError(f"placement {target!r} is not ported yet: the port "
-                         f"places stages on {_TARGETS}")
-    if target not in _TARGETS:
-        raise GraphError(f"placement override must be one of {_TARGETS} or "
-                         f"a Placement (got {v!r})")
-    return v if isinstance(v, Placement) else \
-        Placement(target=v, reason="override")
+    if isinstance(v, Placement):
+        if v.target not in _TARGETS:
+            raise GraphError(f"Placement target must be one of {_TARGETS} "
+                             f"(got {v.target!r})")
+        return v
+    if v in _TARGETS:
+        return Placement(target=v, reason="override")
+    raise GraphError(f"placement override must be one of {_TARGETS} or a "
+                     f"Placement (got {v!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -396,46 +414,132 @@ def _process_ineligible_reason(n: Any) -> Optional[str]:
     return None
 
 
+def _net_picklable(fn: Callable) -> bool:
+    # the remote tier ships the callable over TCP (tag FN), so it must
+    # pickle *by value or importable reference* for real — the fork-based
+    # leniency of fn_picklable() does not cross a host boundary
+    try:
+        pickle.dumps(fn)
+        return True
+    except Exception:   # noqa: BLE001 - closures, lambdas, local defs
+        return False
+
+
+def _remote_ineligible_reason(n: Any,
+                              pool: Optional[Sequence]) -> Optional[str]:
+    """Why this stage cannot run on the remote tier (None when it can).
+
+    The remote tier ships each worker's ``svc`` callable over a network lane
+    (tag ``FN``) to a worker pool from ``compile(remote_workers=[...])``, so
+    beyond the process tier's purity requirements the callable must
+    genuinely pickle (fork cannot carry a closure across hosts) and a pool
+    must exist to connect to.  Farms only — the a2a grid stays on-box."""
+    if not isinstance(n, FarmG):
+        return "only farm stages remote-lower"
+    if not pool:
+        return "no remote worker pool (pass compile(remote_workers=[...]))"
+    if n.lb is not None or n.ondemand is not None:
+        return "custom lb/ondemand schedules are thread-tier only"
+    fns = [n.fn] if n.fn is not None else [_pure_of(w) for w in n.workers]
+    if any(f is None for f in fns):
+        return "stateful workers cannot ship to a remote worker"
+    for part in (n.emitter, n.collector):
+        if part is not None and _pure_of(part) is None:
+            return "remote farm needs pure emitter/collector"
+    if not all(_net_picklable(f) for f in fns):
+        return "worker callable does not pickle for the network handshake"
+    return None
+
+
 def _mesh_axis_size(plan: Any, axis: str) -> int:
     return int(dict(plan.mesh.shape).get(axis, 1))
 
 
+def _boundary_batch(graph: FFGraph, plan: Any, axis: str,
+                    device_batch: Optional[int],
+                    microbatch: Optional[int]) -> int:
+    """Items one device microbatch stacks, as :func:`emit` sizes it: one
+    in a feedback loop, else 8 per card on ``axis``; ``microbatch``
+    overrides both."""
+    if microbatch is not None:
+        return max(1, int(microbatch))
+    if device_batch is not None:
+        return max(1, int(device_batch))
+    if graph._wrap:
+        return 1
+    return 8 * (_mesh_axis_size(plan, axis) if plan is not None else 1)
+
+
+def device_item_time(c: CostEstimate, calib: Any, run: int, n_chips: int,
+                     batch: int) -> Optional[float]:
+    """Per-item cost :func:`place` charges a device stage inside a fused
+    run of ``run`` stages behind the overlapped boundary, or None when the
+    stage declares no work.  The boundary dispatches a microbatch of
+    ``batch`` items at once, each stage of the eager segment launching
+    once, so ``device_dispatch_s / run + fused_segment_s`` is spread over
+    the microbatch; the item's bytes cross the boundary once a fused run,
+    each way; the overlapped boundary pays ``max(transfer, compute)`` and
+    the unhidden remainder (``calib.boundary_time``)."""
+    run = max(1, run)
+    dispatch = (calib.device_dispatch_s / run + calib.fused_segment_s) \
+        / max(1, batch)
+    dev_t = c.device_time(n_chips, dispatch)
+    if dev_t is None:
+        return None
+    xfer = (c.bytes / run) * (1.0 / (calib.h2d_bw_gbs * 1e9)
+                              + 1.0 / (calib.d2h_bw_gbs * 1e9)) \
+        if c.bytes > 0 else 0.0
+    return calib.boundary_time(xfer, dev_t)
+
+
 def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
           axis: str = "data", feedback_steps: Optional[int] = None,
-          feedback_cond: Optional[Callable] = None,
-          mode: str = "auto") -> FFGraph:
+          feedback_cond: Optional[Callable] = None, mode: str = "auto",
+          remote_pool: Optional[Sequence] = None,
+          device_batch: Optional[int] = None,
+          microbatch: Optional[int] = None) -> FFGraph:
     """Assign each top-level stage a :class:`Placement` (in place).
 
     A stage goes to the *device* when it can lower there, a plan was given,
     and the roofline estimate beats the best host service time; a farm (or
     ``all_to_all``) of GIL-bound workers goes to the *process* tier when
     true parallelism over the calibrated shared-memory hop beats
-    GIL-serialized threads; everything else runs on host *threads*.  Widths
-    come from :func:`~repro_torch.core.perf_model.choose_farm_width` over
-    the calibrated channel costs.  ``overrides`` maps a stage index or
-    worker object to a :class:`Placement` (or ``"host"``/``"host_process"``
-    /``"device"``).  A ``wrap_around`` graph places on the device only as
-    a whole and only when ``feedback_steps`` or ``feedback_cond`` bounds
-    the loop."""
+    GIL-serialized threads, or a farm to the *remote* tier
+    (``host_remote``) when a worker pool (``remote_pool``, the compile
+    call's ``remote_workers=``) is wide enough that parallelism over the
+    calibrated network hop beats both; everything else runs on host
+    *threads*.  Widths come from
+    :func:`~repro_torch.core.perf_model.choose_farm_width` over the
+    calibrated channel costs.  ``overrides`` maps a stage index or worker
+    object to a :class:`Placement` (or ``"host"``/``"host_process"``/
+    ``"host_remote"``/``"device"``).  A ``wrap_around`` graph places on the
+    device only as a whole and only when ``feedback_steps`` or
+    ``feedback_cond`` bounds the loop.  ``device_batch``/``microbatch``
+    (as :func:`emit` takes them) give the items a device microbatch
+    stacks, over which a device candidate's per-microbatch boundary costs
+    are spread (:func:`device_item_time`)."""
     overrides = overrides or {}
     stages = _top_stages(graph)
     n_cpu = max(1, os.cpu_count() or 1)
     n_chips = _mesh_axis_size(plan, axis) if plan is not None else 1
 
     # calibrated channel constants: the (one-time, disk-cached) measurement
-    # only triggers when a decision could use the process tier — a stage
-    # must be process-eligible AND measurably GIL-bound (the tier is
-    # unreachable on an unknown signal); otherwise the cached-or-default
+    # only triggers when a decision could use the process or remote tier —
+    # a stage must be eligible for one AND measurably GIL-bound (the tiers
+    # are unreachable on an unknown signal); otherwise the cached-or-default
     # lookup suffices
     def _gil_bound(s: Any) -> bool:
         c = s.cost
         return isinstance(c, CostEstimate) and c.releases_gil is False
 
-    need_measure = mode == "process" or (
+    need_measure = mode in ("process", "remote") or (
         mode == "auto" and not graph._wrap
-        and any(_process_ineligible_reason(s) is None and _gil_bound(s)
-                for s in stages))
+        and any((_process_ineligible_reason(s) is None
+                 or _remote_ineligible_reason(s, remote_pool) is None)
+                and _gil_bound(s) for s in stages))
     calib = pm.get_calibration(measure=need_measure)
+    n_pool = len(remote_pool) if remote_pool else 0
+    batch = _boundary_batch(graph, plan, axis, device_batch, microbatch)
 
     def override_for(i: int, s: Any) -> Optional[Placement]:
         # keys are stage indices or the hashable user objects a stage wraps
@@ -460,7 +564,7 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
 
     # fused-run lengths: adjacent device stages share ONE boundary, so a
     # stage inside a candidate run of length L pays device_dispatch_s / L
-    # plus the fused_segment_s marginal
+    # plus the fused_segment_s marginal, each once a microbatch
     def _device_candidate(i: int, s: Any) -> bool:
         ov = override_for(i, s)
         if ov is not None:
@@ -513,12 +617,22 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
         else:
             host_width = 1
             proc_width = 1
+        remote_reason = _remote_ineligible_reason(s, remote_pool)
+        # a replicated farm spreads over the whole pool; a fixed worker
+        # list caps at its own width (one pool address per callable)
+        remote_width = 0 if not isinstance(s, FarmG) else (
+            n_pool if (s.n_auto or s.fn is not None)
+            else min(len(s.workers), n_pool))
         if ov is not None:
             if ov.target == "host_process" and proc_reason is not None:
                 raise GraphError(f"stage {i} ({s.describe()}) cannot be "
                                  f"process-placed: {proc_reason}")
+            if ov.target == "host_remote" and remote_reason is not None:
+                raise GraphError(f"stage {i} ({s.describe()}) cannot be "
+                                 f"remote-placed: {remote_reason}")
             if ov.width is None:
                 w = {"device": n_chips, "host_process": proc_width,
+                     "host_remote": remote_width,
                      "host": host_width}[ov.target]
                 ov = dataclasses.replace(ov, width=w)
             s.placement = ov
@@ -533,6 +647,14 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
             else:
                 s.placement = Placement("host", host_width,
                                         f"forced process, but {proc_reason}")
+            continue
+        if mode == "remote":
+            if remote_reason is None:
+                s.placement = Placement("host_remote", remote_width,
+                                        "forced remote")
+            else:
+                s.placement = Placement("host", host_width,
+                                        f"forced remote, but {remote_reason}")
             continue
         if mode == "device":
             s.placement = Placement("device", n_chips, "forced device")
@@ -550,19 +672,9 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
         # thread-vs-process comparison
         autoscale = isinstance(s, FarmG) and s.autoscale
         host_t = max(c.host_time(host_width), calib.queue_hop_s)
-        dev_dispatch = (calib.device_dispatch_s / max(1, run_len[i])
-                        + calib.fused_segment_s)
-        dev_t = (c.device_time(n_chips, dev_dispatch)
+        dev_t = (device_item_time(c, calib, run_len[i], n_chips, batch)
                  if plan is not None and not autoscale
                  and _device_eligible(s) else None)
-        if dev_t is not None:
-            # the overlapped boundary: a fused device run pays
-            # max(transfer, compute) + the unhidden remainder; the item
-            # crosses the boundary once per fused run
-            xfer = (c.bytes / max(1, run_len[i])) * (
-                1.0 / (calib.h2d_bw_gbs * 1e9)
-                + 1.0 / (calib.d2h_bw_gbs * 1e9)) if c.bytes > 0 else 0.0
-            dev_t = calib.boundary_time(xfer, dev_t)
         # the process tier only pays off for demonstrably GIL-bound work
         # wide enough to parallelize (an unknown signal stays on threads),
         # and only past a hysteresis margin over the thread estimate — a
@@ -587,11 +699,22 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
                 t = c.process_time(proc_width, calib.proc_hop_effective_s())
             if t < 0.8 * host_t:
                 proc_t = t
+        # the remote tier competes on the same terms: GIL-bound work wide
+        # enough to amortize the (much larger) network hop, past the same
+        # hysteresis margin — and it must also beat the on-box process tier
+        remote_t = None
+        if remote_reason is None and c.releases_gil is False \
+                and remote_width >= 2:
+            t = c.remote_time(remote_width, calib.net_hop_s)
+            if t < 0.8 * host_t and (proc_t is None or t < proc_t):
+                remote_t = t
         candidates = {"host": host_t}
         if dev_t is not None:
             candidates["device"] = dev_t
         if proc_t is not None:
             candidates["host_process"] = proc_t
+        if remote_t is not None:
+            candidates["host_remote"] = remote_t
         target = min(candidates, key=candidates.get)
         if target == "device":
             s.placement = Placement(
@@ -599,6 +722,14 @@ def place(graph: FFGraph, plan: Any = None, overrides: Optional[Dict] = None,
                 f"roofline {dev_t*1e6:.1f}us < host {host_t*1e6:.1f}us"
                 + (f" (dispatch amortized over fused run of {run_len[i]})"
                    if run_len[i] > 1 else ""))
+        elif target == "host_remote":
+            s.placement = Placement(
+                "host_remote", remote_width,
+                ("autoscale on the remote tier: " if autoscale else "")
+                + f"GIL-bound: {remote_width} remote workers "
+                f"{remote_t*1e6:.1f}us < threads {host_t*1e6:.1f}us "
+                f"(calibrated net hop {calib.net_hop_s*1e6:.1f}us, "
+                f"{calib.source})")
         elif target == "host_process":
             s.placement = Placement(
                 "host_process", proc_width,
@@ -937,6 +1068,37 @@ class ProcessRunner(HostRunner):
     stages and process farms share one streaming network."""
 
 
+class RemoteRunner(HostRunner):
+    """A host network whose remote-placed farm stages run their workers on
+    other hosts over the TCP network lanes of ``core/net.py`` — the
+    distributed tier.  Same surface as :class:`HostRunner`; thread stages,
+    process farms, and remote farms share one streaming network."""
+
+
+def _lower_remote_stage(s: Any, p: Placement,
+                        remote_pool: Optional[Sequence],
+                        credit: int = 32) -> SeqG:
+    """Replace a remote-placed farm with its boundary node
+    (:class:`~repro_torch.core.net.RemoteFarmNode`): to the rest of the
+    (thread-tier) network it is one ordinary host stage whose workers
+    happen to answer over TCP."""
+    reason = _remote_ineligible_reason(s, remote_pool)
+    if reason is not None:
+        raise GraphError(f"cannot remote-lower {s.describe()}: {reason}")
+    n_pool = len(remote_pool)
+    width = max(1, min(p.width or n_pool, n_pool))
+    fns = [s.fn] * width if s.fn is not None \
+        else [_pure_of(w) for w in s.workers][:width]
+    pre = _pure_of(s.emitter) if s.emitter is not None else None
+    post = _pure_of(s.collector) if s.collector is not None else None
+    node = RemoteFarmNode(
+        fns, list(remote_pool)[:len(fns)], pre=pre, post=post,
+        credit=credit, autoscale=s.autoscale,
+        label=f"remote_farm[{len(fns)}]"
+        + ("@autoscale" if s.autoscale else ""))
+    return SeqG(node)
+
+
 def _lower_process_stage(s: Any, p: Placement, capacity: int,
                          transport: Any) -> SeqG:
     """Replace a process-placed farm or all_to_all with its boundary node:
@@ -985,7 +1147,7 @@ def _maybe_adaptive_node(s: Any, p: Placement, capacity: int,
     sequence-ordered on BOTH tiers (output order == input order, matching
     the process/device lowerings and making migration order-safe), which is
     stricter than the plain thread farm's arrival order."""
-    if not isinstance(s, FarmG) or p.target == "device":
+    if not isinstance(s, FarmG) or p.target in ("device", "host_remote"):
         return None
     if s.fn is None or s.lb is not None or s.ondemand is not None:
         return None
@@ -1031,6 +1193,7 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
          device_batch: Optional[int] = None,
          a2a_capacity_factor: Optional[float] = None,
          shm_slot_bytes: int = 1 << 16, adaptive: bool = False,
+         remote_workers: Optional[Sequence] = None, net_credit: int = 32,
          transport: Any = None, fuse: bool = True, overlap: bool = True,
          microbatch: Optional[int] = None,
          inflight: Optional[int] = None) -> Any:
@@ -1046,8 +1209,11 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
 
     ``adaptive=True`` lowers eligible farms first, into
     :class:`~repro_torch.core.runtime.AdaptiveFarmNode` stages (see
-    :func:`_maybe_adaptive_node`).  Process-placed stages lower next, into
-    boundary nodes that the rest of emit sees as host stages.  ``transport`` (a
+    :func:`_maybe_adaptive_node`).  Remote-placed farms lower next, into
+    :class:`~repro_torch.core.net.RemoteFarmNode` stages over
+    ``remote_workers`` with a ``net_credit``-deep window per lane; then
+    process-placed stages, into boundary nodes that the rest of emit sees
+    as host stages.  ``transport`` (a
     :class:`~repro_torch.core.shm.TransportConfig`, or a dict of its fields)
     tunes every shared-memory lane they build: ``ring_slots`` (farm-lane
     depth cap, default 64), ``grid_slots`` (a2a grid-segment depth cap,
@@ -1086,10 +1252,25 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
         g2._wrap = graph._wrap
         graph, stages = g2, lowered
 
+    # remote-placed farms lower next, into RemoteFarmNode boundary stages
+    # (workers on other hosts over TCP lanes): from here on the rest of
+    # emit sees them as host stages
+    has_remote = any(p.target == "host_remote" for p in placements)
+    if has_remote:
+        lowered = [(_lower_remote_stage(s, p, remote_workers, net_credit)
+                    if p.target == "host_remote" else s)
+                   for s, p in zip(stages, placements)]
+        g2 = FFGraph(lowered[0] if len(lowered) == 1 else PipeG(lowered))
+        g2._wrap = graph._wrap
+        graph, stages = g2, lowered
+        placements = [dataclasses.replace(p, target="host")
+                      if p.target == "host_remote" else p
+                      for p in placements]
+
     # process-placed farms and a2a stages lower next, into
     # ProcessFarmNode / ProcessA2ANode boundary stages: from here on the
     # rest of emit sees them as host stages, which is what lets thread ->
-    # process -> device programs compose freely
+    # process -> device -> remote programs compose freely
     has_process = any(p.target == "host_process" for p in placements)
     if has_process:
         lowered = [(_lower_process_stage(s, p, capacity, tc)
@@ -1112,8 +1293,8 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
                               microbatch=microbatch, inflight=inflight)
     elif targets == {"host"}:
         _materialize_widths(graph.root)
-        cls = ProcessRunner if (has_process or adaptive_proc) \
-            else HostRunner
+        cls = RemoteRunner if has_remote else (
+            ProcessRunner if (has_process or adaptive_proc) else HostRunner)
         runner = cls(graph, capacity=capacity,
                      results_capacity=results_capacity,
                      feedback_cond=feedback_cond)
@@ -1122,11 +1303,8 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
         # boundary node would starve the loop waiting for a full microbatch
         # — and an in-flight window holding results back would deadlock it
         # outright, so wrap graphs force the sync boundary
-        if device_batch is None:
-            device_batch = 1 if graph._wrap else 8 * _mesh_axis_size(plan,
-                                                                     axis)
-        if microbatch is not None:
-            device_batch = max(1, int(microbatch))
+        device_batch = _boundary_batch(graph, plan, axis, device_batch,
+                                       microbatch)
         if graph._wrap:
             overlap = False
         if inflight is None:
@@ -1172,7 +1350,15 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
     ``compile_graph(g, plan, mode=..., capacity=...)`` folds the kwargs into
     a config (unknown names raise ``TypeError``).  Stage-index keys in
     ``placements=`` refer to the *normalized* graph's top-level stages;
-    worker objects survive the rewrites and are the stabler key."""
+    worker objects survive the rewrites and are the stabler key.
+
+    ``remote_workers=["host:port", ...]`` (or ``(host, port)`` tuples)
+    names a pool of :func:`~repro_torch.core.net.worker_main` worker pools
+    and unlocks the ``host_remote`` target: ``place`` costs eligible farms
+    against the calibrated network hop (``mode="remote"`` forces it), and
+    ``emit`` lowers them to :class:`~repro_torch.core.net.RemoteFarmNode`
+    boundary stages with a ``net_credit``-deep in-flight window per lane.
+    A pool that cannot be reached fails the compile with its address."""
     if config is not None:
         if plan is not None or kwargs:
             raise GraphError("compile_graph(config=...) does not combine "
@@ -1185,17 +1371,14 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
         except TypeError as e:
             raise TypeError(f"compile_graph(): {e}; see CompileConfig for "
                             "the supported knobs") from None
-    if cfg.mode == "remote":
-        raise GraphError("compile(mode='remote') is not ported yet: the "
-                         "port has the host-thread, host-process and device "
-                         "tiers")
-    if cfg.mode not in ("auto", "host", "process", "device"):
+    if cfg.mode not in ("auto", "host", "process", "remote", "device"):
         raise GraphError(f"unknown compile mode {cfg.mode!r}")
-    if cfg.remote_workers:
-        raise GraphError("compile(remote_workers=...) is not ported yet")
     if cfg.mode == "device" and cfg.plan is None:
         raise GraphError("compile(mode=\"device\") needs a plan "
                          "(core.plan.single_device_plan())")
+    if cfg.mode == "remote" and not cfg.remote_workers:
+        raise GraphError("compile(mode=\"remote\") needs remote_workers="
+                         "[\"host:port\", ...]")
     g = graph.optimize() if cfg.normalize else graph
     # forced modes still need costs for width selection (n="auto" farms),
     # so annotate runs whenever the caller supplied cost information
@@ -1203,7 +1386,9 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
         annotate(g, costs=cfg.costs, sample=cfg.sample)
     place(g, cfg.plan, overrides=cfg.placements, axis=cfg.axis,
           feedback_steps=cfg.feedback_steps,
-          feedback_cond=cfg.feedback_cond, mode=cfg.mode)
+          feedback_cond=cfg.feedback_cond, mode=cfg.mode,
+          remote_pool=cfg.remote_workers, device_batch=cfg.device_batch,
+          microbatch=cfg.microbatch)
     return emit(g, cfg.plan, capacity=cfg.capacity,
                 results_capacity=cfg.results_capacity, axis=cfg.axis,
                 feedback_steps=cfg.feedback_steps,
@@ -1211,6 +1396,7 @@ def compile_graph(graph: FFGraph, plan: Any = None, *,
                 device_batch=cfg.device_batch,
                 a2a_capacity_factor=cfg.a2a_capacity_factor,
                 shm_slot_bytes=cfg.shm_slot_bytes, adaptive=cfg.adaptive,
-                transport=cfg.transport,
+                remote_workers=cfg.remote_workers,
+                net_credit=cfg.net_credit, transport=cfg.transport,
                 fuse=cfg.fuse, overlap=cfg.overlap,
                 microbatch=cfg.microbatch, inflight=cfg.inflight)

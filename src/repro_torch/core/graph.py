@@ -446,23 +446,30 @@ class FFGraph:
         * ``annotate`` — per-node :class:`~repro_torch.core.compiler.
           CostEstimate` from ``costs=``, ``ff_cost``/``ff_flops``
           attributes, or timing the node on ``sample=``;
-        * ``place`` — host *threads*, host *processes* (``host_process``)
-          or the *device* per top-level stage, overridable via
-          ``placements={stage_index_or_worker: ...}``;
+        * ``place`` — host *threads*, host *processes* (``host_process``),
+          host *remote* (``host_remote``) or the *device* per top-level
+          stage, overridable via ``placements={stage_index_or_worker:
+          ...}``;
         * ``emit`` — :class:`HostRunner`, the process runner (process farms
-          over shared-memory rings), :class:`DeviceRunner`, or the hybrid
-          runner (host stages over SPSC queues feeding fused device
-          segments through device boundary nodes).
+          over shared-memory rings), the remote runner (remote farms over
+          TCP lanes), :class:`DeviceRunner`, or the hybrid runner (host
+          stages over SPSC queues feeding fused device segments through
+          device boundary nodes).
 
         ``feedback_steps=K`` lets a ``wrap_around`` graph lower onto the
         device through ``core.device.feedback_scan``; ``feedback_cond=pred``
         makes the loop data-dependent (``core.device.feedback_while``, with
         ``feedback_steps`` as an optional cap).  ``a2a_capacity_factor``
         bounds the device all_to_all expert lanes (default: lossless).
-        ``mode`` forces placement: "host", "process", "device", or
-        cost-driven "auto"; ``adaptive=True`` lowers eligible farms into
-        stages a ``core.runtime.Supervisor`` re-places live; the remote
-        tier is not ported yet and raises."""
+        ``mode`` forces placement: "host", "process", "remote", "device",
+        or cost-driven "auto"; ``adaptive=True`` lowers eligible farms into
+        stages a ``core.runtime.Supervisor`` re-places live.
+
+        ``remote_workers=["host:port", ...]`` names a pool of
+        ``python -m repro_torch.launch.worker`` worker pools (or
+        :func:`~repro_torch.core.net.spawn_loopback_pool` addresses) and
+        unlocks the ``host_remote`` target; ``net_credit`` bounds each
+        network lane's in-flight window (back-pressure depth)."""
         from .compiler import CompileConfig, compile_graph
         if config is not None:
             if plan is not None:

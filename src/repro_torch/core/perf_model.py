@@ -9,13 +9,16 @@ The compiler's ``annotate``/``place`` passes use that algebra for farm widths
 and a roofline of the target card (:data:`H100_SXM`, NVIDIA's data-sheet
 figures) for device time.  :func:`calibrate` measures the host constants —
 one core's FLOP/s, the thread-queue hop, the process tier's shared-memory
-hop (per item and batched) and its slab arena's bandwidth — and the CUDA
-dispatch cost, and caches them in the port's own file
-``torch_calibration.json``; the reference's ``calibration.json`` holds
-TPU-side constants and is never read.  :func:`observe` folds runtime stats
-(the adaptive runtime's Supervisor samples them) into the same file: the
-shm hop, and an observed per-callable cost table the next ``annotate``
-reads before it falls back to a sample probe.
+hop (per item and batched) and its slab arena's bandwidth, the remote
+tier's loopback network hop — and, on the card, the CUDA dispatch cost and
+the device boundary's (the fused segment's marginal stage, the copy
+bandwidths each way, the overlap efficiency), and caches them in the
+port's own file ``torch_calibration.json``; the reference's
+``calibration.json`` holds TPU-side constants and is never read.
+:func:`observe` folds runtime stats (the adaptive runtime's Supervisor
+samples them) into the same file: the shm and network hops, and an
+observed per-callable cost table the next ``annotate`` reads before it
+falls back to a sample probe.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import math
 import os
 import time
 import warnings
-from typing import Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 
 # --------------------------------------------------------------------------
@@ -171,6 +174,8 @@ class HostCalibration:
     device_dispatch_s: float    # per-microbatch host<->device boundary cost
     # per-item process-lane (shm ring) hop cost
     proc_hop_s: float = 2e-4
+    # per-item network-lane (TCP frame) hop cost
+    net_hop_s: float = 5e-4
     # per-item cost of the *vectored* process lane (push_many/pop_many
     # amortize the index traffic and the pickling over a batch) — what the
     # batched farm transport actually pays per item
@@ -178,12 +183,12 @@ class HostCalibration:
     # streaming bandwidth of the slab arena (oversize-ndarray path), GB/s
     arena_bw_gbs: float = 2.0
     # marginal per-stage cost of one extra stage inside a fused device
-    # segment (PyTorch runs eagerly: one more kernel launch, not measured
-    # yet — the default stands)
+    # segment: the port's segment runs eagerly, so about one kernel launch
+    # a stage, measured as (t_chain(K) - t_chain(1))/(K-1) on the card
     fused_segment_s: float = 2e-6
-    # host<->device boundary bandwidths (GB/s) and the share of the smaller
-    # of transfer and compute the overlapped boundary hides (not measured
-    # yet on the card — the defaults stand)
+    # host<->device boundary bandwidths (GB/s), each through the boundary
+    # node's own copy path (staging on the host included), and the share
+    # of the smaller of transfer and compute the overlapped boundary hides
     h2d_bw_gbs: float = 8.0
     d2h_bw_gbs: float = 8.0
     overlap_eff: float = 0.5
@@ -211,9 +216,11 @@ DEFAULT_CALIBRATION = HostCalibration(
     peak_flops=5e10, queue_hop_s=2e-5, device_dispatch_s=2e-5,
     source="default")
 
-# version 2: the process tier's proc_hop_s, shm_batched_hop_s and
-# arena_bw_gbs joined — older caches must miss cleanly
-_CALIB_VERSION = 2
+# version 3: net_hop_s (the remote tier) and the device boundary measured
+# on the card (fused_segment_s, h2d_bw_gbs, d2h_bw_gbs, overlap_eff)
+# joined; version 2: the process tier's proc_hop_s, shm_batched_hop_s and
+# arena_bw_gbs — older caches must miss cleanly
+_CALIB_VERSION = 3
 _calibration: Optional[HostCalibration] = None
 
 
@@ -409,6 +416,70 @@ def _measure_arena_bw(nbytes: int = 4 << 20, reps: int = 5) -> float:
         q.destroy()
 
 
+def _measure_net_hop(n: int = 200) -> float:
+    """Per-item network-lane hop cost, measured over loopback TCP with the
+    actual frame codec of ``core/net.py`` (raw-ndarray fast path).  Streamed
+    pipelined like :func:`_measure_proc_hop` — the remote farm's emitter and
+    collector overlap, so the relevant figure is the per-item cost of a full
+    round trip divided by two, not one-frame latency."""
+    import socket
+    import struct
+    import threading
+
+    import numpy as np
+    try:
+        from .net import (TAG_EOS, decode_payload, encode_frame, encode_item,
+                          read_frame)
+        from .shm import _SLOT_FMT
+        ls = socket.create_server(("127.0.0.1", 0))
+        port = ls.getsockname()[1]
+
+        def _echo() -> None:
+            conn, _peer = ls.accept()
+            try:
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                while True:
+                    fr = read_frame(conn)
+                    if fr is None or fr[0] == TAG_EOS:
+                        return
+                    tag, payload, seq = fr
+                    conn.sendall(struct.pack(_SLOT_FMT, len(payload),
+                                             tag, seq) + payload)
+            finally:
+                conn.close()
+
+        echo = threading.Thread(target=_echo, daemon=True,
+                                name="ff-calibrate-net-echo")
+        echo.start()
+        sock = socket.create_connection(("127.0.0.1", port), timeout=5.0)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        frame = encode_item(np.arange(64, dtype=np.float32))
+        try:
+            sock.sendall(frame)                 # warm both directions
+            read_frame(sock)
+            t0 = time.perf_counter()
+
+            def _send() -> None:
+                for _ in range(n):
+                    sock.sendall(frame)
+
+            sender = threading.Thread(target=_send, daemon=True)
+            sender.start()
+            for _ in range(n):
+                tag, payload, _seq = read_frame(sock)
+                decode_payload(tag, payload)
+            rtt = (time.perf_counter() - t0) / n
+            sender.join(timeout=5.0)
+            sock.sendall(encode_frame(TAG_EOS))
+        finally:
+            sock.close()
+            ls.close()
+            echo.join(timeout=5.0)
+        return max(rtt / 2.0, 1e-9)
+    except Exception:   # noqa: BLE001 - no loopback here: keep the default
+        return DEFAULT_CALIBRATION.net_hop_s
+
+
 def measure_cuda_dispatch(n: int = 200) -> float:
     """Seconds the card takes per launch of a tiny kernel, back to back,
     timed with CUDA events (what one extra device step costs)."""
@@ -427,13 +498,145 @@ def measure_cuda_dispatch(n: int = 200) -> float:
     return max(start.elapsed_time(end) * 1e-3 / n, 1e-9)
 
 
+# The device boundary's constants, each timed through the path the boundary
+# node (``compiler._DeviceStageNode``) really takes: its host stacking and
+# side-stream copy in (``graph._to_device``), its pinned copy out
+# (``graph._Landing``) and its copy streams (``graph._copy_streams``).
+# Host time around a synchronise: the host pays for the staging too.
+# Without a card each returns its default, as nothing here can be timed.
+def _card() -> Any:
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _host_best(fn: Callable[[], Any], reps: int) -> float:
+    import torch
+    fn()                                        # warm the path
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _measure_fused_segment(k: int = 4) -> float:
+    """Marginal per-stage cost inside one device segment: an eager
+    ``k``-stage chain on the card against a 1-stage one (one kernel a
+    stage), each synchronised, best of 5, the extra over ``k - 1``.  The
+    port's fused segment runs eagerly, so this is about one launch a
+    stage."""
+    import torch
+    dev = _card()
+    if dev is None:
+        return DEFAULT_CALIBRATION.fused_segment_s
+    x = torch.zeros(8, device=dev)
+
+    def chain(n: int) -> Callable[[], Any]:
+        def run() -> Any:
+            y = x
+            for _ in range(n):
+                y = y.mul(1.0001)
+            return y
+        return run
+
+    t1 = _host_best(chain(1), 5)
+    tk = _host_best(chain(k), 5)
+    return max((tk - t1) / (k - 1), 1e-9)
+
+
+_BOUNDARY_ROWS = 512     # items a measured microbatch stacks (phase 4's)
+
+
+def _boundary_batch(nbytes: int) -> list:
+    import numpy as np
+    cols = max(1, nbytes // 4 // _BOUNDARY_ROWS)
+    return list(np.zeros((_BOUNDARY_ROWS, cols), dtype=np.float32))
+
+
+def _measure_h2d_bw(nbytes: int = 4 << 20, reps: int = 5) -> float:
+    """Host->device boundary bandwidth (GB/s): an ``nbytes`` float32 batch
+    of ``_BOUNDARY_ROWS`` items stacked and copied in by
+    ``graph._to_device`` on an h2d side stream, best of ``reps`` on the
+    host clock."""
+    from .graph import _copy_streams, _to_device
+    dev = _card()
+    if dev is None:
+        return DEFAULT_CALIBRATION.h2d_bw_gbs
+    items = _boundary_batch(nbytes)
+    h2d, _d2h = _copy_streams(dev, 2)
+    best = _host_best(lambda: _to_device(items, dev, h2d), reps)
+    return max(nbytes / max(best, 1e-9) / 1e9, 1e-3)
+
+
+def _measure_d2h_bw(nbytes: int = 4 << 20, reps: int = 5) -> float:
+    """Device->host boundary bandwidth (GB/s): an ``nbytes`` float32 batch
+    on the card copied out through ``graph._Landing`` (a d2h side stream
+    into pinned buffers, then the host copy out of them), best of
+    ``reps`` on the host clock."""
+    import torch
+
+    from .graph import _copy_streams, _Landing
+    dev = _card()
+    if dev is None:
+        return DEFAULT_CALIBRATION.d2h_bw_gbs
+    ys = torch.zeros(nbytes // 4, dtype=torch.float32, device=dev)
+    _h2d, d2h = _copy_streams(dev, 2)
+    best = _host_best(lambda: _Landing(ys, d2h).wait(), reps)
+    return max(nbytes / max(best, 1e-9) / 1e9, 1e-3)
+
+
+def _measure_overlap_eff(k: int = 8, reps: int = 3,
+                         nbytes: int = 4 << 20) -> float:
+    """Overlap efficiency of the overlapped boundary on this card: ``k``
+    microbatches (copy in, one matmul the size of the batch, copy out)
+    submitted through the copy streams of ``graph._copy_streams`` with one
+    wait at the end, against the same ``k`` each waited for before the next
+    is submitted.  ``1 - window/serial`` is the share of the serial time
+    the window hides, clamped to [0, 1]."""
+    import torch
+
+    from .graph import _copy_streams, _Landing, _to_device
+    dev = _card()
+    if dev is None:
+        return DEFAULT_CALIBRATION.overlap_eff
+    items = _boundary_batch(nbytes)
+    cols = items[0].shape[0]
+    w = torch.randn(cols, cols, generator=torch.Generator().manual_seed(0)
+                    ).to(dev) * cols ** -0.5
+    h2d, d2h = _copy_streams(dev, k)
+
+    def submit() -> Any:
+        return _Landing(torch.tanh(_to_device(items, dev, h2d) @ w), d2h)
+
+    def serial() -> None:
+        for _ in range(k):
+            submit().wait()
+
+    def window() -> None:
+        for landing in [submit() for _ in range(k)]:
+            landing.wait()
+
+    t_serial = _host_best(serial, reps)
+    t_window = _host_best(window, reps)
+    if not 0.0 < t_serial < float("inf"):
+        return DEFAULT_CALIBRATION.overlap_eff
+    return min(1.0, max(0.0, 1.0 - t_window / t_serial))
+
+
 def calibrate(cache: bool = True) -> HostCalibration:
     """Measure the constants on this machine and (optionally) persist them:
     one core's numpy FLOP/s, the thread-queue hop, the shared-memory
     process-lane hop per item and batched (an echo child forked for each),
-    the slab arena's bandwidth, and — where a CUDA device exists — the
-    dispatch cost.  An unwritable cache location keeps the constants in
-    memory with a warning.  The file's observed-cost and autotune tables
+    the slab arena's bandwidth, the loopback network-lane hop, and — where
+    a CUDA device exists — the dispatch cost and the device boundary's
+    (the fused segment's marginal stage, the copy bandwidths each way, the
+    overlap efficiency).  An unwritable cache location keeps the constants
+    in memory with a warning.  The file's observed-cost and autotune tables
     are kept."""
     global _calibration
     import torch
@@ -444,8 +647,13 @@ def calibrate(cache: bool = True) -> HostCalibration:
                            if torch.cuda.is_available()
                            else DEFAULT_CALIBRATION.device_dispatch_s),
         proc_hop_s=_measure_proc_hop(),
+        net_hop_s=_measure_net_hop(),
         shm_batched_hop_s=_measure_shm_batched_hop(),
         arena_bw_gbs=_measure_arena_bw(),
+        fused_segment_s=_measure_fused_segment(),
+        h2d_bw_gbs=_measure_h2d_bw(),
+        d2h_bw_gbs=_measure_d2h_bw(),
+        overlap_eff=_measure_overlap_eff(),
         source="measured")
     _calibration = c
     if cache:
@@ -608,9 +816,11 @@ def observe(stats: dict, alpha: float = 0.25, write: bool = False) -> int:
       measured under >=2 concurrently active workers also settles the
       callable's GIL signal — below 0.7 the workers were serializing on the
       GIL (``releases_gil=False``), above 0.9 they truly ran in parallel
-      (``True``);
+      (``True``); remote-tier records carry the same worker-side CPU clocks
+      shipped back over the network lanes;
     - process-tier records with a parent-side ``hop_ema_s`` refine the
-      calibrated shared-memory lane hop with an EMA.
+      calibrated shared-memory lane hop with an EMA; remote-tier records
+      refine the network-lane hop (``net_hop_s``) the same way.
 
     ``write=True`` persists the refreshed calibration + observed table into
     the on-disk cache (the supervisor writes once at ``stop()``; periodic
@@ -627,7 +837,7 @@ def observe(stats: dict, alpha: float = 0.25, write: bool = False) -> int:
         key = r.get("fn_key")
         cpu = float(r.get("svc_cpu_ema_s", 0.0) or 0.0)
         backend = r.get("backend")
-        if key and cpu > 0.0 and backend in ("thread", "process"):
+        if key and cpu > 0.0 and backend in ("thread", "process", "remote"):
             prev = table.get(key)
             rg = prev.get("releases_gil") if prev else None
             ratio = r.get("gil_ratio")     # thread records only
@@ -642,11 +852,17 @@ def observe(stats: dict, alpha: float = 0.25, write: bool = False) -> int:
                           "items": max(items, prev["items"] if prev else 0)}
             absorbed += 1
         hop = float(r.get("hop_ema_s", 0.0) or 0.0)
-        if hop > 0.0 and backend == "process":
+        if hop > 0.0 and backend in ("process", "remote"):
             c = get_calibration(measure=False)
-            _calibration = dataclasses.replace(
-                c, proc_hop_s=(1.0 - alpha) * c.proc_hop_s + alpha * hop,
-                source="observed")
+            if backend == "process":
+                c = dataclasses.replace(
+                    c, proc_hop_s=(1.0 - alpha) * c.proc_hop_s + alpha * hop,
+                    source="observed")
+            else:
+                c = dataclasses.replace(
+                    c, net_hop_s=(1.0 - alpha) * c.net_hop_s + alpha * hop,
+                    source="observed")
+            _calibration = c
             absorbed += 1
     if write and absorbed:
         _save_observed()

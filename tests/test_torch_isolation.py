@@ -1,7 +1,9 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor anything of
-the reference package, its entry points default to the GPU, the process
-tier and the adaptive runtime compile and run, and the tier it has not
-ported (the remote one) refuses instead of running elsewhere."""
+the reference package, its entry points default to the GPU, and every host
+tier compiles and runs: the process tier, the adaptive runtime, and the
+remote tier, which refuses without a worker pool as the reference does and
+leaves a farm it cannot ship (a lambda) on host threads with the reason in
+its placement."""
 
 import ast
 import pathlib
@@ -13,6 +15,7 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core.compiler import Placement
+from repro_torch.launch.worker import demo_fn
 from repro_torch.core.plan import single_device_plan
 
 torch.set_num_threads(1)
@@ -30,7 +33,8 @@ def _modules():
 # the host tiers' modules, which the import checks must walk too
 TIER_MODULES = ("repro_torch.core.shm", "repro_torch.core.process",
                 "repro_torch.core.accelerator", "repro_torch.core.runtime",
-                "repro_torch.launch.tuned")
+                "repro_torch.core.net", "repro_torch.launch.tuned",
+                "repro_torch.launch.worker")
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -108,20 +112,53 @@ def test_unported_tiers_raise(knob):
         assert runner.run(list(range(20))) == \
             sorted(g.compile(config=T.CompileConfig()).run(list(range(20))))
         return
-    with pytest.raises(T.GraphError, match="not ported yet"):
-        g.compile(config=T.CompileConfig(**knob))
+    if knob.get("mode") == "remote":
+        # no pool to reach: refused, as the reference refuses it
+        with pytest.raises(T.GraphError, match="remote_workers"):
+            g.compile(config=T.CompileConfig(**knob))
+        return
+    # a pool given, but a lambda cannot cross hosts: the farm stays on
+    # host threads (auto placement never reaches the pool), and forced to
+    # the remote tier its placement says why it stayed
+    for mode in ("auto", "remote"):
+        runner = g.compile(config=T.CompileConfig(mode=mode, **knob))
+        assert type(runner).__name__ == "HostRunner"
+        p = runner.placements[0][1]
+        assert p.target == "host", p
+        assert ("pickle" in p.reason) == (mode == "remote"), p
+        assert sorted(runner.run(list(range(20)))) == \
+            [i + 1 for i in range(20)]
 
 
 @pytest.mark.parametrize("target", ["host_process", "host_remote"])
 def test_unported_placements_raise(target):
-    g = T.pipeline(T.farm(lambda x: x + 1, n=2))
-    for value in (target, Placement(target)):
-        if target == "host_process":
+    if target == "host_process":
+        g = T.pipeline(T.farm(lambda x: x + 1, n=2))
+        for value in (target, Placement(target)):
             _runs_on_processes(g.compile(config=T.CompileConfig(
                 placements={0: value})))
-            continue
-        with pytest.raises(T.GraphError, match="not ported yet"):
+        return
+    # the remote tier is ported: with no pool the override is refused, as
+    # the reference refuses it; over a loopback pool of 2 the farm runs
+    # there, in input order
+    g = T.pipeline(T.farm(demo_fn, n=2))
+    for value in (target, Placement(target)):
+        with pytest.raises(T.GraphError, match="remote-placed"):
             g.compile(config=T.CompileConfig(placements={0: value}))
+    addrs, procs = T.spawn_loopback_pool(2)
+    try:
+        for value in (target, Placement(target)):
+            runner = g.compile(config=T.CompileConfig(
+                placements={0: value}, remote_workers=addrs))
+            assert type(runner).__name__ == "RemoteRunner"
+            assert runner.placements[0][1].target == "host_remote"
+            xs = [float(i) for i in range(20)]
+            assert runner.run(xs, timeout=60) == [x * x for x in xs]
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(timeout=10)
 
 
 def test_host_runner_is_the_reference_runtime():
