@@ -194,7 +194,36 @@ Phases, each of which fails the run:
    beside ``place()``'s per-item cost of phase 4's segment under the
    defaults and under them (printed, not held), and phase 4's measured
    times.  Prints items/s beside phase 7's, the net hop and the farm's
-   ``node_stats()``.
+   ``node_stats()``;
+10. the multi-device plan — ranks spawned with the *spawn* start method
+   (``core.spmd.launch``), each on ``cuda:0``, importing ``repro_torch``
+   only; their results and kernel launches come back to this process.
+   10a, one rank over NCCL: Mixtral-8x7B at 1 of 32 layers (phase 5c's
+   configuration, batches and schedule), 3 one-device steps in two
+   micro-batches (10b's reference), then 2 steps of ``make_train_step`` on
+   a (data=1, model=1) mesh with ``fsdp_params``: losses and parameters
+   bit for bit phase 5c's after its first 2 steps; its state saved as a
+   checkpoint.  10b, two ranks sharing the card over gloo: the same model
+   and global batch through ``TrainDriver`` on (data=2, model=1), 3 steps
+   with ``fsdp_params`` (each rank holding half of every fsdp-split leaf
+   before and after), then 1 step replicated: losses within 2e-2 and every
+   leaf's update within 0.45 (``tests/test_torch_train.py``'s bf16 bounds)
+   of the one-rank run in two micro-batches, which routes each row apart
+   as the ranks route theirs (phase 5c's losses are printed beside);
+   ``flash_attention`` and ``router_topk`` launched in both ranks.  10c:
+   10a's checkpoint restored onto the two ranks by ``reshard_state``: every
+   block, and every parameter gathered back whole, bit for bit.  10d:
+   ``pipeline_shard`` of 4 Mixtral blocks on 2 stages, M = 4 microbatches
+   of B1 x S2048, equal to the blocks run serially; ``a2a_dispatch(mesh=
+   data=2)`` at phase 3's shapes byte-equal to the one-rank hop (the a2a
+   kernels launched in both ranks); the vocab-parallel embedding and loss
+   at model=2 over Mixtral's 32000 x 4096, B2 x S2048, against the lookup
+   and ``cross_entropy``; ``flash_decode_combine`` over a 4096-slot cache
+   split in two, against the whole cache; ``tensor_map`` gather and reduce
+   over a Llama-3.2-3B MLP against ``mlp`` (tolerances ``MD_TOL``).  Prints
+   train tokens/s, each step's forward, backward, collective and optimizer
+   ms, each rank's peak memory, the pipeline's ms a microbatch and the
+   collectives each transport carried (calls and host seconds).
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -215,6 +244,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -1976,15 +2006,36 @@ class PhaseClock:
                 for s in self.steps]
 
 
+class SnapshotPipeline:
+    """A data pipeline that keeps host copies of the driver's parameters
+    once ``after`` steps have run: taken as the next batch is asked for,
+    outside the step's time."""
+
+    def __init__(self, pipe, after: int):
+        self.pipe, self.after, self.asked = pipe, after, 0
+        self.driver, self.params = None, None
+
+    def get(self):
+        if self.asked == self.after:
+            self.params = host_params(self.driver.state["params"])
+        self.asked += 1
+        return self.pipe.get()
+
+    def state(self):
+        return self.pipe.state()
+
+
 def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
-                check_launches: bool = True) -> dict:
+                check_launches: bool = True,
+                snapshot_after: Optional[int] = None) -> dict:
     """Train ``cfg`` for ``steps`` steps through ``TrainDriver``, its data
     from ``make_pipeline(SyntheticLMSource)``; fail unless the loss is
     finite at every step and lower at the last than at the first, the
     kernels launched :func:`train_launches_per_step` times a step, and the
     driver's final checkpoint (written under ``build/``, deleted after)
-    restores bit for bit.  ``check_launches=False`` is for a rehearsal on
-    the CPU."""
+    restores bit for bit.  With ``snapshot_after``, the result keeps host
+    copies of the parameters after that many steps (``params_at``).
+    ``check_launches=False`` is for a rehearsal on the CPU."""
     import shutil
     from repro_torch.core.tree import jax_leaves
     from repro_torch.data import SyntheticLMSource, make_pipeline
@@ -2012,12 +2063,16 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
         TRAIN_PEAK_LR, TRAIN_WARMUP, steps))
     pipe = make_pipeline(SyntheticLMSource(cfg.vocab, seq, batch, seed=0),
                          plan, n_batches=steps)
+    if snapshot_after is not None:
+        pipe = SnapshotPipeline(pipe, snapshot_after)
     ckpt_dir = ROOT / "build" / f"train_ckpt_{cfg.name}"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     driver = TrainDriver(clock.wrap(step) if clock else step, state, pipe,
                          DriverConfig(total_steps=steps, ckpt_every=steps + 1,
                                       ckpt_dir=str(ckpt_dir), keep=1,
                                       log_every=1))
+    if snapshot_after is not None:
+        pipe.driver = driver
     del state
     want = train_launches_per_step(cfg)
     try:
@@ -2100,7 +2155,8 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
             "step_ms": med * 1e3, "peak_gb": peak_gb - base_gb,
             "split": split,
             "ckpt_gb": ck_bytes / 1e9, "save_s": driver.ckpt.save_seconds,
-            "restore_s": restore_s, "losses": losses, "ranges": ranges}
+            "restore_s": restore_s, "losses": losses, "ranges": ranges,
+            "params_at": pipe.params if snapshot_after is not None else None}
 
 
 def loss_and_grads(cfg, params, tokens: torch.Tensor) -> tuple:
@@ -2382,10 +2438,12 @@ def phase_train_all(dev: torch.device) -> dict:
     import gc
     from repro_torch.core.plan import single_device_plan
     out = {}
-    for cfg, batch, seq in train_configs():
+    for i, (cfg, batch, seq) in enumerate(train_configs()):
         gc.collect()
         torch.cuda.empty_cache()
-        out[cfg.name] = phase_train(single_device_plan(), cfg, batch, seq)
+        # Mixtral's parameters after phase 10a's steps, which 10a equals
+        out[cfg.name] = phase_train(single_device_plan(), cfg, batch, seq,
+                                    snapshot_after=MD_STEPS_A if i else None)
     gc.collect()
     torch.cuda.empty_cache()
     train_parity(dev)
@@ -3835,11 +3893,690 @@ def phase_remote(main: dict, hop: dict, hybrid: dict,
             "measured": measured}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the multi-device plan on the card
+# ---------------------------------------------------------------------------
+MD_DIR = ROOT / "build" / "multi_device"
+MD_STEPS_A = 2                   # 10a: steps on the (data=1, model=1) mesh
+MD_STEPS_FSDP = 3                # 10b: steps with fsdp_params, then one
+MD_ONE_STEPS = 3                 # the one-rank run 10b is held to
+# 10b against the one-rank run: tests/test_torch_train.py's bounds for a
+# bf16 train step (each step's loss relative; each leaf's update over the
+# steps, L2 norm of the difference over the reference's)
+MD_LOSS_RTOL, MD_UPDATE_TOL = 2e-2, 0.45
+PIPE_LAYERS, PIPE_MICRO = 4, 4   # 10d: 2 stages of 2 Mixtral blocks, M = 4
+FD_B, FD_SLOTS = 8, 4096         # 10d: flash-decode batch and cache slots
+LLAMA_D, LLAMA_FF = 3072, 8192   # 10d: Llama-3.2-3B's MLP widths
+# 10d tolerances, of each output's scale, from the reduction order that
+# changes: the whole-cache decode attention in f32 against its two halves
+# combined by logsumexp (sums split in two); the vocab-parallel loss in
+# f32 (the max, the sum of exponentials and the label logit over two vocab
+# blocks) and its input gradient in bf16 (one rounding of the x gradient's
+# two partials); tensor_map's gather (each column of the product from a
+# half-width GEMM, which cuBLAS may tile differently: one bf16 rounding)
+# and reduce (two bf16 partials summed in bf16: two more roundings)
+MD_TOL = {"flash_decode": 1e-5, "vp_loss": 1e-5, "vp_grad": 2.0 ** -6,
+          "tm_gather": 2.0 ** -7, "tm_reduce": 2.0 ** -6}
+MD_KERNELS = ("flash_attention", "router_topk")
+
+
+def md_setup() -> torch.device:
+    from repro_torch.core import spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return spmd.current_device()
+
+
+def md_config():
+    return train_configs()[1][0]     # Mixtral-8x7B at 1 of 32 layers
+
+
+def md_batches(cfg, n: int) -> list:
+    """Phase 5c's batches: B2 x S2048 from SyntheticLMSource seeded 0."""
+    from repro_torch.data import SyntheticLMSource
+    src = SyntheticLMSource(cfg.vocab, 2048, 2, seed=0)
+    return [src.next_batch() for _ in range(n)]
+
+
+def md_schedule():
+    from repro_torch.optim.schedules import cosine_warmup
+    return cosine_warmup(TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS)
+
+
+def host_params(params) -> list:
+    """Host copies of the leaves (the step updates the state in place)."""
+    from repro_torch.core.tree import jax_leaves
+    return [t.detach().to("cpu", copy=True) for t in jax_leaves(params)]
+
+
+class RankClock(PhaseClock):
+    """:class:`PhaseClock` with the step's two collectives: the parameter
+    gather before the forward and the gradient reduce after the backward
+    (``runtime.steps.gather_params`` / ``reduce_grads``)."""
+
+    @contextlib.contextmanager
+    def timing(self):
+        import repro_torch.runtime.steps as steps
+        gather, reduce = steps.gather_params, steps.reduce_grads
+
+        def timed_gather(*a, **k):
+            self.steps.append({})
+            self.mark_here("gather")
+            return gather(*a, **k)
+
+        def timed_reduce(*a, **k):
+            self.mark_here("reduce")
+            return reduce(*a, **k)
+
+        steps.gather_params, steps.reduce_grads = timed_gather, timed_reduce
+        try:
+            with super().timing():
+                yield
+        finally:
+            steps.gather_params, steps.reduce_grads = gather, reduce
+
+    def mark_here(self, phase: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.steps[-1][phase] = (ev, time.perf_counter())
+
+    def mark(self, phase: str) -> None:
+        self.mark_here(phase)            # the step opened at the gather
+
+    def split(self) -> list:
+        """Per step, the device ms of each part, and the host ms of the
+        forward (``forward_host``)."""
+        out = []
+        for s in self.steps:
+            e = lambda a, b: s[a][0].elapsed_time(s[b][0])
+            out.append({"forward": e("forward", "backward"),
+                        "backward": e("backward", "reduce"),
+                        "collective": e("gather", "forward")
+                        + e("reduce", "optimizer"),
+                        "optimizer": e("optimizer", "end"),
+                        "forward_host": (s["backward"][1]
+                                         - s["forward"][1]) * 1e3})
+        return out
+
+
+def md_rank_one(out_dir: str) -> dict:
+    """10a, one rank over NCCL: the one-rank run 10b is held to (phase 5c's
+    step in two micro-batches for ``MD_ONE_STEPS`` steps, the parameters
+    after steps 1 and 3 written for 10b), then ``MD_STEPS_A`` steps on the
+    (data=1, model=1) mesh with fsdp_params, whose state is saved as a
+    checkpoint: the parent holds its losses and parameters to phase 5c's
+    one-device steps, and 10c restores it."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core import spmd
+    from repro_torch.core.plan import ShardingPlan, single_device_plan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.driver import host_metrics
+    from repro_torch.runtime.steps import init_state, make_train_step
+    dev = md_setup()
+    cfg = md_config()
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
+               for b in md_batches(cfg, MD_ONE_STEPS)]
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    # 10b's reference: the whole batch in two micro-batches of one row,
+    # which route their tokens apart as the two ranks do (each rank sizes
+    # its expert lanes by its own tokens)
+    one = single_device_plan(dev)
+    state = init_state(cfg, one, gen())
+    step = make_train_step(cfg, one, md_schedule(), n_micro=2)
+    losses_micro, snaps = [], {}
+    for i in range(MD_ONE_STEPS):
+        state, m = step(state, batches[i])
+        losses_micro.append(host_metrics(m)["loss"])
+        if i + 1 in (1, MD_ONE_STEPS):
+            snaps[i + 1] = host_params(state["params"])
+    del state, step
+    gc_cuda()
+    torch.save({"losses_micro": losses_micro, "p1_micro": snaps[1],
+                "p3_micro": snaps[MD_ONE_STEPS]},
+               pathlib.Path(out_dir) / "one_rank.pt")
+    del snaps
+    plan = ShardingPlan(make_host_mesh(data=1))
+    state = init_state(cfg, plan, gen())
+    step = make_train_step(cfg, plan, md_schedule())
+    kernels = zero_launches()
+    losses = []
+    for i in range(MD_STEPS_A):
+        state, m = step(state, batches[i])
+        losses.append(host_metrics(m)["loss"])
+    launches = {n: kernels[n].launches for n in MD_KERNELS}
+    t0 = time.perf_counter()
+    save_checkpoint(pathlib.Path(out_dir) / "ckpt", MD_STEPS_A, state)
+    save_s = time.perf_counter() - t0
+    return {"losses": losses, "launches": launches,
+            "backend": spmd.backend(), "routes": dict(spmd.ROUTES),
+            "save_s": save_s, "mesh": plan.mesh.shape}
+
+
+def md_params_equal(out_dir: str, cfg, params_at: list,
+                    dev: torch.device) -> tuple:
+    """10a's saved parameters against phase 5c's after the same steps, bit
+    for bit (the checkpoint widens bf16 to fp32 exactly): (equal, leaves)."""
+    import warnings
+    import numpy as np
+    from repro_torch.checkpoint import host_state
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    host = host_state(pathlib.Path(out_dir) / "ckpt", cfg,
+                      ShardingPlan(make_host_mesh(device=dev)))
+    saved = jax_leaves(host["params"])
+    equal = len(saved) == len(params_at)
+    for a, b in zip(saved, params_at):
+        with warnings.catch_warnings():      # a read-only memory map
+            warnings.simplefilter("ignore", UserWarning)
+            got = torch.from_numpy(np.asarray(a)).to(dev).to(b.dtype)
+        equal &= torch.equal(got, b.to(dev))
+    return equal, len(saved)
+
+
+def gc_cuda() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def update_sq(p_got: torch.Tensor, p0: torch.Tensor,
+              p_want: torch.Tensor) -> torch.Tensor:
+    """(|d_got - d_want|^2, |d_want|^2) of a leaf's update d = p - p0, or of
+    a block of it: summed over the blocks, the two squared L2 norms whose
+    ratio's root ``tests/test_torch_train.py`` bounds."""
+    d_want = p_want.float() - p0.float()
+    d_got = p_got.float() - p0.float()
+    return torch.stack([(d_got - d_want).square().sum(),
+                        d_want.square().sum()])
+
+
+def md_train(cfg, plan, dev, one: dict, steps: int, fsdp: bool,
+             losses5c: list) -> dict:
+    """``steps`` steps of ``cfg`` through ``TrainDriver`` over
+    ``make_train_step`` on ``plan``, fed phase 5c's batches by
+    ``make_pipeline``; held to the one-rank run ``one``, leaf by leaf on
+    this rank's blocks (the squared norms summed over the ranks that split
+    a leaf), and its losses printed beside phase 5c's ``losses5c``."""
+    from repro_torch.core import spmd
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.data import SyntheticLMSource, make_pipeline
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import walk_defs
+    from repro_torch.runtime.driver import DriverConfig, TrainDriver
+    from repro_torch.runtime.steps import (init_state, make_train_step,
+                                           state_shardings)
+    state = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(0))
+    sh = jax_leaves(state_shardings(cfg, plan)["params"])
+    defs = jax_leaves(LM(cfg).param_defs())
+    split_of = [any("data" in axes for axes in s.shard_dims().values())
+                for s in sh]
+
+    def halves(params) -> bool:
+        """Each leaf split over data holds half of the whole, others all."""
+        return all(t.numel() == math.prod(d.shape) // (2 if split else 1)
+                   for t, d, split in zip(jax_leaves(params), defs, split_of))
+    held0 = halves(state["params"])
+    clock = RankClock()
+    step = make_train_step(cfg, plan, md_schedule())
+    pipe = make_pipeline(SyntheticLMSource(cfg.vocab, 2048, 2, seed=0),
+                         plan, n_batches=steps)
+    driver = TrainDriver(clock.wrap(step), state, pipe,
+                         DriverConfig(total_steps=steps, ckpt_every=steps + 1,
+                                      log_every=steps + 1))
+    driver.ckpt = _NoCheckpoint()    # 10c holds the restore
+    del state
+    kernels = zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with clock.timing():
+        out = driver.run()
+    launches = {n: kernels[n].launches for n in MD_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [h["loss"] for h in out["history"]]
+    dts = [h["dt"] for h in out["history"]]
+    held = halves(driver.state["params"])
+    # each leaf's update against the one-rank run's, on this rank's blocks
+    p0 = jax_leaves(LM(cfg).init(torch.Generator(device=dev).manual_seed(0)))
+    want = one["p3_micro" if steps == MD_ONE_STEPS else "p1_micro"]
+    names = ["/".join(path) for path, _ in sorted(walk_defs(
+        LM(cfg).param_defs()))]
+    errs = []
+    for t, s, a, w, split in zip(jax_leaves(driver.state["params"]), sh, p0,
+                                 want, split_of):
+        sq = update_sq(t, s.local_block(a), s.local_block(w).to(dev))
+        if split:
+            sq = spmd.all_sum(sq, plan.mesh, ("data",))
+        errs.append(float(sq[0].sqrt() / sq[1].sqrt().clamp(min=1e-30)))
+    del p0, driver
+    worst = sorted(zip(errs, names), reverse=True)[:3]
+    rel = lambda ref: max(abs(a / b - 1) for a, b in zip(losses, ref))
+    return {"losses": losses, "dts": dts, "launches": launches,
+            "peak_gb": peak_gb, "split": clock.split()[:steps],
+            "held_before": held0, "held_after": held,
+            "n_split": sum(split_of), "n_leaves": len(sh), "fsdp": fsdp,
+            "rank": spmd.rank(), "update_err": worst[0][0],
+            "worst": [(n, round(v, 4)) for v, n in worst],
+            "loss_err": rel(one["losses_micro"]),
+            "loss_err_5c": rel(losses5c)}
+
+
+def md_restore(cfg, plan, dev, out_dir: str) -> dict:
+    """10c: 10a's checkpoint placed onto the data=2 mesh by reshard_state:
+    every block equal to its chunk of the saved array, bit for bit; then
+    the parameters gathered back whole (as on one rank) equal to the saved
+    arrays.  The optimizer moments' blocks are held above; gathering their
+    17.2 GB back too would take gloo about 25 s more."""
+    import warnings
+    import numpy as np
+    from repro_torch.checkpoint import host_state, reshard_state
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.runtime.steps import state_shardings
+    t0 = time.perf_counter()
+    host = host_state(pathlib.Path(out_dir) / "ckpt", cfg, plan)
+    state = reshard_state(cfg, host, plan)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    sh = state_shardings(cfg, plan)
+
+    def saved(a) -> torch.Tensor:
+        with warnings.catch_warnings():      # a read-only memory map
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(np.asarray(a))
+    blocks_equal = whole_equal = True
+    n = 0
+    for t, s, a in zip(jax_leaves(state), jax_leaves(sh), jax_leaves(host)):
+        want = saved(a)                      # nothing read yet
+        for d in s.shard_dims():
+            i, k = s.block(d)
+            want = want.chunk(k, dim=d)[i]
+        blocks_equal &= torch.equal(t, want.to(dev).to(t.dtype))
+        n += 1
+    t1 = time.perf_counter()
+    for t, s, a in zip(jax_leaves(state["params"]), jax_leaves(sh["params"]),
+                       jax_leaves(host["params"])):
+        whole_equal &= torch.equal(s.gather(t), saved(a).to(dev).to(t.dtype))
+    return {"blocks_equal": blocks_equal, "whole_equal": whole_equal,
+            "n_leaves": n, "n_params": len(jax_leaves(state["params"])),
+            "place_s": place_s, "check_s": t1 - t0 - place_s,
+            "gather_s": time.perf_counter() - t1}
+
+
+def md_pipeline(dev, mesh) -> dict:
+    """10d: ``pipeline_shard`` over the data axis, each stage 2 Mixtral
+    blocks (attention and MoE), M = 4 microbatches of B1 x S2048, against
+    the 4 blocks run serially in this rank."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.core import device as D
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.lm import LM, _layers, apply_block
+    cfg = dataclasses.replace(get("mixtral-8x7b"), n_layers=PIPE_LAYERS)
+    S = mesh.shape["data"]
+    stack = LM(cfg).init(torch.Generator(device=dev).manual_seed(1)
+                         )["stacks"]["moe"]
+    per = PIPE_LAYERS // S
+    staged = tree_map(lambda t: t.reshape((S, per) + t.shape[1:]), stack)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x_mb = torch.randn(PIPE_MICRO, 1, 2048, cfg.d_model, generator=g,
+                       device=dev).to(torch.bfloat16)
+    pos = torch.arange(2048, device=dev)[None]
+
+    def blocks(layers, x):
+        for p in layers:
+            x, _, _ = apply_block("moe", x, p, cfg, positions=pos)
+        return x
+
+    def stage_fn(p, x):
+        return blocks(_layers(p), x)
+
+    run = D.pipeline_shard(stage_fn, mesh, "data", PIPE_MICRO)
+    kernels = zero_launches()
+    with torch.no_grad():
+        run(staged, x_mb)                     # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(staged, x_mb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: kernels[n].launches for n in MD_KERNELS}
+        want = torch.stack([blocks(_layers(stack), x_mb[i])
+                            for i in range(PIPE_MICRO)])
+    return {"equal": torch.equal(got, want), "steps": PIPE_MICRO + S - 1,
+            "ms": ms, "ms_micro": ms / PIPE_MICRO, "launches": launches,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def md_a2a(dev, mesh) -> dict:
+    """10d: ``a2a_dispatch(mesh=data=2)`` at phase 3's shapes, lossless,
+    against the one-rank hop on the whole batch: byte-equal."""
+    from repro_torch.core import device as D
+    from repro_torch.kernels.a2a_fused import a2a_combine, a2a_route
+    model = make_model(dev, seed=0)
+    fns = make_fns(model)
+    g = torch.Generator().manual_seed(3)
+    xs = torch.randn(T_TOKENS, D_MODEL, generator=g).to(dev).to(
+        torch.bfloat16)
+    t_idx = torch.arange(T_TOKENS, device=dev, dtype=torch.int32)
+    lefts = [fns["left"]] * N_LEFT
+    a2a_route.launches = a2a_combine.launches = 0
+    got = D.a2a_dispatch(lefts, fns["experts"], router=fns["router"],
+                         mesh=mesh, axis="data")(xs, t_idx)
+    launches = {"a2a_route": a2a_route.launches,
+                "a2a_combine": a2a_combine.launches}
+    want = D.a2a_dispatch(lefts, fns["experts"], router=fns["router"])(
+        xs, t_idx)
+    return {"equal": torch.equal(got, want), "launches": launches,
+            "max_abs": float((got.float() - want.float()).abs().max())}
+
+
+def md_vocab(dev, mesh) -> dict:
+    """10d: ``vocab_parallel_embed`` / ``vocab_parallel_ce`` at model=2 over
+    Mixtral's 32000 x 4096 at B2 x S2048, against the one-rank lookup and
+    ``cross_entropy`` (loss and input gradient)."""
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.models.lm import (cross_entropy, vocab_parallel_ce,
+                                       vocab_parallel_embed)
+    plan = ShardingPlan(mesh)
+    V, d, B, S = 32000, D_MODEL, 2, 2048
+    g = torch.Generator(device=dev).manual_seed(4)
+    emb = (torch.randn(V, d, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    tok = torch.randint(0, V, (B, S), generator=g, device=dev)
+    e_eq = torch.equal(vocab_parallel_embed(tok, emb, plan),
+                       emb[tok].to(torch.bfloat16))
+    x = torch.randn(B, S, d, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(d, V, generator=g, device=dev) * d ** -0.5).to(
+        torch.bfloat16)
+    lab = torch.roll(tok, -1, 1)
+    mask = torch.ones(B, S, device=dev)
+    mask[:, -1] = 0.0
+    out = {}
+    for name, fn in (("vp", lambda x: vocab_parallel_ce(x, w, lab, mask,
+                                                        plan)),
+                     ("one", lambda x: cross_entropy(x, w, lab, mask))):
+        xx = x.detach().requires_grad_(True)
+        loss = fn(xx)
+        (gx,) = torch.autograd.grad(loss, [xx])
+        out[name] = (loss.detach(), gx)
+    loss_err = abs(float(out["vp"][0]) / float(out["one"][0]) - 1)
+    gx_err = float((out["vp"][1].float() - out["one"][1].float()).abs().max()
+                   / out["one"][1].float().abs().max())
+    return {"embed_equal": e_eq, "loss_err": loss_err, "grad_err": gx_err,
+            "loss": float(out["vp"][0])}
+
+
+def md_flash_decode(dev, mesh) -> dict:
+    """10d: ``flash_decode_combine`` on Mixtral's decode attention (B8,
+    32/8 heads of 128) over a 4096-slot cache split in two along S,
+    against the whole-cache decode attention."""
+    from repro_torch.core import device as D
+    from repro_torch.core import spmd
+    from repro_torch.core.plan import P
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(FD_B, 32, 128, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(FD_B, FD_SLOTS, 8, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(FD_B, FD_SLOTS, 8, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+
+    def scores(q, kl):
+        kh = kl.float().repeat_interleave(4, dim=2)          # GQA group 4
+        return torch.einsum("bhd,bkhd->bhk", q.float(), kh) / 128 ** 0.5
+
+    def local(q, kl, vl):
+        s = scores(q, kl)
+        m = torch.amax(s, -1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bhk,bkhd->bhd", p,
+                         vl.float().repeat_interleave(4, dim=2)) / \
+            p.sum(-1)[..., None]
+        return D.flash_decode_combine(o, torch.log(p.sum(-1)) + m, "model")
+    kv = P(None, "model", None, None)
+    got = spmd.shard_map(local, mesh, (P(), kv, kv), P())(q, k, v)
+    p = torch.softmax(scores(q, k), -1)
+    want = torch.einsum("bhk,bkhd->bhd", p,
+                        v.float().repeat_interleave(4, dim=2))
+    return {"err": float((got - want).abs().max() / want.abs().max())}
+
+
+def md_tensor_map(dev, mesh) -> dict:
+    """10d: ``tensor_map`` over a Llama-3.2-3B MLP (d 3072, ff 8192) at B1 x
+    S2048, gather (column-parallel wi/wg, h gathered, then wo) and reduce
+    (row-parallel wo, partials psummed), against the one-rank ``mlp``."""
+    from repro_torch.core import device as D
+    from repro_torch.core.plan import P
+    from repro_torch.models.layers import mlp, mm, silu_stepwise
+    g = torch.Generator(device=dev).manual_seed(6)
+    r = lambda *s, sc: (torch.randn(*s, generator=g, device=dev) * sc).to(
+        torch.bfloat16)
+    x = r(1, 2048, LLAMA_D, sc=1.0)
+    p = {"wi": r(LLAMA_D, LLAMA_FF, sc=LLAMA_D ** -0.5),
+         "wg": r(LLAMA_D, LLAMA_FF, sc=LLAMA_D ** -0.5),
+         "wo": r(LLAMA_FF, LLAMA_D, sc=LLAMA_FF ** -0.5)}
+    want = mlp(x, p, "silu")
+    col = P(None, "model")
+    h = D.tensor_map(lambda x, wi, wg: mm(x, wi) * silu_stepwise(mm(x, wg)),
+                     mesh, axis="model", split_spec=(P(), col, col),
+                     out_axis=2)(x, p["wi"], p["wg"])
+    gathered = mm(h, p["wo"]).to(torch.bfloat16)
+    reduced = D.tensor_map(
+        lambda x, wi, wg, wo: mm(mm(x, wi) * silu_stepwise(mm(x, wg)),
+                                 wo).to(torch.bfloat16),
+        mesh, axis="model", split_spec=(P(), col, col, P("model", None)),
+        compose="reduce")(x, p["wi"], p["wg"], p["wo"])
+    scale = float(want.float().abs().max())
+    err = lambda y: float((y.float() - want.float()).abs().max()) / scale
+    return {"gather_err": err(gathered), "reduce_err": err(reduced)}
+
+
+def md_rank_two(out_dir: str, losses5c: list) -> dict:
+    """10b-10d in each of two ranks sharing ``cuda:0`` over gloo."""
+    from repro_torch.core import spmd
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    dev = md_setup()
+    cfg = md_config()
+    # memory-mapped: each rank reads the blocks it holds
+    one = torch.load(pathlib.Path(out_dir) / "one_rank.pt", mmap=True)
+    mesh = make_host_mesh(data=2)                 # (data=2, model=1)
+    mesh_tp = make_mesh((1, 2), ("data", "model"))
+    out = {"backend": spmd.backend(), "mesh": mesh.shape}
+    t0 = time.perf_counter()
+    out["fsdp"] = md_train(cfg, ShardingPlan(mesh), dev, one, MD_STEPS_FSDP,
+                           True, losses5c)
+    gc_cuda()
+    out["dp"] = md_train(cfg, ShardingPlan(mesh, fsdp_params=False), dev,
+                         one, 1, False, losses5c)
+    del one
+    gc_cuda()
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["restore"] = md_restore(cfg, ShardingPlan(mesh), dev, out_dir)
+    gc_cuda()
+    out["restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pipe"] = md_pipeline(dev, mesh)
+    gc_cuda()
+    out["a2a"] = md_a2a(dev, mesh)
+    gc_cuda()
+    out["vocab"] = md_vocab(dev, mesh_tp)
+    out["flash_decode"] = md_flash_decode(dev, mesh_tp)
+    out["tensor_map"] = md_tensor_map(dev, mesh_tp)
+    out["skeletons_s"] = time.perf_counter() - t0
+    out["routes"] = {k: dict(v) for k, v in spmd.ROUTES.items()}
+    out["route_s"] = {k: {t: round(x, 3) for t, x in v.items()}
+                      for k, v in spmd.ROUTE_SECONDS.items()}
+    return out
+
+
+def phase_multi_device(card: str, train5c: dict) -> dict:
+    """Phase 10: 10a in one spawned rank over NCCL, 10b-10d in two spawned
+    ranks sharing ``cuda:0`` over gloo; fails on any check of theirs.
+    ``train5c`` is phase 5c's Mixtral result: its losses, and its
+    parameters after ``MD_STEPS_A`` steps, which 10a's must equal."""
+    from repro_torch.core import spmd
+    gc_cuda()
+    shutil.rmtree(MD_DIR, ignore_errors=True)
+    MD_DIR.mkdir(parents=True)
+    held = torch.cuda.memory_allocated() / 1e9
+    want = train5c["losses"][:MD_STEPS_A]
+    try:
+        t0 = time.perf_counter()
+        a = spmd.launch(md_rank_one, 1, str(MD_DIR), timeout_s=600)[0]
+        ta = time.perf_counter() - t0
+        equal, n = md_params_equal(str(MD_DIR), md_config(),
+                                   train5c["params_at"], torch.device("cuda"))
+        say(f"[multi] 10a: one rank over {a['backend']}, mesh {a['mesh']}, "
+            f"fsdp_params: losses {a['losses']} against phase 5c's "
+            f"one-device steps' {want}; parameters "
+            f"{'equal' if equal else 'DIFFERENT'} bit for bit ({n} leaves);"
+            f" launches {a['launches']}; checkpoint saved in "
+            f"{a['save_s']:.1f} s; {ta:.1f} s with the one-rank run 10b is "
+            f"held to (the parent holds {held:.2f} GB)")
+        if a["backend"] != "nccl":
+            fail(f"10a: one rank on the card ran over {a['backend']}, not "
+                 "nccl")
+        if a["losses"] != want or not equal:
+            fail("10a: the mesh step differs from phase 5c's one-device "
+                 "step")
+        if not all(a["launches"].values()):
+            fail(f"10a: a kernel did not launch: {a['launches']}")
+        t0 = time.perf_counter()
+        ranks = spmd.launch(md_rank_two, 2, str(MD_DIR), train5c["losses"],
+                            timeout_s=900)
+        tb = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(MD_DIR, ignore_errors=True)
+    return md_report(card, a, ranks, ta, tb, train5c)
+
+
+def md_report(card: str, a: dict, ranks: list, ta: float, tb: float,
+              train5c: dict) -> dict:
+    """Print 10b-10d from both ranks, then fail on any of their checks."""
+    faults = []
+    launches = {n: a["launches"][n] for n in MD_KERNELS}
+    for r, res in enumerate(ranks):
+        for mode in ("fsdp", "dp"):
+            t = res[mode]
+            med = sorted(t["dts"])[len(t["dts"]) // 2]
+            say(f"[multi] 10b rank {r} {'fsdp_params' if t['fsdp'] else 'replicated'}"
+                f" over {res['backend']}, mesh {res['mesh']}: losses "
+                f"{t['losses']}; against the one-rank run in two "
+                f"micro-batches (each row routed apart, as the ranks route "
+                f"theirs): loss within {t['loss_err']:.2e} relative "
+                f"(limit {MD_LOSS_RTOL}), worst leaf updates "
+                f"{t['worst']} (limit {MD_UPDATE_TOL}); phase 5c's losses "
+                f"(the whole batch routed at once) within "
+                f"{t['loss_err_5c']:.2e} (printed); "
+                f"{t['n_split']} of {t['n_leaves']} leaves "
+                f"split, held as halves before/after: {t['held_before']}/"
+                f"{t['held_after']}; launches {t['launches']}; peak "
+                f"{t['peak_gb']:.2f} GB; {2 * 2048 / med:.1f} train tokens/s "
+                f"(B2 x S2048 over the median step, {med * 1e3:.1f} ms) on "
+                f"{card}")
+            for i, s in enumerate(t["split"]):
+                say(f"[multi] 10b rank {r} {mode} step {i}: forward "
+                    f"{s['forward']:.1f} ms (host {s['forward_host']:.1f} "
+                    f"ms), backward {s['backward']:.1f} ms,"
+                    f" collective {s['collective']:.1f} ms, optimizer "
+                    f"{s['optimizer']:.1f} ms (CUDA events)")
+            if t["loss_err"] > MD_LOSS_RTOL \
+                    or t["update_err"] > MD_UPDATE_TOL:
+                faults.append(f"10b rank {r} {mode}: off the one-rank run")
+            if t["fsdp"] and not (t["held_before"] and t["held_after"]):
+                faults.append(f"10b rank {r}: a rank does not hold half of each "
+                     "fsdp-sharded leaf")
+            if not all(t["launches"].values()):
+                faults.append(f"10b rank {r} {mode}: a kernel did not launch: "
+                     f"{t['launches']}")
+            for n in MD_KERNELS:
+                launches[n] += t["launches"][n]
+        c = res["restore"]
+        say(f"[multi] 10c rank {r}: reshard_state of 10a's checkpoint "
+            f"({c['n_leaves']} leaves) in {c['place_s']:.1f} s (the blocks' "
+            f"check {c['check_s']:.1f} s, the {c['n_params']} parameters "
+            f"gathered back {c['gather_s']:.1f} s): blocks "
+            f"{'equal' if c['blocks_equal'] else 'DIFFERENT'}, parameters "
+            f"gathered back {'equal' if c['whole_equal'] else 'DIFFERENT'} "
+            f"bit for bit")
+        if not (c["blocks_equal"] and c["whole_equal"]):
+            faults.append(f"10c rank {r}: the restore is not bit for bit")
+        p, h = res["pipe"], res["a2a"]
+        say(f"[multi] 10d rank {r}: pipeline_shard of {PIPE_LAYERS} Mixtral "
+            f"blocks on 2 stages, M = {PIPE_MICRO} of B1 x S2048: "
+            f"{p['steps']} steps, {p['ms']:.1f} ms, {p['ms_micro']:.1f} ms a "
+            f"microbatch, {'equal' if p['equal'] else 'DIFFERENT'} to the "
+            f"serial blocks; launches {p['launches']}")
+        say(f"[multi] 10d rank {r}: a2a_dispatch(mesh=data=2) T{T_TOKENS}: "
+            f"{'byte-equal' if h['equal'] else 'DIFFERENT'} to the one-rank "
+            f"hop (max |diff| {h['max_abs']}); launches {h['launches']}")
+        v, f, m = res["vocab"], res["flash_decode"], res["tensor_map"]
+        say(f"[multi] 10d rank {r}: vocab-parallel at model=2: embedding "
+            f"{'equal' if v['embed_equal'] else 'DIFFERENT'}, loss "
+            f"{v['loss']:.6f} within {v['loss_err']:.2e} (limit "
+            f"{MD_TOL['vp_loss']}), input gradient {v['grad_err']:.2e} of "
+            f"its scale (limit {MD_TOL['vp_grad']}); flash_decode_combine "
+            f"{f['err']:.2e} (limit {MD_TOL['flash_decode']}); tensor_map "
+            f"gather {m['gather_err']:.2e} (limit {MD_TOL['tm_gather']}), "
+            f"reduce {m['reduce_err']:.2e} (limit {MD_TOL['tm_reduce']})")
+        if not (p["equal"] and p["finite"] and h["equal"]
+                and v["embed_equal"]):
+            faults.append(f"10d rank {r}: a skeleton differs from its one-rank form")
+        for key, got in (("vp_loss", v["loss_err"]), ("vp_grad", v["grad_err"]),
+                         ("flash_decode", f["err"]),
+                         ("tm_gather", m["gather_err"]),
+                         ("tm_reduce", m["reduce_err"])):
+            if not got <= MD_TOL[key]:
+                faults.append(f"10d rank {r}: {key} {got} over {MD_TOL[key]}")
+        if not all(p["launches"].values()) or not all(h["launches"].values()):
+            faults.append(f"10d rank {r}: a kernel did not launch")
+        for n in MD_KERNELS:
+            launches[n] += p["launches"][n]
+        for n in ("a2a_route", "a2a_combine"):
+            launches[n] = launches.get(n, 0) + h["launches"][n]
+        say(f"[multi] rank {r}: train {res['train_s']:.1f} s, restore "
+            f"{res['restore_s']:.1f} s, skeletons {res['skeletons_s']:.1f} s;"
+            f" collectives by transport (calls) {res['routes']}, host "
+            f"seconds {res['route_s']}")
+    fsdp = [r["fsdp"] for r in ranks]
+    dts = sorted(fsdp[0]["dts"])
+    tok_fsdp = 2 * 2048 / dts[len(dts) // 2]
+    say(f"[multi] train tokens/s: two ranks on one card with fsdp_params "
+        f"{tok_fsdp:.1f}, replicated "
+        f"{2 * 2048 / ranks[0]['dp']['dts'][0]:.1f} (one step, the first), "
+        f"one device (phase 5c) {train5c['tok_s']:.1f}")
+    say(f"[multi] phase 10: 10a {ta:.1f} s, 10b-10d {tb:.1f} s on {card}")
+    if faults:
+        fail("; ".join(faults))
+    return {"launches": launches, "tok_s": tok_fsdp}
+
+
 def path_rows(rows: list, paths: list) -> list:
     """Rows for kernels on a path whose shapes rows above already time:
     ``(name, row timed at the same shape, launches on the path)``."""
     by = {r["name"]: r for r in rows}
     return [dict(by[src], name=name, launches=n) for name, src, n in paths]
+
+
+def multi_device_rows(dev: torch.device, card: str, errs: dict, rows: list,
+                      train5c: dict) -> list:
+    """Phase 10 and its kernels' rows, with the launches summed over its
+    ranks: 10b's per-rank attention (B1 x S2048 D128) and router (2048
+    tokens) run at phase 5's serving shapes, so their rows take those
+    times; the a2a hop per rank (T 2048 at capacity 4096) is timed here."""
+    t0 = time.perf_counter()
+    md = phase_multi_device(card, train5c)
+    out = path_rows(rows, [
+        ("flash_attention_multi_rank", "flash_attention",
+         md["launches"]["flash_attention"]),
+        ("router_topk_multi_rank", "router_topk",
+         md["launches"]["router_topk"])])
+    out += a2a_rows(dev, T_TOKENS // 2, T_TOKENS,
+                    {n: md["launches"][n] for n in ("a2a_route",
+                                                    "a2a_combine")},
+                    errs, card, "_multi_rank")
+    say(f"[multi] phase 10 {time.perf_counter() - t0:.1f} s on {card}")
+    return out
 
 
 def main() -> int:
@@ -3931,6 +4668,10 @@ def main() -> int:
          remote["launches"]["a2a_route"]),
         ("a2a_combine_remote", "a2a_combine_process",
          remote["launches"]["a2a_combine"])])
+    main.clear()                         # phase 10's ranks need the card
+    hyb.clear()
+    rows += multi_device_rows(dev, card["card"], errs, rows,
+                              train[train_configs()[1][0].name])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

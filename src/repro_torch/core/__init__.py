@@ -1,5 +1,5 @@
 """Core of the PyTorch port — FastFlow's layered streaming-network model on
-one CUDA device, behind the same building-blocks graph API and staged
+CUDA devices, behind the same building-blocks graph API and staged
 compiler as the reference package ``repro.core``.
 
 Layers ported so far:
@@ -17,11 +17,19 @@ Layers ported so far:
 * ``core.compiler`` — ``normalize -> annotate -> place -> emit`` over the
   host-thread, host-process and device tiers, with fused device segments
   (``core.fuse``) behind an overlapped host<->device boundary;
-* ``core.device`` — ``farm_map``, ``feedback_scan``, ``feedback_while`` and
+* ``core.device`` — ``farm_map``, ``tensor_map``, ``pipeline_shard``,
+  ``flash_decode_combine``, ``feedback_scan``, ``feedback_while`` and
   ``a2a_dispatch``, the last through the CUDA all-to-all kernels of
-  ``kernels/a2a_fused.py``;
-* ``core.plan`` — :func:`single_device_plan`, ``cuda:0`` unless the caller
-  names another device (``device="cpu"`` for the CPU);
+  ``kernels/a2a_fused.py``; over a mesh with ranks, SPMD;
+* ``core.plan`` — ``DEFAULT_RULES``, :class:`ShardingPlan` (logical axes
+  onto mesh axes), :class:`TorchMesh` (live over a process group, one
+  device, or abstract) and :func:`single_device_plan`, ``cuda:0`` unless
+  the caller names another device (``device="cpu"`` for the CPU);
+* ``core.spmd`` — one process per mesh position: ``shard_map``, the named
+  collectives (``psum``, ``pmean``, ``pmax``, ``all_gather``,
+  ``psum_scatter``, ``ppermute``, ``all_to_all``, ``axis_index``) with
+  their transposes as gradients, the process groups (NCCL across GPUs,
+  gloo on the CPU and for ranks that share a GPU) and ``launch``;
 * ``core.perf_model`` — the Sec. 13 algebra, the H100 roofline and the
   calibrated constants (the shm and network hops and the device
   boundary's copies among them);
@@ -68,11 +76,12 @@ _EXPORTS = {
     "accelerator": ("TorchAccelerator",),
     "runtime": ("AdaptiveFarmNode", "ReplacementEvent", "SLOPolicy",
                 "Supervisor"),
-    "plan": ("TorchPlan", "single_device_plan"),
+    "plan": ("DEFAULT_RULES", "P", "ShardingPlan", "TorchMesh", "TorchPlan",
+             "TorchSharding", "single_device_plan"),
     "params": ("from_numpy",),
 }
 _HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
-_SUBMODULES = ("device", "perf_model")
+_SUBMODULES = ("device", "perf_model", "spmd")
 
 
 def __getattr__(name: str):
@@ -109,6 +118,7 @@ __all__ = [
     "CompileConfig", "CostEstimate", "Placement", "annotate", "place",
     "emit", "compile_graph",
     "TorchAccelerator", "AdaptiveFarmNode", "ReplacementEvent",
-    "SLOPolicy", "Supervisor", "TorchPlan", "single_device_plan", "from_numpy",
-    "device", "perf_model",
+    "SLOPolicy", "Supervisor", "DEFAULT_RULES", "P", "ShardingPlan",
+    "TorchMesh", "TorchPlan", "TorchSharding", "single_device_plan",
+    "from_numpy", "device", "perf_model", "spmd",
 ]

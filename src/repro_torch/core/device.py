@@ -1,23 +1,33 @@
 """Device-side skeleton lowering: the FastFlow patterns as batched PyTorch
-programs on one CUDA device.
+programs on CUDA devices, SPMD over the ranks of a mesh.
 
 ==================  ==========================================================
 FastFlow skeleton    device lowering here
 ==================  ==========================================================
-farm (DP)           ``farm_map`` — on one device, one batched call
+farm (DP)           ``farm_map`` — batch scatter (emitter) + pmean collector
+map  (Sec. 12.1)    ``tensor_map`` — shard_map Split/Compose over an axis
+farm (EP/MoE)       dispatch/combine in models/moe.py; helpers
+                    ``expert_capacity`` here
+pipeline            ``pipeline_shard`` — stages on a mesh axis, microbatches
+                    streamed over ``ppermute`` edges (SPSC channels), GPipe
+                    schedule with fill/drain bubbles
+farm+collector      ``flash_decode_combine`` — partial-softmax workers +
+                    logsumexp-combining collector for sharded-KV decode
 feedback            ``feedback_scan`` — wrap_around as K batched turns;
                     ``feedback_while`` — the data-dependent variant with a
                     per-lane active mask (per-item early exit)
 all_to_all          ``a2a_dispatch`` — left map, route, the fused a2a hop
-                    (``kernels/a2a_fused.py``: CUDA route + combine kernels)
+                    (``kernels/a2a_fused.py``: CUDA route + combine kernels),
+                    per data shard over a mesh
 ==================  ==========================================================
 
 Port of ``src/repro/core/device.py``.  Where the reference writes a per-item
 function and lets ``jax.vmap`` batch it, the lowerings here take functions
 that are already batched (``torch.func.vmap`` of the per-item function), so
 a loop whose length depends on the data runs as a plain Python loop over the
-whole batch.  ``tensor_map``, ``pipeline_shard`` and ``flash_decode_combine``
-(the multi-device lowerings) come with the multi-device slice.
+whole batch.  Over a mesh with ranks behind it the lowerings run through
+``core/spmd.py``'s ``shard_map``: every rank holds the global inputs and
+computes its block; on one device they are one batched call.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from . import spmd
+from .plan import P
 from .tree import tree_leaves, tree_map
 
 
@@ -33,17 +45,134 @@ def _mesh_size(mesh: Any, axis: str) -> int:
     return int(dict(mesh.shape).get(axis, 1)) if mesh is not None else 1
 
 
+def _spmd(mesh: Any) -> bool:
+    """The mesh has ranks behind it: the lowering runs as ``shard_map``."""
+    return mesh is not None and getattr(mesh, "live", False)
+
+
 # ---------------------------------------------------------------------------
 # farm over the data axis (the plain DP farm)
 # ---------------------------------------------------------------------------
-def farm_map(fn: Callable, mesh: Any = None, axis: str = "data") -> Callable:
-    """Run the batched ``fn`` as the farm's workers over ``axis``: on one
-    device the round-robin schedule is the batch itself, so the farm is one
-    batched call."""
-    if _mesh_size(mesh, axis) > 1:
-        raise NotImplementedError("farm_map over several devices is not "
-                                  "ported yet")
-    return fn
+def farm_map(fn: Callable, mesh: Any = None, axis: str = "data",
+             in_specs=None, out_specs=None,
+             reduce_outputs: bool = False) -> Callable:
+    """Run the batched ``fn`` as farm workers over ``axis``; round-robin
+    scheduling is the even batch sharding.  If ``reduce_outputs``, the
+    collector pmeans the results (gradient consolidation 'in memory', paper
+    Sec. 8.2).  On one device the farm is one batched call."""
+    if not _spmd(mesh):
+        if _mesh_size(mesh, axis) > 1:
+            raise RuntimeError(f"farm_map over {axis!r} of an abstract mesh")
+        return fn
+    in_specs = in_specs if in_specs is not None else P(axis)
+    out_specs = out_specs if out_specs is not None else (
+        P() if reduce_outputs else P(axis))
+
+    def worker(*args):
+        out = fn(*args)
+        if reduce_outputs:
+            out = tree_map(lambda t: spmd.pmean(t, axis), out)
+        return out
+
+    return spmd.shard_map(worker, mesh, in_specs, out_specs)
+
+
+# ---------------------------------------------------------------------------
+# map skeleton (Split -> workers -> Compose) over the model axis
+# ---------------------------------------------------------------------------
+def tensor_map(fn: Callable, mesh: Any, axis: str = "model",
+               split_spec=None, compose: str = "gather",
+               out_axis: int = -1) -> Callable:
+    """Paper Sec. 12.1 map on a farm template: Split partitions the input
+    over ``axis``; workers compute partitions; Compose rebuilds the result
+    — ``gather`` (concatenate partitions, e.g. row-parallel) or ``reduce``
+    (psum partial results, e.g. col-parallel matmul contributions)."""
+    split_spec = split_spec if split_spec is not None else P(None, axis)
+
+    def worker(*args):
+        out = fn(*args)
+        if compose == "reduce":
+            out = tree_map(lambda t: spmd.psum(t, axis), out)
+        return out
+
+    if compose == "reduce":
+        out_specs = P()
+    else:  # gather: partitions concatenated along out_axis by the Compose
+        ndim = (-out_axis) if out_axis < 0 else out_axis + 1
+        spec = [None] * ndim
+        spec[out_axis] = axis
+        out_specs = P(*spec)
+    return spmd.shard_map(worker, mesh, split_spec, out_specs)
+
+
+# ---------------------------------------------------------------------------
+# pipeline skeleton over a mesh axis (pipeline parallelism)
+# ---------------------------------------------------------------------------
+def pipeline_shard(stage_fn: Callable, mesh: Any, axis: str,
+                   n_microbatches: int) -> Callable:
+    """GPipe-style pipeline: each rank along ``axis`` owns one stage's
+    parameters; microbatches stream through ``ppermute`` edges — the
+    device SPSC channels.  Total steps = M + S - 1 (fill/drain bubble,
+    cf. paper Sec. 13: service time = max stage time).
+
+    ``stage_fn(stage_params, x) -> x`` must keep the activation shape.
+
+    Returns ``run(stacked_stage_params, x_microbatches)`` where
+    ``stacked_stage_params`` has a leading stage dim sharded over ``axis``
+    and ``x_microbatches`` is ``(M, mb, ...)`` replicated along ``axis``.
+    A stage computes only in the steps that hold one of its microbatches
+    (the reference computes in the bubbles too and discards the result);
+    every step's edge is sent all the same."""
+    S = _mesh_size(mesh, axis)
+    M = n_microbatches
+
+    def body(params, x_mb):
+        params = tree_map(lambda t: t[0], params)
+        idx = spmd.axis_index(axis)
+        state = torch.zeros_like(x_mb[0])          # in-flight microbatch
+        outs = []                                  # drained results
+        fwd_perm = [(i, (i + 1) % S) for i in range(S)]
+        for t in range(M + S - 1):
+            if idx == 0 and t < M:                 # stage 0 ingests t
+                state = x_mb[t]
+            if 0 <= t - idx < M:                   # a microbatch is here
+                state = stage_fn(params, state)
+            if idx == S - 1 and t - (S - 1) >= 0:  # last stage drains
+                outs.append(state)
+            # SPSC edge: push my state to the next stage
+            state = spmd.ppermute(state, axis, fwd_perm)
+        out = torch.stack(outs) if outs else torch.zeros_like(x_mb)
+        # Compose: broadcast the last stage's buffer (collector gather)
+        if S > 1:
+            out = spmd.psum(out, axis)
+        return out
+
+    def run(stage_params, x_mb):
+        specs = tree_map(lambda _: P(axis), stage_params)
+        return spmd.shard_map(body, mesh, (specs, P()), P())(stage_params,
+                                                               x_mb)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# farm-with-collector for sharded-KV decode (flash decoding)
+# ---------------------------------------------------------------------------
+def flash_decode_combine(partial_out: torch.Tensor, partial_lse: torch.Tensor,
+                         axis: str) -> torch.Tensor:
+    """Collector for context-parallel decode attention: workers hold KV
+    shards and produce (softmax-partial output, logsumexp); the collector
+    renormalizes — a farm whose collector implements a numerically exact
+    gather policy.  Runs inside ``shard_map`` over ``axis``.
+
+    partial_out: (..., d) local unnormalized-softmax output
+    partial_lse: (...,)   local logsumexp of scores
+    """
+    m = spmd.pmax(partial_lse, axis)
+    w = torch.exp(partial_lse - m)
+    num = spmd.psum(partial_out * w[..., None], axis)
+    den = spmd.psum(w, axis)
+    return num / den[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -121,16 +250,20 @@ def a2a_dispatch(left_fns: Sequence[Callable], right_fns: Sequence[Callable],
     per-producer staggered round-robin ``(i + k) % nR``.  A ``router(item,
     n_right) -> int`` must be a torch function ``torch.func.vmap`` can
     batch.  ``capacity_factor=None`` sizes every lane to the whole batch
-    (lossless); with a factor, items beyond capacity produce zeros.
+    (lossless); with a factor, items beyond capacity produce zeros.  With
+    a ``mesh`` that has ranks behind ``axis``, the left map runs sharded
+    over ``axis`` — and in the lossless case the route and combine
+    kernels run sharded too, every rank on its own tokens (per-shard lane
+    cursors reproduce the global first-come outcome exactly because
+    nothing can overflow).  A bounded ``capacity_factor`` keeps the
+    dispatch batch-global: first-come lane occupancy across shards needs
+    the one set of cursors.
 
     Returns ``batched(xs, t_idx)`` mapping a stacked batch ``(T, ...)`` plus
     absolute stream indices ``(T,)`` to stacked outputs ``(T, ...)``; right
     workers must agree on output shape/dtype."""
     from ..kernels.a2a_fused import a2a_fused
 
-    if _mesh_size(mesh, axis) > 1:
-        raise NotImplementedError("a2a_dispatch over several devices is not "
-                                  "ported yet")
     nL, nR = len(left_fns), len(right_fns)
     one_left = all(f is left_fns[0] for f in left_fns)
 
@@ -153,7 +286,14 @@ def a2a_dispatch(left_fns: Sequence[Callable], right_fns: Sequence[Callable],
 
     def batched(xs: torch.Tensor, t_idx: torch.Tensor) -> torch.Tensor:
         T = xs.shape[0]
-        ys = left_apply(xs, t_idx)
+        axis_size = _mesh_size(mesh, axis)
+        sharded = _spmd(mesh) and axis_size > 1 and T % axis_size == 0
+        if sharded:
+            ys = farm_map(left_apply, mesh, axis=axis,
+                          in_specs=(P(axis), P(axis)),
+                          out_specs=P(axis))(xs, t_idx)
+        else:
+            ys = left_apply(xs, t_idx)
         if router is not None:
             e = torch.func.vmap(lambda y: torch.as_tensor(router(y, nR)))(ys)
             e = e.to(torch.int32) % nR
@@ -162,6 +302,14 @@ def a2a_dispatch(left_fns: Sequence[Callable], right_fns: Sequence[Callable],
         cap = T if capacity_factor is None else \
             expert_capacity(T, nR, 1, capacity_factor)
         logits = torch.nn.functional.one_hot(e.long(), nR).to(torch.float32)
+        if sharded and capacity_factor is None:
+            # sharded expert compute: every rank runs the hop on its own
+            # tokens (capacity is lossless, so per-shard cursors cannot
+            # diverge from the batch-global first-come outcome)
+            return farm_map(
+                lambda lg, y: a2a_fused(lg, y, right_fns, cap)[0], mesh,
+                axis=axis, in_specs=(P(axis), P(axis)),
+                out_specs=P(axis))(logits, ys)
         out, _keep = a2a_fused(logits, ys, right_fns, cap)
         return out
 

@@ -134,6 +134,8 @@ class RooflineTerms:
     flops_total: float = 0.0
     bytes_total: float = 0.0
     coll_bytes: float = 0.0
+    model_flops: float = 0.0
+    model_flops_s: float = 0.0   # time to run model_flops at peak
 
     @property
     def dominant(self) -> str:
@@ -146,18 +148,50 @@ class RooflineTerms:
         """Optimistic (perfect-overlap) step time = max of terms."""
         return max(self.compute_s, self.memory_s, self.collective_s)
 
+    @property
+    def roofline_fraction(self) -> float:
+        """useful-compute fraction: model-FLOPs-at-peak time / step time."""
+        if self.step_time_s == 0 or not self.model_flops:
+            return 0.0
+        return self.model_flops_s / self.step_time_s
+
 
 def roofline(flops_total: float, bytes_total: float,
              coll_bytes_per_card: float, n_cards: int,
-             hw: HardwareSpec = H100_SXM) -> RooflineTerms:
+             hw: HardwareSpec = H100_SXM,
+             model_flops: float = 0.0) -> RooflineTerms:
     """flops_total/bytes_total are totals over the cards; collective bytes
-    are per-card link traffic."""
+    are per-card link traffic (:func:`collective_link_bytes`)."""
     return RooflineTerms(
         flops_total / (n_cards * hw.peak_flops_bf16),
         bytes_total / (n_cards * hw.hbm_bw),
         coll_bytes_per_card / hw.link_bw,
         flops_total=flops_total, bytes_total=bytes_total,
-        coll_bytes=coll_bytes_per_card)
+        coll_bytes=coll_bytes_per_card, model_flops=model_flops,
+        model_flops_s=model_flops / (n_cards * hw.peak_flops_bf16))
+
+
+# ring-model per-card traffic for each collective kind -----------------------
+def collective_link_bytes(kind: str, operand_bytes: float,
+                          group_size: int) -> float:
+    """Per-card bytes that traverse links for one collective, ring
+    algorithm.  ``operand_bytes`` is the per-card operand (the local
+    shard for an all-gather)."""
+    n = max(group_size, 1)
+    if n == 1:
+        return 0.0
+    if kind == "all-reduce":
+        return 2.0 * operand_bytes * (n - 1) / n
+    if kind in ("all-gather",):
+        # operand is the local shard; each card receives (n-1) shards
+        return operand_bytes * (n - 1)
+    if kind in ("reduce-scatter",):
+        return operand_bytes * (n - 1) / n
+    if kind in ("all-to-all",):
+        return operand_bytes * (n - 1) / n
+    if kind in ("collective-permute", "collective-permute-start"):
+        return operand_bytes
+    return operand_bytes
 
 
 # --------------------------------------------------------------------------

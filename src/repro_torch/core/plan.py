@@ -1,32 +1,117 @@
-"""The device a compiled graph runs on.
+"""L2 — the "arbitrary streaming network" layer for the device side.
 
-The reference's :class:`~repro.core.plan.ShardingPlan` maps logical axes
-onto a JAX mesh.  The port runs on one CUDA device (or, when the caller asks
-for it, the CPU), so its plan is that device plus a one-device mesh whose
-``shape`` is the dict ``{"data": 1}`` — the surface the compiler's
-``place``/``_mesh_axis_size`` read, unchanged from the reference.  Sharded
-plans over several devices are a later slice.
+Port of ``src/repro/core/plan.py``.  A :class:`ShardingPlan` maps *logical*
+tensor axes (batch, fsdp, tp, sp, cp, expert, ...) onto the axes of a
+:class:`TorchMesh`.  The farm skeleton contributes the ``batch``/``fsdp``
+mapping (emitter = scatter over the data axis, collector = gradient
+reduction), the map skeleton ``tp``/``seq`` (Split/Compose over the model
+axis), and the MoE farm ``expert`` (MPMC all-to-all).
+
+The port is SPMD with one process per mesh position (``core/spmd.py``):
+a live mesh wraps a ``torch.distributed`` ``DeviceMesh`` over the process
+group, one sub-group per axis.  A mesh can also be *abstract* — a shape and
+names with no ranks behind it — so that the specs of the production meshes
+(16 x 16, 2 x 16 x 16) are computed without 256 processes.  The one-device
+plan of the earlier slices stays: :func:`single_device_plan` is a
+:class:`TorchPlan` over a one-device mesh whose ``shape`` is ``{"data":
+1}``, the surface the compiler's ``place``/``_mesh_axis_size`` read.
+
+Models never mention mesh axes directly; they name logical axes.  On a
+plain tensor :meth:`ShardingPlan.constrain` is the identity: the model's
+activations are sharded over the mesh in a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 
+# Logical axis vocabulary ----------------------------------------------------
+#   batch     global batch                     -> (pod, data)
+#   fsdp      parameter shard dim (ZeRO-3)     -> data (optionally +pod)
+#   tp        tensor-parallel dim (heads/ffn/vocab/experts)
+#   sp        sequence dim of activations between blocks (Megatron-SP)
+#   cp        sequence dim inside context-parallel attention
+#   none      replicated
+
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("data",),
+    "tp": ("model",),
+    "sp": ("model",),
+    "cp": ("model",),
+    "expert": ("model",),
+    "layers": (),      # stacked layer dim — never sharded
+    "none": (),
+}
+
+
+class P(tuple):
+    """A partition spec: per tensor dim, ``None`` (replicated), one mesh
+    axis name, or a tuple of them (major to minor) — the port's
+    ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
 @dataclasses.dataclass(frozen=True)
 class TorchMesh:
-    """A mesh of one device: hashable by value, so equal plans share the
-    compiled-segment cache as equal JAX meshes do."""
+    """Named mesh axes over ranks.  ``device`` is the device this process
+    computes on (``None`` for an abstract mesh); ``device_mesh`` the live
+    ``torch.distributed`` ``DeviceMesh`` (``None`` on one local device and
+    on an abstract mesh).  Hashable by value, so equal one-device plans
+    share the compiled-segment cache as equal JAX meshes do."""
 
-    device: torch.device
+    device: Optional[torch.device]
     axis_names: Tuple[str, ...] = ("data",)
+    sizes: Optional[Tuple[int, ...]] = None          # None: every axis 1
+    device_mesh: Any = dataclasses.field(default=None, compare=False,
+                                         hash=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {name: 1 for name in self.axis_names}
+        sizes = self.sizes or (1,) * len(self.axis_names)
+        return dict(zip(self.axis_names, sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def live(self) -> bool:
+        """Ranks stand behind the axes (a process group exists)."""
+        return self.device_mesh is not None
+
+    @property
+    def abstract(self) -> bool:
+        return self.device_mesh is None and self.size > 1
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (this rank's row along it)."""
+        if not self.live:
+            raise RuntimeError(f"mesh axis {axis!r} has no ranks behind it")
+        return self.device_mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 on a mesh without ranks)."""
+        if not self.live:
+            return 0
+        return int(self.device_mesh.get_local_rank(axis))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +121,222 @@ class TorchPlan:
     @property
     def device(self) -> torch.device:
         return self.mesh.device
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchSharding:
+    """A spec on a mesh — the port's ``NamedSharding``.  ``placements``
+    gives the DTensor placements (one per mesh axis, in the mesh's order);
+    :meth:`local_slices` the index of this rank's block."""
+
+    mesh: TorchMesh
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        try:
+            from torch.distributed.tensor import Replicate, Shard
+        except ImportError:                          # torch < 2.5
+            from torch.distributed._tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.axis_names:
+            dim = next((d for d, e in enumerate(self.spec)
+                        if name in spec_axes(e)), None)
+            out.append(Replicate() if dim is None else Shard(dim))
+        return tuple(out)
+
+    def shard_dims(self) -> Dict[int, Tuple[str, ...]]:
+        """Tensor dim -> the mesh axes that split it (sizes above 1 or
+        not)."""
+        return {d: spec_axes(e) for d, e in enumerate(self.spec) if e}
+
+    def block(self, dim: int, coords: Optional[Dict[str, int]] = None
+              ) -> Tuple[int, int]:
+        """(index, count) of this rank's block along ``dim``."""
+        idx, n = 0, 1
+        for a in spec_axes(self.spec[dim]) if dim < len(self.spec) else ():
+            size = self.mesh.shape[a]
+            c = coords[a] if coords is not None else self.mesh.coord(a)
+            idx, n = idx * size + c, n * size
+        return idx, n
+
+    def local_shape(self, shape: Sequence[int],
+                    coords: Optional[Dict[str, int]] = None) -> tuple:
+        return tuple(s // self.block(d, coords)[1]
+                     for d, s in enumerate(shape))
+
+    def local_slices(self, shape: Sequence[int],
+                     coords: Optional[Dict[str, int]] = None) -> tuple:
+        """Slices of a global tensor of ``shape`` that this rank holds."""
+        out = []
+        for d, s in enumerate(shape):
+            i, n = self.block(d, coords)
+            out.append(slice(i * (s // n), (i + 1) * (s // n)))
+        return tuple(out)
+
+    def local_block(self, x):
+        """This rank's block of the whole ``x`` (a tensor or a numpy array;
+        a view)."""
+        return x[self.local_slices(x.shape)]
+
+    def gather(self, t: torch.Tensor, axes: Optional[Sequence[str]] = None
+               ) -> torch.Tensor:
+        """The whole tensor from this rank's block ``t``: all-gathered over
+        each axis (of ``axes``, default all) that splits a dim, minor axis
+        first.  The identity on a mesh without ranks."""
+        if not self.mesh.live:
+            return t
+        from . import spmd
+        for d, names in self.shard_dims().items():
+            for a in reversed(names):
+                if axes is None or a in axes:
+                    t = spmd.gather_dim(t, self.mesh, a, d)
+        return t
+
+    def reduce(self, g: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """The transpose of :meth:`gather` over ``axes``: each rank's whole
+        ``g`` summed over the ranks of ``axes``, this rank's block kept
+        along each dim that one of them splits (reduce-scatter), the whole
+        kept over the others (all-reduce)."""
+        if not self.mesh.live:
+            return g
+        from . import spmd
+        split = {a for names in self.shard_dims().values() for a in names}
+        rest = tuple(a for a in axes if a not in split)
+        if rest:
+            g = spmd.all_sum(g, self.mesh, rest)
+        for d, names in self.shard_dims().items():
+            for a in names:                          # major axis first
+                if a in axes:
+                    g = spmd.scatter_sum(g, self.mesh, a, d)
+        return g
+
+
+@dataclasses.dataclass
+class ShardingPlan:
+    """Logical-axis -> mesh-axis mapping plus activation-constraint policy."""
+
+    mesh: TorchMesh
+    rules: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_RULES))
+    # toggles used by the perf hillclimb
+    sequence_parallel: bool = True      # shard residuals over model axis (SP)
+    fsdp_params: bool = True            # ZeRO-3 weight sharding over data
+    constrain_activations: bool = True
+
+    def __post_init__(self):
+        self._axis_names = set(self.mesh.axis_names)
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return self.mesh.device
+
+    # -- resolution ----------------------------------------------------------
+    def axes(self, logical: Optional[str]):
+        """Resolve a logical axis to mesh axes present in this mesh."""
+        if logical is None or logical == "none":
+            return None
+        if logical == "sp" and not self.sequence_parallel:
+            return None
+        if logical not in self.rules:
+            raise KeyError(f"unknown logical axis {logical!r}")
+        names = tuple(a for a in self.rules[logical] if a in self._axis_names)
+        if not names:
+            return None
+        return names if len(names) > 1 else names[0]
+
+    def pspec(self, *logicals: Optional[str]) -> P:
+        return P(*[self.axes(l) for l in logicals])
+
+    def sharding(self, *logicals: Optional[str]) -> TorchSharding:
+        return TorchSharding(self.mesh, self.pspec(*logicals))
+
+    def _fit_dim(self, dim: int, logical: Optional[str]):
+        """Mesh axes for one dim, dropping axes that don't divide it
+        (partial sharding — e.g. batch=1 decode replicates over data)."""
+        if logical == "fsdp" and not self.fsdp_params:
+            return None
+        ax = self.axes(logical)
+        if ax is None:
+            return None
+        axes_t = ax if isinstance(ax, tuple) else (ax,)
+        keep, prod = [], 1
+        for a in axes_t:
+            n = self.mesh.shape[a]
+            if dim % (prod * n) == 0:
+                keep.append(a)
+                prod *= n
+        if not keep:
+            return None
+        return tuple(keep) if len(keep) > 1 else keep[0]
+
+    def spec_for_shape(self, shape: Sequence[int],
+                       logicals: Sequence[Optional[str]]) -> P:
+        return P(*[self._fit_dim(d, l) for d, l in zip(shape, logicals)])
+
+    def constrain(self, x, *logicals: Optional[str]):
+        """The identity on a plain (per-rank) tensor: activations are not
+        sharded over the mesh in this slice of the port."""
+        return x
+
+    def gather_fsdp(self, w, axes: Sequence[Optional[str]]):
+        """ZeRO-3 weight gather at the use site: drop the 'fsdp' dims.  The
+        train step gathers the whole parameter tree before the forward
+        (``runtime/steps.py``), so here the weight is already whole."""
+        if not self.fsdp_params:
+            return w
+        un = tuple(None if a == "fsdp" else a for a in axes)
+        return self.constrain(w, *un)
+
+    # -- parameter specs -------------------------------------------------------
+    def param_spec(self, logical_axes: Sequence[Optional[str]],
+                   shape: Optional[Sequence[int]] = None) -> P:
+        """Spec for a parameter given per-dim logical names.  Honors the
+        ``fsdp_params`` toggle; with a shape, drops non-dividing axes."""
+        if shape is not None:
+            return self.spec_for_shape(shape, logical_axes)
+        out = []
+        for l in logical_axes:
+            if l == "fsdp" and not self.fsdp_params:
+                out.append(None)
+            else:
+                out.append(self.axes(l))
+        return P(*out)
+
+    def sharding_for(self, logical_axes: Sequence[Optional[str]],
+                     shape: Optional[Sequence[int]] = None) -> TorchSharding:
+        return TorchSharding(self.mesh, self.param_spec(logical_axes, shape))
+
+    def tree_shardings(self, logical_tree) -> Any:
+        """Map a tree of per-dim logical-axis tuples to shardings (a tuple
+        is a leaf)."""
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [walk(v) for v in t]
+            return TorchSharding(self.mesh, self.param_spec(t))
+        return walk(logical_tree)
+
+    # -- derived sizes ---------------------------------------------------------
+    def axis_size(self, logical: str) -> int:
+        ax = self.axes(logical)
+        if ax is None:
+            return 1
+        if isinstance(ax, tuple):
+            n = 1
+            for a in ax:
+                n *= self.mesh.shape[a]
+            return n
+        return self.mesh.shape[ax]
+
+    @property
+    def dp(self) -> int:
+        return self.axis_size("batch")
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size("tp")
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

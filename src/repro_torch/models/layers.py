@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.gelu_stepwise import gelu_stepwise
 from .params import ParamDef
@@ -76,6 +75,36 @@ def apply_norm(x, p, kind: str = "rms"):
     return layer_norm(x, p["w"], p["b"])
 
 
+# -- silu as jax.nn.silu rounds it ---------------------------------------------
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(torch.exp(-x) + 1)
+
+
+class _SiluStepwise(torch.autograd.Function):
+    """Forward and backward as XLA computes ``jax.nn.silu`` and its VJP,
+    every step out of place and rounded to x's type: y = x * s with
+    s = 1 / (1 + exp(-x)); dx = g * s + (x * g) * (s * (1 - s)), the
+    logistic's JVP rule.  Only x is saved; s is recomputed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _logistic(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = _logistic(x)
+        return g * s + (x * g) * (s * (1 - s))
+
+
+def silu_stepwise(x: torch.Tensor) -> torch.Tensor:
+    """silu as ``jax.nn.silu`` computes it: x * (1 / (1 + exp(-x))), every
+    step rounded to x's type (``F.silu`` rounds once), with the gradient
+    ``jax.grad`` gives it, rounded the same way."""
+    return _SiluStepwise.apply(x)
+
+
 # -- GLU MLP (SwiGLU / GeGLU) --------------------------------------------------
 def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
     lead = (layers,) if layers else ()
@@ -88,8 +117,9 @@ def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
 
 
 def activation(g: torch.Tensor, act: str) -> torch.Tensor:
-    # jax.nn.gelu rounds each of its steps; the kernel does so in one pass
-    return gelu_stepwise(g) if act == "gelu" else F.silu(g)
+    # jax.nn.gelu and jax.nn.silu round each of their steps (in bf16);
+    # the gelu kernel does so in one pass
+    return gelu_stepwise(g) if act == "gelu" else silu_stepwise(g)
 
 
 def mlp(x, p, act: str = "silu"):

@@ -1,11 +1,17 @@
-"""Language-model backbone on one device: the ``dense``, ``moe``, ``mamba2``,
+"""Language-model backbone: the ``dense``, ``moe``, ``mamba2``,
 ``shared_attn``, ``mlstm``, ``slstm``, ``enc`` and ``dec`` blocks.
 
 Port of ``src/repro/models/lm.py`` (``LM``: ``param_defs``, ``init``,
 ``_run_segments``, ``loss``, ``prefill``, ``decode_step``,
 ``_cache_write_pos``, ``cache_defs``; ``_embed_in``, ``_encdec_loss`` and
-``_encdec_prefill`` as one :meth:`LM._forward`; ``vocab_parallel_ce`` on
-one device as :func:`cross_entropy`).  Parameters
+``_encdec_prefill`` as one :meth:`LM._forward`; ``vocab_parallel_embed``
+and ``vocab_parallel_ce``, the Megatron-style ``shard_map`` bodies over the
+plan's ``tp`` axis, which ``loss``, ``prefill`` and ``decode_step`` take
+when the plan is a :class:`~repro_torch.core.plan.ShardingPlan` whose mesh
+has a ``model`` axis, as the reference's do; on a one-device
+:class:`~repro_torch.core.plan.TorchPlan` they take :func:`embed` and
+:func:`cross_entropy`, which the vocab-parallel forms equal on one model
+rank bit for bit).  Parameters
 keep the reference's nesting — ``embed``, ``final_norm``, per-kind
 ``stacks`` whose leaves carry a leading layer dimension, the one unstacked
 ``shared`` block that every ``shared_attn`` segment calls (Zamba2), and
@@ -37,6 +43,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import spmd
+from ..core.plan import P
 from ..core.tree import tree_map
 from .attention import attention, attn_defs, cross_attention, cross_kv
 from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
@@ -48,8 +56,101 @@ from .xlstm import (mlstm_block, mlstm_defs, mlstm_state_defs, slstm_block,
                     slstm_defs, slstm_state_defs)
 
 # ---------------------------------------------------------------------------
-# cross entropy
+# vocab-parallel embedding / cross entropy
 # ---------------------------------------------------------------------------
+def _tp_axis(plan):
+    """The plan's ``tp`` mesh axis, or ``None`` (a one-device plan)."""
+    axes = getattr(plan, "axes", None)
+    return axes("tp") if axes is not None else None
+
+
+def _batch_axis(plan, local_b: int):
+    """The batch dim's mesh axes, fitted to the global batch: inside a
+    ``shard_map`` whose manual axes already split the batch, ``local_b``
+    is this rank's block."""
+    whole = local_b * spmd.manual_size(plan.axes("batch"))
+    return plan._fit_dim(whole, "batch")
+
+
+def vocab_parallel_embed(tokens, emb, plan):
+    """The embedding of ``tokens`` (B, S) with the (V, d) table sharded
+    over the model axis: each rank looks up the tokens of its vocab block,
+    zeros the others, and the model axis sums (or reduce-scatters over the
+    sequence, under sequence parallelism) the bf16 rows."""
+    m_ax = _tp_axis(plan)
+    if m_ax is None:
+        return emb[tokens.long()].to(torch.bfloat16)
+    b_ax = _batch_axis(plan, tokens.shape[0])
+    tp = plan.tp
+    Vl = emb.shape[0] // tp
+    S = tokens.shape[1]
+    seq_scatter = (S % tp == 0) and plan.sequence_parallel
+
+    def body(tok, emb_l):
+        idx = spmd.axis_index(m_ax)
+        loc = tok.long() - idx * Vl
+        ok = (loc >= 0) & (loc < Vl)
+        e = emb_l[torch.clamp(loc, 0, Vl - 1)] * ok[..., None].to(emb_l.dtype)
+        e = e.to(torch.bfloat16)
+        if seq_scatter:
+            return spmd.psum_scatter(e, m_ax, scatter_dimension=1, tiled=True)
+        return spmd.psum(e, m_ax)
+
+    out_spec = P(b_ax, m_ax if seq_scatter else None, None)
+    return spmd.shard_map(body, plan.mesh, (P(b_ax, None), P("model", None)),
+                          out_spec)(tokens, emb)
+
+
+def vocab_parallel_ce(x, unemb, labels, mask, plan, chunks: int = 1):
+    """Mean CE over masked tokens; logits never materialized beyond a
+    (B_loc, S/chunks, V/tp) fp32 tile.  x: (B,S,d); labels (B,S).  The
+    max is a ``pmax`` without gradient (exact: the logsumexp is
+    shift-invariant); on one model rank the logsumexp is
+    ``torch.logsumexp``'s own, so the loss and its gradient are
+    :func:`cross_entropy`'s bit for bit."""
+    m_ax = _tp_axis(plan)
+    if m_ax is None:
+        return cross_entropy(x, unemb, labels, mask, chunks)
+    tp = plan.tp
+    b_ax = _batch_axis(plan, x.shape[0])
+    Vl = unemb.shape[1] // tp
+
+    def body(xl, w_l, lab, msk):
+        # xl: (B_loc, S or S/tp, d) — gather seq if sp-sharded
+        if xl.shape[1] != lab.shape[1]:
+            xl = spmd.all_gather(xl, m_ax, axis_dim=1, tiled=True)
+        lo = spmd.axis_index(m_ax) * Vl
+        S = xl.shape[1]
+        cs = max(1, S // max(chunks, 1))
+        nll_parts = []
+        for c0 in range(0, S, cs):
+            lg = mm(xl[:, c0:c0 + cs], w_l).float()
+            loc = lab[:, c0:c0 + cs].long() - lo
+            ok = (loc >= 0) & (loc < Vl)
+            ll = lg.gather(-1, torch.clamp(loc, 0, Vl - 1)[..., None])[..., 0]
+            ll = spmd.psum(ll * ok.float(), m_ax)
+            if tp == 1:
+                lse = torch.logsumexp(lg, -1)
+            else:
+                mx = spmd.pmax(torch.amax(lg, -1), m_ax)
+                ssum = spmd.psum(torch.sum(torch.exp(lg - mx[..., None]), -1),
+                                 m_ax)
+                lse = torch.log(ssum) + mx
+            nll_parts.append(lse - ll)
+        nll = torch.cat(nll_parts, 1) if len(nll_parts) > 1 else nll_parts[0]
+        loss = (nll * msk).sum()
+        cnt = msk.sum()
+        return spmd.pmean(loss, b_ax), spmd.pmean(cnt, b_ax)
+
+    x_seq_ax = m_ax if (plan.sequence_parallel
+                        and x.shape[1] % tp == 0) else None
+    loss, cnt = spmd.shard_map(
+        body, plan.mesh,
+        (P(b_ax, x_seq_ax, None), P(None, "model"), P(b_ax, None),
+         P(b_ax, None)), (P(), P()))(x, unemb, labels, mask)
+    return loss / torch.clamp(cnt, min=1.0)
+
+
 def cross_entropy(x, unemb, labels, mask, chunks: int = 1):
     """Mean CE over the masked tokens: ``vocab_parallel_ce`` on one device.
     The logits are the product in the activations' type, widened to fp32,
@@ -273,18 +374,21 @@ class LM:
                       for kind, cs in pieces.items()}
         return x, caches, aux
 
-    def _embed_in(self, params, batch, tokens):
+    def _embed_in(self, params, batch, tokens, plan=None):
         """The block input: ``batch["embeds"]`` in bf16 for the ``vlm``
         family when it is there (the reference's stub front end), else the
-        embedding of ``tokens``."""
+        embedding of ``tokens`` (vocab-parallel over a plan's model
+        axis)."""
         if self.cfg.family == "vlm" and "embeds" in batch:
             return batch["embeds"].to(torch.bfloat16)
+        if _tp_axis(plan) is not None:
+            return vocab_parallel_embed(tokens, params["embed"]["emb"], plan)
         return embed(tokens, params["embed"])
 
     def _mrope(self, batch):
         return batch.get("mrope_positions") if self.cfg.mrope else None
 
-    def _forward(self, params, batch, mode):
+    def _forward(self, params, batch, mode, plan=None):
         """The backbone over a prompt or a training batch (``mode`` prefill
         or train); returns the final-normed activations (B, S, d), the
         caches (prefill) and the aux losses (train).  For ``encdec`` the
@@ -302,7 +406,7 @@ class LM:
                 segments=[("enc", cfg.enc_layers)])
             enc_out = apply_norm(enc_x, params["enc_norm"], cfg.norm)
             segments = [("dec", cfg.dec_layers)]
-        x = self._embed_in(params, batch, batch.get("tokens"))
+        x = self._embed_in(params, batch, batch.get("tokens"), plan)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, caches, aux = self._run_segments(
@@ -324,7 +428,7 @@ class LM:
         if cache_len is not None:
             cfg.cache_len = (min(cache_len, cfg.window)
                              if cfg.attn_kind == "swa" else cache_len)
-        x, caches, _ = self._forward(params, batch, "prefill")
+        x, caches, _ = self._forward(params, batch, "prefill", plan)
         return unembed(x[:, -1:], params["embed"]), caches
 
     @torch.no_grad()
@@ -343,7 +447,7 @@ class LM:
             positions = pos[:, None].to(torch.int32)
         else:
             positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
-        x = self._embed_in(params, batch, tok)
+        x = self._embed_in(params, batch, tok, plan)
         segments = [("dec", cfg.dec_layers)] if cfg.family == "encdec" \
             else None
         x, caches, _ = self._run_segments(
@@ -358,18 +462,20 @@ class LM:
         """Mean next-token CE of ``batch["tokens"]`` (B, S), plus 0.01 x the
         load-balance and 0.001 x the router z losses summed over the MoE
         layers; returns (loss, metrics) with ``ce`` and the aux losses.
+        Inside a ``shard_map`` over batch axes (the data-parallel train
+        step) the CE and the aux losses are means over the global batch.
         The ``vlm`` family reads ``embeds`` and ``mrope_positions`` as
         :meth:`prefill` does; ``encdec`` reads ``frames`` (no aux
         losses)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x, _, aux = self._forward(params, batch, "train")
+        x, _, aux = self._forward(params, batch, "train", plan)
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
         mask[:, -1] = 0.0
-        loss = cross_entropy(x, unembedding(params["embed"]), labels, mask,
-                             cfg.loss_chunks)
+        loss = vocab_parallel_ce(x, unembedding(params["embed"]), labels,
+                                 mask, plan, cfg.loss_chunks)
         metrics = {"ce": loss}
         if aux:
             loss = loss + 0.01 * aux.get("moe_lb", 0.0) \

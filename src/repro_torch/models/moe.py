@@ -15,7 +15,10 @@ On one device ``moe_mode="ep"`` (Kimi-K2: experts sharded over the model
 axis) computes what ``"tp"`` (Mixtral) computes: in the reference the two
 modes differ only in the ``lax.all_to_all`` hops and the ``psum`` over the
 model axis, which are the identity on one device, so one code path serves
-both.  The expert and shared-expert gates round as the reference's
+both.  Inside a ``shard_map`` (the data-parallel train step) every rank
+routes its own tokens with its own lane capacity, as the reference's
+shard bodies do, and the aux losses are pmeaned over the manual axes.
+The expert and shared-expert gates round as the reference's
 ``jax.nn.silu`` does in bf16 (``silu_stepwise``): with ``F.silu``'s one
 rounding, a top-8 layer's output differed from the reference's by a bf16
 step in several elements a token, and the reduced Kimi-K2 at E32 top-8
@@ -28,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from ..core import spmd
 from ..core.device import expert_capacity
 from ..kernels.router_topk import router_topk
 from .layers import mm
@@ -81,6 +85,11 @@ def moe_block(x: torch.Tensor, p, cfg, losses: bool = True):
     C = expert_capacity(T, E, K, cfg.capacity_factor)
     w, idx, pos, keep = router_topk(logits, K, C)
     aux = _aux_losses(logits, idx) if losses else {}
+    if aux and spmd.manual_axes():
+        # each rank routed its own block of the batch: the aux losses are
+        # the mean over the ranks, as the reference pmeans its shards'
+        axes = tuple(sorted(spmd.manual_axes()))
+        aux = {k: spmd.pmean(v, axes) for k, v in aux.items()}
 
     # dispatch: each kept (token, k) entry to its lane slot; dropped entries
     # all land in one overflow row that is cut off.  The buffer is

@@ -3,8 +3,9 @@
 Port of ``src/repro/models/params.py``.  A model builds a nested dict of
 :class:`ParamDef` leaves; :func:`init_params` draws real tensors from it with
 a ``torch.Generator`` (on the generator's device, so a CUDA generator fills
-the card directly).  The logical axes stay on every def, as in the
-reference, for the multi-device slice; on one device nothing reads them.
+the card directly).  Each def names its dims' logical axes, as in the
+reference: :func:`pspecs`, :func:`shardings` and :func:`shape_structs`
+read them through a :class:`~repro_torch.core.plan.ShardingPlan`.
 """
 
 from __future__ import annotations
@@ -62,6 +63,28 @@ def init_params(defs: Any, gen: torch.Generator) -> Any:
     ``core.params.from_numpy`` instead."""
     device = gen.device
     return tree_map(lambda d: _init_leaf(d, gen, device), defs)
+
+
+def shape_structs(defs: Any, plan=None) -> Any:
+    """Stand-ins for the parameters that allocate nothing: meta tensors of
+    each def's shape and type, each with its ``sharding`` (a
+    :class:`~repro_torch.core.plan.TorchSharding`, DTensor placements on
+    the plan's mesh) when a plan is given — the dry run's
+    ``ShapeDtypeStruct``s."""
+    def leaf(d: ParamDef) -> torch.Tensor:
+        t = torch.empty(d.shape, dtype=d.dtype, device="meta")
+        t.sharding = None if plan is None else \
+            plan.sharding_for(d.axes, d.shape)
+        return t
+    return tree_map(leaf, defs)
+
+
+def shardings(defs: Any, plan) -> Any:
+    return tree_map(lambda d: plan.sharding_for(d.axes, d.shape), defs)
+
+
+def pspecs(defs: Any, plan) -> Any:
+    return tree_map(lambda d: plan.param_spec(d.axes, d.shape), defs)
 
 
 def walk_defs(defs: Any, path: Tuple[str, ...] = ()

@@ -27,37 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
-from .layers import einsum, mm, rms_norm
+from .layers import einsum, mm, rms_norm, silu_stepwise
 from .params import ParamDef
-
-
-def _logistic(x: torch.Tensor) -> torch.Tensor:
-    return torch.reciprocal(torch.exp(-x) + 1)
-
-
-class _SiluStepwise(torch.autograd.Function):
-    """Forward and backward as XLA computes ``jax.nn.silu`` and its VJP,
-    every step out of place and rounded to x's type: y = x * s with
-    s = 1 / (1 + exp(-x)); dx = g * s + (x * g) * (s * (1 - s)), the
-    logistic's JVP rule.  Only x is saved; s is recomputed."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return x * _logistic(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        s = _logistic(x)
-        return g * s + (x * g) * (s * (1 - s))
-
-
-def silu_stepwise(x: torch.Tensor) -> torch.Tensor:
-    """silu as ``jax.nn.silu`` computes it: x * (1 / (1 + exp(-x))), every
-    step rounded to x's type (``F.silu`` rounds once), with the gradient
-    ``jax.grad`` gives it, rounded the same way."""
-    return _SiluStepwise.apply(x)
 
 
 def gla_step(state, q, k, v, log_a):

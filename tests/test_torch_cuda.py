@@ -855,3 +855,83 @@ def test_process_farm_forked_after_cuda_init_runs_to_the_end(cuda):
     assert len(out) == len(xs)
     for o, x in zip(out, xs):
         np.testing.assert_array_equal(o, _numpy_square(x))
+
+
+def _two_ranks_on_one_card():
+    """Run in each of two ranks that share ``cuda:0`` over gloo (the twin of
+    ``tests/test_torch_spmd.py``'s CPU ranks): the named collectives on CUDA
+    tensors, ``farm_map`` against this rank's own whole-batch call, and two
+    steps of reduced Mixtral with fsdp_params against the one-device step,
+    the kernels launched."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.core import device as D
+    from repro_torch.core import spmd
+    from repro_torch.core.plan import P, ShardingPlan, single_device_plan
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import router_topk as RT
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.schedules import cosine_warmup
+    from repro_torch.runtime.steps import init_state, make_train_step
+    dev = spmd.current_device()
+    r = spmd.rank()
+    mesh = make_host_mesh(data=2)
+    out = {"device": str(dev), "backend": spmd.backend()}
+
+    def coll(x):
+        s = spmd.psum_scatter(x, "data", 0)
+        a = spmd.all_to_all(x, "data", 0, 0)
+        pp = spmd.ppermute(x, "data", [(0, 1), (1, 0)])
+        return s, a, pp
+    x = torch.arange(8.0, device=dev) + 100 * r
+    # each rank's own x (not one global value): the outputs stay per rank
+    s, a, pp = spmd.shard_map(coll, mesh, P(), (P(), P(), P()))(x)
+    out["coll"] = [t.cpu().tolist() for t in (s, a, pp)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs = torch.randn(8, 64, generator=g, device=dev)
+    w = torch.randn(64, 64, generator=g, device=dev) / 8
+    got = D.farm_map(lambda v: torch.tanh(v @ w), mesh)(xs)
+    out["farm_err"] = float((got - torch.tanh(xs @ w)).abs().max())
+    cfg = dataclasses.replace(get("mixtral-8x7b").reduced(), n_layers=1)
+    toks = torch.randint(0, cfg.vocab, (2, 4, 64), generator=g, device=dev,
+                         dtype=torch.int32)
+    losses = {}
+    for name, plan in (("one", single_device_plan(dev)),
+                       ("fsdp", ShardingPlan(mesh))):
+        st = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(1))
+        step = make_train_step(cfg, plan, cosine_warmup(1e-3, 20, 2))
+        FA.flash_attention.launches = RT.router_topk.launches = 0
+        losses[name] = []
+        for i in range(2):
+            st, m = step(st, {"tokens": toks[i]})
+            losses[name].append(float(m["loss"]))
+        out[f"{name}_launches"] = (FA.flash_attention.launches,
+                                   RT.router_topk.launches)
+    out["losses"] = losses
+    out["routes"] = {k: dict(v) for k, v in spmd.ROUTES.items()}
+    return out
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_the_card_over_gloo(cuda):
+    """Two spawned ranks on ``cuda:0`` (gloo; where gloo carries no
+    collective for CUDA tensors, pinned host memory): collectives exact,
+    farm_map within 1e-5 (f32 products of half the rows), the fsdp train
+    step's losses within 1e-3 relative of the one-device step's (the
+    router's capacity is per rank's tokens), kernels launched in both."""
+    from repro_torch.core import spmd
+    res = spmd.launch(_two_ranks_on_one_card, 2, device="cuda",
+                      timeout_s=300)
+    base = [float(i) for i in range(8)]
+    for r, out in enumerate(res):
+        assert out["device"] == "cuda:0" and out["backend"] == "gloo"
+        s, a, pp = out["coll"]
+        assert s == [base[i] + base[i] + 100 for i in range(4 * r, 4 * r + 4)]
+        assert a == [v + 100 * k for k in (0, 1)
+                     for v in base[4 * r:4 * r + 4]]
+        assert pp == [v + 100 * (1 - r) for v in base]
+        assert out["farm_err"] <= 1e-5
+        one, fsdp = out["losses"]["one"], out["losses"]["fsdp"]
+        assert all(abs(a / b - 1) <= 1e-3 for a, b in zip(fsdp, one))
+        assert all(n > 0 for n in out["fsdp_launches"])
+    assert res[0]["losses"]["fsdp"] == res[1]["losses"]["fsdp"]

@@ -302,6 +302,34 @@ def test_silu_stepwise_rounds_as_the_reference():
         torch.nn.functional.silu(tx).float().numpy(), want)
 
 
+def test_dense_mlp_rounds_as_the_reference_op_by_op():
+    """The dense GLU MLP in bf16 equals the reference's ``mlp`` run op by op
+    bit for bit: its silu rounds every step as ``jax.nn.silu`` does
+    (``layers.activation`` -> ``silu_stepwise``).  With ``F.silu``'s one
+    rounding the same inputs give other bits.  The products are exact in
+    any summation order (x in quarters, wi and wg in eighths; wo selects
+    and halves one feature a column), so only the activation's rounding
+    can differ."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(21)
+    x = rng.integers(-8, 9, (2, 24, 64)).astype(np.float32) / 4
+    wi = rng.integers(-4, 5, (64, 256)).astype(np.float32) / 8
+    wg = rng.integers(-4, 5, (64, 256)).astype(np.float32) / 8
+    wo = np.zeros((256, 64), np.float32)
+    wo[np.arange(64) * 4, np.arange(64)] = 0.5
+    arrs = {"x": x, "wi": wi, "wg": wg, "wo": wo}
+    j = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in arrs.items()}
+    t = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in arrs.items()}
+    with jax.disable_jit():
+        want = np.asarray(JL.mlp(j["x"], j, "silu"), np.float32)
+    assert np.array_equal(TL.mlp(t["x"], t, "silu").float().numpy(), want)
+    a = TL.mm(t["x"], t["wi"])
+    g = torch.nn.functional.silu(TL.mm(t["x"], t["wg"]))
+    once = TL.mm(a * g, t["wo"]).to(torch.bfloat16)
+    assert not np.array_equal(once.float().numpy(), want)
+
+
 def test_mamba2_state_defs_match_the_reference():
     jc, tc = _cfgs(HYBRID)
     jdefs = JS.mamba2_state_defs(jc, 3, 4)
