@@ -223,7 +223,34 @@ Phases, each of which fails the run:
    over a Llama-3.2-3B MLP against ``mlp`` (tolerances ``MD_TOL``).  Prints
    train tokens/s, each step's forward, backward, collective and optimizer
    ms, each rank's peak memory, the pipeline's ms a microbatch and the
-   collectives each transport carried (calls and host seconds).
+   collectives each transport carried (calls and host seconds);
+11. the model sharded over the model axis — the one-device runs it is
+   held to first, in this process (Mixtral-8x7B at 1 layer served,
+   Kimi-K2 at 1 layer's prefill), then two ranks
+   spawned once, sharing the card over gloo on a (data 1, model 2) mesh,
+   each drawing its blocks of the seed-0 weights (``init_blocks``).  11a:
+   phase 5c's Mixtral at 1 of 32 layers, 2 steps of ``make_train_step``
+   on its batches: losses within 2e-3 of phase 5c's first two, every
+   leaf's update on the rank's block within ``TP_UPDATE_TOL`` of phase
+   5c's after the same steps, and the same steps without the gradient sum
+   over the model axis past it.  11b: the same model, a B1 x S2048 prefill and 16 decode
+   steps fed the one-device run's tokens: the logits gathered over the
+   model axis and the cache blocks (head_dim halves) within 2e-2 of the
+   one-device run's scale, the greedy tokens equal but at a near tie.
+   11c: Zamba2-1.2B whole, prefill and 16 greedy decode steps through the
+   steps (timed), then again with every block's input and output kept:
+   each block held alone against the one-device block on that input, the
+   gathered logits against the one-device blocks' and each greedy token
+   against their argmax, but at a near tie (``WALK_TOL``).  11d: Kimi-K2 at
+   1 of 61 layers, expert-parallel (192 experts a rank), a B1 x S2048
+   prefill: the block output of the tokens neither run dropped within
+   ``MODEL_TOL`` of the one-device run's, both drop counts printed.  Each
+   of 11a-11d fails unless its kernels launched on both ranks
+   (``flash_attention`` and ``router_topk``; ``ssd_scan`` for Zamba2).
+   Prints train and prefill tokens/s, decode ms a step (host and device),
+   each step's forward / backward / collective / optimizer ms, the peak
+   memory a rank, the collectives' calls and host seconds, the kernels'
+   local shapes, and the kernels' times at those shapes.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -437,9 +464,11 @@ def phase_kernels(dev: torch.device) -> dict:
     err["flash_attention"], err["flash_attention_d256"], rows, n_flash = \
         check_flash(dev)
     err.update(rows)
-    err["router_topk"], err["router_topk_e384"], n_router = check_router(dev)
-    err["ssd_scan"], xlstm, n_ssd = check_ssd(dev)
-    err.update(xlstm)
+    err["router_topk"], err["router_topk_e384"], rows, n_router = \
+        check_router(dev)
+    err.update(rows)
+    err["ssd_scan"], rows, n_ssd = check_ssd(dev)
+    err.update(rows)
     gelu, n_gelu = check_gelu(dev)
     err.update(gelu)
     return {"checks": checks + n_flash + n_router + n_ssd + n_gelu,
@@ -475,6 +504,9 @@ FLASH_CASES = [
     (1, 16, 16, 4096, 4096, 64, False, 0, F32),      # at its enc_len
     (8, 16, 16, 32, 1500, 64, False, 0, F32),        # cross attention:
     (8, 16, 16, 1, 1500, 64, False, 0, F32),         # prefill, decode
+    (1, 16, 4, 2048, 2048, 128, True, 4096, BF16),   # phase 11 a rank:
+    (1, 16, 16, 2048, 2048, 64, True, 4096, BF16),   # Mixtral, Zamba2,
+    (1, 32, 4, 2048, 2048, 128, True, 0, BF16),      # Kimi-K2
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32)
      for B, H, Hkv, Sq, Sk, D in ((1, 2, 2, 128, 128, 64),
                                   (2, 4, 2, 256, 256, 64),
@@ -486,14 +518,20 @@ FLASH_CASES = [
      for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES]
 
 
-# the cases at phase 5e's shapes, by the ``kernels`` row that reports them
+# the cases at phase 5e's and phase 11's shapes, by the ``kernels`` row
+# that reports them
 FLASH_ROWS = {(1, 12, 2, 2048, 2048, 128, True, 0): "flash_attention_gqa6",
               (8, 16, 16, 1500, 1500, 64, False, 0):
               "flash_attention_encoder",
               (8, 16, 16, 32, 1500, 64, False, 0):
               "flash_attention_cross_prefill",
               (8, 16, 16, 1, 1500, 64, False, 0):
-              "flash_attention_cross_decode"}
+              "flash_attention_cross_decode",
+              (1, 16, 4, 2048, 2048, 128, True, 4096): "flash_attention_tp",
+              (1, 16, 16, 2048, 2048, 64, True, 4096):
+              "flash_attention_tp_d64",
+              (1, 32, 4, 2048, 2048, 128, True, 0):
+              "flash_attention_tp_kimi"}
 
 
 # bf16 also held against the output's scale: max |err| / max |want|.  At
@@ -586,7 +624,8 @@ def check_flash(dev: torch.device) -> tuple:
             del q, k, v, got, want
     say(f"[kernels] flash_attention equals its plain version ({n} cases, "
         f"max |err| {worst:.3g} in bf16, at D 256 {d256:.3g}, at phase "
-        f"5e's shapes {rows}, within 2e-2; f32 within 2e-5); bf16 within "
+        f"5e's and 11's shapes {rows}, within 2e-2; f32 within 2e-5); bf16 "
+        f"within "
         f"{scaled:.4f} of the output's scale (limit {FLASH_SCALE_TOL}); "
         f"the kernel against the plain version without the keys past the "
         f"last whole 64-key tile, non-causal at Sk >= 1500: {planted} of "
@@ -654,21 +693,27 @@ FAMILY_LENS = (2567, 1947, 1582, 882, 993, 218, 318, 147)
 # (T, E, K): the serving shapes (decode T = max_batch, prefill T = prompt
 # length; 300 and 512 are prompts that one block of many warps takes whole),
 # the training batch's 4096 tokens, and wider routers; then Kimi-K2's E384
-# top-8 at phase 5d's decode batch, its prefills and the timed 2048
+# top-8 at phase 5d's decode batch, its prefills and the timed 2048, and
+# phase 11's 1024 tokens a rank
 ROUTER_CASES = [(8, 8, 2), (300, 8, 2), (512, 8, 2), (2048, 8, 2),
                 (4096, 8, 2), (5000, 8, 2), (8, 64, 8),
                 (2048, 64, 8), (2048, 256, 8), (5000, 256, 4), (5000, 384, 8),
-                (8, 384, 8), (2048, 384, 8)] + [(T, 384, 8)
-                                                for T in FAMILY_LENS]
+                (8, 384, 8), (2048, 384, 8), (1024, 384, 8)] + [
+                    (T, 384, 8) for T in FAMILY_LENS]
+# the cases at phase 11's shapes, by the ``kernels`` row that reports them
+ROUTER_ROWS = {(2048, 8, 2): "router_topk_tp",
+               (1024, 384, 8): "router_topk_tp_e384"}
 
 
 def check_router(dev: torch.device) -> tuple:
     """The worst weight error over every case, over those at Kimi-K2's E384
-    top-8 (the ``router_topk_e384`` row), and the number of cases."""
+    top-8 (the ``router_topk_e384`` row), at each shape of
+    :data:`ROUTER_ROWS` (a dict by row), and the number of cases."""
     from repro_torch.core.device import expert_capacity
     from repro_torch.kernels.router_topk import router_topk, router_topk_plain
     g = torch.Generator().manual_seed(4)
     worst, kimi, n = 0.0, 0.0, 0
+    rows = {name: 0.0 for name in ROUTER_ROWS.values()}
     for T, E, K in ROUTER_CASES:
         logits = (torch.randn(T, E, generator=g) * 2).to(dev)
         for cap in (expert_capacity(T, E, K, 1.25), T, 1):
@@ -681,25 +726,30 @@ def check_router(dev: torch.device) -> tuple:
             worst = max(worst, e)
             if (E, K) == (384, 8):
                 kimi = max(kimi, e)
+            row = ROUTER_ROWS.get((T, E, K))
+            if row:
+                rows[row] = max(rows[row], e)
             n += 1
     if worst > 1.2e-7:               # one ulp of a weight near 1
         fail(f"router_topk weights differ from plain by {worst}")
     say(f"[kernels] router_topk equals its plain version ({n} cases: "
         f"experts, positions, keep equal; max |w err| {worst:.3g}, at E384 "
-        f"K8 {kimi:.3g})")
-    return worst, kimi, n
+        f"K8 {kimi:.3g}, at phase 11's shapes {rows})")
+    return worst, kimi, rows, n
 
 
 # (B, H, G, S, N, P, chunk, types): Zamba2's prefill (one group of q/k for
-# 64 heads), the grid of tests/test_kernels.py:61-66, and xLSTM-125m's mLSTM
-# (4 heads of N = P = 384, and its P = 1 normaliser) at phase 5d's prompt
-# lengths and the timed 2048.  Types: "model" is the Mamba2 and mLSTM
+# 64 heads, and phase 11's 32 a rank), the grid of
+# tests/test_kernels.py:61-66, and xLSTM-125m's mLSTM (4 heads of N = P =
+# 384, and its P = 1 normaliser) at phase 5d's prompt lengths and the timed
+# 2048.  Types: "model" is the Mamba2 and mLSTM
 # blocks' call (bf16 q/k, f32 v and log_a, f32 y), "f32" and "bf16" give
 # every tensor that type.
 SSD_ALL = ("model", "f32", "bf16")
 SSD_CASES = [
     (1, 64, 1, 2048, 64, 64, 256, SSD_ALL),
     (4, 64, 1, 2048, 64, 64, 256, ("model",)),  # Zamba2's training batch
+    (1, 32, 1, 2048, 64, 64, 256, ("model",)),  # Zamba2's heads a rank
     (1, 64, 1, 5000, 64, 64, 256, SSD_ALL),     # ragged tail chunk
     (1, 64, 1, 100, 64, 64, 256, SSD_ALL),      # shorter than a chunk
     (4, 64, 1, 300, 64, 64, 256, SSD_ALL),      # B 4 prefill
@@ -713,6 +763,8 @@ SSD_CASES = [
     (1, 4, 4, 1000, 384, 1, 256, SSD_ALL),
 ] + [(1, 4, 4, S, 384, P, 256, ("model",))
      for S in (2048,) + FAMILY_LENS for P in (384, 1)]
+# the model-type cases at phase 11's shape, by the ``kernels`` row
+SSD_ROWS = {(1, 32, 1, 2048, 64, 64): "ssd_scan_tp"}
 # f32: both versions sum in fp32, in other orders; a bf16 y may round to the
 # other side of one bf16 step (2**-7 relative) on top
 SSD_TOL = {"f32": 1e-4, "bf16": 2.0 ** -7}
@@ -732,13 +784,15 @@ def ssd_inputs(g: torch.Generator, dev: torch.device, B: int, H: int,
 
 
 def check_ssd(dev: torch.device) -> tuple:
-    """The worst error over every case, a dict of the worst over xLSTM's
-    model-type cases by timing row (``ssd_scan_xlstm`` at P = 384,
-    ``ssd_scan_xlstm_p1`` at P = 1), and the number of cases."""
+    """The worst error over every case, a dict of the worst over the
+    model-type cases by timing row (xLSTM's: ``ssd_scan_xlstm`` at P =
+    384, ``ssd_scan_xlstm_p1`` at P = 1; :data:`SSD_ROWS`), and the number
+    of cases."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     g = torch.Generator().manual_seed(6)
     worst, n = 0.0, 0
-    xlstm = {"ssd_scan_xlstm": 0.0, "ssd_scan_xlstm_p1": 0.0}
+    rows = {"ssd_scan_xlstm": 0.0, "ssd_scan_xlstm_p1": 0.0}
+    rows.update({name: 0.0 for name in SSD_ROWS.values()})
     for B, H, G, S, N, P, chunk, types in SSD_CASES:
         for t in types:
             q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, t)
@@ -762,16 +816,18 @@ def check_ssd(dev: torch.device) -> tuple:
                          f"N{N} P{P} chunk {chunk} ({t}): max |err| {e}, "
                          f"scale {scale}")
                 worst = max(worst, e)
-                if N == 384 and t == "model":
+                row = SSD_ROWS.get((B, H, G, S, N, P))
+                if N == 384:
                     row = "ssd_scan_xlstm" + ("_p1" if P == 1 else "")
-                    xlstm[row] = max(xlstm[row], e)
+                if row and t == "model":
+                    rows[row] = max(rows[row], e)
             n += 1
             del q, k, v, la, y, st, py, pst
     say(f"[kernels] ssd_scan equals its plain version ({n} cases, y and "
-        f"state; max |err| {worst:.3g}, xLSTM's model types "
-        f"{ {r: float(f'{e:.3g}') for r, e in xlstm.items()} }; f32 within "
+        f"state; max |err| {worst:.3g}, the model types by row "
+        f"{ {r: float(f'{e:.3g}') for r, e in rows.items()} }; f32 within "
         f"1e-4 of the scale, bf16 y within 2**-7)")
-    return worst, xlstm, n
+    return worst, rows, n
 
 
 # ---------------------------------------------------------------------------
@@ -4579,6 +4635,716 @@ def multi_device_rows(dev: torch.device, card: str, errs: dict, rows: list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the model sharded over the model axis
+# ---------------------------------------------------------------------------
+TP_DIR = ROOT / "build" / "tensor_parallel"
+TP_STEPS = 2                     # 11a: train steps, held to phase 5c's
+TP_S, TP_NEW = 2048, 16          # 11b-11d: prompt, and decode steps
+TP_LOSS_RTOL = 2e-3              # 11a: each step's loss, relative
+# 11a: each leaf's update against phase 5c's (L2, as MD_UPDATE_TOL), set
+# between two readings on the card (NVIDIA H100 80GB HBM3, 700.00 W): the
+# sound steps' worst leaf, 0.3899 (attention's wk: 5.4% of its bf16
+# elements take another update than on one device, the forward rounding
+# the row-parallel sums once in fp32), and the same steps without the
+# gradient sum over the model axis, 0.7856 (the lesser of the two ranks'
+# worst; every run reads it too); 1.41x over the one, 1.43x under the other
+TP_UPDATE_TOL = 0.55
+# 11b: the gathered logits and the cache blocks against the one-device
+# run, of their scale (one layer: the row-parallel bf16 partials summed in
+# fp32 and rounded once where the one device rounds the whole product once)
+TP_SERVE_TOL = 2e-2
+TP_KERNELS = {"11a": ("flash_attention", "router_topk"),
+              "11b": ("flash_attention", "router_topk"),
+              "11c": ("flash_attention", "ssd_scan"),
+              "11d": ("flash_attention", "router_topk")}
+
+
+def tp_kimi_config():
+    """Kimi-K2 at 1 of its 61 layers (34.2 GB of bf16 weights)."""
+    return family_config("kimi-k2-1t-a32b", 1)
+
+
+def tp_prompt(cfg, dev: torch.device, seed: int = 21) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (1, TP_S), generator=g,
+                         dtype=torch.int32).to(dev)
+
+
+def tp_pos(t: int, dev: torch.device) -> torch.Tensor:
+    """Decode step ``t``'s position, after the prompt."""
+    return torch.tensor(TP_S + t, dtype=torch.int32, device=dev)
+
+
+def tp_blocks(cfg, params) -> list:
+    """(kind, index in its kind, the block's parameters) in the order
+    ``LM._run_segments`` runs them."""
+    from repro_torch.models import lm as L
+    layers, offsets, out = {}, {}, []
+    for kind, count in cfg.segments:
+        start = offsets.get(kind, 0)
+        offsets[kind] = start + count
+        if kind != "shared_attn" and kind not in layers:
+            layers[kind] = L._layers(params["stacks"][kind])
+        for li in range(start, start + count):
+            out.append((kind, li, params["shared"] if kind == "shared_attn"
+                        else layers[kind][li]))
+    return out
+
+
+def tp_walk(cfg, params, seen, dev) -> dict:
+    """Zamba2 block by block on one device, each block fed the input the
+    sharded steps gave it (``seen``, a :class:`TpBlocks` capture of a
+    B1 x S2048 prefill and ``TP_NEW`` decode steps): every block's output
+    and the logits after the prefill and each decode step, on the host.
+    Each block is held alone so (a random model at full width is
+    chaotic)."""
+    import dataclasses
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import lm as L
+    from repro_torch.models.layers import apply_norm, unembed
+    cfg = dataclasses.replace(cfg, cache_len=TP_S + TP_NEW)
+    blocks = tp_blocks(cfg, params)
+    n = len(blocks)
+    out = {"outs": [], "logits": []}
+    head = lambda h: unembed(apply_norm(h, params["final_norm"], cfg.norm),
+                             params["embed"]).float().cpu()
+    pos = torch.arange(TP_S, device=dev)[None]
+    pieces = {}
+    for i, (kind, li, pl) in enumerate(blocks):
+        y, cache, _ = L.apply_block(kind, seen.ins[i].to(dev), pl, cfg,
+                                    cache="init", positions=pos)
+        out["outs"].append(y.cpu())
+        pieces.setdefault(kind, []).append(cache)
+    caches = {k: tree_map(lambda *ls: torch.stack(ls), *cs)
+              for k, cs in pieces.items()}
+    out["logits"].append(head(y[:, -1:]))
+    for t in range(TP_NEW):
+        p1 = torch.full((1, 1), TP_S + t, dtype=torch.int32, device=dev)
+        for i, (kind, li, pl) in enumerate(blocks):
+            cl = tree_map(lambda c: c[li], caches[kind])
+            y, _, _ = L.apply_block(kind, seen.ins[(t + 1) * n + i].to(dev),
+                                    pl, cfg, cache=cl, positions=p1,
+                                    pos_offset=tp_pos(t, dev))
+            out["outs"].append(y.cpu())
+        out["logits"].append(head(y))
+    return out
+
+
+def tp_references(dev: torch.device) -> None:
+    """The one-device runs phase 11 is held to, written under ``TP_DIR``:
+    Mixtral-8x7B at 1 layer, a B1 x S2048 prefill and ``TP_NEW`` greedy
+    decode steps (each step's logits, the tokens, the caches after the
+    prefill and after the steps); Kimi-K2 at 1 layer, a prefill's block
+    output and which tokens the router dropped.  Weights from seed 0, as each rank
+    draws its blocks of them."""
+    from repro_torch.core.plan import single_device_plan
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    one = single_device_plan(dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        cfg = md_config()
+        params = LM(cfg).init(gen())
+        prompt = tp_prompt(cfg, dev)
+        logits, caches = make_prefill_step(cfg, one, TP_S + TP_NEW)(
+            params, {"tokens": prompt})
+        ref = {"prompt": prompt.cpu(), "logits": [logits.float().cpu()],
+               "prefill_cache": [t.to("cpu", copy=True)
+                                 for t in jax_leaves(caches)]}
+        decode = make_decode_step(cfg, one, TP_S + TP_NEW)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks = [tok.cpu()]
+        for t in range(TP_NEW):
+            tok, logits, caches = decode(params, caches, {
+                "token": tok, "pos": tp_pos(t, dev)})
+            ref["logits"].append(logits.float().cpu())
+            toks.append(tok.cpu())
+        ref["tokens"] = toks
+        ref["decode_cache"] = [t.cpu() for t in jax_leaves(caches)]
+        torch.save(ref, TP_DIR / "mixtral_serve.pt")
+        del params, caches, ref
+        gc_cuda()
+        cfg = tp_kimi_config()
+        params = LM(cfg).init(gen())
+        seen = TpCapture()
+        try:
+            logits, _ = make_prefill_step(cfg, one, TP_S)(
+                params, {"tokens": tp_prompt(cfg, dev)})
+        finally:
+            seen.undo()
+        torch.save({"hidden": seen.hidden.cpu(), "kept": seen.kept().cpu(),
+                    "logits": logits.float().cpu()}, TP_DIR / "kimi.pt")
+        del params, logits, seen
+    gc_cuda()
+
+
+class TpCapture:
+    """While alive: the last ``LM._run_segments`` output (the blocks' last
+    output, before the final norm) and, per routed token, whether every
+    one of its top-K entries kept its lane (``router_topk``'s ``keep``).
+    ``undo()`` restores both functions."""
+
+    def __init__(self):
+        from repro_torch.models import lm as L
+        from repro_torch.models import moe
+        self._run, self._route = L.LM._run_segments, moe.router_topk
+        self.hidden, self.keeps = None, []
+        cap = self
+
+        def run(model, *a, **k):
+            out = cap._run(model, *a, **k)
+            cap.hidden = out[0]
+            return out
+
+        def route(*a, **k):
+            out = cap._route(*a, **k)
+            cap.keeps.append(out[3])
+            return out
+        L.LM._run_segments, moe.router_topk = run, route
+
+    def kept(self) -> torch.Tensor:
+        return torch.cat([k.all(-1) for k in self.keeps])
+
+    def undo(self) -> None:
+        from repro_torch.models import lm as L
+        from repro_torch.models import moe
+        L.LM._run_segments, moe.router_topk = self._run, self._route
+
+
+class TpBlocks:
+    """While alive: each block's input and output, whole over the sequence
+    (gathered over the model axis where it is sequence-sharded), on the
+    host, in the order ``LM._run_segments`` runs the blocks.  ``undo()``
+    restores ``apply_block``."""
+
+    def __init__(self):
+        from repro_torch.models import lm as L
+        self._apply = L.apply_block
+        self.ins, self.outs = [], []
+
+        def apply(kind, x, p, cfg, **kw):
+            y, cache, aux = self._apply(kind, x, p, cfg, **kw)
+            tp, sp = kw.get("plan"), kw.get("sp", False)
+            for t, kept in ((x, self.ins), (y, self.outs)):
+                kept.append((tp.seq_gather(t, sp) if tp is not None
+                             else t).cpu())
+            return y, cache, aux
+        L.apply_block = apply
+
+    def undo(self) -> None:
+        from repro_torch.models import lm as L
+        L.apply_block = self._apply
+
+
+class TpShapes:
+    """While alive: the shapes each kernel wrapper is called with from the
+    model's blocks (q, k of ``flash_attention``; the logits of
+    ``router_topk``; q and v of ``ssd_scan``)."""
+
+    def __init__(self):
+        from repro_torch.models import attention, moe, ssm
+        self.seen = {}
+        self._orig = [(attention, "flash_attention"), (moe, "router_topk"),
+                      (ssm, "ssd_scan")]
+        self._fns = [getattr(m, n) for m, n in self._orig]
+        for (m, n), fn in zip(self._orig, self._fns):
+            def wrap(*a, _fn=fn, _n=n, **k):
+                key = tuple(tuple(t.shape) for t in a[:2]
+                            if isinstance(t, torch.Tensor))
+                self.seen.setdefault(_n, set()).add(key)
+                return _fn(*a, **k)
+            setattr(m, n, wrap)
+
+    def undo(self) -> dict:
+        for (m, n), fn in zip(self._orig, self._fns):
+            setattr(m, n, fn)
+        return {n: sorted(v) for n, v in self.seen.items()}
+
+
+def tp_routes() -> dict:
+    """A copy of the collectives' calls and host seconds so far."""
+    from repro_torch.core import spmd
+    return {"calls": {k: dict(v) for k, v in spmd.ROUTES.items()},
+            "secs": {k: dict(v) for k, v in spmd.ROUTE_SECONDS.items()}}
+
+
+def tp_routes_since(before: dict) -> dict:
+    """The collectives' calls and host seconds since ``before``."""
+    now = tp_routes()
+    out = {}
+    for op, by in now["calls"].items():
+        for route, n in by.items():
+            n0 = before["calls"].get(op, {}).get(route, 0)
+            s = now["secs"].get(op, {}).get(route, 0.0) \
+                - before["secs"].get(op, {}).get(route, 0.0)
+            if n > n0:
+                out[f"{op}/{route}"] = (n - n0, round(s, 3))
+    return out
+
+
+def tp_updates(cfg, plan, dev, params, ref) -> list:
+    """Each leaf's update on this rank's block against phase 5c's
+    one-device update after the same steps (the sums summed over the ranks
+    that split a leaf): (relative L2 error, share of the elements whose
+    update differs, leaf), worst first."""
+    from repro_torch.core import spmd
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.models import params as pp
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import walk_defs
+    from repro_torch.runtime.steps import state_shardings
+    defs = LM(cfg).param_defs()
+    sh = jax_leaves(state_shardings(cfg, plan)["params"])
+    p0 = jax_leaves(pp.init_blocks(
+        defs, torch.Generator(device=dev).manual_seed(0), plan))
+    names = ["/".join(path) for path, _ in sorted(walk_defs(defs))]
+    out = []
+    for t, s, a, w, d, name in zip(jax_leaves(params), sh, p0,
+                                   ref["params_at"], jax_leaves(defs),
+                                   names):
+        w = s.local_block(w).to(dev)
+        # the two squared norms, the elements whose update differs, all
+        sq = torch.cat([update_sq(t, a, w).double(), torch.tensor(
+            [float((t != w).sum()), float(t.numel())],
+            dtype=torch.float64, device=dev)])
+        if plan.model_split(d.shape, d.axes):
+            sq = spmd.all_sum(sq, plan.mesh, ("model",))
+        out.append((float(sq[0].sqrt() / sq[1].sqrt().clamp(min=1e-30)),
+                    float(sq[2] / sq[3]), name))
+    return sorted(out, reverse=True)
+
+
+def tp_train(plan, dev, out_dir: str) -> dict:
+    """11a: Mixtral-8x7B at 1 of 32 layers, ``TP_STEPS`` steps of
+    ``make_train_step`` over (data 1, model 2) on phase 5c's batches and
+    schedule from its seed: the losses, and each leaf's update on this
+    rank's block against phase 5c's one-device parameters after the same
+    steps (:func:`tp_updates`); then the same steps with the gradient sum
+    over the model axis removed (``reduce_grads`` without its
+    ``replicated`` axes), the fault the update limit must see."""
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime import steps as st
+    from repro_torch.runtime.steps import init_state, make_train_step
+    cfg = md_config()
+    ref = torch.load(pathlib.Path(out_dir) / "train5c.pt", mmap=True)
+    state = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(0))
+    split = [bool(plan.model_split(d.shape, d.axes))
+             for d in jax_leaves(LM(cfg).param_defs())]
+    batches = [{"tokens": torch.as_tensor(b["tokens"], device=dev)}
+               for b in md_batches(cfg, TP_STEPS)]
+    clock = RankClock()
+    step = clock.wrap(make_train_step(cfg, plan, md_schedule()))
+    kernels = zero_launches()
+    routes0 = tp_routes()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, dts = [], []
+    with clock.timing():
+        for b in batches:
+            sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            dts.append(time.perf_counter() - t0)
+    launches = {n: kernels[n].launches for n in TP_KERNELS["11a"]}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    routes = tp_routes_since(routes0)
+    worst = tp_updates(cfg, plan, dev, state["params"], ref)
+    del state
+    gc_cuda()
+    state = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(0))
+    reduce_grads = st.reduce_grads
+    st.reduce_grads = lambda g, s, axes, replicated=(): reduce_grads(g, s,
+                                                                     axes)
+    try:
+        step = make_train_step(cfg, plan, md_schedule())
+        for b in batches:
+            state, _ = step(state, b)
+    finally:
+        st.reduce_grads = reduce_grads
+    fault = tp_updates(cfg, plan, dev, state["params"], ref)
+    del state
+    show = lambda ws: [(n, round(e, 4), round(f, 4)) for e, f, n in ws[:3]]
+    return {"losses": losses, "want": list(ref["losses"][:TP_STEPS]),
+            "loss_err": max(abs(a / b - 1) for a, b in
+                            zip(losses, ref["losses"])),
+            "update_err": worst[0][0], "worst": show(worst),
+            "fault_err": fault[0][0], "fault": show(fault),
+            "n_split": sum(split), "n_leaves": len(split),
+            "launches": launches, "peak_gb": peak_gb,
+            "split": clock.split(), "dts": dts, "routes": routes}
+
+
+def tp_serve(plan, dev, out_dir: str) -> dict:
+    """11b: Mixtral-8x7B at 1 layer, a B1 x S2048 prefill and ``TP_NEW``
+    decode steps over (data 1, model 2), the decode steps fed the
+    one-device run's tokens: each step's logits gathered over the model
+    axis against the one-device run's, the greedy tokens against its
+    tokens, the cache blocks against its caches' head_dim slices."""
+    from repro_torch.core.tree import jax_leaves
+    from repro_torch.models import params as pp
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import (gather_logits, make_decode_step,
+                                           make_prefill_step)
+    cfg = md_config()
+    ref = torch.load(pathlib.Path(out_dir) / "mixtral_serve.pt")
+    params = pp.init_blocks(LM(cfg).param_defs(),
+                            torch.Generator(device=dev).manual_seed(0), plan)
+    prompt = ref["prompt"].to(dev)
+    prefill = make_prefill_step(cfg, plan, TP_S + TP_NEW)
+    decode = make_decode_step(cfg, plan, TP_S + TP_NEW)
+    gather = lambda t: gather_logits(t, plan, cfg, 1)
+    shapes = TpShapes()
+    kernels = zero_launches()
+    routes0 = tp_routes()
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompt})
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        errs = [scale_err(gather(logits), ref["logits"][0].to(dev))]
+        cache_errs = [tp_cache_err(t, w, plan, dev) for t, w in zip(
+            jax_leaves(caches), ref["prefill_cache"])]
+        toks, host_ms, dev_ms = [], [], []
+        for t in range(TP_NEW):
+            tok_in = ref["tokens"][t].to(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            sync(dev)
+            h0 = time.perf_counter()
+            start.record()
+            nt, logits, caches = decode(params, caches, {
+                "token": tok_in, "pos": tp_pos(t, dev)})
+            end.record()
+            sync(dev)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            whole = gather(logits)
+            errs.append(scale_err(whole, ref["logits"][t + 1].to(dev)))
+            want = int(ref["tokens"][t + 1])
+            got = int(nt[0, 0])
+            row = ref["logits"][t + 1][0, -1]
+            tie = float(row[got]) >= float(row.max()) - TP_SERVE_TOL * max(
+                1.0, float(row.abs().max()))
+            toks.append((got, want, got == want or tie))
+        cache_errs += [tp_cache_err(t, w, plan, dev) for t, w in zip(
+            jax_leaves(caches), ref["decode_cache"])]
+    launches = {n: kernels[n].launches for n in TP_KERNELS["11b"]}
+    del params, caches
+    return {"prefill_s": prefill_s, "tok_s": TP_S / prefill_s,
+            "logit_err": max(errs), "cache_err": max(cache_errs),
+            "tokens": toks, "host_ms": host_ms, "dev_ms": dev_ms,
+            "launches": launches, "shapes": shapes.undo(),
+            "routes": tp_routes_since(routes0)}
+
+
+def tp_cache_err(got: torch.Tensor, want: torch.Tensor, plan, dev) -> float:
+    """A cache block against the one-device cache's slice of this rank
+    (head_dim split over the model axis)."""
+    from repro_torch.core.plan import TorchSharding
+    from repro_torch.models.attention import _cache_axes
+    cfg = md_config()
+    spec = plan.spec_for_shape(want.shape, ("layers",) + _cache_axes(cfg))
+    return scale_err(got, TorchSharding(plan.mesh, spec).local_block(
+        want).to(dev))
+
+
+def tp_zamba(plan, dev, out_dir: str) -> dict:
+    """11c: Zamba2-1.2B whole over (data 1, model 2): a B1 x S2048 prefill
+    and ``TP_NEW`` greedy decode steps through ``make_prefill_step``/
+    ``make_decode_step`` (timed, kernels counted); then the same again
+    with every block's input and output kept (:class:`TpBlocks`) and held
+    to the one-device blocks on those inputs (:func:`tp_walk`, on the
+    whole seed-0 weights): each block's output, the gathered logits after
+    the prefill and each decode step, of their scale, and each greedy
+    token against the one-device logits' argmax (or a near tie)."""
+    from repro_torch.configs import get
+    from repro_torch.models import params as pp
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import (gather_logits, make_decode_step,
+                                           make_prefill_step)
+    cfg = get("zamba2-1.2b")
+    params = pp.init_blocks(LM(cfg).param_defs(),
+                            torch.Generator(device=dev).manual_seed(0), plan)
+    prompt = tp_prompt(cfg, dev)
+    prefill = make_prefill_step(cfg, plan, TP_S + TP_NEW)
+    decode = make_decode_step(cfg, plan, TP_S + TP_NEW)
+    gather = lambda t: gather_logits(t, plan, cfg, 1)
+    shapes = TpShapes()
+    kernels = zero_launches()
+    routes0 = tp_routes()
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompt})
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(gather(logits)[:, -1], -1).to(torch.int32)[:, None]
+        host_ms = []
+        for t in range(TP_NEW):
+            sync(dev)
+            h0 = time.perf_counter()
+            tok, logits, caches = decode(params, caches, {
+                "token": tok, "pos": tp_pos(t, dev)})
+            sync(dev)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+    launches = {n: kernels[n].launches for n in TP_KERNELS["11c"]}
+    got_shapes = shapes.undo()
+    routes = tp_routes_since(routes0)
+    del caches
+    seen = TpBlocks()
+    try:
+        with torch.no_grad():
+            logits, caches = prefill(params, {"tokens": prompt})
+            got = [gather(logits).float().cpu()]
+            toks = [torch.argmax(got[0][:, -1], -1).to(torch.int32)[:, None]]
+            for t in range(TP_NEW):
+                tok, logits, caches = decode(params, caches, {
+                    "token": toks[-1].to(dev), "pos": tp_pos(t, dev)})
+                got.append(gather(logits).float().cpu())
+                toks.append(tok.cpu())
+    finally:
+        seen.undo()
+    del params, caches
+    gc_cuda()
+    with torch.no_grad():
+        whole = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        ref = tp_walk(cfg, whole, seen, dev)
+    del whole
+    errs = [scale_err(a, b) for a, b in zip(seen.outs, ref["outs"])]
+    logit_err = max(scale_err(a, b) for a, b in zip(got, ref["logits"]))
+    tokens = []
+    for tok, lg in zip(toks, ref["logits"]):
+        row, g = lg[0, -1], int(tok[0, 0])
+        tie = float(row[g]) >= float(row.max()) - WALK_TOL * max(
+            1.0, float(row.abs().max()))
+        tokens.append((g, int(row.argmax()), tie))
+    return {"prefill_s": prefill_s, "tok_s": TP_S / prefill_s,
+            "host_ms": host_ms, "walk_err": max(errs),
+            "walk_blocks": len(errs), "logit_err": logit_err,
+            "tokens": tokens, "launches": launches,
+            "shapes": got_shapes, "routes": routes}
+
+
+def tp_kimi(plan, dev, out_dir: str) -> dict:
+    """11d: Kimi-K2 at 1 of 61 layers, expert-parallel over the model axis
+    (192 experts a rank), a B1 x S2048 prefill: the block output of the
+    tokens that neither this run nor the one-device run dropped (any of
+    their top-8 entries over its lane's capacity) against the one-device
+    run's, and both drop counts."""
+    from repro_torch.core import spmd
+    from repro_torch.models import params as pp
+    from repro_torch.models.lm import LM
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg = tp_kimi_config()
+    ref = torch.load(pathlib.Path(out_dir) / "kimi.pt")
+    t0 = time.perf_counter()
+    params = pp.init_blocks(LM(cfg).param_defs(),
+                            torch.Generator(device=dev).manual_seed(0), plan)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    shapes = TpShapes()
+    seen = TpCapture()
+    kernels = zero_launches()
+    routes0 = tp_routes()
+    try:
+        with torch.no_grad():
+            sync(dev)
+            t0 = time.perf_counter()
+            prefill_step = make_prefill_step(cfg, plan, TP_S)
+            logits, _ = prefill_step(params, {"tokens": tp_prompt(cfg, dev)})
+            sync(dev)
+            prefill_s = time.perf_counter() - t0
+    finally:
+        seen.undo()
+    launches = {n: kernels[n].launches for n in TP_KERNELS["11d"]}
+    with spmd.manual(plan.mesh, plan.mesh.axis_names):
+        hidden = plan.seq_gather(seen.hidden, True)
+        kept = spmd.all_gather(seen.kept()[None].to(torch.uint8), "model",
+                               axis_dim=1)[0].bool()
+    both = kept.cpu() & ref["kept"]
+    err = scale_err(hidden[0][both.to(dev)], ref["hidden"][0][both].to(dev))
+    del params, hidden
+    return {"prefill_s": prefill_s, "tok_s": TP_S / prefill_s,
+            "init_s": init_s, "held_gb": held_gb,
+            "dropped": int((~kept).sum()), "dropped_one": int(
+                (~ref["kept"]).sum()), "compared": int(both.sum()),
+            "err": err, "launches": launches, "shapes": shapes.undo(),
+            "routes": tp_routes_since(routes0)}
+
+
+def tp_rank(out_dir: str) -> dict:
+    """11a-11d in each of two ranks sharing ``cuda:0`` over gloo, on a
+    (data 1, model 2) mesh."""
+    from repro_torch.core import spmd
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.launch.mesh import make_mesh
+    dev = md_setup()
+    plan = ShardingPlan(make_mesh((1, 2), ("data", "model")))
+    out = {"backend": spmd.backend(), "rank": spmd.rank()}
+    for tag, fn in (("11a", tp_train), ("11b", tp_serve), ("11c", tp_zamba),
+                    ("11d", tp_kimi)):
+        t0 = time.perf_counter()
+        out[tag] = fn(plan, dev, out_dir)
+        gc_cuda()
+        out[tag]["secs"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tensor_parallel(card: str, train5c: dict) -> dict:
+    """Phase 11: the one-device references (:func:`tp_references`), then
+    11a-11d in two spawned ranks sharing ``cuda:0`` over gloo
+    (:func:`tp_rank`); fails on any of their checks."""
+    from repro_torch.core import spmd
+    dev = torch.device("cuda")
+    gc_cuda()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        torch.save({"losses": train5c["losses"][:TP_STEPS],
+                    "params_at": train5c["params_at"]}, TP_DIR / "train5c.pt")
+        tp_references(dev)
+        tr = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ranks = spmd.launch(tp_rank, 2, str(TP_DIR), timeout_s=900)
+        tl = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    return tp_report(card, ranks, tr, tl)
+
+
+def tp_report(card: str, ranks: list, tr: float, tl: float) -> dict:
+    """Print 11a-11d from both ranks, then fail on any of their checks."""
+    faults = []
+    launches = {}
+    for r, res in enumerate(ranks):
+        a, b, c, d = res["11a"], res["11b"], res["11c"], res["11d"]
+        last = a["dts"][-1]
+        say(f"[tp] 11a rank {r} over {res['backend']}, mesh (data 1, model "
+            f"2): Mixtral-8x7B 1 of 32 layers, B2 x S2048: losses "
+            f"{a['losses']} against phase 5c's {a['want']} (within "
+            f"{a['loss_err']:.2e} relative, limit {TP_LOSS_RTOL}); worst leaf"
+            f" updates against phase 5c's (leaf, L2 error, share of the "
+            f"elements whose update differs) {a['worst']} (limit "
+            f"{TP_UPDATE_TOL}); without the gradient sum over the model "
+            f"axis {a['fault']} (must exceed the limit); {a['n_split']} of "
+            f"{a['n_leaves']} leaves "
+            f"split over the model axis; launches {a['launches']}; peak "
+            f"{a['peak_gb']:.2f} GB; {2 * 2048 / last:.1f} train tokens/s "
+            f"(the second step, {last * 1e3:.1f} ms; the first "
+            f"{a['dts'][0] * 1e3:.1f} ms) on {card}")
+        for i, s in enumerate(a["split"]):
+            say(f"[tp] 11a rank {r} step {i}: forward {s['forward']:.1f} ms "
+                f"(host {s['forward_host']:.1f} ms), backward "
+                f"{s['backward']:.1f} ms, collective (the step's gather and "
+                f"reduce) {s['collective']:.1f} ms, optimizer "
+                f"{s['optimizer']:.1f} ms (CUDA events) on {card}")
+        say(f"[tp] 11a rank {r} collectives (calls, host s): {a['routes']}")
+        if a["loss_err"] > TP_LOSS_RTOL or a["update_err"] > TP_UPDATE_TOL:
+            faults.append(f"11a rank {r}: off phase 5c's one-device steps")
+        if a["fault_err"] <= TP_UPDATE_TOL:
+            faults.append(f"11a rank {r}: the update limit does not see the "
+                          f"gradient sum over the model axis removed")
+        bad = [t for t in b["tokens"] if not t[2]]
+        say(f"[tp] 11b rank {r}: Mixtral-8x7B 1 layer, prefill B1 x S2048 "
+            f"{b['prefill_s'] * 1e3:.1f} ms ({b['tok_s']:.0f} tokens/s), "
+            f"{TP_NEW} decode steps host {min(b['host_ms']):.2f}-"
+            f"{max(b['host_ms']):.2f} ms (median "
+            f"{sorted(b['host_ms'])[TP_NEW // 2]:.2f}), device median "
+            f"{sorted(b['dev_ms'])[TP_NEW // 2]:.2f} ms a step on {card}; "
+            f"gathered logits within {b['logit_err']:.2e} of the one-device "
+            f"run's scale, cache blocks {b['cache_err']:.2e} (limit "
+            f"{TP_SERVE_TOL}); greedy tokens {[t[0] for t in b['tokens']]} "
+            f"against {[t[1] for t in b['tokens']]}; launches "
+            f"{b['launches']}; kernel shapes {b['shapes']}")
+        say(f"[tp] 11b rank {r} collectives (calls, host s): {b['routes']}")
+        if max(b["logit_err"], b["cache_err"]) > TP_SERVE_TOL or bad:
+            faults.append(f"11b rank {r}: off the one-device run ({bad})")
+        bad_c = [t for t in c["tokens"] if not t[2]]
+        say(f"[tp] 11c rank {r}: Zamba2-1.2B whole, prefill B1 x S2048 "
+            f"{c['prefill_s'] * 1e3:.1f} ms ({c['tok_s']:.0f} tokens/s), "
+            f"decode host median {sorted(c['host_ms'])[TP_NEW // 2]:.2f} ms "
+            f"a step on {card}; the steps' blocks held to the one-device "
+            f"blocks on their inputs: worst {c['walk_err']:.4f} of the "
+            f"scale over {c['walk_blocks']} block outputs, the gathered "
+            f"logits {c['logit_err']:.4f} (limit {WALK_TOL}); greedy tokens "
+            f"{[t[0] for t in c['tokens']]} against the one-device logits' "
+            f"argmax {[t[1] for t in c['tokens']]}; launches "
+            f"{c['launches']}; kernel shapes {c['shapes']}")
+        say(f"[tp] 11c rank {r} collectives (calls, host s): {c['routes']}")
+        if max(c["walk_err"], c["logit_err"]) > WALK_TOL or bad_c:
+            faults.append(f"11c rank {r}: off the one-device blocks "
+                          f"({bad_c})")
+        say(f"[tp] 11d rank {r}: Kimi-K2 1 of 61 layers, expert-parallel "
+            f"(192 experts a rank), {d['held_gb']:.1f} GB held after drawing"
+            f" its blocks in {d['init_s']:.1f} s; prefill B1 x S2048 "
+            f"{d['prefill_s'] * 1e3:.1f} ms ({d['tok_s']:.0f} tokens/s) on "
+            f"{card}; dropped tokens {d['dropped']} (one device "
+            f"{d['dropped_one']}); over the {d['compared']} tokens neither "
+            f"dropped the block output within {d['err']:.2e} of the scale "
+            f"(limit {MODEL_TOL}); launches {d['launches']}; kernel shapes "
+            f"{d['shapes']}")
+        say(f"[tp] 11d rank {r} collectives (calls, host s): {d['routes']}")
+        if d["err"] > MODEL_TOL or d["compared"] < TP_S // 2:
+            faults.append(f"11d rank {r}: off the one-device run")
+        for tag in ("11a", "11b", "11c", "11d"):
+            got = res[tag]["launches"]
+            if not all(got.values()):
+                faults.append(f"{tag} rank {r}: a kernel did not launch: "
+                              f"{got}")
+            for n, k in got.items():
+                key = {"11a": n, "11b": n, "11c": f"{n}_zamba",
+                       "11d": f"{n}_kimi"}[tag]
+                launches[key] = launches.get(key, 0) + k
+        say(f"[tp] rank {r}: 11a {a['secs']:.1f} s, 11b {b['secs']:.1f} s, "
+            f"11c {c['secs']:.1f} s, 11d {d['secs']:.1f} s")
+    say(f"[tp] phase 11: references {tr:.1f} s, ranks {tl:.1f} s on {card}")
+    if faults:
+        fail("; ".join(faults))
+    return {"launches": launches}
+
+
+def tensor_parallel_rows(dev: torch.device, card: str, errs: dict,
+                         train5c: dict) -> list:
+    """Phase 11 and its kernels' rows at a rank's shapes, the launches
+    summed over the ranks: Mixtral's attention at H16/Hkv4 (D128, S2048)
+    and Zamba2's at H16/16 (D64), Kimi-K2's at H32/Hkv4 (D128); the router
+    over Mixtral's 2048 gathered tokens (E8 K2; 11a's 4096 a step in
+    training) and Kimi-K2's 1024 local ones (E384 K8); ``ssd_scan`` over
+    Zamba2's 32 local heads."""
+    t0 = time.perf_counter()
+    tp = phase_tensor_parallel(card, train5c)
+    n = tp["launches"]
+    g = torch.Generator().manual_seed(13)
+    rows = [time_flash(dev, g, "flash_attention_tp", (1, 16, 4, 2048, 128,
+                                                      4096),
+                       n["flash_attention"], errs["flash_attention_tp"],
+                       card),
+            time_flash(dev, g, "flash_attention_tp_d64",
+                       (1, 16, 16, 2048, 64, 4096),
+                       n["flash_attention_zamba"],
+                       errs["flash_attention_tp_d64"], card),
+            time_flash(dev, g, "flash_attention_tp_kimi",
+                       (1, 32, 4, 2048, 128, 0),
+                       n["flash_attention_kimi"],
+                       errs["flash_attention_tp_kimi"], card),
+            time_router(dev, g, "router_topk_tp", 2048, n["router_topk"],
+                        errs["router_topk_tp"], card),
+            time_router(dev, g, "router_topk_tp_e384", 1024,
+                        n["router_topk_kimi"], errs["router_topk_tp_e384"],
+                        card, E=384, K=8),
+            time_ssd(dev, "ssd_scan_tp", 1, n["ssd_scan_zamba"],
+                     errs["ssd_scan_tp"], card, H=32)]
+    say(f"[tp] phase 11 with its kernels' rows "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return rows
+
+
 def main() -> int:
     import gc
     if not torch.cuda.is_available():
@@ -4672,6 +5438,8 @@ def main() -> int:
     hyb.clear()
     rows += multi_device_rows(dev, card["card"], errs, rows,
                               train[train_configs()[1][0].name])
+    rows += tensor_parallel_rows(dev, card["card"], errs,
+                                 train[train_configs()[1][0].name])
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

@@ -16,9 +16,19 @@ plan of the earlier slices stays: :func:`single_device_plan` is a
 :class:`TorchPlan` over a one-device mesh whose ``shape`` is ``{"data":
 1}``, the surface the compiler's ``place``/``_mesh_axis_size`` read.
 
-Models never mention mesh axes directly; they name logical axes.  On a
-plain tensor :meth:`ShardingPlan.constrain` is the identity: the model's
-activations are sharded over the mesh in a later slice.
+Models never mention mesh axes directly; they name logical axes, and
+:meth:`ShardingPlan.constrain` is the identity.  Inside a manual region
+(``spmd.manual``: the train, prefill and decode steps over a live mesh)
+every tensor is this rank's block, and the resharding GSPMD does for the
+reference becomes explicit steps over the ``tp`` axis, each decided from
+``spec_for_shape``/``_fit_dim`` so that a dim that does not divide stays
+replicated: :meth:`ShardingPlan.seq_gather` (the sequence-parallel gather
+at a block's entry), :meth:`ShardingPlan.compose` (the row-parallel exit:
+a ``psum_scatter`` over the sequence, a ``psum`` when the sequence is not
+sharded) and :meth:`ShardingPlan.block` (a replicated tensor cut to its
+block).  They run through ``core/spmd.py``'s differentiable collectives,
+so the backward is their transpose; on a model axis of one rank, and
+outside a manual region, each is the identity.
 """
 
 from __future__ import annotations
@@ -275,18 +285,95 @@ class ShardingPlan:
         return P(*[self._fit_dim(d, l) for d, l in zip(shape, logicals)])
 
     def constrain(self, x, *logicals: Optional[str]):
-        """The identity on a plain (per-rank) tensor: activations are not
-        sharded over the mesh in this slice of the port."""
+        """The identity: outside a manual region there is nothing to
+        reshard (one device, or the global tensors a ``shard_map`` takes),
+        and inside one the blocks take the transitions below explicitly."""
         return x
+
+    # -- the transitions inside a manual region ------------------------------
+    def model_axis(self) -> Optional[str]:
+        """The mesh axis of ``tp`` when a manual region over this plan's
+        live mesh makes every tensor this rank's block along it and it has
+        more than one rank; else ``None``, and every transition below is
+        the identity."""
+        from . import spmd
+        ax = self.axes("tp")
+        if not isinstance(ax, str) or self.mesh.shape.get(ax, 1) == 1:
+            return None
+        if not self.mesh.live or ax not in spmd.manual_axes():
+            return None
+        return ax
+
+    def seq_split(self, S: int) -> bool:
+        """Whether the residual stream of a global sequence of ``S`` is
+        sequence-sharded between blocks (Megatron-SP): the ``sp`` axis fits
+        ``S`` — false at decode (S = 1), when ``S % tp != 0`` and without
+        ``sequence_parallel``."""
+        return self.model_axis() is not None and S > 1 \
+            and self._fit_dim(S, "sp") is not None
+
+    def seq_gather(self, x, sp: bool):
+        """A block's entry: the sequence-sharded (B, S/tp, ...) ``x``
+        all-gathered over the model axis on dim 1 (its transpose, the
+        backward, reduce-scatters); ``x`` itself when ``sp`` is false."""
+        if not sp:
+            return x
+        from . import spmd
+        return spmd.all_gather(x, self.model_axis(), axis_dim=1)
+
+    def compose(self, o, sp: bool, w):
+        """A block's row-parallel exit.  ``w`` is the def (global
+        ``shape``, logical ``axes``) of the weight whose product gave ``o``
+        (B, S, ...): where :meth:`model_split` splits it, ``o`` is a
+        partial sum over the model axis (each rank's partial rounded to its
+        type), reduce-scattered to this rank's sequence block under ``sp``,
+        else summed (``psum``); where it stays replicated, ``o`` is whole,
+        cut to the sequence block under ``sp``, else kept."""
+        m = self.model_axis()
+        if m is None:
+            return o
+        from . import spmd
+        if not self.model_split(w.shape, w.axes):
+            return self.block(o, 1, "sp") if sp else o
+        # the partials summed in fp32 and rounded once, as XLA's CPU
+        # backend promotes the reference's bf16 reduction (the compiled
+        # all-reduce / reduce-scatter is f32, ``add.clone_promoted``)
+        dt = o.dtype
+        o = o.float()
+        o = spmd.psum_scatter(o, m, scatter_dimension=1) if sp \
+            else spmd.psum(o, m)
+        return o.to(dt)
+
+    def block(self, x, dim: int, logical: Optional[str] = "tp"):
+        """This rank's block along ``dim`` of ``x``, replicated along the
+        model axis: the model axis's share of ``spec_for_shape`` for that
+        dim (``x`` itself where it does not divide, or names another
+        axis)."""
+        m = self.model_axis()
+        if m is None or m not in spec_axes(self._fit_dim(x.shape[dim],
+                                                         logical)):
+            return x
+        n = self.mesh.shape[m]
+        size = x.shape[dim] // n
+        return x.narrow(dim, self.mesh.coord(m) * size, size)
+
+    def model_split(self, shape: Sequence[int],
+                    logicals: Sequence[Optional[str]]) -> Tuple[int, ...]:
+        """The dims of a tensor of global ``shape`` (a parameter's def)
+        that the model axis splits under ``spec_for_shape``."""
+        ax = self.axes("tp")
+        if not isinstance(ax, str):
+            return ()
+        spec = self.spec_for_shape(shape, logicals)
+        return tuple(d for d, e in enumerate(spec) if ax in spec_axes(e))
 
     def gather_fsdp(self, w, axes: Sequence[Optional[str]]):
         """ZeRO-3 weight gather at the use site: drop the 'fsdp' dims.  The
-        train step gathers the whole parameter tree before the forward
-        (``runtime/steps.py``), so here the weight is already whole."""
-        if not self.fsdp_params:
-            return w
-        un = tuple(None if a == "fsdp" else a for a in axes)
-        return self.constrain(w, *un)
+        steps gather the parameter tree over the batch axes before the
+        forward (``runtime/steps.py``), so here the weight is already
+        whole over them (and, inside a manual region, this rank's block
+        over the model axis): ``w`` itself."""
+        return w
 
     # -- parameter specs -------------------------------------------------------
     def param_spec(self, logical_axes: Sequence[Optional[str]],
@@ -337,6 +424,14 @@ class ShardingPlan:
     @property
     def tp(self) -> int:
         return self.axis_size("tp")
+
+
+def model_plan(plan) -> Optional["ShardingPlan"]:
+    """``plan`` when it is a :class:`ShardingPlan` whose model axis is
+    manual with more than one rank (the blocks take their sharded forms),
+    else ``None`` (the one-device forms, unchanged)."""
+    axis = getattr(plan, "model_axis", None)
+    return plan if axis is not None and axis() is not None else None
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

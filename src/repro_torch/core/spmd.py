@@ -248,6 +248,30 @@ def manual(mesh: TorchMesh, axes: Sequence[str]):
         _frames().pop()
 
 
+def frames() -> tuple:
+    """This thread's manual regions, innermost last: what :func:`within`
+    takes to enter them again elsewhere."""
+    return tuple(_frames())
+
+
+@contextlib.contextmanager
+def within(saved: tuple):
+    """Inside, the manual regions ``saved`` (from :func:`frames`) hold in
+    this thread as they held where they were saved: the backward pass
+    recomputes a checkpointed block on autograd's device thread, which
+    would otherwise run it outside every manual region."""
+    own = _frames()
+    if own == list(saved):
+        yield
+        return
+    before = list(own)
+    own[:] = list(saved)
+    try:
+        yield
+    finally:
+        own[:] = before
+
+
 def manual_axes() -> frozenset:
     out = frozenset()
     for _, axes in _frames():
@@ -415,6 +439,13 @@ def _ppermute(x: torch.Tensor, mesh: TorchMesh, axis: str,
 def all_sum(x: torch.Tensor, mesh: TorchMesh, axes) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axes`` (no gradient)."""
     return _all_reduce(x, mesh, axes, dist.ReduceOp.SUM) if _names(axes) \
+        else x
+
+
+def all_min(x: torch.Tensor, mesh: TorchMesh, axes) -> torch.Tensor:
+    """The elementwise minimum of ``x`` over the ranks of ``axes`` (no
+    gradient)."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MIN) if _names(axes) \
         else x
 
 

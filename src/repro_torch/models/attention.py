@@ -19,6 +19,20 @@ One difference from the reference, for memory: decode writes the new k/v
 into the cache tensors in place (and returns them), instead of returning
 updated copies.  The reference's sharding constraints are no-ops on one
 device and are dropped.
+
+Over a plan's model axis (``attn_parallel="heads"``, inside the steps'
+manual region) the block is the reference's Megatron attention on this
+rank's blocks: the sequence-parallel gather at its entry; ``wq`` over the
+heads; ``wk``/``wv`` over the kv heads only when ``n_kv_heads % 16 == 0``,
+else replicated; the kernel on the local q heads and the kv heads those
+read (:func:`_kv_for_heads`: a local q head reads its global head's kv
+head, which is not the local index over the local group when the kv heads
+stay whole); ``wo`` row-parallel, its bf16 partials reduce-scattered back
+to the sequence block.  The cache takes ``_cache_axes``' layout: over the
+kv heads in the heads layout, over head_dim otherwise, where decode's
+q.k products are partial on each rank and summed over the model axis
+before the softmax, and P.V's head_dim block reaches ``wo``'s heads block
+through an ``all_to_all``.
 """
 
 from __future__ import annotations
@@ -28,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from ..core import spmd
+from ..core.plan import model_plan
 from ..kernels.flash_attention import flash_attention
 from .layers import apply_mrope, apply_rope, einsum
 from .params import ParamDef
@@ -60,6 +76,31 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, S, n_kv, H // n_kv, D)
 
 
+def _cache_axes(cfg):
+    """Logical axes of the KV cache (B, S_max, n_kv, hd): the kv heads
+    when they divide the TP degree, else head_dim."""
+    if cfg.attn_parallel == "heads" and cfg.n_kv_heads % 16 == 0:
+        return ("batch", None, "tp", None)
+    return ("batch", None, None, "tp")
+
+
+def _kv_for_heads(k, v, q_off: int, n_q: int, group: int, k_off: int):
+    """The kv heads that the q heads ``q_off .. q_off + n_q`` (global
+    indices; q head h reads kv head h // ``group``) read, out of ``k``/``v``
+    (B, S, kv, D) holding the global kv heads from ``k_off``: a slice when
+    each of them serves the same number of consecutive q heads (the
+    kernel's h // group mapping then reads it right), else one kv head per
+    q head."""
+    ids = [(q_off + j) // group - k_off for j in range(n_q)]
+    first, n = ids[0], ids[-1] - ids[0] + 1
+    if n_q % n == 0 and ids == [first + j // (n_q // n) for j in range(n_q)]:
+        if first == 0 and n == k.shape[2]:
+            return k, v
+        return k.narrow(2, first, n), v.narrow(2, first, n)
+    idx = torch.tensor(ids, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _heads_first(t: torch.Tensor) -> torch.Tensor:
     """(B, S, H, D) -> the kernel's contiguous (B, H, S, D)."""
     return t.transpose(1, 2).contiguous()
@@ -80,7 +121,7 @@ def _write_decode(cache: torch.Tensor, new: torch.Tensor,
 
 
 def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
-              cache_pos=None, mrope_positions=None):
+              cache_pos=None, mrope_positions=None, plan=None, sp=False):
     """Attention block: projections + grouped SDPA + output projection.
 
     prefill:  cache=None or 'init' -> (out, None or {k, v} padded to
@@ -91,8 +132,19 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
               ``positions`` (B, 1) global positions.
 
     ``mrope_positions`` (3, B, S): rotate q and k by M-RoPE instead of
-    RoPE.
+    RoPE.  With a plan whose model axis is manual, ``x`` is this rank's
+    block of the residual (sequence-sharded when ``sp``), ``p`` and the
+    cache this rank's blocks, and the output this rank's block of the
+    residual update.
     """
+    tp = model_plan(plan)
+    if tp is not None:
+        if cfg.attn_parallel != "heads":
+            raise NotImplementedError(
+                "context-parallel attention (attn_parallel='cp') over a "
+                "model axis larger than one waits for a later slice of the "
+                "port")
+        x = tp.seq_gather(x, sp)          # SP boundary: the whole sequence
     B, S, _ = x.shape
     n_kv = cfg.n_kv_heads
     decode = isinstance(cache, dict)
@@ -108,35 +160,42 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
         q = apply_rope(q, pos2d, cfg.rope_theta)
         k = apply_rope(k, pos2d, cfg.rope_theta)
 
+    # the layout over the model axis (one device: every head, whole)
+    n_q = cfg.padded_heads or cfg.n_heads
+    group = n_q // n_kv
+    q_off = k_off = 0
+    cache_split = ()
+    if tp is not None:
+        defs = attn_defs(cfg)
+        r = tp.mesh.coord(tp.model_axis())
+        q_split = bool(tp.model_split(defs["wq"].shape, defs["wq"].axes))
+        k_split = bool(tp.model_split(defs["wk"].shape, defs["wk"].axes))
+        q_off = r * q.shape[2] if q_split else 0
+        k_off = r * k.shape[2] if k_split else 0
+        cache_split = tp.model_split((B, 1, n_kv, cfg.head_dim),
+                                     _cache_axes(cfg))
+
     if decode:
         ck, cv = cache["k"], cache["v"]
-        _write_decode(ck, k, cache_pos)
-        _write_decode(cv, v, cache_pos)
+        kd, vd = k, v
+        if 3 in cache_split:              # the cache keeps a head_dim block
+            kd, vd = tp.block(k, 3), tp.block(v, 3)
+        _write_decode(ck, kd, cache_pos)
+        _write_decode(cv, vd, cache_pos)
         new_cache = cache
-        Sk = ck.shape[1]
-        k_pos = torch.arange(Sk, device=x.device)
-        scale = 1.0 / math.sqrt(cfg.head_dim)
-        qg = _group(q, n_kv).float() * scale                 # (B,1,kv,g,D)
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, ck.float())
-        ring = window > 0 and Sk == window
-        valid = k_pos[None, None, :] <= positions[:, :, None]
-        if window and window > 0 and not ring:
-            valid &= k_pos[None, None, :] > (positions[:, :, None] - window)
-        if ring:
-            # warm ring buffer: every slot holds an in-window entry; the
-            # k_pos<=pos test is only exact during warmup (pos < window)
-            valid = valid | (positions[:, :, None] >= window)
-        s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
-        w = torch.softmax(s, dim=-1)
-        out = torch.einsum("bqhgk,bkhd->bqhgd", w, cv.float())
-        out = out.reshape(B, S, q.shape[2], cfg.head_dim).to(x.dtype)
+        out = _decode_attend(q, ck, cv, positions, window, cfg, tp,
+                             q_off, group, k_off, 3 in cache_split)
+        out = out.to(x.dtype)
     else:
-        out = flash_attention(_heads_first(q), _heads_first(k),
-                              _heads_first(v), causal, window)
+        ks, vs = _kv_for_heads(k, v, q_off, q.shape[2], group, k_off)
+        out = flash_attention(_heads_first(q), _heads_first(ks),
+                              _heads_first(vs), causal, window)
         out = out.transpose(1, 2)                             # (B,S,H,D)
         new_cache = None
         if cache == "init":
             ck, cv = k, v
+            if 3 in cache_split:
+                ck, cv = tp.block(ck, 3), tp.block(cv, 3)
             tgt = getattr(cfg, "cache_len", None) or S
             if cfg.attn_kind == "swa" and tgt == window and S > window:
                 shift = S % window
@@ -149,7 +208,56 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
             new_cache = {"k": ck, "v": cv}
 
     o = einsum("bshk,hkd->bsd", out, p["wo"]).to(torch.bfloat16)
+    if tp is not None:
+        o = tp.compose(o, sp, defs["wo"])
     return o, new_cache
+
+
+def _decode_attend(q, ck, cv, positions, window, cfg, tp, q_off, group,
+                   k_off, dim_split):
+    """One token's grouped attention over the cache, in fp32: q (B, 1, H,
+    D) against ck/cv (B, S_cache, kv, D).  Over a model axis ``q`` holds the
+    local heads from global ``q_off`` and the cache the kv heads from
+    ``k_off``; with ``dim_split`` the cache holds a head_dim block of every
+    kv head instead: the q.k products over it are partial, summed over the
+    model axis before the softmax, and P.V gives every head's head_dim
+    block, which an ``all_to_all`` turns into the local heads' whole
+    rows."""
+    B = q.shape[0]
+    n_q_all = cfg.padded_heads or cfg.n_heads
+    q_local = q.shape[2]
+    if dim_split:
+        m = tp.model_axis()
+        if q_local < n_q_all:            # every head's q, for its block
+            q = spmd.all_gather(q, m, axis_dim=2)
+        q = tp.block(q, 3)
+        ks, vs = ck, cv
+    else:
+        ks, vs = _kv_for_heads(ck, cv, q_off, q_local, group, k_off)
+    Sk = ks.shape[1]
+    k_pos = torch.arange(Sk, device=q.device)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    qg = _group(q, ks.shape[2]).float() * scale              # (B,1,kv,g,D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, ks.float())
+    if dim_split:
+        s = spmd.psum(s, tp.model_axis())
+    ring = window > 0 and Sk == window
+    valid = k_pos[None, None, :] <= positions[:, :, None]
+    if window and window > 0 and not ring:
+        valid &= k_pos[None, None, :] > (positions[:, :, None] - window)
+    if ring:
+        # warm ring buffer: every slot holds an in-window entry; the
+        # k_pos<=pos test is only exact during warmup (pos < window)
+        valid = valid | (positions[:, :, None] >= window)
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", w, vs.float())
+    out = out.reshape(B, 1, q.shape[2], q.shape[3])
+    if dim_split:
+        m = tp.model_axis()
+        out = spmd.all_to_all(out, m, 2, 3) if q_local < n_q_all \
+            else spmd.all_gather(out, m, axis_dim=3)
+    return out
 
 
 def cross_attention(x, p, enc_kv):

@@ -1,9 +1,12 @@
 """Common layers: norms, GLU MLPs, embeddings, RoPE and M-RoPE.
 
-Port of ``src/repro/models/layers.py`` for one device: products run in the
-activations' type (bf16 for the models) with fp32 normalisation statistics,
-and the reference's sharding constraints (``plan.constrain``,
-``plan.gather_fsdp``) are no-ops on one device and are dropped.  Products of
+Port of ``src/repro/models/layers.py``: products run in the activations'
+type (bf16 for the models) with fp32 normalisation statistics.  On one
+device the reference's sharding constraints are no-ops and are dropped;
+over a plan's model axis (inside the steps' manual region) :func:`mlp` is
+the reference's Megatron MLP: the sequence-parallel gather at its entry,
+``wi``/``wg`` column-parallel, ``wo`` row-parallel with its bf16 partials
+reduce-scattered back to the sequence block.  Products of
 mixed operands (bf16 activations with fp32 parameters) run in the promoted
 type, as ``jnp.einsum`` runs them (:func:`mm`, :func:`einsum`); where the
 reference asks for a bf16 product (``preferred_element_type``), the port
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..core.plan import model_plan
 from ..kernels.gelu_stepwise import gelu_stepwise
 from .params import ParamDef
 
@@ -122,10 +126,21 @@ def activation(g: torch.Tensor, act: str) -> torch.Tensor:
     return gelu_stepwise(g) if act == "gelu" else silu_stepwise(g)
 
 
-def mlp(x, p, act: str = "silu"):
+def mlp(x, p, act: str = "silu", plan=None, sp: bool = False,
+        wo: Optional[ParamDef] = None):
+    """The GLU MLP.  With a plan whose model axis is manual, ``x`` is this
+    rank's block of the residual (sequence-sharded when ``sp``), ``p`` its
+    blocks and ``wo`` the def of the whole ``wo`` (:func:`mlp_defs`), by
+    which the plan splits d_ff; the bf16 partial products are composed
+    back to the sequence block, as the reference's
+    ``preferred_element_type=bf16`` + ``(batch, sp)`` constraint do."""
+    tp = model_plan(plan)
+    if tp is not None:
+        x = tp.seq_gather(x, sp)
     a = mm(x, p["wi"])
     g = activation(mm(x, p["wg"]), act)
-    return mm(a * g, p["wo"]).to(torch.bfloat16)
+    o = mm(a * g, p["wo"]).to(torch.bfloat16)
+    return o if tp is None else tp.compose(o, sp, wo)
 
 
 # -- embeddings ----------------------------------------------------------------

@@ -44,16 +44,21 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import spmd
-from ..core.plan import P
+from ..core.plan import P, TorchSharding, model_plan
 from ..core.tree import tree_map
 from .attention import attention, attn_defs, cross_attention, cross_kv
 from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
                      unembed, unembedding)
 from .moe import moe_block, moe_defs
 from .params import ParamDef, init_params
-from .ssm import mamba2_block, mamba2_defs, mamba2_state_defs
+from .attention import _cache_axes
+from .ssm import (MAMBA2_STATE_AXES, mamba2_block, mamba2_defs,
+                  mamba2_state_defs)
 from .xlstm import (mlstm_block, mlstm_defs, mlstm_state_defs, slstm_block,
                     slstm_defs, slstm_state_defs)
+
+# the families whose blocks run over a model axis larger than one
+TP_FAMILIES = ("dense", "moe", "hybrid")
 
 # ---------------------------------------------------------------------------
 # vocab-parallel embedding / cross entropy
@@ -82,11 +87,11 @@ def vocab_parallel_embed(tokens, emb, plan):
         return emb[tokens.long()].to(torch.bfloat16)
     b_ax = _batch_axis(plan, tokens.shape[0])
     tp = plan.tp
-    Vl = emb.shape[0] // tp
     S = tokens.shape[1]
     seq_scatter = (S % tp == 0) and plan.sequence_parallel
 
     def body(tok, emb_l):
+        Vl = emb_l.shape[0]                  # this rank's vocab block
         idx = spmd.axis_index(m_ax)
         loc = tok.long() - idx * Vl
         ok = (loc >= 0) & (loc < Vl)
@@ -113,12 +118,12 @@ def vocab_parallel_ce(x, unemb, labels, mask, plan, chunks: int = 1):
         return cross_entropy(x, unemb, labels, mask, chunks)
     tp = plan.tp
     b_ax = _batch_axis(plan, x.shape[0])
-    Vl = unemb.shape[1] // tp
 
     def body(xl, w_l, lab, msk):
         # xl: (B_loc, S or S/tp, d) — gather seq if sp-sharded
         if xl.shape[1] != lab.shape[1]:
             xl = spmd.all_gather(xl, m_ax, axis_dim=1, tiled=True)
+        Vl = w_l.shape[1]                    # this rank's vocab block
         lo = spmd.axis_index(m_ax) * Vl
         S = xl.shape[1]
         cs = max(1, S // max(chunks, 1))
@@ -151,6 +156,25 @@ def vocab_parallel_ce(x, unemb, labels, mask, plan, chunks: int = 1):
     return loss / torch.clamp(cnt, min=1.0)
 
 
+def vocab_argmax(logits: torch.Tensor, plan) -> torch.Tensor:
+    """The first argmax over the whole vocabulary of the last dim of
+    ``logits``, this rank's vocab block when the plan's model axis is
+    manual: each rank's maximum and its first index, gathered over the
+    axis, and the first rank holding the greatest (ranks hold the vocab in
+    order, so that is the first index of the whole), as ``argmax`` over
+    the gathered logits would pick."""
+    tp = model_plan(plan)
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    m = tp.model_axis()
+    idx = torch.argmax(logits, dim=-1, keepdim=True)
+    mx = logits.gather(-1, idx)
+    idx = idx + tp.mesh.coord(m) * logits.shape[-1]
+    mxs = spmd.all_gather(mx, m, axis_dim=mx.dim() - 1)
+    idxs = spmd.all_gather(idx, m, axis_dim=idx.dim() - 1)
+    return idxs.gather(-1, torch.argmax(mxs, dim=-1, keepdim=True))[..., 0]
+
+
 def cross_entropy(x, unemb, labels, mask, chunks: int = 1):
     """Mean CE over the masked tokens: ``vocab_parallel_ce`` on one device.
     The logits are the product in the activations' type, widened to fp32,
@@ -173,21 +197,27 @@ def cross_entropy(x, unemb, labels, mask, chunks: int = 1):
 # ---------------------------------------------------------------------------
 def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
                 mrope_positions=None, causal=True, window=0, moe=False,
-                losses=False):
+                losses=False, plan=None, sp=False):
     """One pre-norm block; returns (x, new_cache, aux).  ``aux`` holds the
-    MoE aux losses when ``losses`` (the loss reads them), else ``{}``."""
+    MoE aux losses when ``losses`` (the loss reads them), else ``{}``.
+    Over a plan's model axis the residual ``x`` stays this rank's block
+    (sequence-sharded when ``sp``) between the blocks, as the reference's
+    ``_residual`` constrains it to ``(batch, sp)``."""
     xn = apply_norm(x, p["ln1"], cfg.norm)
     a, new_cache = attention(xn, p["attn"], cfg, positions=positions,
                              causal=causal, window=window, cache=cache,
                              cache_pos=pos_offset,
-                             mrope_positions=mrope_positions)
+                             mrope_positions=mrope_positions, plan=plan,
+                             sp=sp)
     x = x + a
     xn = apply_norm(x, p["ln2"], cfg.norm)
     aux = {}
     if moe:
-        m, aux = moe_block(xn, p["moe"], cfg, losses=losses)
+        m, aux = moe_block(xn, p["moe"], cfg, losses=losses, plan=plan,
+                           sp=sp)
     else:
-        m = mlp(xn, p["mlp"], cfg.act)
+        m = mlp(xn, p["mlp"], cfg.act, plan, sp,
+                mlp_defs(cfg.d_model, cfg.d_ff)["wo"])
     return x + m, new_cache, aux
 
 
@@ -216,10 +246,13 @@ def dec_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
 
 def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
                 pos_offset=0, mrope_positions=None, enc_out=None,
-                losses=False):
-    """Uniform block dispatch; returns (x, new_cache, aux)."""
+                losses=False, plan=None, sp=False):
+    """Uniform block dispatch; returns (x, new_cache, aux).  ``plan`` and
+    ``sp`` reach the blocks that run over a model axis (``dense``, ``moe``,
+    ``shared_attn``, ``mamba2``)."""
     if kind == "mamba2":
-        y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+        y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk,
+                             plan=plan, sp=sp)
         return y, st, {}
     if kind == "mlstm":
         y, st = mlstm_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
@@ -235,20 +268,25 @@ def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
     if kind == "shared_attn":
         return dense_block(x, p, cfg, cache=cache, positions=positions,
                            pos_offset=pos_offset,
-                           window=cfg.shared_attn_window)
+                           window=cfg.shared_attn_window, plan=plan, sp=sp)
     if kind not in ("dense", "moe"):
         raise ValueError(kind)
     return dense_block(x, p, cfg, cache=cache, positions=positions,
                        pos_offset=pos_offset, mrope_positions=mrope_positions,
                        window=cfg.window if cfg.attn_kind == "swa" else 0,
-                       moe=(kind == "moe"), losses=losses)
+                       moe=(kind == "moe"), losses=losses, plan=plan, sp=sp)
 
 
-def _train_block(kind, x, p, cfg, positions, mrope_positions, enc_out):
-    """A block as training runs it: no cache, the aux losses kept."""
-    y, _, aux = apply_block(kind, x, p, cfg, positions=positions,
-                            mrope_positions=mrope_positions, enc_out=enc_out,
-                            losses=True)
+def _train_block(kind, x, p, cfg, positions, mrope_positions, enc_out,
+                 plan=None, sp=False, frames=()):
+    """A block as training runs it: no cache, the aux losses kept, in the
+    manual regions ``frames`` of its forward (its recompute in the
+    backward may run on another thread)."""
+    with spmd.within(frames):
+        y, _, aux = apply_block(kind, x, p, cfg, positions=positions,
+                                mrope_positions=mrope_positions,
+                                enc_out=enc_out, losses=True, plan=plan,
+                                sp=sp)
     return y, aux
 
 
@@ -330,7 +368,7 @@ class LM:
     # -- segment runner ---------------------------------------------------------
     def _run_segments(self, params, x, *, mode, caches=None, positions=None,
                       pos_offset=0, mrope_positions=None, enc_out=None,
-                      segments=None):
+                      segments=None, plan=None, sp=False):
         """Run ``segments`` (the config's list unless given); returns (x,
         caches, aux).  ``train`` runs every block under activation
         checkpointing and sums the MoE aux losses over the layers (``{}``
@@ -355,6 +393,7 @@ class LM:
                 if mode == "train":
                     x, a = checkpoint(_train_block, kind, x, pl, cfg,
                                       positions, mrope_positions, enc_out,
+                                      plan, sp, spmd.frames(),
                                       use_reentrant=False,
                                       preserve_rng_state=False)
                     for k, v in a.items():
@@ -366,7 +405,7 @@ class LM:
                                        positions=positions,
                                        pos_offset=pos_offset,
                                        mrope_positions=mrope_positions,
-                                       enc_out=enc_out)
+                                       enc_out=enc_out, plan=plan, sp=sp)
                 if mode == "prefill" and nc is not None:
                     pieces.setdefault(kind, []).append(nc)
         if mode == "prefill":
@@ -388,14 +427,29 @@ class LM:
     def _mrope(self, batch):
         return batch.get("mrope_positions") if self.cfg.mrope else None
 
+    def _model_axis(self, plan):
+        """The plan when its model axis is manual with more than one rank
+        (the blocks run sharded), after checking that this family has its
+        sharded blocks; else ``None``."""
+        tp = model_plan(plan)
+        if tp is not None and self.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"the {self.cfg.family} family ({self.cfg.name}) over a model "
+                "axis larger than one waits for a later slice of the port "
+                "(the encdec, vlm and ssm families over tp)")
+        return tp
+
     def _forward(self, params, batch, mode, plan=None):
         """The backbone over a prompt or a training batch (``mode`` prefill
         or train); returns the final-normed activations (B, S, d), the
         caches (prefill) and the aux losses (train).  For ``encdec`` the
         frames (B, S_enc, d) run through the ``enc`` segment and
         ``enc_norm`` first, and the tokens through the ``dec`` segment on
-        that output."""
+        that output.  Over a plan's model axis the activations are this
+        rank's block, sequence-sharded when the plan's ``sp`` axis fits
+        the sequence."""
         cfg = self.cfg
+        tp = self._model_axis(plan)
         enc_out, segments = None, None
         if cfg.family == "encdec":
             frames = batch["frames"].to(torch.bfloat16)
@@ -407,12 +461,13 @@ class LM:
             enc_out = apply_norm(enc_x, params["enc_norm"], cfg.norm)
             segments = [("dec", cfg.dec_layers)]
         x = self._embed_in(params, batch, batch.get("tokens"), plan)
-        B, S = x.shape[:2]
+        B = x.shape[0]
+        S = batch["tokens"].shape[1] if tp is not None else x.shape[1]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, caches, aux = self._run_segments(
             params, x, mode=mode, positions=positions,
             mrope_positions=self._mrope(batch), enc_out=enc_out,
-            segments=segments)
+            segments=segments, plan=tp, sp=tp is not None and tp.seq_split(S))
         return apply_norm(x, params["final_norm"], cfg.norm), caches, aux
 
     # -- serving -----------------------------------------------------------------
@@ -429,15 +484,23 @@ class LM:
             cfg.cache_len = (min(cache_len, cfg.window)
                              if cfg.attn_kind == "swa" else cache_len)
         x, caches, _ = self._forward(params, batch, "prefill", plan)
-        return unembed(x[:, -1:], params["embed"]), caches
+        x_last = x[:, -1:]
+        tp = model_plan(plan)
+        if tp is not None and tp.seq_split(batch["tokens"].shape[1]):
+            # the last position is on the last rank of the model axis
+            x_last = spmd.all_gather(x_last, tp.model_axis(),
+                                     axis_dim=1)[:, -1:]
+        return unembed(x_last, params["embed"]), caches
 
     @torch.no_grad()
     def decode_step(self, params, caches, batch, plan=None):
         """One token for every sequence.  batch: {'token': (B,1), 'pos': ()
         or (B,)}, for ``vlm`` optionally ``embeds`` (B,1,d) and
         ``mrope_positions`` (3,B,1).  Returns (logits (B,1,V), caches), the
-        caches written in place."""
+        caches written in place.  Over a plan's model axis the caches and
+        the logits are this rank's blocks (the logits' vocab block)."""
         cfg = self.cfg
+        tp = self._model_axis(plan)
         tok = batch["token"]
         B = tok.shape[0]
         pos = batch["pos"]
@@ -453,7 +516,7 @@ class LM:
         x, caches, _ = self._run_segments(
             params, x, mode="decode", caches=caches, positions=positions,
             pos_offset=self._cache_write_pos(pos),
-            mrope_positions=self._mrope(batch), segments=segments)
+            mrope_positions=self._mrope(batch), segments=segments, plan=tp)
         x = apply_norm(x, params["final_norm"], cfg.norm)
         return unembed(x, params["embed"]), caches
 
@@ -512,4 +575,24 @@ class LM:
                         "v": (shape, torch.bfloat16)}
             out[kind] = ({"self": kv(S_eff), "cross": kv(cfg.enc_len)}
                          if kind == "dec" else kv(S_eff))
+        return out
+
+    def cache_shardings(self, B: int, S_max: int, plan):
+        """A :class:`~repro_torch.core.plan.TorchSharding` per leaf of
+        :meth:`cache_defs`: the reference's logical axes (``_cache_axes``
+        behind a layer dim for KV caches, ``mamba2_state_defs``' for the
+        Mamba2 state) fitted to each leaf's shape on ``plan``'s mesh;
+        ``local_shape`` gives a rank's block."""
+        out = {}
+        for kind, leaves in self.cache_defs(B, S_max).items():
+            if kind == "mamba2":
+                axes = MAMBA2_STATE_AXES
+            elif kind in ("dense", "moe", "shared_attn"):
+                axes = {n: ("layers",) + _cache_axes(self.cfg)
+                        for n in leaves}
+            else:
+                raise NotImplementedError(
+                    f"the {kind} cache over a mesh waits for a later slice")
+            out[kind] = {n: TorchSharding(plan.mesh, plan.spec_for_shape(
+                shape, axes[n])) for n, (shape, _) in leaves.items()}
         return out

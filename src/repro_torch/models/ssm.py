@@ -16,7 +16,13 @@ the reference's ``jax.nn.silu`` does in bf16 (:func:`silu_stepwise`): the
 block's B and C projections are large under the reference's init, and a
 one-ulp difference in a gate moves the whole model's logits by several
 percent.  The reference's sharding constraints are no-ops on one device and
-are dropped.
+are dropped.  Over a plan's model axis (inside the steps' manual region)
+the block runs on this rank's blocks as the reference's GSPMD program
+does: the sequence-parallel gather of the normed input, ``wz``/``wx``/
+``wdt`` and the conv over d_inner, ``A_log``/``D``/``dt_bias`` on the
+local heads, ``wB``/``wC`` replicated (one group), ``ssd_scan`` on the
+local H/tp heads and ``wo`` row-parallel; the decode state holds the local
+heads (``ssm``) and the local d_inner block (``conv``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
+from ..core.plan import model_plan
 from .layers import einsum, mm, rms_norm, silu_stepwise
 from .params import ParamDef
 
@@ -90,16 +97,29 @@ def _causal_conv(x, w, state=None):
     return y.to(x.dtype), xp[:, S:] if K > 1 else None
 
 
-def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256):
+def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
+                 sp: bool = False):
     """state: None (no state kept) | 'init' (prefill: return the final
     state) | dict {ssm, conv} (decode step: written in place and
-    returned).  Returns (x + out, state)."""
-    B, S, _ = x.shape
+    returned).  Returns (x + out, state).  With a plan whose model axis is
+    manual, ``x`` is this rank's block of the residual (sequence-sharded
+    when ``sp``), and ``p`` and the state this rank's blocks."""
+    tp = model_plan(plan)
+    xn = rms_norm(x, p["norm"]["w"])
+    if tp is not None:
+        xn = tp.seq_gather(xn, sp)           # SP gather (bf16)
+    B, S, _ = xn.shape
     d_inner, H = mamba2_dims(cfg)
-    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_headdim
+    G, P = cfg.ssm_groups, cfg.ssm_headdim
+    if tp is not None:                        # this rank's heads
+        d_inner, H = p["wx"].shape[-1], p["A_log"].shape[-1]
+        if d_inner != H * P or G != 1:
+            raise NotImplementedError(
+                f"a Mamba2 block of {G} groups, or whose d_inner and "
+                f"{mamba2_dims(cfg)[1]} heads split apart, over the model "
+                "axis")
     decode = isinstance(state, dict)
 
-    xn = rms_norm(x, p["norm"]["w"])
     z = mm(xn, p["wz"])
     xi = mm(xn, p["wx"])
     Bm = einsum("bsd,dgn->bsgn", xn, p["wB"])               # (B,S,G,N) bf16
@@ -141,7 +161,15 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256):
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = y * silu_stepwise(z)
-    return x + mm(y, p["wo"]).to(torch.bfloat16), new_state
+    out = mm(y, p["wo"]).to(torch.bfloat16)
+    if tp is not None:
+        out = tp.compose(out, sp, mamba2_defs(cfg)["wo"])
+    return x + out, new_state
+
+
+# the decode state's logical axes (the reference's ``mamba2_state_defs``)
+MAMBA2_STATE_AXES = {"ssm": ("layers", "batch", "tp", None, None),
+                     "conv": ("layers", "batch", None, "tp")}
 
 
 def mamba2_state_defs(cfg, B: int, layers: int):

@@ -33,12 +33,15 @@ from ..core.tree import jax_leaves, tree_leaves, tree_map
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """A tensor that is this rank's block of a whole of ``shape``, split
-    along ``dims``; ``psum`` sums a partial result over the ranks that hold
-    the other blocks, ``owner`` is true on one rank of them (the one that
-    counts a whole, unsplit leaf once)."""
+    along ``dims``; ``psum(x, dims=None)`` sums a partial result over the
+    ranks that hold the other blocks along ``dims`` (every split dim by
+    default); ``owner`` is true on one rank of those that hold the same
+    block (the one that counts it once); ``total`` sums over every rank
+    that holds any leaf's other blocks (the clip's norm)."""
     shape: tuple
     dims: tuple
     psum: Callable
+    total: Callable
     owner: bool = True
 
 
@@ -50,7 +53,7 @@ def _sum_over(x: torch.Tensor, dim: int, shard, full_dim: int
     reciprocal.)"""
     s = x.sum(dim)
     if shard is not None and full_dim in shard.dims:
-        s = shard.psum(s)
+        s = shard.psum(s, (full_dim,))
     return s
 
 
@@ -59,13 +62,14 @@ def clip_by_global_norm(grads, max_norm: float, shards=None):
     (clipped grads in their own types, the fp32 norm before clipping).  The
     squares are summed leaf by leaf in the reference's leaf order.  With
     ``shards``, a split leaf's partial and an unsplit leaf's sum (on its
-    owner rank only) are summed over the ranks in one collective."""
+    owner rank only) are summed over the ranks in one collective, so each
+    block counts once."""
     sums = [torch.sum(torch.square(g.float())) for g in jax_leaves(grads)]
     if shards is not None:
         sh = jax_leaves(shards)
-        part = torch.stack([s if (d.dims or d.owner) else torch.zeros_like(s)
+        part = torch.stack([s if d.owner else torch.zeros_like(s)
                             for s, d in zip(sums, sh)])
-        sums = list(sh[0].psum(part).unbind())
+        sums = list(sh[0].total(part).unbind())
     gn = torch.sqrt(sum(sums))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn

@@ -25,9 +25,22 @@ step gives on a ``data`` mesh, the gradient of the global batch:
   feedback  = the clip (its norm summed over the ranks) and the optimizer
               update of each rank's shards.
 
-Tensor parallelism inside the model (``tp > 1``) and the pod gradient
-compression are not ported yet; the step raises on a mesh whose ``tp``
-axis is larger than one.
+Over a ``model`` axis larger than one (tensor, sequence and expert
+parallelism inside the model) each rank keeps its ``tp`` blocks: the step
+gathers the parameters over the batch axes only, the model runs on the
+blocks (``models/``; every mesh axis manual), and each leaf's gradient is
+summed over exactly the mesh axes on which the leaf is replicated: the
+batch axes, and the model axis for a leaf it does not split (a norm
+weight, ``wk``/``wv`` outside the heads layout, the router, Mamba2's
+``wB``/``wC``: each rank saw only its part of the work — its sequence
+block, its tokens).  With the loss's cotangent seeded 1/ranks on every
+rank, that sum is the gradient of the global loss.  The clip's norm sums
+every block once.  ``make_prefill_step`` and ``make_decode_step`` run the
+same way on the rank's blocks of the parameters and of the caches, and
+return the vocab-parallel logits (this rank's block); the decode step's
+greedy token is the first argmax over the whole vocabulary.  The
+``encdec``, ``vlm`` and ``ssm`` families raise over a model axis larger
+than one.  The pod gradient compression is not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ from ..core import spmd
 from ..core.plan import P, TorchPlan, TorchSharding, spec_axes
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..models import params as pp
-from ..models.lm import LM
+from ..models.lm import LM, vocab_argmax
 from ..optim import clip_by_global_norm, make_optimizer
 from ..optim.optimizers import Shard
 
@@ -66,21 +79,18 @@ def init_state(cfg: Config, plan, gen: torch.Generator, optimizer=None):
     """``{"params", "opt", "step"}``: parameters drawn from ``gen``, a
     generator on the plan's device, the optimizer's zero state and an int32
     step counter, all on that device.  Over a mesh with ranks every rank
-    draws the same whole parameters from the same seed and keeps its
-    blocks by :func:`state_shardings` (one leaf at a time), then builds the
-    optimizer state of its blocks."""
+    draws its blocks by :func:`state_shardings` of the same numbers the
+    whole draw gives (``models.params.init_blocks``: the whole is never
+    held), then builds the optimizer state of its blocks."""
     if gen.device != plan.device:
         raise ValueError(f"generator on {gen.device}, plan on {plan.device}")
     opt = optimizer or make_optimizer(cfg.optimizer)
-    params = LM(cfg).init(gen)
     if not _sharded(plan):
+        params = LM(cfg).init(gen)
         return {"params": params, "opt": opt.init(params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=plan.device)}
-    sh = state_shardings(cfg, plan, opt)
-    local = tree_map(lambda t, s: s.local_block(t).clone(), params,
-                     sh["params"])
-    del params
+    local = pp.init_blocks(LM(cfg).param_defs(), gen, plan)
     shards = param_shards(cfg, plan, opt)
     return {"params": local, "opt": opt.init(local, shards),
             "step": torch.zeros((), dtype=torch.int32, device=plan.device)}
@@ -133,23 +143,44 @@ def _batch_axes(plan) -> tuple:
     return tuple(a for a in spec_axes(plan.axes("batch")))
 
 
+def _live(plan, axes) -> tuple:
+    """Those of ``axes`` with more than one rank (a collective over one
+    rank is the identity, and gloo would still copy a CUDA tensor through
+    host memory for it)."""
+    return tuple(a for a in axes if plan.mesh.shape[a] > 1)
+
+
+def _model_axes(plan) -> tuple:
+    """The ``tp`` mesh axes with more than one rank."""
+    return _live(plan, spec_axes(plan.axes("tp")))
+
+
 def param_shards(cfg: Config, plan, optimizer=None):
     """Per parameter, a :class:`~repro_torch.optim.optimizers.Shard`: its
-    whole shape, the dims its sharding splits over the batch axes, the sum
-    over the ranks that hold its other blocks, and whether this rank is
-    the one that counts an unsplit leaf."""
+    whole shape, the dims its sharding splits over the fsdp and model
+    axes, the sums over the ranks that hold its other blocks, and whether
+    this rank is the one of those holding its block that counts it."""
     mesh = plan.mesh
-    batch = _batch_axes(plan)
-    fsdp = tuple(a for a in spec_axes(plan.axes("fsdp")) if a in batch)
-    owner = all(mesh.coord(a) == 0 for a in fsdp)
+    batch = _live(plan, _batch_axes(plan))
+    spread = tuple(a for a in spec_axes(plan.axes("fsdp")) if a in batch) \
+        + _model_axes(plan)
 
-    def psum(x):
-        return spmd.all_sum(x, mesh, fsdp)
+    def total(x):
+        return spmd.all_sum(x, mesh, spread)
 
     def one(d, s):
-        dims = tuple(i for i, axes in s.shard_dims().items()
-                     if set(axes) & set(batch))
-        return Shard(tuple(d.shape), dims, psum, owner)
+        by_dim = {i: tuple(a for a in axes if a in spread)
+                  for i, axes in s.shard_dims().items()}
+        by_dim = {i: axes for i, axes in by_dim.items() if axes}
+        split = {a for axes in by_dim.values() for a in axes}
+        owner = all(mesh.coord(a) == 0 for a in spread if a not in split)
+
+        def psum(x, dims=None):
+            axes = [a for i in (by_dim if dims is None else dims)
+                    for a in by_dim.get(i, ())]
+            return spmd.all_sum(x, mesh, tuple(a for a in spread
+                                               if a in axes))
+        return Shard(tuple(d.shape), tuple(by_dim), psum, total, owner)
     return tree_map(one, LM(cfg).param_defs(),
                     state_shardings(cfg, plan, optimizer)["params"])
 
@@ -160,11 +191,18 @@ def gather_params(params, shardings, axes):
     return tree_map(lambda t, s: s.gather(t, axes), params, shardings)
 
 
-def reduce_grads(grads, shardings, axes):
+def reduce_grads(grads, shardings, axes, replicated=()):
     """The collector: each gradient summed over ``axes``, to this rank's
     block (reduce-scatter) where one of them splits the leaf, whole
-    (all-reduce) where none does."""
-    return tree_map(lambda g, s: s.reduce(g, axes), grads, shardings)
+    (all-reduce) where none does; then over each of the ``replicated``
+    axes (the model axis) that does not split the leaf: each rank holds
+    the whole leaf there, and its gradient from its part of the work."""
+    def one(g, s):
+        g = s.reduce(g, axes)
+        split = {a for names in s.shard_dims().values() for a in names}
+        rest = tuple(a for a in replicated if a not in split)
+        return spmd.all_sum(g, s.mesh, rest) if rest else g
+    return tree_map(one, grads, shardings)
 
 
 def make_train_step(cfg: Config, plan, lr_fn: Callable,
@@ -229,12 +267,10 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
     """The train step as one process per rank of a data mesh (see the
     module's docstring)."""
     mesh = plan.mesh
-    if plan.tp > 1:
-        raise NotImplementedError(
-            "a train step over a model axis larger than one (tensor "
-            "parallelism inside the model) is not ported yet")
     model = LM(cfg)
     batch_axes = _batch_axes(plan)
+    live_batch = _live(plan, batch_axes)
+    model_axes = _model_axes(plan)
     n_ranks = mesh.size
     sh = state_shardings(cfg, plan, opt)
     shards = param_shards(cfg, plan, opt)
@@ -261,17 +297,19 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
         with spmd.manual(mesh, mesh.axis_names):
             loss, metrics = model.loss(tree_unflatten(whole, leaves), batch,
                                        plan)
-        # every rank holds the same (replicated) loss: each takes 1/ranks
-        # of its cotangent, and the collector sums the ranks' gradients
-        seed = torch.full((), 1.0 / n_ranks, dtype=loss.dtype,
-                          device=loss.device)
-        grads = torch.autograd.grad(loss, leaves, seed,
-                                    materialize_grads=True)
+            # every rank holds the same (replicated) loss: each takes
+            # 1/ranks of its cotangent, and the collector sums the ranks'
+            # gradients.  Inside the manual region: the backward recomputes
+            # the checkpointed blocks, with their collectives
+            seed = torch.full((), 1.0 / n_ranks, dtype=loss.dtype,
+                              device=loss.device)
+            grads = torch.autograd.grad(loss, leaves, seed,
+                                        materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             tree_unflatten(whole, list(grads))
 
     def train_step(state, batch):
-        whole = gather_params(state["params"], sh["params"], batch_axes)
+        whole = gather_params(state["params"], sh["params"], live_batch)
         if n_micro > 1:
             gsum, loss_sum = None, 0.0
             for i in range(n_micro):
@@ -292,7 +330,7 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
             loss, metrics, grads = grads_of(
                 whole, {k: local(v) for k, v in batch.items()})
         del whole
-        grads = reduce_grads(grads, sh["params"], batch_axes)
+        grads = reduce_grads(grads, sh["params"], live_batch, model_axes)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm, shards)
         lr = lr_fn(state["step"])
         params, opt_state = opt.update(grads, state["opt"], state["params"],
@@ -305,24 +343,85 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
     return train_step
 
 
+def _batch_block(t, plan):
+    """This rank's block of a batch input along its first (batch) dim, as
+    ``spec_for_shape`` fits it (whole where the batch does not divide: a
+    one-sequence prefill is replicated over the data axes); a scalar as
+    it is."""
+    if not isinstance(t, torch.Tensor) or t.dim() == 0:
+        return t
+    spec = plan.spec_for_shape(t.shape[:1], ("batch",))
+    return TorchSharding(plan.mesh, spec).local_block(t)
+
+
+def _spmd_call(cfg: Config, plan):
+    """``call(fn, params, *args, batch)``: ``fn`` on the whole parameters
+    over the batch axes (each rank's ``tp`` blocks kept) and this rank's
+    block of ``batch``, every mesh axis manual."""
+    sh = state_shardings(cfg, plan)["params"]
+    axes = _live(plan, _batch_axes(plan))
+
+    def call(fn, params, *args):
+        *rest, batch = args
+        whole = gather_params(params, sh, axes) if axes else params
+        local = {k: _batch_block(v, plan) for k, v in batch.items()}
+        with spmd.manual(plan.mesh, plan.mesh.axis_names):
+            return fn(whole, *rest, local)
+    return call
+
+
+def gather_logits(logits: torch.Tensor, plan, cfg: Config,
+                  batch: int) -> torch.Tensor:
+    """The whole batch and vocabulary of the logits (``batch``, ...,
+    vocab) that a step over a mesh with ranks returns as this rank's
+    block; ``logits`` itself on one device."""
+    if plan is None or not _sharded(plan):
+        return logits
+    shape = (batch,) + tuple(logits.shape[1:-1]) + (cfg.vocab,)
+    spec = plan.spec_for_shape(shape, ("batch",) + (None,) * (
+        logits.dim() - 2) + ("tp",))
+    return TorchSharding(plan.mesh, spec).gather(logits)
+
+
 def make_prefill_step(cfg: Config, plan: TorchPlan, cache_len: int):
+    """``prefill_step(params, batch) -> (logits (B, 1, V), caches)``.  Over
+    a mesh with ranks, ``params`` are this rank's blocks of the state's
+    parameters, ``batch`` the global batch, and the logits and caches this
+    rank's blocks (the logits' vocab block, the caches' by
+    ``LM.cache_shardings``)."""
     model = LM(cfg)
 
     def prefill_step(params, batch):
         return model.prefill(params, batch, plan, cache_len=cache_len)
 
-    return prefill_step
+    if not _sharded(plan):
+        return prefill_step
+    call = _spmd_call(cfg, plan)
+    return lambda params, batch: call(prefill_step, params, batch)
 
 
 def make_decode_step(cfg: Config, plan: TorchPlan, cache_len: int):
+    """``decode_step(params, caches, batch) -> (next tokens (B, 1),
+    logits, caches)``; the greedy next token of every sequence of the
+    global batch, the logits and caches as :func:`make_prefill_step`
+    gives them."""
     model = LM(cfg)
     cfg.cache_len = (min(cache_len, cfg.window) if cfg.attn_kind == "swa"
                      else cache_len)
 
     def decode_step(params, caches, batch):
         logits, new_caches = model.decode_step(params, caches, batch, plan)
-        # greedy token for the feedback loop
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # greedy token for the feedback loop (the first argmax over the
+        # whole vocabulary, which is split over the model axis)
+        next_tok = vocab_argmax(logits[:, -1, :], plan).to(torch.int32)
         return next_tok[:, None], logits, new_caches
 
-    return decode_step
+    if not _sharded(plan):
+        return decode_step
+    call = _spmd_call(cfg, plan)
+
+    def spmd_decode_step(params, caches, batch):
+        tok, logits, caches = call(decode_step, params, caches, batch)
+        spec = plan.spec_for_shape(batch["token"].shape[:1], ("batch",))
+        return TorchSharding(plan.mesh, spec).gather(tok), logits, caches
+    return spmd_decode_step

@@ -53,6 +53,24 @@ early exit tightened) instead of queueing unboundedly.
 ``engine.close()`` drains and shuts down, and the engine is a context
 manager (``with InferenceEngine(...) as eng:`` starts it, exit closes it).
 
+Over a plan whose mesh has ranks (``InferenceEngine(cfg, plan, params)``
+with a ``make_mesh((data, model), ("data", "model"))`` plan, one engine
+per rank, each given this rank's blocks of the parameters and the same
+requests in the same order) the engines run in lock step: every
+scheduling decision comes from what every rank has seen.  At the top of
+each tick the CacheManager agrees with the other ranks, in one
+collective, on how many requests all have received, whether all are
+draining, and which deadlines have passed on any rank's clock; it then
+admits in request order, prefilling each admitted request there (its
+collectives in the same order on every rank) instead of on the prefill
+pool.  The loop keeps ticking while idle, so the ranks meet at every
+agreement whatever their timing.  The greedy token and the confidence
+read the whole vocabulary (the logits gathered over the model axis), so
+every rank appends the same tokens.  Shedding and degrading under SLO
+pressure, and the Supervisor, decide from each rank's own backlog at its
+own time and are not available there (every request is admitted;
+``adaptive=True`` raises).
+
 The paper's accelerator mode (Sec. 9) remains verbatim as the compat
 adapter: ``run_then_freeze()`` / ``offload(request)`` (blocking
 back-pressure at ``max_pending``) / ``load_result()`` /
@@ -87,11 +105,13 @@ import torch
 from ..core.compiler import CompileConfig
 from ..core.graph import Deliver, StageHandle, pipeline
 from ..core.node import EOS, GO_ON, FFNode, _Sentinel
+from ..core import spmd
 from ..core.plan import TorchPlan, single_device_plan
 from ..core.runtime import SLOPolicy, Supervisor
 from ..core.tree import tree_leaves
 from ..models.lm import LM
-from ..runtime.steps import make_decode_step, make_prefill_step
+from ..runtime.steps import (_sharded, gather_logits, make_decode_step,
+                             make_prefill_step)
 
 
 @dataclasses.dataclass
@@ -203,11 +223,26 @@ class _BatchState:
     """The batched decode state: KV caches for B slots + bookkeeping.
     Owned by whichever node currently holds the tick."""
 
-    def __init__(self, cfg, B: int, cache_len: int, device: torch.device):
-        self.caches = {
-            kind: {n: torch.zeros(shape, dtype=dtype, device=device)
-                   for n, (shape, dtype) in kv.items()}
-            for kind, kv in LM(cfg).cache_defs(B, cache_len).items()}
+    def __init__(self, cfg, B: int, cache_len: int, device: torch.device,
+                 plan=None):
+        model = LM(cfg)
+        defs = model.cache_defs(B, cache_len)
+        # over a mesh with ranks, this rank's blocks (and, where the batch
+        # splits over the data axes, its block of the slots)
+        sh = model.cache_shardings(B, cache_len, plan) \
+            if plan is not None else None
+        self.slots = (0, B)
+        if sh is not None:
+            i, n = next(iter(next(iter(sh.values())).values())).block(1)
+            self.slots = (i * (B // n), B // n)
+
+        def zeros(kind, n, shape, dtype):
+            if sh is not None:
+                shape = sh[kind][n].local_shape(shape)
+            return torch.zeros(shape, dtype=dtype, device=device)
+        self.caches = {kind: {n: zeros(kind, n, shape, dtype)
+                              for n, (shape, dtype) in kv.items()}
+                       for kind, kv in defs.items()}
         self.cur_tok = torch.zeros((B, 1), dtype=torch.int32, device=device)
         self.pos = torch.zeros((B,), dtype=torch.int32, device=device)
         self.active_mask = np.zeros((B,), bool)
@@ -221,18 +256,23 @@ class _BatchState:
         # slot-refill dispatch never waits on a host sync inside the decode
         # node
         self.pending: Optional[tuple] = None
+        # lock step: the slots whose deadline passed on some rank's clock
+        # (agreed at the CacheManager, read by the CollectNode)
+        self.expired: set = set()
 
 
 def _insert(st: _BatchState, cache1, slot: int, tok: torch.Tensor,
             prompt_len: int) -> None:
     """Write a prefilled (B=1) request into slot ``slot`` of the batched
-    state, in place: its caches, its first token (on the host) and its
-    position.  The scalars go in as fills, not as blocking host-to-device
-    copies, so the insert queues behind the in-flight step without waiting
-    for it."""
-    for kind, kv in cache1.items():
-        for name, new in kv.items():
-            st.caches[kind][name][:, slot] = new[:, 0]
+    state, in place: its caches (where this rank holds the slot), its
+    first token (on the host) and its position.  The scalars go in as
+    fills, not as blocking host-to-device copies, so the insert queues
+    behind the in-flight step without waiting for it."""
+    first, count = st.slots
+    if first <= slot < first + count:
+        for kind, kv in cache1.items():
+            for name, new in kv.items():
+                st.caches[kind][name][:, slot - first] = new[:, 0]
     st.cur_tok[slot].fill_(int(tok[0, 0]))
     st.pos[slot].fill_(prompt_len)
 
@@ -325,6 +365,8 @@ class PrefillNode(FFNode):
             self._emit(out)
 
     def svc_init(self) -> int:
+        if self._prefill is None:
+            return 0
         self._workers = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"ff-prefill-{i}")
@@ -336,6 +378,8 @@ class PrefillNode(FFNode):
     def svc(self, item):
         if item is _TICK or item is _DRAIN or isinstance(item, _Sentinel):
             self._emit(item)            # fast path: never behind a prefill
+        elif self._prefill is None:     # lock step: the CacheManager
+            self._emit(_Ready(item))    # prefills at admission
         else:
             self._jobs.put(item)        # a Request: fan out to the pool
         return GO_ON
@@ -384,8 +428,12 @@ class CacheManager(FFNode):
     outcome."""
 
     def __init__(self, state: _BatchState, B: int, insert,
-                 acct: _Accounting, slo: _SLOState, max_pending: int):
+                 acct: _Accounting, slo: _SLOState, max_pending: int,
+                 lockstep: Optional["_LockStep"] = None):
         super().__init__()
+        self.lockstep = lockstep
+        self.received = 0            # lock step: requests received, taken
+        self.taken = 0
         self._label = "cache-manager"
         self.state = state
         self.B = B
@@ -440,6 +488,8 @@ class CacheManager(FFNode):
     def _maybe_go(self):
         if not self.holding:
             return GO_ON                  # tick is downstream; queue up
+        if self.lockstep is not None:
+            return self._lockstep_go()
         self._refill()
         if self.state.active_mask.any():
             self.holding = False
@@ -449,6 +499,47 @@ class CacheManager(FFNode):
             return EOS                    # unwinds decode + collect too
         return GO_ON                      # idle: hold the tick, wait
 
+    def _lockstep_go(self):
+        """One tick of the lock-step loop: agree with the other ranks, then
+        take the agreed decisions (see the module's docstring)."""
+        st, B = self.state, self.B
+        now = time.perf_counter()
+        late = lambda req: (req.deadline_s is not None
+                            and now - req.submit_t > req.deadline_s)
+        slots = [int(s in self.active and late(self.active[s]))
+                 for s in range(B)]
+        waiting = [int(late(r.req)) for r in list(self.ready)[:B]]
+        waiting += [0] * (B - len(waiting))
+        got = self.lockstep.agree([self.received, int(self.draining)]
+                                  + [-x for x in slots + waiting])
+        n, draining = got[0], got[1] == 1
+        st.expired = {s for s in range(B) if got[2 + s] < 0}
+        for j in range(B):
+            if not (self.ready and self.free and self.taken < n):
+                break
+            r = self.ready.popleft()
+            self.taken += 1
+            if got[2 + B + j] < 0:
+                self._shed(r.req, f"deadline {r.req.deadline_s}s expired "
+                                  "before admission")
+                continue
+            tok, cache1 = self.lockstep.prefill(r.req)
+            slot = self.free.pop()
+            self.active[slot] = r.req
+            self._insert(st, cache1, slot, tok, len(r.req.prompt))
+            r.req.tokens.append(int(tok[0, 0]))
+            st.active_mask[slot] = True
+            self.inserts += 1
+            self.acct.bump("admitted")
+        if (draining and not st.active_mask.any()
+                and self.taken == self.received == n):
+            self.drained.set()
+            return EOS
+        if not st.active_mask.any():
+            time.sleep(self.lockstep.idle_s)   # idle: tick on, slowly
+        self.holding = False
+        return _TICK
+
     def svc(self, item):
         if item is _DRAIN:
             self.draining = True
@@ -456,6 +547,7 @@ class CacheManager(FFNode):
             self.holding = True           # back from the feedback edge
         elif isinstance(item, _Ready):
             self.ready.append(item)
+            self.received += 1
         return self._maybe_go()
 
     # -- observability -----------------------------------------------------
@@ -498,6 +590,8 @@ class DecodeNode(FFNode):
         if item is not _TICK:
             return item                   # pass-through (Deliver, drain...)
         st = self.state
+        if not st.active_mask.any():      # a lock-step tick while idle
+            return _TICK
         nt, conf, st.caches = self._decode(
             self.params, st.caches, {"token": st.cur_tok, "pos": st.pos})
         st.cur_tok = nt
@@ -549,6 +643,8 @@ class CollectNode(FFNode):
         if item is not _TICK:
             return item                   # pass-through
         st = self.state
+        if not st.active_mask.any():      # a lock-step tick while idle
+            return _TICK
         if st.pending is not None:        # resolve the in-flight decode step
             toks, conf, landed = st.pending
             st.pending = None
@@ -574,8 +670,9 @@ class CollectNode(FFNode):
             elif thr is not None and conf >= thr:
                 reason = "early_exit"
                 self.early_exits += 1
-            elif (req.deadline_s is not None
-                  and now - req.submit_t > req.deadline_s):
+            elif (slot in st.expired if self.cm.lockstep is not None
+                  else (req.deadline_s is not None
+                        and now - req.submit_t > req.deadline_s)):
                 reason = "deadline"       # out of budget: truncate
             if reason:
                 req.done = True
@@ -586,6 +683,30 @@ class CollectNode(FFNode):
                 self.acct.bump("finished")
                 self.ff_send_out(Deliver(req))
         return _TICK                      # wrap_around -> loop head
+
+
+class _LockStep:
+    """The lock-step engine's link to the other ranks: ``agree`` takes the
+    elementwise minimum of an int vector over every rank of the plan's
+    mesh (one collective), ``prefill`` runs one request's prefill (the
+    greedy first token over the whole vocabulary, this rank's cache
+    blocks)."""
+
+    idle_s = 5e-4                # an idle tick's pause
+
+    def __init__(self, plan, params, prefill):
+        self.plan, self.params, self._prefill = plan, params, prefill
+
+    def agree(self, vec: list) -> list:
+        t = torch.tensor(vec, dtype=torch.int64, device=self.plan.device)
+        mesh = self.plan.mesh
+        return spmd.all_min(t, mesh, mesh.axis_names).tolist()
+
+    def prefill(self, req: "Request"):
+        prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
+                                 device=self.plan.device)[None, :]
+        tok, cache1 = self._prefill(self.params, prompt)
+        return tok.cpu(), cache1
 
 
 class InferenceEngine:
@@ -619,9 +740,14 @@ class InferenceEngine:
         self.max_pending = max_pending
 
         prefill_step = make_prefill_step(cfg, plan, cache_len)
+        spmd_plan = _sharded(plan) and plan.mesh.size > 1
+        if spmd_plan and adaptive:
+            raise ValueError("the Supervisor decides from each rank's own "
+                             "backlog: adaptive=True needs a one-device plan")
 
         def _prefill(p, tokens):
             logits, cache1 = prefill_step(p, {"tokens": tokens})
+            logits = gather_logits(logits, plan, cfg, tokens.shape[0])
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
             return tok, cache1
 
@@ -629,15 +755,20 @@ class InferenceEngine:
 
         def _decode(p, caches, batch):
             nt, logits, caches = decode_step(p, caches, batch)
-            return nt, confidence(logits), caches
+            return nt, confidence(gather_logits(logits, plan, cfg, self.B)), \
+                caches
 
         self._acct = _Accounting()
         self._slo = _SLOState(slo or SLOPolicy())
-        self.state = _BatchState(cfg, self.B, cache_len, plan.device)
-        self._prefill_node = PrefillNode(_prefill, params, plan.device,
-                                         n_workers=prefill_workers)
+        self.state = _BatchState(cfg, self.B, cache_len, plan.device,
+                                 plan if spmd_plan else None)
+        self._lockstep = _LockStep(plan, params, _prefill) if spmd_plan \
+            else None
+        self._prefill_node = PrefillNode(
+            None if spmd_plan else _prefill, params, plan.device,
+            n_workers=prefill_workers)
         self._cm = CacheManager(self.state, self.B, _insert, self._acct,
-                                self._slo, max_pending)
+                                self._slo, max_pending, self._lockstep)
         self._decode_node = DecodeNode(self.state, params, _decode)
         self._collect = CollectNode(self.state, self._cm, self._acct,
                                     self._slo, eos_token, exit_threshold)
@@ -767,6 +898,8 @@ class InferenceEngine:
         policy = self._slo.policy
         level = max(self._slo.ext_level,
                     policy.level(waiting, self.max_pending))
+        if self._lockstep is not None:    # every rank admits every request
+            level, waiting = 0, 0
         if level >= 2 or waiting > self.max_pending:
             self._acct.bump("shed")
             ov = Overloaded(req, f"overloaded: backlog {waiting}/"
