@@ -23,12 +23,15 @@ every tensor is this rank's block, and the resharding GSPMD does for the
 reference becomes explicit steps over the ``tp`` axis, each decided from
 ``spec_for_shape``/``_fit_dim`` so that a dim that does not divide stays
 replicated: :meth:`ShardingPlan.seq_gather` (the sequence-parallel gather
-at a block's entry), :meth:`ShardingPlan.compose` (the row-parallel exit:
-a ``psum_scatter`` over the sequence, a ``psum`` when the sequence is not
-sharded) and :meth:`ShardingPlan.block` (a replicated tensor cut to its
-block).  They run through ``core/spmd.py``'s differentiable collectives,
-so the backward is their transpose; on a model axis of one rank, and
-outside a manual region, each is the identity.
+at a block's entry, and context-parallel attention's gather of k/v),
+:meth:`ShardingPlan.compose` (the row-parallel exit: a ``psum_scatter``
+over the sequence, a ``psum`` when the sequence is not sharded),
+:meth:`ShardingPlan.block` (a replicated tensor cut to its block) and
+:meth:`ShardingPlan.seq_block` (a sequence-indexed input — ``embeds``,
+``frames``, positions, M-RoPE's ids — cut to the rank's sequence block).
+They run through ``core/spmd.py``'s differentiable collectives, so the
+backward is their transpose; on a model axis of one rank, and outside a
+manual region, each is the identity.
 """
 
 from __future__ import annotations
@@ -315,7 +318,8 @@ class ShardingPlan:
     def seq_gather(self, x, sp: bool):
         """A block's entry: the sequence-sharded (B, S/tp, ...) ``x``
         all-gathered over the model axis on dim 1 (its transpose, the
-        backward, reduce-scatters); ``x`` itself when ``sp`` is false."""
+        backward, reduce-scatters); ``x`` itself when ``sp`` is false.
+        Context-parallel attention gathers its k and v so."""
         if not sp:
             return x
         from . import spmd
@@ -356,6 +360,17 @@ class ShardingPlan:
         n = self.mesh.shape[m]
         size = x.shape[dim] // n
         return x.narrow(dim, self.mesh.coord(m) * size, size)
+
+    def seq_block(self, x, sp: bool, dim: int = 1,
+                  logical: Optional[str] = "sp"):
+        """The rank's block of a sequence-indexed ``x`` whose ``dim`` is
+        the whole sequence (the ``embeds`` or ``frames`` entering the
+        residual stream; positions (B, S) and M-RoPE's ids (3, B, S) on
+        dim 2 inside context-parallel attention, ``logical`` ``cp``), when
+        ``sp`` says the sequence is split: :meth:`block` along ``dim``.
+        ``x`` itself when it is not (a sequence the model axis does not
+        divide stays whole on every rank)."""
+        return self.block(x, dim, logical) if sp else x
 
     def model_split(self, shape: Sequence[int],
                     logicals: Sequence[Optional[str]]) -> Tuple[int, ...]:

@@ -33,6 +33,26 @@ kv heads in the heads layout, over head_dim otherwise, where decode's
 q.k products are partial on each rank and summed over the model axis
 before the softmax, and P.V's head_dim block reaches ``wo``'s heads block
 through an ``all_to_all``.
+
+With ``attn_parallel="cp"`` (context parallelism: Yi-34B, Llama-3.2-3B,
+Qwen2-VL, whose heads do not divide the model axis) the weights stay
+whole on every rank and the sequence is split instead: ``x`` stays the
+rank's sequence block, q, k and v are projected from it and rotated by the
+block's own positions, and k and v are gathered over the sequence
+(``seq_gather``; the backward reduce-scatters).  The kernel keeps its
+contract — queries aligned to the end of the keys — by taking the key
+prefix up to the block's last row: exact under the causal mask, which
+gives every later key zero weight, and it skips the masked work.  The
+output is the rank's block of the residual update (``wo`` whole: no
+reduce).  The cache keeps the head_dim block of the gathered k/v
+(``_cache_axes``), so decode takes the head_dim-split path above.
+
+Cross attention over a model axis (Whisper) takes q over the heads and
+the cross k/v over the kv heads when ``n_kv_heads % 16 == 0``, else whole.
+The cross cache keeps the layout the reference's ``cross_kv`` constrains
+its k/v to, :data:`CROSS_CACHE_AXES`: the kv heads over the model axis
+where they divide it, else every head (not ``_cache_axes``' head_dim
+split).
 """
 
 from __future__ import annotations
@@ -135,15 +155,15 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     RoPE.  With a plan whose model axis is manual, ``x`` is this rank's
     block of the residual (sequence-sharded when ``sp``), ``p`` and the
     cache this rank's blocks, and the output this rank's block of the
-    residual update.
+    residual update; ``positions`` and ``mrope_positions`` stay whole.
     """
     tp = model_plan(plan)
-    if tp is not None:
-        if cfg.attn_parallel != "heads":
-            raise NotImplementedError(
-                "context-parallel attention (attn_parallel='cp') over a "
-                "model axis larger than one waits for a later slice of the "
-                "port")
+    cp = tp is not None and cfg.attn_parallel == "cp"
+    if cp:                                # the rank's rows of the sequence
+        positions = tp.seq_block(positions, sp, 1, "cp")
+        if mrope_positions is not None:
+            mrope_positions = tp.seq_block(mrope_positions, sp, 2, "cp")
+    elif tp is not None:
         x = tp.seq_gather(x, sp)          # SP boundary: the whole sequence
     B, S, _ = x.shape
     n_kv = cfg.n_kv_heads
@@ -159,6 +179,8 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
             positions[None, :].expand(B, S)
         q = apply_rope(q, pos2d, cfg.rope_theta)
         k = apply_rope(k, pos2d, cfg.rope_theta)
+    if cp and not decode:                 # every key of the sequence
+        k, v = tp.seq_gather(k, sp), tp.seq_gather(v, sp)
 
     # the layout over the model axis (one device: every head, whole)
     n_q = cfg.padded_heads or cfg.n_heads
@@ -167,11 +189,7 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     cache_split = ()
     if tp is not None:
         defs = attn_defs(cfg)
-        r = tp.mesh.coord(tp.model_axis())
-        q_split = bool(tp.model_split(defs["wq"].shape, defs["wq"].axes))
-        k_split = bool(tp.model_split(defs["wk"].shape, defs["wk"].axes))
-        q_off = r * q.shape[2] if q_split else 0
-        k_off = r * k.shape[2] if k_split else 0
+        q_off, k_off = _head_offsets(tp, defs, q.shape[2], k.shape[2])
         cache_split = tp.model_split((B, 1, n_kv, cfg.head_dim),
                                      _cache_axes(cfg))
 
@@ -188,29 +206,55 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
         out = out.to(x.dtype)
     else:
         ks, vs = _kv_for_heads(k, v, q_off, q.shape[2], group, k_off)
+        if cp and causal:
+            ks, vs = _causal_prefix(tp, ks, vs, S)
         out = flash_attention(_heads_first(q), _heads_first(ks),
                               _heads_first(vs), causal, window)
         out = out.transpose(1, 2)                             # (B,S,H,D)
         new_cache = None
         if cache == "init":
             ck, cv = k, v
+            S_all = k.shape[1]
             if 3 in cache_split:
                 ck, cv = tp.block(ck, 3), tp.block(cv, 3)
-            tgt = getattr(cfg, "cache_len", None) or S
-            if cfg.attn_kind == "swa" and tgt == window and S > window:
-                shift = S % window
+            tgt = getattr(cfg, "cache_len", None) or S_all
+            if cfg.attn_kind == "swa" and tgt == window and S_all > window:
+                shift = S_all % window
                 ck = torch.roll(ck[:, -window:], shift, dims=1)
                 cv = torch.roll(cv[:, -window:], shift, dims=1)
-            elif tgt > S:
-                pad = (0, 0, 0, 0, 0, tgt - S)
+            elif tgt > S_all:
+                pad = (0, 0, 0, 0, 0, tgt - S_all)
                 ck = torch.nn.functional.pad(ck, pad)
                 cv = torch.nn.functional.pad(cv, pad)
             new_cache = {"k": ck, "v": cv}
 
     o = einsum("bshk,hkd->bsd", out, p["wo"]).to(torch.bfloat16)
-    if tp is not None:
+    if tp is not None and not cp:        # cp: wo whole, o the rank's rows
         o = tp.compose(o, sp, defs["wo"])
     return o, new_cache
+
+
+def _causal_prefix(tp, k, v, rows: int):
+    """The keys that this rank's ``rows`` query rows read under the causal
+    mask, when the sequence is split: rank r's rows are [r rows, (r+1)
+    rows) of the whole, so the keys up to its last row, which end where
+    its queries do (the kernel aligns queries to the end of the keys).
+    Every key when the rows are the whole sequence."""
+    end = (tp.mesh.coord(tp.model_axis()) + 1) * rows
+    if end >= k.shape[1]:
+        return k, v
+    return k[:, :end], v[:, :end]
+
+
+def _head_offsets(tp, defs, n_q_local: int, n_kv_local: int):
+    """The global index of this rank's first q head and first kv head:
+    ``wq``/``wk`` split over the model axis take the rank's block of the
+    heads, whole ones start at 0."""
+    r = tp.mesh.coord(tp.model_axis())
+    q_split = bool(tp.model_split(defs["wq"].shape, defs["wq"].axes))
+    k_split = bool(tp.model_split(defs["wk"].shape, defs["wk"].axes))
+    return (r * n_q_local if q_split else 0,
+            r * n_kv_local if k_split else 0)
 
 
 def _decode_attend(q, ck, cv, positions, window, cfg, tp, q_off, group,
@@ -260,19 +304,54 @@ def _decode_attend(q, ck, cv, positions, window, cfg, tp, q_off, group,
     return out
 
 
-def cross_attention(x, p, enc_kv):
+def cross_attention(x, p, enc_kv, cfg=None, plan=None, sp=False):
     """Encoder-decoder cross attention (Whisper): q from the decoder's x,
     k/v precomputed from the encoder's output (``cross_kv``, cached at
     prefill), every key visible.  The output stays in the promoted type of
-    the product, as the reference's einsum leaves it."""
+    the product, as the reference's einsum leaves it.  Over a plan's model
+    axis ``x`` is the rank's block of the residual, ``enc_kv`` the rank's
+    block of the cross k/v (:func:`cross_cache`'s layout at decode), and
+    the output the rank's block of the residual update: the sequence
+    gathered at the entry, q over the heads, ``wo`` row-parallel."""
+    tp = model_plan(plan)
+    if tp is not None:
+        x = tp.seq_gather(x, sp)
     q = einsum("bsd,dhk->bshk", x, p["wq"])
-    out = flash_attention(_heads_first(q), _heads_first(enc_kv["k"]),
-                          _heads_first(enc_kv["v"]), False, 0)
-    return einsum("bshk,hkd->bsd", out.transpose(1, 2), p["wo"])
+    k, v = enc_kv["k"], enc_kv["v"]
+    if tp is not None:
+        defs = attn_defs(cfg)
+        r = tp.mesh.coord(tp.model_axis())
+        q_off = _head_offsets(tp, defs, q.shape[2], k.shape[2])[0]
+        k_off = r * k.shape[2] if k.shape[2] < cfg.n_kv_heads else 0
+        n_q = cfg.padded_heads or cfg.n_heads
+        k, v = _kv_for_heads(k, v, q_off, q.shape[2], n_q // cfg.n_kv_heads,
+                             k_off)
+    out = flash_attention(_heads_first(q), _heads_first(k),
+                          _heads_first(v), False, 0)
+    o = einsum("bshk,hkd->bsd", out.transpose(1, 2), p["wo"])
+    return o if tp is None else tp.compose(o, sp, defs["wo"])
 
 
 def cross_kv(enc_out, p):
     """The cross attention's k/v, (B, S_enc, kv, D) each, from the
-    encoder's output."""
+    encoder's whole output (over a model axis the caller gathers it from
+    its sequence blocks once for every decoder layer): the rank's kv heads
+    where its ``wk``/``wv`` blocks split them, else every head."""
     return {"k": einsum("bsd,dhk->bshk", enc_out, p["wk"]),
             "v": einsum("bsd,dhk->bshk", enc_out, p["wv"])}
+
+
+# the cross cache's logical axes (B, S_enc, kv, D): the layout the
+# reference's ``cross_kv`` constrains its k/v to
+CROSS_CACHE_AXES = ("batch", None, "tp", None)
+
+
+def cross_cache(ckv, cfg, plan=None):
+    """The cross k/v as the decode cache keeps them
+    (:data:`CROSS_CACHE_AXES`): over a model axis the rank's block of the
+    kv heads where they divide it (``ckv`` holds every head when
+    ``wk``/``wv`` stay whole), else every head."""
+    tp = model_plan(plan)
+    if tp is None or ckv["k"].shape[2] < cfg.n_kv_heads:
+        return ckv
+    return {n: tp.block(t, 2) for n, t in ckv.items()}

@@ -46,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import spmd
 from ..core.plan import P, TorchSharding, model_plan
 from ..core.tree import tree_map
-from .attention import attention, attn_defs, cross_attention, cross_kv
+from .attention import (CROSS_CACHE_AXES, attention, attn_defs,
+                        cross_attention, cross_cache, cross_kv)
 from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
                      unembed, unembedding)
 from .moe import moe_block, moe_defs
@@ -54,11 +55,10 @@ from .params import ParamDef, init_params
 from .attention import _cache_axes
 from .ssm import (MAMBA2_STATE_AXES, mamba2_block, mamba2_defs,
                   mamba2_state_defs)
-from .xlstm import (mlstm_block, mlstm_defs, mlstm_state_defs, slstm_block,
-                    slstm_defs, slstm_state_defs)
+from .xlstm import (MLSTM_STATE_AXES, SLSTM_STATE_AXES, mlstm_block,
+                    mlstm_defs, mlstm_state_defs, slstm_block, slstm_defs,
+                    slstm_state_defs)
 
-# the families whose blocks run over a model axis larger than one
-TP_FAMILIES = ("dense", "moe", "hybrid")
 
 # ---------------------------------------------------------------------------
 # vocab-parallel embedding / cross entropy
@@ -222,25 +222,32 @@ def dense_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
 
 
 def dec_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
-              enc_out=None):
+              enc_out=None, plan=None, sp=False):
     """Whisper's decoder block: causal self-attention, cross attention on
     the encoder's k/v (``cross_kv`` of ``enc_out`` at prefill and in
     training, the cached ``cache["cross"]`` at decode), then the MLP.
     Returns (x, new_cache, {}); ``cache`` is None (training), "init"
-    (prefill) or ``{"self": {k, v}, "cross": {k, v}}`` (decode)."""
+    (prefill) or ``{"self": {k, v}, "cross": {k, v}}`` (decode).  Over a
+    plan's model axis ``x`` is the rank's block of the residual and
+    ``enc_out`` the encoder's whole output; the cross cache keeps
+    :func:`~repro_torch.models.attention.cross_cache`'s layout."""
     decode = isinstance(cache, dict)
     xn = apply_norm(x, p["ln1"], cfg.norm)
     a, new_self = attention(xn, p["attn"], cfg, positions=positions,
                             causal=True, window=0,
                             cache=cache["self"] if decode else cache,
-                            cache_pos=pos_offset)
+                            cache_pos=pos_offset, plan=plan, sp=sp)
     x = x + a
     xn = apply_norm(x, p["ln_x"], cfg.norm)
     ckv = cache["cross"] if decode else cross_kv(enc_out, p["xattn"])
-    x = x + cross_attention(xn, p["xattn"], ckv)
+    x = x + cross_attention(xn, p["xattn"], ckv, cfg, plan, sp)
     xn = apply_norm(x, p["ln2"], cfg.norm)
-    x = x + mlp(xn, p["mlp"], cfg.act)
-    new_cache = None if cache is None else {"self": new_self, "cross": ckv}
+    x = x + mlp(xn, p["mlp"], cfg.act, plan, sp,
+                mlp_defs(cfg.d_model, cfg.d_ff)["wo"])
+    new_cache = None
+    if cache is not None:
+        new_cache = {"self": new_self,
+                     "cross": ckv if decode else cross_cache(ckv, cfg, plan)}
     return x, new_cache, {}
 
 
@@ -248,23 +255,25 @@ def apply_block(kind, x, p, cfg, *, cache=None, positions=None,
                 pos_offset=0, mrope_positions=None, enc_out=None,
                 losses=False, plan=None, sp=False):
     """Uniform block dispatch; returns (x, new_cache, aux).  ``plan`` and
-    ``sp`` reach the blocks that run over a model axis (``dense``, ``moe``,
-    ``shared_attn``, ``mamba2``)."""
+    ``sp`` reach every block (each runs over a model axis)."""
     if kind == "mamba2":
         y, st = mamba2_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk,
                              plan=plan, sp=sp)
         return y, st, {}
     if kind == "mlstm":
-        y, st = mlstm_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk)
+        y, st = mlstm_block(x, p, cfg, state=cache, chunk=cfg.gla_chunk,
+                            plan=plan, sp=sp)
         return y, st, {}
     if kind == "slstm":
-        y, st = slstm_block(x, p, cfg, state=cache)
+        y, st = slstm_block(x, p, cfg, state=cache, plan=plan, sp=sp)
         return y, st, {}
     if kind == "dec":
         return dec_block(x, p, cfg, cache=cache, positions=positions,
-                         pos_offset=pos_offset, enc_out=enc_out)
+                         pos_offset=pos_offset, enc_out=enc_out, plan=plan,
+                         sp=sp)
     if kind == "enc":
-        return dense_block(x, p, cfg, positions=positions, causal=False)
+        return dense_block(x, p, cfg, positions=positions, causal=False,
+                           plan=plan, sp=sp)
     if kind == "shared_attn":
         return dense_block(x, p, cfg, cache=cache, positions=positions,
                            pos_offset=pos_offset,
@@ -413,13 +422,16 @@ class LM:
                       for kind, cs in pieces.items()}
         return x, caches, aux
 
-    def _embed_in(self, params, batch, tokens, plan=None):
+    def _embed_in(self, params, batch, tokens, plan=None, sp=False):
         """The block input: ``batch["embeds"]`` in bf16 for the ``vlm``
-        family when it is there (the reference's stub front end), else the
-        embedding of ``tokens`` (vocab-parallel over a plan's model
+        family when it is there (the reference's stub front end; over a
+        manual model axis the rank's sequence block under ``sp``), else
+        the embedding of ``tokens`` (vocab-parallel over a plan's model
         axis)."""
-        if self.cfg.family == "vlm" and "embeds" in batch:
-            return batch["embeds"].to(torch.bfloat16)
+        if self._embeds(batch):
+            x = batch["embeds"].to(torch.bfloat16)
+            tp = model_plan(plan)
+            return x if tp is None else tp.seq_block(x, sp)
         if _tp_axis(plan) is not None:
             return vocab_parallel_embed(tokens, params["embed"]["emb"], plan)
         return embed(tokens, params["embed"])
@@ -427,17 +439,14 @@ class LM:
     def _mrope(self, batch):
         return batch.get("mrope_positions") if self.cfg.mrope else None
 
-    def _model_axis(self, plan):
-        """The plan when its model axis is manual with more than one rank
-        (the blocks run sharded), after checking that this family has its
-        sharded blocks; else ``None``."""
-        tp = model_plan(plan)
-        if tp is not None and self.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.cfg.family} family ({self.cfg.name}) over a model "
-                "axis larger than one waits for a later slice of the port "
-                "(the encdec, vlm and ssm families over tp)")
-        return tp
+    def _embeds(self, batch) -> bool:
+        return self.cfg.family == "vlm" and "embeds" in batch
+
+    def _seq_len(self, batch) -> int:
+        """The global length of the token stream: the ``embeds``' for a
+        ``vlm`` batch that has them, else the tokens'."""
+        return (batch["embeds"] if self._embeds(batch)
+                else batch["tokens"]).shape[1]
 
     def _forward(self, params, batch, mode, plan=None):
         """The backbone over a prompt or a training batch (``mode`` prefill
@@ -447,27 +456,35 @@ class LM:
         ``enc_norm`` first, and the tokens through the ``dec`` segment on
         that output.  Over a plan's model axis the activations are this
         rank's block, sequence-sharded when the plan's ``sp`` axis fits
-        the sequence."""
+        the sequence (the frames and the tokens each by their own length);
+        the encoder's output is gathered over the sequence once, for every
+        decoder layer's cross k/v."""
         cfg = self.cfg
-        tp = self._model_axis(plan)
+        tp = model_plan(plan)
         enc_out, segments = None, None
         if cfg.family == "encdec":
             frames = batch["frames"].to(torch.bfloat16)
             B, S = frames.shape[:2]
+            sp_enc = tp is not None and tp.seq_split(S)
+            if sp_enc:
+                frames = tp.seq_block(frames, sp_enc)
             pos = torch.arange(S, device=frames.device)[None].expand(B, S)
             enc_x, _, _ = self._run_segments(
                 params, frames, mode=mode, positions=pos,
-                segments=[("enc", cfg.enc_layers)])
+                segments=[("enc", cfg.enc_layers)], plan=tp, sp=sp_enc)
             enc_out = apply_norm(enc_x, params["enc_norm"], cfg.norm)
+            if sp_enc:
+                enc_out = tp.seq_gather(enc_out, sp_enc)
             segments = [("dec", cfg.dec_layers)]
-        x = self._embed_in(params, batch, batch.get("tokens"), plan)
+        S = self._seq_len(batch)
+        sp = tp is not None and tp.seq_split(S)
+        x = self._embed_in(params, batch, batch.get("tokens"), plan, sp)
         B = x.shape[0]
-        S = batch["tokens"].shape[1] if tp is not None else x.shape[1]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, caches, aux = self._run_segments(
             params, x, mode=mode, positions=positions,
             mrope_positions=self._mrope(batch), enc_out=enc_out,
-            segments=segments, plan=tp, sp=tp is not None and tp.seq_split(S))
+            segments=segments, plan=tp, sp=sp)
         return apply_norm(x, params["final_norm"], cfg.norm), caches, aux
 
     # -- serving -----------------------------------------------------------------
@@ -486,7 +503,7 @@ class LM:
         x, caches, _ = self._forward(params, batch, "prefill", plan)
         x_last = x[:, -1:]
         tp = model_plan(plan)
-        if tp is not None and tp.seq_split(batch["tokens"].shape[1]):
+        if tp is not None and tp.seq_split(self._seq_len(batch)):
             # the last position is on the last rank of the model axis
             x_last = spmd.all_gather(x_last, tp.model_axis(),
                                      axis_dim=1)[:, -1:]
@@ -500,7 +517,7 @@ class LM:
         caches written in place.  Over a plan's model axis the caches and
         the logits are this rank's blocks (the logits' vocab block)."""
         cfg = self.cfg
-        tp = self._model_axis(plan)
+        tp = model_plan(plan)
         tok = batch["token"]
         B = tok.shape[0]
         pos = batch["pos"]
@@ -580,19 +597,24 @@ class LM:
     def cache_shardings(self, B: int, S_max: int, plan):
         """A :class:`~repro_torch.core.plan.TorchSharding` per leaf of
         :meth:`cache_defs`: the reference's logical axes (``_cache_axes``
-        behind a layer dim for KV caches, ``mamba2_state_defs``' for the
-        Mamba2 state) fitted to each leaf's shape on ``plan``'s mesh;
-        ``local_shape`` gives a rank's block."""
+        behind a layer dim for KV caches, ``CROSS_CACHE_AXES`` for a
+        ``dec`` layer's ``cross``, the state defs' axes for the Mamba2,
+        mLSTM and sLSTM states) fitted to each leaf's shape on ``plan``'s
+        mesh; ``local_shape`` gives a rank's block."""
+        kv_axes = ("layers",) + _cache_axes(self.cfg)
+        state_axes = {"mamba2": MAMBA2_STATE_AXES, "mlstm": MLSTM_STATE_AXES,
+                      "slstm": SLSTM_STATE_AXES}
+
+        def place(leaves, axes):
+            return {n: TorchSharding(plan.mesh, plan.spec_for_shape(
+                shape, axes[n] if isinstance(axes, dict) else axes))
+                for n, (shape, _) in leaves.items()}
         out = {}
         for kind, leaves in self.cache_defs(B, S_max).items():
-            if kind == "mamba2":
-                axes = MAMBA2_STATE_AXES
-            elif kind in ("dense", "moe", "shared_attn"):
-                axes = {n: ("layers",) + _cache_axes(self.cfg)
-                        for n in leaves}
+            if kind == "dec":
+                out[kind] = {"self": place(leaves["self"], kv_axes),
+                             "cross": place(leaves["cross"], ("layers",)
+                                            + CROSS_CACHE_AXES)}
             else:
-                raise NotImplementedError(
-                    f"the {kind} cache over a mesh waits for a later slice")
-            out[kind] = {n: TorchSharding(plan.mesh, plan.spec_for_shape(
-                shape, axes[n])) for n, (shape, _) in leaves.items()}
+                out[kind] = place(leaves, state_axes.get(kind, kv_axes))
         return out

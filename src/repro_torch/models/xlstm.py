@@ -26,6 +26,21 @@ mLSTM through ``silu_stepwise`` (``jax.nn.silu``'s every-step rounding),
 ``k / sqrt(P)`` as a division of bf16 by the bf16-rounded constant, the
 output product rounded to bf16 (``preferred_element_type``).  The
 reference's sharding constraints are no-ops on one device and are dropped.
+
+Over a plan's model axis (inside the steps' manual region) both blocks run
+on the rank's blocks, as GSPMD lays out the reference's: the residual's
+sequence block is gathered at the entry; in the mLSTM ``wup``, ``wgate``
+and the per-channel conv give the rank's channels, and ``c`` and ``up``
+are gathered back over the channels (the model axis) before ``wq``, ``wk``,
+``wv``, ``wi`` and ``wf``, whose column blocks are the rank's heads — so
+each q, k, v and gate element is the whole contraction, rounded once as
+on one device, where summing partial products would round each rank's
+part — then ``ssd_scan`` runs on the local heads, ``h * gate`` on the
+local channels, and ``wo`` is row-parallel (``compose``).  The sLSTM's
+four gates are column-parallel, its channel-wise scans local, ``wo``
+row-parallel.  The decode states take the reference's axes
+(:data:`MLSTM_STATE_AXES`, :data:`SLSTM_STATE_AXES`): C and n over the
+heads, conv, c and n over the channels.
 """
 
 from __future__ import annotations
@@ -35,6 +50,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core import spmd
+from ..core.plan import model_plan
 from ..kernels.ssd_scan import ssd_scan
 from .layers import mm, rms_norm
 from .params import ParamDef
@@ -76,28 +93,40 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).contiguous()
 
 
-def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256):
+def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
+                sp=False):
     """state: None (no state kept) | 'init' (prefill: return the final
     state) | dict {C, n, conv} (decode step: written in place and
-    returned).  Returns (x + out, state)."""
-    B, S, _ = x.shape
-    d_inner, H, P = mlstm_dims(cfg)
+    returned).  Returns (x + out, state).  With a plan whose model axis is
+    manual, ``x`` is this rank's block of the residual (sequence-sharded
+    when ``sp``), ``p`` and the state this rank's blocks."""
+    tp = model_plan(plan)
+    B, P = x.shape[0], mlstm_dims(cfg)[2]
     decode = isinstance(state, dict)
 
-    xn = rms_norm(x, p["norm"]["w"])
+    xn = rms_norm(x if tp is None else tp.seq_gather(x, sp), p["norm"]["w"])
+    S = xn.shape[1]
     up = mm(xn, p["wup"])
     gate = silu_stepwise(mm(xn, p["wgate"]))
 
     conv_state = state["conv"] if decode else None
     c, new_conv = _causal_conv(up, p["conv"], conv_state)
     c = silu_stepwise(c)
+    if tp is not None:
+        c, up = _all_channels(tp, cfg, c, up)
 
-    q = mm(c, p["wq"]).reshape(B, S, H, P)
+    q = mm(c, p["wq"])
     # a bf16 tensor over a Python float: JAX rounds the constant to bf16
     # and divides (a fill on the device, no host-to-device copy)
-    k = mm(c, p["wk"]).reshape(B, S, H, P) \
+    k = mm(c, p["wk"]) \
         / torch.full((), P ** 0.5, dtype=c.dtype, device=c.device)
-    v = mm(up, p["wv"]).reshape(B, S, H, P)
+    v = mm(up, p["wv"])
+    if tp is not None and q.shape[-1] // P != p["wi"].shape[-1]:
+        # the columns split but not the heads (H % tp != 0): every head
+        m = tp.model_axis()
+        q, k, v = (spmd.all_gather(t, m, axis_dim=2) for t in (q, k, v))
+    Hl = q.shape[-1] // P                     # this rank's heads
+    q, k, v = (t.reshape(B, S, Hl, P) for t in (q, k, v))
     i_gate = mm(c, p["wi"]).float()
     f_gate = mm(c, p["wf"]).float()
     log_a = F.logsigmoid(f_gate)                              # (B,S,H)
@@ -122,8 +151,31 @@ def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256):
             new_state = {"C": C_fin, "n": n_fin, "conv": new_conv}
 
     h = num / torch.clamp(den.abs(), min=1.0)
-    h = h.reshape(B, S, d_inner).to(x.dtype) * gate
-    return x + mm(h, p["wo"]).to(torch.bfloat16), new_state
+    h = h.reshape(B, S, Hl * P).to(x.dtype)
+    if h.shape[-1] != gate.shape[-1]:         # every head: the rank's channels
+        h = tp.block(h, 2)
+    out = mm(h * gate, p["wo"]).to(torch.bfloat16)
+    if tp is not None:
+        out = tp.compose(out, sp, mlstm_defs(cfg)["wo"])
+    return x + out, new_state
+
+
+def _all_channels(tp, cfg, c, up):
+    """``c`` and ``up`` over every channel of d_inner: gathered over the
+    model axis where the conv's def splits the channels."""
+    conv = mlstm_defs(cfg)["conv"]
+    if not tp.model_split(conv.shape, conv.axes):
+        return c, up
+    m = tp.model_axis()
+    return (spmd.all_gather(c, m, axis_dim=2),
+            spmd.all_gather(up, m, axis_dim=2))
+
+
+# the decode state's logical axes behind its layer dim (the reference's
+# ``mlstm_state_defs``): C and n over the heads, conv over the channels
+MLSTM_STATE_AXES = {"C": ("layers", "batch", "tp", None, None),
+                    "n": ("layers", "batch", "tp", None, None),
+                    "conv": ("layers", "batch", None, "tp")}
 
 
 def mlstm_state_defs(cfg, B: int, layers: int):
@@ -196,12 +248,15 @@ def associative_scan(fn, elems: tuple, dim: int = 1) -> tuple:
     return tuple(out)
 
 
-def slstm_block(x, p, cfg, *, state=None):
+def slstm_block(x, p, cfg, *, state=None, plan=None, sp=False):
     """state: None | 'init' (prefill: return the last c and n) | dict {c, n}
     (decode step: written in place and returned).  Returns (x + out,
-    state)."""
+    state).  With a plan whose model axis is manual, ``x`` is this rank's
+    block of the residual (sequence-sharded when ``sp``), the gates and
+    the state this rank's channels."""
+    tp = model_plan(plan)
     decode = isinstance(state, dict)
-    xn = rms_norm(x, p["norm"]["w"])
+    xn = rms_norm(x if tp is None else tp.seq_gather(x, sp), p["norm"]["w"])
     z = torch.tanh(mm(xn, p["wz"]).float())
     i = torch.exp(torch.clamp(mm(xn, p["wi"]).float(), -20.0, 2.0))
     f = torch.sigmoid(mm(xn, p["wf"]).float())
@@ -221,7 +276,15 @@ def slstm_block(x, p, cfg, *, state=None):
             else None
 
     out = mm(h.to(x.dtype), p["wo"]).to(torch.bfloat16)
+    if tp is not None:
+        out = tp.compose(out, sp, slstm_defs(cfg)["wo"])
     return x + out, new_state
+
+
+# the decode state's logical axes behind its layer dim: c and n over the
+# channels
+SLSTM_STATE_AXES = {"c": ("layers", "batch", "tp"),
+                    "n": ("layers", "batch", "tp")}
 
 
 def slstm_state_defs(cfg, B: int, layers: int):

@@ -38,9 +38,13 @@ rank, that sum is the gradient of the global loss.  The clip's norm sums
 every block once.  ``make_prefill_step`` and ``make_decode_step`` run the
 same way on the rank's blocks of the parameters and of the caches, and
 return the vocab-parallel logits (this rank's block); the decode step's
-greedy token is the first argmax over the whole vocabulary.  The
-``encdec``, ``vlm`` and ``ssm`` families raise over a model axis larger
-than one.  The pod gradient compression is not ported.
+greedy token is the first argmax over the whole vocabulary.  A batch's
+inputs besides the tokens (Whisper's ``frames``, Qwen2-VL's ``embeds``
+and ``mrope_positions``, whose batch dim is its second) are split over
+the batch axes alike.  Under context-parallel attention the attention
+weights are replicated over the model axis, and that same sum gives
+them the gradient of every rank's sequence block.  The pod gradient
+compression is not ported.
 """
 
 from __future__ import annotations
@@ -137,6 +141,10 @@ def state_structs(cfg: Config, plan, optimizer=None):
                     sh["opt"])
     return {"params": pp.shape_structs(pdefs, plan), "opt": o_st,
             "step": meta((), torch.int32, sh["step"])}
+
+
+# the batch dim of a batch input, where it is not the first
+BATCH_DIM = {"mrope_positions": 1}
 
 
 def _batch_axes(plan) -> tuple:
@@ -285,12 +293,12 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
         block = block * mesh.shape[a] + mesh.coord(a)
     n_blocks = math.prod(mesh.shape[a] for a in batch_axes)
 
-    def local(t: torch.Tensor) -> torch.Tensor:
-        if t.shape[0] % n_blocks:
-            raise ValueError(f"a batch of {t.shape[0]} over {n_blocks} "
+    def local(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if t.shape[dim] % n_blocks:
+            raise ValueError(f"a batch of {t.shape[dim]} over {n_blocks} "
                              "ranks")
-        n = t.shape[0] // n_blocks
-        return t[block * n:(block + 1) * n]
+        n = t.shape[dim] // n_blocks
+        return t.narrow(dim, block * n, n)
 
     def grads_of(whole, batch):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(whole)]
@@ -328,7 +336,8 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
             metrics = {}
         else:
             loss, metrics, grads = grads_of(
-                whole, {k: local(v) for k, v in batch.items()})
+                whole, {k: local(v, BATCH_DIM.get(k, 0))
+                        for k, v in batch.items()})
         del whole
         grads = reduce_grads(grads, sh["params"], live_batch, model_axes)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm, shards)
@@ -343,14 +352,15 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
     return train_step
 
 
-def _batch_block(t, plan):
-    """This rank's block of a batch input along its first (batch) dim, as
+def _batch_block(t, plan, dim: int = 0):
+    """This rank's block of a batch input along its batch dim ``dim``, as
     ``spec_for_shape`` fits it (whole where the batch does not divide: a
     one-sequence prefill is replicated over the data axes); a scalar as
     it is."""
     if not isinstance(t, torch.Tensor) or t.dim() == 0:
         return t
-    spec = plan.spec_for_shape(t.shape[:1], ("batch",))
+    spec = plan.spec_for_shape(t.shape[:dim + 1],
+                               (None,) * dim + ("batch",))
     return TorchSharding(plan.mesh, spec).local_block(t)
 
 
@@ -364,7 +374,8 @@ def _spmd_call(cfg: Config, plan):
     def call(fn, params, *args):
         *rest, batch = args
         whole = gather_params(params, sh, axes) if axes else params
-        local = {k: _batch_block(v, plan) for k, v in batch.items()}
+        local = {k: _batch_block(v, plan, BATCH_DIM.get(k, 0))
+                 for k, v in batch.items()}
         with spmd.manual(plan.mesh, plan.mesh.axis_names):
             return fn(whole, *rest, local)
     return call

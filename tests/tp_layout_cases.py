@@ -4,13 +4,14 @@ CPU (``core.spmd.launch``).  Imports only torch, numpy and the port.
 * ``one_rank``: on a ``(1, 1)`` mesh over rank 0 alone, the train, prefill
   and decode steps of reduced configs against the same steps on a
   one-device plan, bit for bit;
-* ``left_out``: on the ``(1, 2)`` mesh, the families whose blocks have no
-  form over the model axis yet raise ``NotImplementedError``;
 * ``reshard``: a one-device checkpoint placed onto the ``(1, 2)`` mesh by
-  ``reshard_state``;
+  ``reshard_state`` (reduced Mixtral, and in ``reshard_families`` one
+  config of each kind the later families add);
 * ``lock_step``: an ``InferenceEngine`` per rank over the ``(1, 2)`` mesh,
   the same requests submitted at each rank's own pace; on rank 0, the
-  logits of a one-device greedy loop fed the engines' tokens.
+  logits of a one-device greedy loop fed the engines' tokens (reduced
+  Mixtral, and in ``lock_step_families`` Llama-3.2-3B with
+  context-parallel attention, Qwen2-VL fed tokens and xLSTM).
 """
 
 from __future__ import annotations
@@ -22,9 +23,15 @@ import time
 import numpy as np
 import torch
 
-ONE_RANK = ("ff-tiny", "mixtral-8x7b", "zamba2-1.2b")
-LEFT_OUT = ("whisper-medium", "qwen2-vl-2b", "xlstm-125m", "yi-34b")
+ONE_RANK = ("ff-tiny", "mixtral-8x7b", "zamba2-1.2b", "llama3.2-3b",
+            "xlstm-125m")
 ENGINE_ARCH, ENGINE_REQUESTS, ENGINE_NEW = "mixtral-8x7b", 6, 5
+# the engine over the families served in lock step since the encdec, vlm
+# and ssm slice (Whisper goes through the steps)
+ENGINE_FAMILIES = ("llama3.2-3b", "qwen2-vl-2b", "xlstm-125m")
+# one config of each block kind that slice runs over the model axis
+# (enc/dec, cp attention with M-RoPE, mlstm/slstm)
+RESHARD_FAMILIES = ("whisper-medium", "qwen2-vl-2b", "xlstm-125m")
 
 
 def _np(t):
@@ -82,35 +89,8 @@ def one_rank(mesh11) -> dict:
     return out
 
 
-def left_out(plan) -> dict:
-    """Per family left out, the message each step raises with (None if it
-    does not raise)."""
-    from repro_torch.configs import get
-    from repro_torch.runtime.steps import (make_prefill_step,
-                                           make_train_step)
-    out = {}
-    for name in LEFT_OUT:
-        cfg = get(name).reduced()
-        state = _state(cfg, plan)
-        msgs = []
-        batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
-        if cfg.family == "encdec":
-            batch["frames"] = torch.zeros((2, cfg.enc_len, cfg.d_model))
-        for run in (lambda: make_prefill_step(cfg, plan, 16)(
-                        state["params"], batch),
-                    lambda: make_train_step(cfg, plan, lambda s: 1e-3)(
-                        state, batch)):
-            try:
-                run()
-                msgs.append(None)
-            except NotImplementedError as e:
-                msgs.append(str(e))
-        out[name] = msgs
-    return out
-
-
-def reshard(plan, ckpt_dir: str) -> dict:
-    """A one-device state of reduced Mixtral saved by rank 0, placed onto
+def reshard(plan, ckpt_dir: str, arch: str = "mixtral-8x7b") -> dict:
+    """A one-device state of reduced ``arch`` saved by rank 0, placed onto
     ``plan``: (every block equal to its slice of the saved whole, leaves)."""
     from repro_torch.checkpoint import host_state, reshard_state
     from repro_torch.checkpoint import save_checkpoint
@@ -119,7 +99,7 @@ def reshard(plan, ckpt_dir: str) -> dict:
     from repro_torch.core.plan import single_device_plan
     from repro_torch.core.tree import jax_leaves
     from repro_torch.runtime.steps import state_shardings
-    cfg = get("mixtral-8x7b").reduced()
+    cfg = get(arch).reduced()
     whole = _state(cfg, single_device_plan("cpu"), seed=3)
     if spmd.rank() == 0:
         save_checkpoint(ckpt_dir, 0, whole)
@@ -133,14 +113,14 @@ def reshard(plan, ckpt_dir: str) -> dict:
     return {"equal": equal, "split": split, "leaves": len(jax_leaves(state))}
 
 
-def lock_step(plan) -> dict:
+def lock_step(plan, arch: str = ENGINE_ARCH) -> dict:
     """The same requests on each rank's engine, rank 1 submitting each
     after a random pause (and its engine starting late): the tokens, the
     finish reasons and the decode steps each engine took."""
     from repro_torch.configs import get
     from repro_torch.core import spmd
     from repro_torch.serving.engine import InferenceEngine, Request
-    cfg = get(ENGINE_ARCH).reduced()
+    cfg = get(arch).reduced()
     params = _state(cfg, plan)["params"]
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
@@ -165,7 +145,7 @@ def lock_step(plan) -> dict:
             "steps": eng.steps, "prompts": [p.tolist() for p in prompts]}
 
 
-def one_device_logits(served: dict) -> list:
+def one_device_logits(served: dict, arch: str = ENGINE_ARCH) -> list:
     """Per request the lock-step engines served, the logits a one-device
     greedy loop of ``make_prefill_step``/``make_decode_step`` on the same
     weights (the whole seed-0 draw) gives before each of its tokens, fed
@@ -173,7 +153,7 @@ def one_device_logits(served: dict) -> list:
     from repro_torch.configs import get
     from repro_torch.core.plan import single_device_plan
     from repro_torch.runtime.steps import make_decode_step, make_prefill_step
-    cfg = get(ENGINE_ARCH).reduced()
+    cfg = get(arch).reduced()
     one = single_device_plan("cpu")
     params = _state(cfg, one)["params"]
     prefill = make_prefill_step(cfg, one, 64)
@@ -240,11 +220,17 @@ def rank_main(ckpt_dir: str) -> dict:
     mesh12 = make_mesh((1, 2), ("data", "model"), "cpu")
     plan = ShardingPlan(mesh12)
     out = {"one_rank": one_rank(mesh11) if mesh11 is not None else None}
-    out["left_out"] = left_out(plan)
     out["reshard"] = reshard(plan, str(pathlib.Path(ckpt_dir)))
+    out["reshard_families"] = {a: reshard(plan, str(pathlib.Path(
+        ckpt_dir) / a), a) for a in RESHARD_FAMILIES}
     out["lock_step"] = lock_step(plan)
     out["lock_step_one_device"] = one_device_logits(out["lock_step"]) \
         if spmd.rank() == 0 else None
+    out["lock_step_families"] = {}
+    for arch in ENGINE_FAMILIES:
+        served = lock_step(plan, arch)
+        out["lock_step_families"][arch] = (served, one_device_logits(
+            served, arch) if spmd.rank() == 0 else None)
     out["backward_thread"] = backward_thread(plan)
     return out
 
