@@ -262,6 +262,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1066,6 +1067,16 @@ def phase_hybrid(main: dict) -> dict:
                      if s.get("backend") == "device"]
             say(f"[hybrid] boundary {stats[0]['boundary']}")
     times = {o: sum(ts) / len(ts) for o, ts in times.items()}
+    # 10e's stream, which leaves a partial microbatch, at this microbatch
+    # and at half of it, a rank's block of it over two ranks (a runner
+    # runs once)
+    short = {mb: build_graph(main["fns"], host_stages=True).compile(
+        config=CompileConfig(plan=main["plan"], placements=placements,
+                             microbatch=mb, inflight=4)
+    ).run(main["stream"][:GRAPH_HYBRID_ITEMS])
+        for mb in (HYBRID_MICROBATCH, HYBRID_MICROBATCH // 2)}
+    if any(len(s) != GRAPH_HYBRID_ITEMS for s in short.values()):
+        fail(f"the hybrid over {GRAPH_HYBRID_ITEMS} items lost items")
     a, b = outs[True], outs[False]
     if len(a) != len(b) or any(x.tobytes() != y.tobytes()
                                for x, y in zip(a, b)):
@@ -1077,7 +1088,8 @@ def phase_hybrid(main: dict) -> dict:
         f"{times[False]:.4f} s (mean of 2 alternating runs each); "
         f"byte-equal; in stream order (max |err| {err:.3g} vs the "
         f"whole-batch run)")
-    return {"overlap_s": times[True], "sync_s": times[False]}
+    return {"overlap_s": times[True], "sync_s": times[False],
+            "short": short}
 
 
 # ---------------------------------------------------------------------------
@@ -4007,6 +4019,12 @@ LLAMA_D, LLAMA_FF = 3072, 8192   # 10d: Llama-3.2-3B's MLP widths
 MD_TOL = {"flash_decode": 1e-5, "vp_loss": 1e-5, "vp_grad": 2.0 ** -6,
           "tm_gather": 2.0 ** -7, "tm_reduce": 2.0 ** -6}
 MD_KERNELS = ("flash_attention", "router_topk")
+# 10b's peak memory a rank with fsdp_params before the use-site gather
+# (the step gathered the whole tree over the data axis before the
+# forward): the parent tree's phase 10 run alone, `python3
+# tools/phase10_alone.py --src <parent checkout>`, read once
+PARENT_10B_PEAK_GB = 17.59
+PARENT_10B_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 def md_setup() -> torch.device:
@@ -4039,30 +4057,37 @@ def host_params(params) -> list:
 
 
 class RankClock(PhaseClock):
-    """:class:`PhaseClock` with the step's two collectives: the parameter
-    gather before the forward and the gradient reduce after the backward
-    (``runtime.steps.gather_params`` / ``reduce_grads``)."""
+    """:class:`PhaseClock` with the step's start and its gradient
+    collective (``runtime.steps.reduce_grads``: the sums the use-site
+    gathers' backward did not reduce-scatter).  The weights' gathers run
+    inside the forward and the backward's recompute (``gather_fsdp``), so
+    those parts include them; ``collective`` is the time before the
+    forward and the reduce."""
+
+    def wrap(self, step):
+        def timed_step(state, batch):
+            self.steps.append({})
+            self.mark_here("start")
+            out = step(state, batch)
+            self.mark_here("end")
+            return out
+        return timed_step
 
     @contextlib.contextmanager
     def timing(self):
         import repro_torch.runtime.steps as steps
-        gather, reduce = steps.gather_params, steps.reduce_grads
-
-        def timed_gather(*a, **k):
-            self.steps.append({})
-            self.mark_here("gather")
-            return gather(*a, **k)
+        reduce = steps.reduce_grads
 
         def timed_reduce(*a, **k):
             self.mark_here("reduce")
             return reduce(*a, **k)
 
-        steps.gather_params, steps.reduce_grads = timed_gather, timed_reduce
+        steps.reduce_grads = timed_reduce
         try:
             with super().timing():
                 yield
         finally:
-            steps.gather_params, steps.reduce_grads = gather, reduce
+            steps.reduce_grads = reduce
 
     def mark_here(self, phase: str) -> None:
         ev = torch.cuda.Event(enable_timing=True)
@@ -4070,7 +4095,7 @@ class RankClock(PhaseClock):
         self.steps[-1][phase] = (ev, time.perf_counter())
 
     def mark(self, phase: str) -> None:
-        self.mark_here(phase)            # the step opened at the gather
+        self.mark_here(phase)            # the step opened in ``wrap``
 
     def split(self) -> list:
         """Per step, the device ms of each part, and the host ms of the
@@ -4080,7 +4105,7 @@ class RankClock(PhaseClock):
             e = lambda a, b: s[a][0].elapsed_time(s[b][0])
             out.append({"forward": e("forward", "backward"),
                         "backward": e("backward", "reduce"),
-                        "collective": e("gather", "forward")
+                        "collective": e("start", "forward")
                         + e("reduce", "optimizer"),
                         "optimizer": e("optimizer", "end"),
                         "forward_host": (s["backward"][1]
@@ -4217,10 +4242,13 @@ def md_train(cfg, plan, dev, one: dict, steps: int, fsdp: bool,
     del state
     kernels = zero_launches()
     torch.cuda.reset_peak_memory_stats(dev)
+    from repro_torch.core.plan import FSDP_GATHERED, reset_fsdp_gathered
+    reset_fsdp_gathered()
     with clock.timing():
         out = driver.run()
     launches = {n: kernels[n].launches for n in MD_KERNELS}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    gathered = dict(FSDP_GATHERED)
     losses = [h["loss"] for h in out["history"]]
     dts = [h["dt"] for h in out["history"]]
     held = halves(driver.state["params"])
@@ -4240,7 +4268,8 @@ def md_train(cfg, plan, dev, one: dict, steps: int, fsdp: bool,
     worst = sorted(zip(errs, names), reverse=True)[:3]
     rel = lambda ref: max(abs(a / b - 1) for a, b in zip(losses, ref))
     return {"losses": losses, "dts": dts, "launches": launches,
-            "peak_gb": peak_gb, "split": clock.split()[:steps],
+            "peak_gb": peak_gb, "gathered": gathered,
+            "split": clock.split()[:steps],
             "held_before": held0, "held_after": held,
             "n_split": sum(split_of), "n_leaves": len(sh), "fsdp": fsdp,
             "rank": spmd.rank(), "update_err": worst[0][0],
@@ -4458,8 +4487,93 @@ def md_tensor_map(dev, mesh) -> dict:
     return {"gather_err": err(gathered), "reduce_err": err(reduced)}
 
 
+GRAPH_HYBRID_ITEMS = 4000      # 10e: phase 4's stream cut to 7.8 of 512
+GRAPH_REFS = "graph_refs.npz"   # phases 3-4's one-rank outputs, for 10e
+
+
+def save_graph_refs(main: dict, hyb: dict, out_dir: pathlib.Path) -> None:
+    """Phase 3's lossless and capacity outputs and phase 4's over its
+    first ``GRAPH_HYBRID_ITEMS`` items (one rank; also at half the
+    microbatch), which 10e holds its outputs over two ranks to."""
+    import numpy as np
+    np.savez(out_dir / GRAPH_REFS, lossless=np.stack(main["lossless"]),
+             capacity=np.stack(main["capacity"]),
+             hybrid=np.stack(hyb["short"][HYBRID_MICROBATCH]),
+             hybrid_half=np.stack(hyb["short"][HYBRID_MICROBATCH // 2]))
+
+
+def md_graph(dev, mesh, out_dir: str) -> dict:
+    """10e: phase 3's graph at Mixtral's widths compiled over the (data
+    2) mesh, lossless and at ``CAPACITY_FACTOR`` (the ``a2a_dispatch``
+    lowering splits the left map, and without a capacity the hop's route
+    and combine, over the ranks): every rank's whole output byte-equal to
+    phase 3's one-rank outputs.  Then phase 4's hybrid over the first
+    ``GRAPH_HYBRID_ITEMS`` items (the last microbatch partial): without a
+    capacity each rank runs the experts on its half of a microbatch, and
+    cuBLAS picks its GEMM by the rows, so a rank's rows of a whole
+    microbatch are held byte for byte to phase 4's one-rank run at half
+    the microbatch (whose microbatches are the ranks' blocks), every row
+    within ``REL_TOL`` of phase 4's at its own microbatch (the rows that
+    differ counted), and the ranks' outputs to each other by their
+    digest.  Also the launches of the hop's two kernels, items/s and the
+    boundary's seconds."""
+    import numpy as np
+    from repro_torch.core import CompileConfig
+    from repro_torch.core.plan import ShardingPlan
+    from repro_torch.kernels.a2a_fused import a2a_combine, a2a_route
+    t0 = time.perf_counter()
+    refs = np.load(pathlib.Path(out_dir) / GRAPH_REFS, mmap_mode="r")
+    fns = make_fns(make_model(dev))
+    stream = list(np.random.default_rng(0).standard_normal(
+        (T_TOKENS, D_MODEL), dtype=np.float32))
+    plan = ShardingPlan(mesh)
+    out = {}
+    for label, cf in (("lossless", None), ("capacity", CAPACITY_FACTOR)):
+        runner = build_graph(fns).compile(config=CompileConfig(
+            plan=plan, mode="device", a2a_capacity_factor=cf))
+        a2a_route.launches = a2a_combine.launches = 0
+        got = runner.run(stream)                  # the first, held
+        launches = {"a2a_route": a2a_route.launches,
+                    "a2a_combine": a2a_combine.launches}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runner.run(stream)
+        dt = time.perf_counter() - t1
+        out[label] = {"equal": np.stack(got).tobytes()
+                      == refs[label].tobytes(), "launches": launches,
+                      "items_s": T_TOKENS / dt, "runner": type(runner).__name__}
+    placements = {0: "host", 1: "device", 2: "device", 3: "device",
+                  4: "host"}
+    runner = build_graph(fns, host_stages=True).compile(config=CompileConfig(
+        plan=plan, placements=placements, microbatch=HYBRID_MICROBATCH,
+        inflight=4))
+    a2a_route.launches = a2a_combine.launches = 0
+    t1 = time.perf_counter()
+    got = np.stack(runner.run(stream[:GRAPH_HYBRID_ITEMS]))
+    dt = time.perf_counter() - t1
+    node = [s for s in runner.stats()["graph"]["stages"]
+            if s.get("backend") == "device"][0]
+    full = GRAPH_HYBRID_ITEMS // HYBRID_MICROBATCH * HYBRID_MICROBATCH
+    diff = np.abs(got - refs["hybrid"]).max(axis=1)
+    scale = float(np.abs(refs["hybrid"]).max())
+    out["hybrid"] = {"equal": got[:full].tobytes()
+                     == refs["hybrid_half"][:full].tobytes()
+                     and float(diff.max()) <= REL_TOL * scale,
+                     "rows_differ": int((diff > 0).sum()),
+                     "max_abs": float(diff.max()), "scale": scale,
+                     "digest": hashlib.sha1(got.tobytes()).hexdigest(),
+                     "launches": {"a2a_route": a2a_route.launches,
+                                  "a2a_combine": a2a_combine.launches},
+                     "items_s": GRAPH_HYBRID_ITEMS / dt,
+                     "runner": type(runner).__name__,
+                     "flushes": node["flushes"],
+                     "boundary": node["boundary"]}
+    out["secs"] = time.perf_counter() - t0
+    return out
+
+
 def md_rank_two(out_dir: str, losses5c: list) -> dict:
-    """10b-10d in each of two ranks sharing ``cuda:0`` over gloo."""
+    """10b-10e in each of two ranks sharing ``cuda:0`` over gloo."""
     from repro_torch.core import spmd
     from repro_torch.core.plan import ShardingPlan
     from repro_torch.launch.mesh import make_host_mesh, make_mesh
@@ -4492,21 +4606,29 @@ def md_rank_two(out_dir: str, losses5c: list) -> dict:
     out["flash_decode"] = md_flash_decode(dev, mesh_tp)
     out["tensor_map"] = md_tensor_map(dev, mesh_tp)
     out["skeletons_s"] = time.perf_counter() - t0
+    gc_cuda()
+    out["graph"] = md_graph(dev, mesh, out_dir)
     out["routes"] = {k: dict(v) for k, v in spmd.ROUTES.items()}
     out["route_s"] = {k: {t: round(x, 3) for t, x in v.items()}
                       for k, v in spmd.ROUTE_SECONDS.items()}
     return out
 
 
-def phase_multi_device(card: str, train5c: dict) -> dict:
-    """Phase 10: 10a in one spawned rank over NCCL, 10b-10d in two spawned
+def phase_multi_device(card: str, train5c: dict, main: dict,
+                       hyb: dict) -> dict:
+    """Phase 10: 10a in one spawned rank over NCCL, 10b-10e in two spawned
     ranks sharing ``cuda:0`` over gloo; fails on any check of theirs.
     ``train5c`` is phase 5c's Mixtral result: its losses, and its
-    parameters after ``MD_STEPS_A`` steps, which 10a's must equal."""
+    parameters after ``MD_STEPS_A`` steps, which 10a's must equal;
+    ``main`` and ``hyb`` phases 3 and 4's, whose outputs 10e's must
+    equal (written for the ranks, then cleared)."""
     from repro_torch.core import spmd
-    gc_cuda()
     shutil.rmtree(MD_DIR, ignore_errors=True)
     MD_DIR.mkdir(parents=True)
+    save_graph_refs(main, hyb, MD_DIR)
+    main.clear()                         # phase 10's ranks need the card
+    hyb.clear()
+    gc_cuda()
     held = torch.cuda.memory_allocated() / 1e9
     want = train5c["losses"][:MD_STEPS_A]
     try:
@@ -4560,7 +4682,15 @@ def md_report(card: str, a: dict, ranks: list, ta: float, tb: float,
                 f"{t['n_split']} of {t['n_leaves']} leaves "
                 f"split, held as halves before/after: {t['held_before']}/"
                 f"{t['held_after']}; launches {t['launches']}; peak "
-                f"{t['peak_gb']:.2f} GB; {2 * 2048 / med:.1f} train tokens/s "
+                f"{t['peak_gb']:.2f} GB"
+                + (f" (the whole-tree gather before this change: "
+                   f"{PARENT_10B_PEAK_GB} GB, read once on {PARENT_10B_CARD},"
+                   f" not in this run); the use-site gathers "
+                   f"{t['gathered']['gathers']} over {len(t['dts'])} steps,"
+                   f" {t['gathered']['bytes'] / 1e9:.2f} GB, at most "
+                   f"{t['gathered']['peak'] / 1e9:.3f} GB alive"
+                   if t["fsdp"] else "")
+                + f"; {2 * 2048 / med:.1f} train tokens/s "
                 f"(B2 x S2048 over the median step, {med * 1e3:.1f} ms) on "
                 f"{card}")
             for i, s in enumerate(t["split"]):
@@ -4634,7 +4764,40 @@ def md_report(card: str, a: dict, ranks: list, ta: float, tb: float,
         f"{tok_fsdp:.1f}, replicated "
         f"{2 * 2048 / ranks[0]['dp']['dts'][0]:.1f} (one step, the first), "
         f"one device (phase 5c) {train5c['tok_s']:.1f}")
-    say(f"[multi] phase 10: 10a {ta:.1f} s, 10b-10d {tb:.1f} s on {card}")
+    for r, res in enumerate(ranks):
+        gr = res["graph"]
+        for label in ("lossless", "capacity", "hybrid"):
+            x = gr[label]
+            held = ("byte-equal to the one-rank outputs in stream order"
+                    if label != "hybrid" else
+                    f"its whole microbatches' rows byte-equal to phase 4's "
+                    f"one-rank run at microbatch {HYBRID_MICROBATCH // 2} "
+                    f"(a rank's block), every row within "
+                    f"{x['max_abs'] / x['scale']:.2e} of the scale of phase "
+                    f"4's at {HYBRID_MICROBATCH} (limit {REL_TOL}; "
+                    f"{x['rows_differ']} of {GRAPH_HYBRID_ITEMS} rows "
+                    f"differ), in stream order")
+            say(f"[multi] 10e rank {r} {label}: phase "
+                f"{'4' if label == 'hybrid' else '3'}'s graph over (data 2)"
+                f", {x['runner']}: "
+                f"{held if x['equal'] else 'DIFFERENT: ' + held}; launches "
+                f"{x['launches']}; {x['items_s']:.1f} items/s a rank "
+                + (f"({GRAPH_HYBRID_ITEMS} items, microbatch "
+                   f"{HYBRID_MICROBATCH}, {x['flushes']} flushes; boundary "
+                   f"{x['boundary']})" if label == "hybrid" else
+                   f"(T{T_TOKENS}, the second run)") + f" on {card}")
+            if not x["equal"]:
+                faults.append(f"10e rank {r} {label}: differs from the "
+                              "one-rank run")
+            if not all(x["launches"].values()):
+                faults.append(f"10e rank {r} {label}: a kernel did not "
+                              f"launch: {x['launches']}")
+            for n, k in x["launches"].items():
+                launches[n + "_graph"] = launches.get(n + "_graph", 0) + k
+        say(f"[multi] 10e rank {r}: {gr['secs']:.1f} s")
+    if len({res["graph"]["hybrid"]["digest"] for res in ranks}) != 1:
+        faults.append("10e: the ranks' hybrid outputs differ")
+    say(f"[multi] phase 10: 10a {ta:.1f} s, 10b-10e {tb:.1f} s on {card}")
     if faults:
         fail("; ".join(faults))
     return {"launches": launches, "tok_s": tok_fsdp}
@@ -4648,13 +4811,15 @@ def path_rows(rows: list, paths: list) -> list:
 
 
 def multi_device_rows(dev: torch.device, card: str, errs: dict, rows: list,
-                      train5c: dict) -> list:
+                      train5c: dict, main: dict, hyb: dict) -> list:
     """Phase 10 and its kernels' rows, with the launches summed over its
     ranks: 10b's per-rank attention (B1 x S2048 D128) and router (2048
     tokens) run at phase 5's serving shapes, so their rows take those
-    times; the a2a hop per rank (T 2048 at capacity 4096) is timed here."""
+    times; the a2a hop per rank (T 2048 at capacity 4096) is timed here,
+    and 10e's graph over the ranks takes that row's time (its lossless
+    hop's per-rank shape)."""
     t0 = time.perf_counter()
-    md = phase_multi_device(card, train5c)
+    md = phase_multi_device(card, train5c, main, hyb)
     out = path_rows(rows, [
         ("flash_attention_multi_rank", "flash_attention",
          md["launches"]["flash_attention"]),
@@ -4664,6 +4829,11 @@ def multi_device_rows(dev: torch.device, card: str, errs: dict, rows: list,
                     {n: md["launches"][n] for n in ("a2a_route",
                                                     "a2a_combine")},
                     errs, card, "_multi_rank")
+    out += path_rows(out, [
+        ("a2a_route_graph_ranks", "a2a_route_multi_rank",
+         md["launches"]["a2a_route_graph"]),
+        ("a2a_combine_graph_ranks", "a2a_combine_multi_rank",
+         md["launches"]["a2a_combine_graph"])])
     say(f"[multi] phase 10 {time.perf_counter() - t0:.1f} s on {card}")
     return out
 
@@ -5166,8 +5336,8 @@ def tp_report(card: str, ranks: list, tr: float, tl: float) -> dict:
         for i, s in enumerate(a["split"]):
             say(f"[tp] 11a rank {r} step {i}: forward {s['forward']:.1f} ms "
                 f"(host {s['forward_host']:.1f} ms), backward "
-                f"{s['backward']:.1f} ms, collective (the step's gather and "
-                f"reduce) {s['collective']:.1f} ms, optimizer "
+                f"{s['backward']:.1f} ms, collective (the gradients' reduce) "
+                f"{s['collective']:.1f} ms, optimizer "
                 f"{s['optimizer']:.1f} ms (CUDA events) on {card}")
         say(f"[tp] 11a rank {r} collectives (calls, host s): {a['routes']}")
         if a["loss_err"] > TP_LOSS_RTOL or a["update_err"] > TP_UPDATE_TOL:
@@ -5317,17 +5487,26 @@ class TfBlocks:
     sequence (gathered over the model axis where it is sequence-sharded),
     and what the one-device walk needs to replay it (positions, M-RoPE
     ids, the write slot, whether it decodes; the encoder's whole output
-    once a pass), on the host.  ``undo()`` restores ``apply_block``."""
+    once a pass), on the host; of a ``dec`` block also the whole outputs
+    of its three sublayers (``parts``: self-attention, cross attention,
+    MLP), which the walk holds one by one.  ``undo()`` restores what it
+    patched."""
+
+    SUBLAYERS = (("self", "attention"), ("cross", "cross_attention"),
+                 ("mlp", "mlp"))
 
     def __init__(self):
         from repro_torch.models import lm as L
         self._apply = L.apply_block
+        self._subs = {fn: getattr(L, fn) for _, fn in self.SUBLAYERS}
+        self._parts = None
         self.passes = []
 
         def host(t):
             return t.cpu() if isinstance(t, torch.Tensor) else t
 
         def apply(kind, x, p, cfg, **kw):
+            self._parts = {} if kind == "dec" else None
             y, cache, aux = self._apply(kind, x, p, cfg, **kw)
             tp, sp = kw.get("plan"), kw.get("sp", False)
             whole = (lambda t: tp.seq_gather(t, sp)) if tp is not None \
@@ -5339,9 +5518,30 @@ class TfBlocks:
                 "positions": host(kw.get("positions")),
                 "mrope": host(kw.get("mrope_positions")),
                 "pos_offset": host(kw.get("pos_offset", 0)),
-                "decode": isinstance(kw.get("cache"), dict)}))
+                "decode": isinstance(kw.get("cache"), dict),
+                "parts": self._parts}))
+            self._parts = None
             return y, cache, aux
+
+        def sublayer(tag, fn, plan_at):
+            def run(*args, **kw):
+                out = fn(*args, **kw)
+                if self._parts is not None:
+                    o = out[0] if isinstance(out, tuple) else out
+                    plan = kw.get("plan", args[plan_at]
+                                  if len(args) > plan_at else None)
+                    sp = kw.get("sp", args[plan_at + 1]
+                                if len(args) > plan_at + 1 else False)
+                    if plan is not None:
+                        o = plan.seq_gather(o, sp)
+                    self._parts[tag] = o.cpu()
+                return out
+            return run
+        # where ``plan`` sits among each sublayer's positional arguments
+        at = {"attention": 99, "cross_attention": 4, "mlp": 3}
         L.apply_block = apply
+        for tag, fn in self.SUBLAYERS:
+            setattr(L, fn, sublayer(tag, self._subs[fn], at[fn]))
 
     def next_pass(self) -> None:
         self.passes.append(([], {}))
@@ -5349,6 +5549,8 @@ class TfBlocks:
     def undo(self) -> None:
         from repro_torch.models import lm as L
         L.apply_block = self._apply
+        for fn, f in self._subs.items():
+            setattr(L, fn, f)
 
 
 def tf_walk(cfg, params, seen: TfBlocks, dev, cache_len: int) -> dict:
@@ -5366,6 +5568,7 @@ def tf_walk(cfg, params, seen: TfBlocks, dev, cache_len: int) -> dict:
     layers = {k: L._layers(v) for k, v in params["stacks"].items()}
     on = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
     errs, logits, caches, first = [], [], {}, None
+    kinds, parts = [], {}
     for calls, ctx in seen.passes:
         count, pieces = {}, {}
         for kind, x, y_got, kw in calls:
@@ -5382,6 +5585,14 @@ def tf_walk(cfg, params, seen: TfBlocks, dev, cache_len: int) -> dict:
                 mrope_positions=on(kw["mrope"]),
                 enc_out=on(ctx.get("enc_out")))
             errs.append(scale_err(y_got.to(dev), y))
+            kinds.append(kind)
+            if kw.get("parts"):
+                for tag, e in dec_part_errs(
+                        cfg, x.to(dev), pl, cache if kw["decode"] else None,
+                        kw, on(ctx.get("enc_out")),
+                        {k: v.to(dev) for k, v in kw["parts"].items()},
+                        dev).items():
+                    parts.setdefault(tag, []).append(e)
             if not kw["decode"] and nc is not None:
                 pieces.setdefault(kind, []).append(nc)
         if pieces:
@@ -5392,8 +5603,38 @@ def tf_walk(cfg, params, seen: TfBlocks, dev, cache_len: int) -> dict:
         logits.append(unembed(apply_norm(last, params["final_norm"],
                                          cfg.norm), params["embed"])
                       .float().cpu())
-    return {"errs": errs, "logits": logits, "prefill_cache": first,
+    return {"errs": errs, "kinds": kinds, "parts": parts, "logits": logits,
+            "prefill_cache": first,
             "decode_cache": tree_map(lambda t: t.cpu(), caches)}
+
+
+def dec_part_errs(cfg, x, p, cache, kw, enc_out, got: dict, dev) -> dict:
+    """Each sublayer of a Whisper decoder block on one device against the
+    sharded block's own output of it, each fed the sharded block's input
+    to it (the block input, then the residual after each sublayer the
+    sharded block computed): the errors of the self-attention, the cross
+    attention and the MLP, of their scales.  ``cache`` is the walk's
+    decode cache of the layer (the token's slot already written, with the
+    same values), ``None`` at prefill."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import apply_norm, mlp, mlp_defs
+    on = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+    xn = apply_norm(x, p["ln1"], cfg.norm)
+    a, _ = A.attention(xn, p["attn"], cfg, positions=on(kw["positions"]),
+                       causal=True, window=0,
+                       cache=cache["self"] if cache is not None else None,
+                       cache_pos=on(kw["pos_offset"]))
+    x1 = x + got["self"]
+    ckv = cache["cross"] if cache is not None else A.cross_kv(enc_out,
+                                                               p["xattn"])
+    c = A.cross_attention(apply_norm(x1, p["ln_x"], cfg.norm), p["xattn"],
+                          ckv, cfg)
+    x2 = x1 + got["cross"]
+    m = mlp(apply_norm(x2, p["ln2"], cfg.norm), p["mlp"], cfg.act, None,
+            False, mlp_defs(cfg.d_model, cfg.d_ff)["wo"])
+    return {"self": scale_err(got["self"], a),
+            "cross": scale_err(got["cross"], c), "mlp": scale_err(got["mlp"],
+                                                                  m)}
 
 
 def tf_cache_err(cfg, plan, got, want, B: int, cache_len: int) -> float:
@@ -5434,7 +5675,12 @@ def tf_serve_check(cfg, plan, dev, seen, tokens, caches, cache_len: int,
     del whole
     gc_cuda()
     got_logits = caches["logits"]
+    by_kind = {}
+    for k, e in zip(ref["kinds"], ref["errs"]):
+        by_kind[k] = max(by_kind.get(k, 0.0), e)
+    by_kind.update({f"dec {t}": max(es) for t, es in ref["parts"].items()})
     return {"walk_err": max(ref["errs"]), "walk_blocks": len(ref["errs"]),
+            "walk_by_kind": by_kind,
             "logit_err": max(scale_err(a, b) for a, b in zip(
                 got_logits, ref["logits"])),
             "cache_err": max(
@@ -5784,6 +6030,11 @@ def tf_serving_line(tag: str, r: int, what: str, x: dict, card: str) -> tuple:
         f"tokens {[t[0] for t in x['tokens']]} against the one-device "
         f"logits' argmax {[t[1] for t in x['tokens']]}; launches "
         f"{x['launches']}; kernel shapes and launches {x['by_shape']}")
+    say(f"[tp-families] {tag} rank {r}: the worst block by kind "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            x["walk_by_kind"].items()))
+        + " of the scale (a decoder block's sublayers each on the sharded "
+        f"block's own input to it) on {card}")
     say(f"[tp-families] {tag} rank {r} collectives (calls, host s): "
         f"{x['routes']}")
     faults = []
@@ -6031,10 +6282,8 @@ def main() -> int:
          remote["launches"]["a2a_route"]),
         ("a2a_combine_remote", "a2a_combine_process",
          remote["launches"]["a2a_combine"])])
-    main.clear()                         # phase 10's ranks need the card
-    hyb.clear()
     rows += multi_device_rows(dev, card["card"], errs, rows,
-                              train[train_configs()[1][0].name])
+                              train[train_configs()[1][0].name], main, hyb)
     rows += tensor_parallel_rows(dev, card["card"], errs,
                                  train[train_configs()[1][0].name])
     rows += tp_families_rows(dev, card["card"], errs)

@@ -62,6 +62,7 @@ from .net import RemoteFarmNode
 from .node import GO_ON, FFNode
 from .process import ProcessA2ANode, ProcessFarmNode, fn_picklable
 from .runtime import AdaptiveFarmNode
+from .skeletons import ThreadFarmNode
 from .tree import tree_leaves, tree_map
 
 # Baked-in cost-model fallbacks, used until perf_model.calibrate() has run
@@ -455,6 +456,40 @@ def _mesh_axis_size(plan: Any, axis: str) -> int:
     return int(dict(plan.mesh.shape).get(axis, 1))
 
 
+def _spans_ranks(plan: Any, axis: str) -> bool:
+    """The plan's mesh has ranks behind more than one position of
+    ``axis``: each rank runs the graph, and the device segments span
+    them."""
+    return plan is not None and getattr(plan.mesh, "live", False) \
+        and _mesh_axis_size(plan, axis) > 1
+
+
+def _ordered_farm(s: Any) -> Any:
+    """A host farm stage as a sequence-ordered
+    :class:`~repro_torch.core.skeletons.ThreadFarmNode`: over ranks every
+    rank's device segment must stack the same items in the same order, and
+    the thread farm's collector delivers in arrival order, which differs
+    between ranks.  Other stages as they are."""
+    if not isinstance(s, FarmG):
+        return s
+    if s.lb is not None or s.ondemand is not None:
+        raise GraphError("over ranks a host farm must deliver in sequence "
+                         "order: custom lb/ondemand schedules cannot")
+    width = max(1, getattr(s.placement, "width", None) or len(s.workers))
+    fns = [s.fn] * width if s.fn is not None else \
+        [_pure_of(w) for w in s.workers]
+    parts = [_pure_of(x) if x is not None else None
+             for x in (s.emitter, s.collector)]
+    if any(f is None for f in fns) or any(
+            x is not None and f is None
+            for x, f in zip((s.emitter, s.collector), parts)):
+        raise GraphError("over ranks a host farm must deliver in sequence "
+                         "order: its workers, emitter and collector must be "
+                         "pure functions")
+    return SeqG(ThreadFarmNode(fns, pre=parts[0], post=parts[1],
+                               label=f"ordered_farm[{width}]"))
+
+
 def _boundary_batch(graph: FFGraph, plan: Any, axis: str,
                     device_batch: Optional[int],
                     microbatch: Optional[int]) -> int:
@@ -778,6 +813,11 @@ def make_device_batched(graph: FFGraph, plan: Any, axis: str = "data",
         raise GraphError("device lowering needs a plan (compile mode/override "
                          "asked for the device with plan=None)")
     mesh_axis = _mesh_axis_size(plan, axis)
+    if mesh_axis > 1 and not getattr(plan.mesh, "live", False):
+        raise GraphError(
+            f"the plan's {axis!r} axis has {mesh_axis} positions but no ranks"
+            " behind them: a device segment over a mesh runs one process per"
+            " rank (core.spmd.launch), never on one rank")
     vmap = torch.func.vmap
 
     if graph._wrap:
@@ -878,10 +918,19 @@ class _DeviceStageNode(FFNode):
     — only the synchronization point moves.  ``inflight=1`` (or
     ``overlap=False``) is the strictly synchronous copy -> compute -> copy
     path, and so is every boundary on the CPU.  The node runs on its own
-    host thread and makes its device that thread's current device."""
+    host thread and makes its device that thread's current device.
+
+    Over a plan whose mesh has ranks (``axis_mult`` > 1, one process per
+    rank, each running the same graph on the whole stream) every rank's
+    node stacks the same microbatch; the segment's ``farm_map`` and
+    ``a2a_dispatch`` lowerings hand each rank its block and assemble the
+    whole output on every rank, so each rank's node emits the whole stream
+    in order.  A partial microbatch is padded to a multiple of
+    ``axis_mult`` by repeating its first item, as the reference pads it,
+    and the pad is dropped on retirement."""
 
     def __init__(self, batched: Callable, axis_mult: int, device_batch: int,
-                 device: torch.device, label: str = "device",
+                 plan: Any, label: str = "device",
                  jit_key: Optional[tuple] = None, overlap: bool = True,
                  inflight: int = 2):
         super().__init__()
@@ -891,7 +940,7 @@ class _DeviceStageNode(FFNode):
         self._batched = jit_segment(batched, jit_key)
         self._mult = max(1, axis_mult)
         self._B = max(int(device_batch), self._mult)
-        self._device = device
+        self._device = plan.device
         self._label = label
         self._buf: List[Any] = []
         self._off = 0
@@ -954,6 +1003,7 @@ class _DeviceStageNode(FFNode):
         t0 = time.perf_counter()
         items, self._buf = self._buf, []
         n = len(items)
+        items = items + items[:1] * ((-n) % self._mult)
         h2d, d2h = self._copy_streams()
         xs = _to_device(items, self._device, h2d)
         landing = _Landing(self._batched(xs, self._off), d2h)
@@ -1311,17 +1361,27 @@ def emit(graph: FFGraph, plan: Any = None, *, capacity: int = 512,
             rec = pm.lookup_autotuned("device_overlap:window")
             inflight = int(rec.get("inflight", 2)) if rec else 2
         new_stages: List[Any] = []
+        ranked = 0                   # segments that span the mesh's ranks
+        ordered = _spans_ranks(plan, axis)
         for entry, p in fuse_device_segments(stages, placements,
                                              enable=fuse):
             if not isinstance(entry, FusedSegment):
-                new_stages.append(entry)
+                new_stages.append(_ordered_farm(entry) if ordered
+                                  else entry)
                 continue
             sub = entry.subgraph()
             batched, mult = make_device_batched(
                 sub, plan, axis=axis,
                 a2a_capacity_factor=a2a_capacity_factor)
+            if mult > 1:
+                ranked += 1
+            if ranked > 1:
+                raise GraphError(
+                    "over ranks a graph holds one device segment that spans"
+                    " the mesh: two boundary threads would issue their "
+                    "collectives in orders that differ between ranks")
             new_stages.append(SeqG(
-                _DeviceStageNode(batched, mult, device_batch, plan.device,
+                _DeviceStageNode(batched, mult, device_batch, plan,
                                  label=entry.describe(),
                                  jit_key=segment_key(
                                      sub, device_batch, mult, plan, axis,

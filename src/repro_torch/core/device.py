@@ -201,11 +201,24 @@ def _where_lanes(active: torch.Tensor, new: torch.Tensor,
     return torch.where(mask, new, old)
 
 
+def _any_rank(flag: torch.Tensor) -> torch.Tensor:
+    """``flag`` or'ed over the ranks of the manual axes (the flag itself
+    outside a manual region)."""
+    axes = tuple(sorted(spmd.manual_axes()))
+    mesh = spmd.current_mesh()
+    if not axes or mesh is None or not mesh.live:
+        return flag
+    return spmd.pmax(flag.to(torch.int32), axes) > 0
+
+
 def feedback_while(step_fn: Callable, init_state: Any, cond_fn: Callable,
                    max_steps: Optional[int] = None):
     """Data-dependent feedback channel over a batch of lanes: ``do {state =
     step(state)} while (cond(state))`` per lane, the batched counterpart of
-    the reference's vmapped ``lax.while_loop``.
+    the reference's vmapped ``lax.while_loop``.  Inside a manual region
+    over ranks (a ``farm_map`` over the mesh, each rank on its block of
+    lanes) the ranks agree each turn whether any lane of any of them is
+    still active, so every rank turns the loop as often.
 
     ``step_fn(state) -> (state, emit)`` and ``cond_fn(state) -> bool per
     lane`` are batched over the leading axis.  Every lane runs the step at
@@ -227,7 +240,7 @@ def feedback_while(step_fn: Callable, init_state: Any, cond_fn: Callable,
         if max_steps is not None:
             go = go & (k < max_steps)
         active = active & go
-        if not bool(active.any()):
+        if not bool(_any_rank(active.any())):
             return state, k
 
 

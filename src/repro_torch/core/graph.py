@@ -1169,7 +1169,12 @@ class DeviceRunner(Runner):
     behind it.  Absolute per-chunk stream offsets keep ``all_to_all``
     routing identical to the whole-batch path; ``overlap=False`` (or
     ``inflight=1``) runs the same chunking synchronously.  On the CPU every
-    call is synchronous and the window only defers the retirement."""
+    call is synchronous and the window only defers the retirement.
+
+    Over a plan whose mesh has ranks behind ``axis`` every rank runs the
+    runner on the whole stream; a batch or chunk is padded to a multiple
+    of the ranks by repeating its first item (dropped from the output),
+    as the reference pads it, and every rank returns the whole output."""
 
     def __init__(self, graph: FFGraph, plan: Any, axis: str = "data",
                  feedback_steps: Optional[int] = None,
@@ -1182,6 +1187,7 @@ class DeviceRunner(Runner):
         from .compiler import _top_stages, make_device_batched
         from .fuse import jit_segment, segment_key
         self._device = plan.device
+        self._mult = 1             # the batch a multiple of it (the ranks)
         self._t0 = self._t1 = 0.0
         self._items = 0
         self._batches = 0
@@ -1210,6 +1216,7 @@ class DeviceRunner(Runner):
                 a2a_capacity_factor=a2a_capacity_factor)
             key = segment_key(sub, 0, mult, plan, axis,
                               a2a_capacity_factor, steps, cond)
+            self._mult = max(self._mult, mult)
             self._parts.append([desc, jit_segment(batched, key), 0.0, 0])
 
         if graph._wrap:
@@ -1234,7 +1241,7 @@ class DeviceRunner(Runner):
                 return self._run_pipelined(items)
             n = len(items)
             # stack on the host, then ONE copy in for the whole batch
-            xs = _to_device(items, self._device)
+            xs = _to_device(self._padded(items), self._device)
             for part in self._parts:
                 t0 = time.perf_counter()
                 xs = part[1](xs, 0)
@@ -1253,6 +1260,10 @@ class DeviceRunner(Runner):
             # per-item function may return a pytree
             host = tree_map(to_numpy, xs)
             return [tree_map(lambda t: t[i], host) for i in range(n)]
+
+    def _padded(self, items: List[Any]) -> List[Any]:
+        """``items`` padded to a multiple of the ranks with its first."""
+        return items + items[:1] * ((-len(items)) % self._mult)
 
     def _run_pipelined(self, items: List[Any]) -> List[Any]:
         """The overlapped boundary: chunk the stream into microbatches and
@@ -1282,7 +1293,7 @@ class DeviceRunner(Runner):
             chunk = items[start:start + B]
             k = len(chunk)
             t0 = time.perf_counter()
-            xs = _to_device(chunk, self._device, h2d)
+            xs = _to_device(self._padded(chunk), self._device, h2d)
             t1 = time.perf_counter()
             # every part at this chunk's absolute stream offset (all_to_all
             # routing parity with the host feeder)

@@ -31,13 +31,20 @@ over the sequence, a ``psum`` when the sequence is not sharded),
 ``frames``, positions, M-RoPE's ids — cut to the rank's sequence block).
 They run through ``core/spmd.py``'s differentiable collectives, so the
 backward is their transpose; on a model axis of one rank, and outside a
-manual region, each is the identity.
+manual region, each is the identity.  :meth:`ShardingPlan.gather_fsdp`
+is ZeRO-3 at the layer: a weight the data axes split (``fsdp_params``) is
+all-gathered over them where the model uses it, its gradient
+reduce-scattered back by the gather's backward; the steps mark each
+parameter block with its whole shape (:func:`mark_whole`), and
+:data:`FSDP_GATHERED` counts the gathered bytes while they live.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import weakref
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -135,6 +142,60 @@ class TorchPlan:
     def device(self) -> torch.device:
         return self.mesh.device
 
+    def gather_fsdp(self, w, axes):
+        """One device holds every weight whole: ``w`` itself."""
+        return w
+
+
+# the weights :meth:`ShardingPlan.gather_fsdp` gathered: the bytes alive
+# now and their high-water mark (reset it with :func:`reset_fsdp_gathered`),
+# the gathers and their bytes in all
+FSDP_GATHERED = {"live": 0, "peak": 0, "gathers": 0, "bytes": 0}
+_gathered_lock = threading.Lock()
+
+
+def reset_fsdp_gathered() -> None:
+    with _gathered_lock:
+        FSDP_GATHERED.update(peak=FSDP_GATHERED["live"], gathers=0, bytes=0)
+
+
+def _release(n: int) -> None:
+    with _gathered_lock:
+        FSDP_GATHERED["live"] -= n
+
+
+def _held(t: torch.Tensor) -> torch.Tensor:
+    """Count ``t``'s bytes as live until the tensor is freed (autograd
+    keeps a tensor it saved for the backward alive)."""
+    n = t.numel() * t.element_size()
+    with _gathered_lock:
+        FSDP_GATHERED["live"] += n
+        FSDP_GATHERED["peak"] = max(FSDP_GATHERED["peak"],
+                                    FSDP_GATHERED["live"])
+        FSDP_GATHERED["gathers"] += 1
+        FSDP_GATHERED["bytes"] += n
+    weakref.finalize(t, _release, n)
+    return t
+
+
+def mark_whole(t: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Mark ``t``, this rank's block of a parameter, with the parameter's
+    whole ``shape``, by which :meth:`ShardingPlan.gather_fsdp` gathers it;
+    returns ``t``."""
+    t.whole_shape = tuple(shape)
+    return t
+
+
+def unbind_marked(t: torch.Tensor) -> list:
+    """``t.unbind(0)``, each view marked with the whole shape of one
+    layer where ``t`` (a stacked leaf) is marked."""
+    views = list(t.unbind(0))
+    shape = getattr(t, "whole_shape", None)
+    if shape is not None:
+        for v in views:
+            mark_whole(v, shape[1:])
+    return views
+
 
 @dataclasses.dataclass(frozen=True)
 class TorchSharding:
@@ -205,24 +266,6 @@ class TorchSharding:
                 if axes is None or a in axes:
                     t = spmd.gather_dim(t, self.mesh, a, d)
         return t
-
-    def reduce(self, g: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-        """The transpose of :meth:`gather` over ``axes``: each rank's whole
-        ``g`` summed over the ranks of ``axes``, this rank's block kept
-        along each dim that one of them splits (reduce-scatter), the whole
-        kept over the others (all-reduce)."""
-        if not self.mesh.live:
-            return g
-        from . import spmd
-        split = {a for names in self.shard_dims().values() for a in names}
-        rest = tuple(a for a in axes if a not in split)
-        if rest:
-            g = spmd.all_sum(g, self.mesh, rest)
-        for d, names in self.shard_dims().items():
-            for a in names:                          # major axis first
-                if a in axes:
-                    g = spmd.scatter_sum(g, self.mesh, a, d)
-        return g
 
 
 @dataclasses.dataclass
@@ -383,12 +426,29 @@ class ShardingPlan:
         return tuple(d for d, e in enumerate(spec) if ax in spec_axes(e))
 
     def gather_fsdp(self, w, axes: Sequence[Optional[str]]):
-        """ZeRO-3 weight gather at the use site: drop the 'fsdp' dims.  The
-        steps gather the parameter tree over the batch axes before the
-        forward (``runtime/steps.py``), so here the weight is already
-        whole over them (and, inside a manual region, this rank's block
-        over the model axis): ``w`` itself."""
-        return w
+        """ZeRO-3 weight gather at the use site: drop the 'fsdp' dims.
+        ``w`` is this rank's block of a parameter whose whole shape the
+        steps marked (:func:`mark_whole`); inside a manual region over this
+        plan's live mesh, with ``fsdp_params``, the data axes that
+        ``spec_for_shape`` puts on its ``fsdp`` dims are all-gathered
+        (minor axis first), the model axis's block kept.  The gather's
+        backward reduce-scatters the gradient back to the block, summed
+        over those ranks.  Anywhere else ``w`` itself.  Each weight
+        gathered counts in :data:`FSDP_GATHERED` while it lives."""
+        shape = getattr(w, "whole_shape", None)
+        if shape is None or not self.fsdp_params or not self.mesh.live:
+            return w
+        from . import spmd
+        manual = spmd.manual_axes()
+        spec = self.spec_for_shape(shape, axes)
+        out = w
+        for d, logical in enumerate(axes):
+            if logical != "fsdp":
+                continue
+            for a in reversed(spec_axes(spec[d])):
+                if a in manual and self.mesh.shape[a] > 1:
+                    out = spmd.all_gather(out, a, axis_dim=d)
+        return w if out is w else _held(out)
 
     # -- parameter specs -------------------------------------------------------
     def param_spec(self, logical_axes: Sequence[Optional[str]],

@@ -65,7 +65,7 @@ import torch
 from ..core import spmd
 from ..core.plan import model_plan
 from ..kernels.flash_attention import flash_attention
-from .layers import apply_mrope, apply_rope, einsum
+from .layers import apply_mrope, apply_rope, einsum, gathered
 from .params import ParamDef
 
 NEG_INF = -2.0e38
@@ -168,9 +168,10 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     B, S, _ = x.shape
     n_kv = cfg.n_kv_heads
     decode = isinstance(cache, dict)
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("bsd,dhk->bshk", x, p["wk"])
-    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    defs = attn_defs(cfg)
+    q = einsum("bsd,dhk->bshk", x, gathered(plan, p["wq"], defs["wq"].axes))
+    k = einsum("bsd,dhk->bshk", x, gathered(plan, p["wk"], defs["wk"].axes))
+    v = einsum("bsd,dhk->bshk", x, gathered(plan, p["wv"], defs["wv"].axes))
     if mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, cfg.rope_theta)
         k = apply_mrope(k, mrope_positions, cfg.rope_theta)
@@ -188,7 +189,6 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
     q_off = k_off = 0
     cache_split = ()
     if tp is not None:
-        defs = attn_defs(cfg)
         q_off, k_off = _head_offsets(tp, defs, q.shape[2], k.shape[2])
         cache_split = tp.model_split((B, 1, n_kv, cfg.head_dim),
                                      _cache_axes(cfg))
@@ -228,7 +228,8 @@ def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,
                 cv = torch.nn.functional.pad(cv, pad)
             new_cache = {"k": ck, "v": cv}
 
-    o = einsum("bshk,hkd->bsd", out, p["wo"]).to(torch.bfloat16)
+    o = einsum("bshk,hkd->bsd", out,
+               gathered(plan, p["wo"], defs["wo"].axes)).to(torch.bfloat16)
     if tp is not None and not cp:        # cp: wo whole, o the rank's rows
         o = tp.compose(o, sp, defs["wo"])
     return o, new_cache
@@ -316,7 +317,7 @@ def cross_attention(x, p, enc_kv, cfg=None, plan=None, sp=False):
     tp = model_plan(plan)
     if tp is not None:
         x = tp.seq_gather(x, sp)
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, _weight(p, "wq", cfg, plan))
     k, v = enc_kv["k"], enc_kv["v"]
     if tp is not None:
         defs = attn_defs(cfg)
@@ -328,17 +329,28 @@ def cross_attention(x, p, enc_kv, cfg=None, plan=None, sp=False):
                              k_off)
     out = flash_attention(_heads_first(q), _heads_first(k),
                           _heads_first(v), False, 0)
-    o = einsum("bshk,hkd->bsd", out.transpose(1, 2), p["wo"])
+    o = einsum("bshk,hkd->bsd", out.transpose(1, 2),
+               _weight(p, "wo", cfg, plan))
     return o if tp is None else tp.compose(o, sp, defs["wo"])
 
 
-def cross_kv(enc_out, p):
+def _weight(p, name: str, cfg, plan):
+    """``p[name]`` gathered over the data axes at its use, by its def's
+    axes (``cfg``'s); as it is without a config (one device)."""
+    if cfg is None:
+        return p[name]
+    return gathered(plan, p[name], attn_defs(cfg)[name].axes)
+
+
+def cross_kv(enc_out, p, cfg=None, plan=None):
     """The cross attention's k/v, (B, S_enc, kv, D) each, from the
     encoder's whole output (over a model axis the caller gathers it from
     its sequence blocks once for every decoder layer): the rank's kv heads
     where its ``wk``/``wv`` blocks split them, else every head."""
-    return {"k": einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            "v": einsum("bsd,dhk->bshk", enc_out, p["wv"])}
+    return {"k": einsum("bsd,dhk->bshk", enc_out,
+                        _weight(p, "wk", cfg, plan)),
+            "v": einsum("bsd,dhk->bshk", enc_out,
+                        _weight(p, "wv", cfg, plan))}
 
 
 # the cross cache's logical axes (B, S_enc, kv, D): the layout the

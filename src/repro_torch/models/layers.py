@@ -137,26 +137,38 @@ def mlp(x, p, act: str = "silu", plan=None, sp: bool = False,
     tp = model_plan(plan)
     if tp is not None:
         x = tp.seq_gather(x, sp)
-    a = mm(x, p["wi"])
-    g = activation(mm(x, p["wg"]), act)
-    o = mm(a * g, p["wo"]).to(torch.bfloat16)
+    wi = gathered(plan, p["wi"], ("fsdp", "tp"))
+    wg = gathered(plan, p["wg"], ("fsdp", "tp"))
+    a = mm(x, wi)
+    g = activation(mm(x, wg), act)
+    o = mm(a * g, gathered(plan, p["wo"], ("tp", "fsdp"))).to(torch.bfloat16)
     return o if tp is None else tp.compose(o, sp, wo)
 
 
+def gathered(plan, w, axes):
+    """The weight ``w`` at its use, whole over the data axes that split
+    it (``plan.gather_fsdp``, ZeRO-3 at the layer; ``axes`` its logical
+    axes); ``w`` itself without a plan."""
+    return w if plan is None else plan.gather_fsdp(w, axes)
+
+
 # -- embeddings ----------------------------------------------------------------
-def embed(tokens: torch.Tensor, p) -> torch.Tensor:
-    return p["emb"][tokens.long()].to(torch.bfloat16)
+def embed(tokens: torch.Tensor, p, plan=None) -> torch.Tensor:
+    emb = gathered(plan, p["emb"], ("tp", "fsdp"))
+    return emb[tokens.long()].to(torch.bfloat16)
 
 
-def unembed(x: torch.Tensor, p) -> torch.Tensor:
-    return mm(x, unembedding(p))
+def unembed(x: torch.Tensor, p, plan=None) -> torch.Tensor:
+    return mm(x, unembedding(p, plan))
 
 
-def unembedding(p) -> torch.Tensor:
+def unembedding(p, plan=None) -> torch.Tensor:
     """The (d, V) output matrix: ``unemb``, or the tied embedding's
-    transpose."""
+    transpose, each gathered at its use."""
     w = p.get("unemb")
-    return p["emb"].T if w is None else w
+    if w is None:
+        return gathered(plan, p["emb"], ("tp", "fsdp")).T
+    return gathered(plan, w, ("fsdp", "tp"))
 
 
 # -- rotary position embeddings -------------------------------------------------

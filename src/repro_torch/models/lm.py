@@ -44,12 +44,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import spmd
-from ..core.plan import P, TorchSharding, model_plan
+from ..core.plan import P, TorchSharding, model_plan, unbind_marked
 from ..core.tree import tree_map
 from .attention import (CROSS_CACHE_AXES, attention, attn_defs,
                         cross_attention, cross_cache, cross_kv)
-from .layers import (apply_norm, embed, mlp, mlp_defs, mm, norm_defs,
-                     unembed, unembedding)
+from .layers import (apply_norm, embed, gathered, mlp, mlp_defs, mm,
+                     norm_defs, unembed, unembedding)
 from .moe import moe_block, moe_defs
 from .params import ParamDef, init_params
 from .attention import _cache_axes
@@ -239,7 +239,8 @@ def dec_block(x, p, cfg, *, cache=None, positions=None, pos_offset=0,
                             cache_pos=pos_offset, plan=plan, sp=sp)
     x = x + a
     xn = apply_norm(x, p["ln_x"], cfg.norm)
-    ckv = cache["cross"] if decode else cross_kv(enc_out, p["xattn"])
+    ckv = cache["cross"] if decode else cross_kv(enc_out, p["xattn"], cfg,
+                                                 plan)
     x = x + cross_attention(xn, p["xattn"], ckv, cfg, plan, sp)
     xn = apply_norm(x, p["ln2"], cfg.norm)
     x = x + mlp(xn, p["mlp"], cfg.act, plan, sp,
@@ -307,7 +308,7 @@ def _layers(stack) -> list:
         per = {k: _layers(v) for k, v in stack.items()}
         n = len(next(iter(per.values())))
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
-    return list(stack.unbind(0))
+    return unbind_marked(stack)
 
 
 def block_defs(kind, cfg, layers):
@@ -433,8 +434,9 @@ class LM:
             tp = model_plan(plan)
             return x if tp is None else tp.seq_block(x, sp)
         if _tp_axis(plan) is not None:
-            return vocab_parallel_embed(tokens, params["embed"]["emb"], plan)
-        return embed(tokens, params["embed"])
+            return vocab_parallel_embed(tokens, gathered(
+                plan, params["embed"]["emb"], ("tp", "fsdp")), plan)
+        return embed(tokens, params["embed"], plan)
 
     def _mrope(self, batch):
         return batch.get("mrope_positions") if self.cfg.mrope else None
@@ -471,7 +473,7 @@ class LM:
             pos = torch.arange(S, device=frames.device)[None].expand(B, S)
             enc_x, _, _ = self._run_segments(
                 params, frames, mode=mode, positions=pos,
-                segments=[("enc", cfg.enc_layers)], plan=tp, sp=sp_enc)
+                segments=[("enc", cfg.enc_layers)], plan=plan, sp=sp_enc)
             enc_out = apply_norm(enc_x, params["enc_norm"], cfg.norm)
             if sp_enc:
                 enc_out = tp.seq_gather(enc_out, sp_enc)
@@ -484,7 +486,7 @@ class LM:
         x, caches, aux = self._run_segments(
             params, x, mode=mode, positions=positions,
             mrope_positions=self._mrope(batch), enc_out=enc_out,
-            segments=segments, plan=tp, sp=sp)
+            segments=segments, plan=plan, sp=sp)
         return apply_norm(x, params["final_norm"], cfg.norm), caches, aux
 
     # -- serving -----------------------------------------------------------------
@@ -507,7 +509,7 @@ class LM:
             # the last position is on the last rank of the model axis
             x_last = spmd.all_gather(x_last, tp.model_axis(),
                                      axis_dim=1)[:, -1:]
-        return unembed(x_last, params["embed"]), caches
+        return unembed(x_last, params["embed"], plan), caches
 
     @torch.no_grad()
     def decode_step(self, params, caches, batch, plan=None):
@@ -517,7 +519,6 @@ class LM:
         caches written in place.  Over a plan's model axis the caches and
         the logits are this rank's blocks (the logits' vocab block)."""
         cfg = self.cfg
-        tp = model_plan(plan)
         tok = batch["token"]
         B = tok.shape[0]
         pos = batch["pos"]
@@ -533,9 +534,10 @@ class LM:
         x, caches, _ = self._run_segments(
             params, x, mode="decode", caches=caches, positions=positions,
             pos_offset=self._cache_write_pos(pos),
-            mrope_positions=self._mrope(batch), segments=segments, plan=tp)
+            mrope_positions=self._mrope(batch), segments=segments,
+            plan=plan)
         x = apply_norm(x, params["final_norm"], cfg.norm)
-        return unembed(x, params["embed"]), caches
+        return unembed(x, params["embed"], plan), caches
 
     # -- training ----------------------------------------------------------------
     def loss(self, params, batch, plan=None):
@@ -554,8 +556,8 @@ class LM:
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
         mask[:, -1] = 0.0
-        loss = vocab_parallel_ce(x, unembedding(params["embed"]), labels,
-                                 mask, plan, cfg.loss_chunks)
+        loss = vocab_parallel_ce(x, unembedding(params["embed"], plan),
+                                 labels, mask, plan, cfg.loss_chunks)
         metrics = {"ce": loss}
         if aux:
             loss = loss + 0.01 * aux.get("moe_lb", 0.0) \

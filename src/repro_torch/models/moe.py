@@ -41,7 +41,7 @@ from ..core import spmd
 from ..core.device import expert_capacity
 from ..core.plan import model_plan
 from ..kernels.router_topk import router_topk
-from .layers import mm
+from .layers import gathered, mm
 from .params import ParamDef
 from .ssm import silu_stepwise
 
@@ -130,6 +130,7 @@ def moe_block(x: torch.Tensor, p, cfg, losses: bool = True, plan=None,
     (sequence-sharded when ``sp``) and the output its block of the update:
     :func:`_tp_body` (Mixtral) or :func:`_ep_body` (Kimi-K2)."""
     tp = model_plan(plan)
+    p = _gathered(p, cfg, plan)
     if tp is not None:
         body = _ep_body if cfg.moe_mode == "ep" else _tp_body
         out, aux = body(x, p, cfg, losses, tp, sp)
@@ -152,6 +153,21 @@ def moe_block(x: torch.Tensor, p, cfg, losses: bool = True, plan=None,
         g = silu_stepwise(mm(x, sp_["wg"]))
         out = out + mm(a * g, sp_["wo"]).to(torch.bfloat16)
     return out, aux
+
+
+def _gathered(p, cfg, plan):
+    """The block's weights whole over the data axes (``gather_fsdp`` at
+    the block's entry, with the reference's axes: the router, the
+    experts' bf16 weights before its ``shard_map``, the shared expert)."""
+    if plan is None:
+        return p
+    defs = moe_defs(cfg)
+    out = {n: gathered(plan, p[n], defs[n].axes)
+           for n in ("router", "wi", "wg", "wo")}
+    if cfg.n_shared_experts:
+        out["shared"] = {n: gathered(plan, w, defs["shared"][n].axes)
+                         for n, w in p["shared"].items()}
+    return out
 
 
 def _tp_body(x, p, cfg, losses, tp, sp):

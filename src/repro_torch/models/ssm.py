@@ -20,8 +20,9 @@ are dropped.  Over a plan's model axis (inside the steps' manual region)
 the block runs on this rank's blocks as the reference's GSPMD program
 does: the sequence-parallel gather of the normed input, ``wz``/``wx``/
 ``wdt`` and the conv over d_inner, ``A_log``/``D``/``dt_bias`` on the
-local heads, ``wB``/``wC`` replicated (one group), ``ssd_scan`` on the
-local H/tp heads and ``wo`` row-parallel; the decode state holds the local
+local heads, ``wB``/``wC`` replicated (each rank passes the scan the
+groups its heads read), ``ssd_scan`` on the local H/tp heads and ``wo``
+row-parallel; the decode state holds the local
 heads (``ssm``) and the local d_inner block (``conv``).
 """
 
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_scan
 from ..core.plan import model_plan
-from .layers import einsum, mm, rms_norm, silu_stepwise
+from .layers import einsum, gathered, mm, rms_norm, silu_stepwise
 from .params import ParamDef
 
 
@@ -97,6 +98,20 @@ def _causal_conv(x, w, state=None):
     return y.to(x.dtype), xp[:, S:] if K > 1 else None
 
 
+def _groups_of_heads(Bm, Cm, h0: int, n: int, rep: int):
+    """The B/C groups (B, S, G, N) that the heads ``h0 .. h0 + n`` read
+    (head h reads group h // ``rep``), as the scan takes them: the groups'
+    slice when each serves the same number of consecutive heads of the
+    range, else one group per head.  A model axis splits the heads and
+    keeps ``wB``/``wC`` whole, as the reference's layout does."""
+    ids = [(h0 + j) // rep for j in range(n)]
+    first, g = ids[0], ids[-1] - ids[0] + 1
+    if n % g == 0 and ids == [first + j // (n // g) for j in range(n)]:
+        return Bm.narrow(2, first, g), Cm.narrow(2, first, g)
+    idx = torch.tensor(ids, device=Bm.device)
+    return Bm.index_select(2, idx), Cm.index_select(2, idx)
+
+
 def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
                  sp: bool = False):
     """state: None (no state kept) | 'init' (prefill: return the final
@@ -111,20 +126,27 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
     B, S, _ = xn.shape
     d_inner, H = mamba2_dims(cfg)
     G, P = cfg.ssm_groups, cfg.ssm_headdim
+    h0 = 0                                    # this rank's first head
     if tp is not None:                        # this rank's heads
         d_inner, H = p["wx"].shape[-1], p["A_log"].shape[-1]
-        if d_inner != H * P or G != 1:
+        if d_inner != H * P:
             raise NotImplementedError(
-                f"a Mamba2 block of {G} groups, or whose d_inner and "
-                f"{mamba2_dims(cfg)[1]} heads split apart, over the model "
-                "axis")
+                f"a Mamba2 block whose d_inner and {mamba2_dims(cfg)[1]} "
+                "heads split apart over the model axis")
+        if H < mamba2_dims(cfg)[1]:
+            h0 = tp.mesh.coord(tp.model_axis()) * H
     decode = isinstance(state, dict)
 
-    z = mm(xn, p["wz"])
-    xi = mm(xn, p["wx"])
-    Bm = einsum("bsd,dgn->bsgn", xn, p["wB"])               # (B,S,G,N) bf16
-    Cm = einsum("bsd,dgn->bsgn", xn, p["wC"])
-    dt = mm(xn, p["wdt"]) + p["dt_bias"]
+    defs = mamba2_defs(cfg)
+    w = {n: gathered(plan, p[n], defs[n].axes)
+         for n in ("wz", "wx", "wB", "wC", "wdt")}
+    z = mm(xn, w["wz"])
+    xi = mm(xn, w["wx"])
+    Bm = einsum("bsd,dgn->bsgn", xn, w["wB"])               # (B,S,G,N) bf16
+    Cm = einsum("bsd,dgn->bsgn", xn, w["wC"])
+    if G > 1 and H < mamba2_dims(cfg)[1]:     # the groups the heads read
+        Bm, Cm = _groups_of_heads(Bm, Cm, h0, H, mamba2_dims(cfg)[1] // G)
+    dt = mm(xn, w["wdt"]) + p["dt_bias"]
     dt = F.softplus(dt.float())                              # (B,S,H)
 
     conv_state = state["conv"] if decode else None
@@ -137,7 +159,7 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
     dtx = xh.float() * dt[..., None]                         # (B,S,H,P) fp32
 
     if decode:
-        rep = H // G
+        rep = H // Bm.shape[2]
         k = Bm.repeat_interleave(rep, dim=2)                 # (B,1,H,N)
         q = Cm.repeat_interleave(rep, dim=2)
         new_ssm, y = gla_step(state["ssm"], q, k, dtx, log_a)
@@ -161,9 +183,9 @@ def mamba2_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = y * silu_stepwise(z)
-    out = mm(y, p["wo"]).to(torch.bfloat16)
+    out = mm(y, gathered(plan, p["wo"], defs["wo"].axes)).to(torch.bfloat16)
     if tp is not None:
-        out = tp.compose(out, sp, mamba2_defs(cfg)["wo"])
+        out = tp.compose(out, sp, defs["wo"])
     return x + out, new_state
 
 

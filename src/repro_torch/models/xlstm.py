@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from ..core import spmd
 from ..core.plan import model_plan
 from ..kernels.ssd_scan import ssd_scan
-from .layers import mm, rms_norm
+from .layers import gathered, mm, rms_norm
 from .params import ParamDef
 from .ssm import _causal_conv, gla_step, silu_stepwise
 
@@ -106,8 +106,11 @@ def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
 
     xn = rms_norm(x if tp is None else tp.seq_gather(x, sp), p["norm"]["w"])
     S = xn.shape[1]
-    up = mm(xn, p["wup"])
-    gate = silu_stepwise(mm(xn, p["wgate"]))
+    defs = mlstm_defs(cfg)
+    w = {n: gathered(plan, p[n], defs[n].axes)
+         for n in ("wup", "wgate", "wq", "wk", "wv", "wi", "wf")}
+    up = mm(xn, w["wup"])
+    gate = silu_stepwise(mm(xn, w["wgate"]))
 
     conv_state = state["conv"] if decode else None
     c, new_conv = _causal_conv(up, p["conv"], conv_state)
@@ -115,20 +118,20 @@ def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
     if tp is not None:
         c, up = _all_channels(tp, cfg, c, up)
 
-    q = mm(c, p["wq"])
+    q = mm(c, w["wq"])
     # a bf16 tensor over a Python float: JAX rounds the constant to bf16
     # and divides (a fill on the device, no host-to-device copy)
-    k = mm(c, p["wk"]) \
+    k = mm(c, w["wk"]) \
         / torch.full((), P ** 0.5, dtype=c.dtype, device=c.device)
-    v = mm(up, p["wv"])
-    if tp is not None and q.shape[-1] // P != p["wi"].shape[-1]:
+    v = mm(up, w["wv"])
+    if tp is not None and q.shape[-1] // P != w["wi"].shape[-1]:
         # the columns split but not the heads (H % tp != 0): every head
         m = tp.model_axis()
         q, k, v = (spmd.all_gather(t, m, axis_dim=2) for t in (q, k, v))
     Hl = q.shape[-1] // P                     # this rank's heads
     q, k, v = (t.reshape(B, S, Hl, P) for t in (q, k, v))
-    i_gate = mm(c, p["wi"]).float()
-    f_gate = mm(c, p["wf"]).float()
+    i_gate = mm(c, w["wi"]).float()
+    f_gate = mm(c, w["wf"]).float()
     log_a = F.logsigmoid(f_gate)                              # (B,S,H)
     i_scl = torch.exp(torch.clamp(i_gate, -20.0, 2.0))[..., None]
     vi = v.float() * i_scl                                    # (B,S,H,P)
@@ -154,9 +157,10 @@ def mlstm_block(x, p, cfg, *, state=None, chunk: int = 256, plan=None,
     h = h.reshape(B, S, Hl * P).to(x.dtype)
     if h.shape[-1] != gate.shape[-1]:         # every head: the rank's channels
         h = tp.block(h, 2)
-    out = mm(h * gate, p["wo"]).to(torch.bfloat16)
+    out = mm(h * gate, gathered(plan, p["wo"], defs["wo"].axes)).to(
+        torch.bfloat16)
     if tp is not None:
-        out = tp.compose(out, sp, mlstm_defs(cfg)["wo"])
+        out = tp.compose(out, sp, defs["wo"])
     return x + out, new_state
 
 
@@ -257,10 +261,13 @@ def slstm_block(x, p, cfg, *, state=None, plan=None, sp=False):
     tp = model_plan(plan)
     decode = isinstance(state, dict)
     xn = rms_norm(x if tp is None else tp.seq_gather(x, sp), p["norm"]["w"])
-    z = torch.tanh(mm(xn, p["wz"]).float())
-    i = torch.exp(torch.clamp(mm(xn, p["wi"]).float(), -20.0, 2.0))
-    f = torch.sigmoid(mm(xn, p["wf"]).float())
-    o = torch.sigmoid(mm(xn, p["wo_gate"]).float())
+    defs = slstm_defs(cfg)
+    w = {n: gathered(plan, p[n], defs[n].axes)
+         for n in ("wz", "wi", "wf", "wo_gate", "wo")}
+    z = torch.tanh(mm(xn, w["wz"]).float())
+    i = torch.exp(torch.clamp(mm(xn, w["wi"]).float(), -20.0, 2.0))
+    f = torch.sigmoid(mm(xn, w["wf"]).float())
+    o = torch.sigmoid(mm(xn, w["wo_gate"]).float())
 
     if decode:
         c = f[:, 0] * state["c"] + i[:, 0] * z[:, 0]
@@ -275,9 +282,9 @@ def slstm_block(x, p, cfg, *, state=None, plan=None, sp=False):
         new_state = {"c": c[:, -1], "n": n[:, -1]} if state == "init" \
             else None
 
-    out = mm(h.to(x.dtype), p["wo"]).to(torch.bfloat16)
+    out = mm(h.to(x.dtype), w["wo"]).to(torch.bfloat16)
     if tp is not None:
-        out = tp.compose(out, sp, slstm_defs(cfg)["wo"])
+        out = tp.compose(out, sp, defs["wo"])
     return x + out, new_state
 
 

@@ -18,16 +18,23 @@ step gives on a ``data`` mesh, the gradient of the global batch:
               manual (the loss's means and the MoE aux losses are pmeaned
               over the batch axes) and takes its gradient;
   collector = the gradients summed over the batch axes: reduce-scattered to
-              the shards with ``plan.fsdp_params`` (ZeRO-3: between steps
-              each rank holds only its shards of the parameters and the
-              optimizer state, placed by :func:`state_shardings`, and a step
-              gathers the parameters first), all-reduced without it;
+              the shards with ``plan.fsdp_params``, all-reduced without it;
   feedback  = the clip (its norm summed over the ranks) and the optimizer
               update of each rank's shards.
 
+With ``plan.fsdp_params`` (ZeRO-3) each rank holds only its shards of the
+parameters and the optimizer state, placed by :func:`state_shardings`,
+between steps and during them: the model gathers each weight over the data
+axes where it uses it (``plan.gather_fsdp`` inside the blocks, which
+training runs under activation checkpointing, so the forward keeps only
+the shards and the backward's recompute gathers again, as the reference's
+remat does), and the gather's backward reduce-scatters the weight's
+gradient to the shard.  A rank never holds more than a block's weights
+whole (``core.plan.FSDP_GATHERED`` counts them).
+
 Over a ``model`` axis larger than one (tensor, sequence and expert
-parallelism inside the model) each rank keeps its ``tp`` blocks: the step
-gathers the parameters over the batch axes only, the model runs on the
+parallelism inside the model) each rank keeps its ``tp`` blocks (the
+gather at the use is over the batch axes only), the model runs on the
 blocks (``models/``; every mesh axis manual), and each leaf's gradient is
 summed over exactly the mesh axes on which the leaf is replicated: the
 batch axes, and the model axis for a leaf it does not split (a norm
@@ -56,7 +63,7 @@ import torch
 
 from ..configs.base import Config
 from ..core import spmd
-from ..core.plan import P, TorchPlan, TorchSharding, spec_axes
+from ..core.plan import P, TorchPlan, TorchSharding, mark_whole, spec_axes
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..models import params as pp
 from ..models.lm import LM, vocab_argmax
@@ -103,24 +110,35 @@ def init_state(cfg: Config, plan, gen: torch.Generator, optimizer=None):
 def state_shardings(cfg: Config, plan, optimizer=None):
     """Shardings for the full train state (params + opt + step): each
     parameter by its def's axes fitted to its shape, each optimizer leaf by
-    its ``state_axes``, the counters replicated."""
+    its ``state_axes`` fitted to its own shape (a factored Adafactor
+    moment's, else its parameter's), the counters replicated.  Fitted so,
+    a moment keeps whole every dim its parameter keeps whole, as the
+    moments that ``opt.init`` builds from the parameters' blocks do."""
     opt = optimizer or make_optimizer(cfg.optimizer)
     pdefs = LM(cfg).param_defs()
     rep = TorchSharding(plan.mesh, P())
 
-    def ax_to_sh(ax):
+    def ax_to_sh(ax, like):
         if ax == () or ax is None:
             return rep
-        return TorchSharding(plan.mesh, plan.param_spec(ax))
-    o_sh = _map_axes(ax_to_sh, opt.state_axes(pdefs))
+        return TorchSharding(plan.mesh, plan.param_spec(ax, like.shape))
+    o_sh = _map_axes(ax_to_sh, opt.state_axes(pdefs), _opt_like(opt, pdefs))
     return {"params": pp.shardings(pdefs, plan), "opt": o_sh, "step": rep}
 
 
-def _map_axes(fn, tree):
-    """``fn`` over a tree whose leaves are tuples of logical axes."""
+def _opt_like(opt, pdefs):
+    """The optimizer state of the whole parameters as meta tensors (their
+    shapes and types; nothing allocated)."""
+    return opt.init(tree_map(lambda d: torch.empty(
+        d.shape, dtype=d.dtype, device="meta"), pdefs))
+
+
+def _map_axes(fn, tree, like):
+    """``fn(axes, leaf)`` over a tree whose leaves are tuples of logical
+    axes, beside the same tree of ``like``'s leaves."""
     if isinstance(tree, dict):
-        return {k: _map_axes(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map_axes(fn, v, like[k]) for k, v in tree.items()}
+    return fn(tree, like)
 
 
 def state_structs(cfg: Config, plan, optimizer=None):
@@ -135,8 +153,7 @@ def state_structs(cfg: Config, plan, optimizer=None):
         t.sharding = sharding
         return t
 
-    o_like = opt.init(tree_map(lambda d: torch.empty(
-        d.shape, dtype=d.dtype, device="meta"), pdefs))
+    o_like = _opt_like(opt, pdefs)
     o_st = tree_map(lambda t, s: meta(t.shape, t.dtype, s), o_like,
                     sh["opt"])
     return {"params": pp.shape_structs(pdefs, plan), "opt": o_st,
@@ -193,22 +210,27 @@ def param_shards(cfg: Config, plan, optimizer=None):
                     state_shardings(cfg, plan, optimizer)["params"])
 
 
-def gather_params(params, shardings, axes):
-    """The whole parameters from this rank's blocks (all-gathered over the
-    ``axes`` that split each leaf)."""
-    return tree_map(lambda t, s: s.gather(t, axes), params, shardings)
+def marked_params(params, cfg: Config):
+    """Aliases of this rank's parameter blocks, each marked with its
+    whole shape (``plan.mark_whole``), by which ``plan.gather_fsdp``
+    gathers it at its use."""
+    shapes = tree_unflatten(params, [d.shape for d in tree_leaves(
+        LM(cfg).param_defs())])
+    return tree_map(lambda t, s: mark_whole(t.detach(), s), params, shapes)
 
 
 def reduce_grads(grads, shardings, axes, replicated=()):
-    """The collector: each gradient summed over ``axes``, to this rank's
-    block (reduce-scatter) where one of them splits the leaf, whole
-    (all-reduce) where none does; then over each of the ``replicated``
-    axes (the model axis) that does not split the leaf: each rank holds
-    the whole leaf there, and its gradient from its part of the work."""
+    """The collector over this rank's gradient blocks: a leaf that one of
+    ``axes`` splits had its gradient reduce-scattered to the block by the
+    backward of its gather at the use (``plan.gather_fsdp``); each leaf
+    is summed over the others of ``axes`` (all-reduce), and over each of
+    the ``replicated`` axes (the model axis) that does not split the
+    leaf: each rank holds the whole leaf there, and its gradient from its
+    part of the work."""
     def one(g, s):
-        g = s.reduce(g, axes)
         split = {a for names in s.shard_dims().values() for a in names}
-        rest = tuple(a for a in replicated if a not in split)
+        rest = tuple(a for a in tuple(axes) + tuple(replicated)
+                     if a not in split)
         return spmd.all_sum(g, s.mesh, rest) if rest else g
     return tree_map(one, grads, shardings)
 
@@ -300,10 +322,11 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
         n = t.shape[dim] // n_blocks
         return t.narrow(dim, block * n, n)
 
-    def grads_of(whole, batch):
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(whole)]
+    def grads_of(params, batch):
+        leaves = [t.requires_grad_(True)
+                  for t in tree_leaves(marked_params(params, cfg))]
         with spmd.manual(mesh, mesh.axis_names):
-            loss, metrics = model.loss(tree_unflatten(whole, leaves), batch,
+            loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
                                        plan)
             # every rank holds the same (replicated) loss: each takes
             # 1/ranks of its cotangent, and the collector sums the ranks'
@@ -314,17 +337,17 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
             grads = torch.autograd.grad(loss, leaves, seed,
                                         materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            tree_unflatten(whole, list(grads))
+            tree_unflatten(params, list(grads))
 
     def train_step(state, batch):
-        whole = gather_params(state["params"], sh["params"], live_batch)
+        params = state["params"]
         if n_micro > 1:
             gsum, loss_sum = None, 0.0
             for i in range(n_micro):
                 mb = {k: local(v.reshape((n_micro, v.shape[0] // n_micro)
                                          + v.shape[1:])[i])
                       for k, v in batch.items()}
-                loss, _, grads = grads_of(whole, mb)
+                loss, _, grads = grads_of(params, mb)
                 if gsum is None:
                     gsum = tree_map(lambda g: torch.zeros(
                         g.shape, dtype=torch.float32, device=g.device),
@@ -336,9 +359,8 @@ def _spmd_train_step(cfg: Config, plan, lr_fn: Callable, opt, n_micro: int,
             metrics = {}
         else:
             loss, metrics, grads = grads_of(
-                whole, {k: local(v, BATCH_DIM.get(k, 0))
-                        for k, v in batch.items()})
-        del whole
+                params, {k: local(v, BATCH_DIM.get(k, 0))
+                         for k, v in batch.items()})
         grads = reduce_grads(grads, sh["params"], live_batch, model_axes)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm, shards)
         lr = lr_fn(state["step"])
@@ -365,19 +387,16 @@ def _batch_block(t, plan, dim: int = 0):
 
 
 def _spmd_call(cfg: Config, plan):
-    """``call(fn, params, *args, batch)``: ``fn`` on the whole parameters
-    over the batch axes (each rank's ``tp`` blocks kept) and this rank's
-    block of ``batch``, every mesh axis manual."""
-    sh = state_shardings(cfg, plan)["params"]
-    axes = _live(plan, _batch_axes(plan))
-
+    """``call(fn, params, *args, batch)``: ``fn`` on this rank's parameter
+    blocks, each gathered over the data axes at its use
+    (``plan.gather_fsdp``), and this rank's block of ``batch``, every mesh
+    axis manual."""
     def call(fn, params, *args):
         *rest, batch = args
-        whole = gather_params(params, sh, axes) if axes else params
         local = {k: _batch_block(v, plan, BATCH_DIM.get(k, 0))
                  for k, v in batch.items()}
         with spmd.manual(plan.mesh, plan.mesh.axis_names):
-            return fn(whole, *rest, local)
+            return fn(marked_params(params, cfg), *rest, local)
     return call
 
 

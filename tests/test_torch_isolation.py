@@ -74,6 +74,45 @@ def test_no_source_file_imports_jax_or_the_reference():
     assert bad == []
 
 
+# the modules the rank processes import (a rank starts without JAX), the
+# smoke run and its tools: none loads JAX or the reference
+RANK_SIDE = ("spmd_cases", "tp_cases", "tp_family_cases", "tp_layout_cases",
+             "graph_spmd_cases", "fsdp_gather_cases")
+ROOT = SRC.parent
+
+
+@pytest.mark.parametrize("module", RANK_SIDE + (
+    "chip_smoke", "phase10_alone", "phase11_alone", "phase12_alone"))
+def test_rank_side_helpers_and_the_smoke_load_no_jax(module):
+    path = ":".join(str(p) for p in (SRC, ROOT / "tests", ROOT,
+                                     ROOT / "tools"))
+    code = (f"import {module}, sys\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.')))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": path, "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_the_smoke_run_imports_neither_jax_nor_the_reference():
+    bad = []
+    for path in [ROOT / "chip_smoke.py"] + sorted(
+            (ROOT / "tools").glob("phase*_alone.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
+
+
 def test_the_plan_defaults_to_cuda():
     if torch.cuda.is_available():
         assert single_device_plan().device == torch.device("cuda", 0)

@@ -33,16 +33,18 @@ S_ENC = 32                    # Whisper's frames (the reduced enc_len is 64)
 # the mLSTM's projection columns within a head: its heads stay whole);
 # reduced Llama-3.2-3B (cp), also at a prompt
 # of 14, which a model axis of 4 does not divide (the sequence stays
-# whole) and one of 2 does
+# whole) and one of 2 does; reduced Zamba2 with 2 Mamba2 groups (each
+# rank's heads read their own group: the heads split over the model axis,
+# wB/wC whole)
 CONFIGS = ("whisper-medium", "whisper-kv16", "qwen2-vl-2b", "qwen2-vl-embeds",
-           "xlstm-125m", "xlstm-h2", "llama3.2-3b", "llama3.2-3b-s14")
+           "xlstm-125m", "xlstm-h2", "llama3.2-3b", "llama3.2-3b-s14",
+           "zamba2-g2")
 KV16 = {"n_heads": 16, "n_kv_heads": 16}
 # the configs that only serve: the prompt of 14 (the train step is
-# llama3.2-3b's); xLSTM at 2 heads, whose wi/wf (d_inner, 2) a model axis
-# of 4 leaves whole but whose AdamW moments the optimizer's axes would
-# split (the train step raises on a moment's sharding that is not its
-# parameter's)
-SERVE_ONLY = ("llama3.2-3b-s14", "xlstm-h2")
+# llama3.2-3b's).  xLSTM at 2 heads trains: its wi/wf (d_inner, 2) a
+# model axis of 4 leaves whole, and so its AdamW moments (the state's
+# shardings fitted to each moment's shape)
+SERVE_ONLY = ("llama3.2-3b-s14",)
 MESHES = ((2, 2), (1, 4))
 CASES = [(name, shape) for shape in MESHES for name in CONFIGS]
 # (mutant, case it runs on): cp attention with every key instead of the
@@ -58,7 +60,8 @@ def base(name: str) -> str:
     """The registered config a case name reduces."""
     return {"whisper-kv16": "whisper-medium",
             "qwen2-vl-embeds": "qwen2-vl-2b", "xlstm-h2": "xlstm-125m",
-            "llama3.2-3b-s14": "llama3.2-3b"}.get(name, name)
+            "llama3.2-3b-s14": "llama3.2-3b",
+            "zamba2-g2": "zamba2-1.2b"}.get(name, name)
 
 
 def config(get, name):
@@ -68,6 +71,8 @@ def config(get, name):
         cfg = dataclasses.replace(cfg, **KV16)
     if name == "xlstm-h2":
         cfg = dataclasses.replace(cfg, n_heads=2)
+    if name == "zamba2-g2":
+        cfg = dataclasses.replace(cfg, ssm_groups=2)
     return cfg
 
 

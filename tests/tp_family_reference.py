@@ -67,6 +67,34 @@ def _batch(tokens, more):
     return b
 
 
+def _fit(spec, shape, sizes) -> tuple:
+    """``spec``'s mesh axes fitted to ``shape`` (an axis that does not
+    divide what is left of its dim dropped), as ``spec_for_shape`` fits a
+    parameter's."""
+    out = []
+    for e, n in zip(tuple(spec) + (None,) * (len(shape) - len(spec)), shape):
+        keep, prod = [], 1
+        for a in (() if e is None else (e,) if isinstance(e, str) else e):
+            if n % (prod * sizes[a]) == 0:
+                keep.append(a)
+                prod *= sizes[a]
+        out.append(None if not keep else keep[0] if len(keep) == 1
+                   else tuple(keep))
+    return tuple(out)
+
+
+def _fitted(sh, opt_state, mesh):
+    """The reference's state shardings with each optimizer moment's spec
+    fitted to the moment's shape: ``state_shardings`` resolves the moments'
+    axes without their shapes, and ``device_put`` refuses a spec that does
+    not divide (xLSTM's wi/wf moments, (d_inner, 2) over a model axis of
+    4).  The step's arithmetic does not depend on the state's layout."""
+    sizes = dict(mesh.shape)
+    o_sh = jax.tree.map(lambda s, a: NamedSharding(
+        mesh, P(*_fit(s.spec, a.shape, sizes))), sh["opt"], opt_state)
+    return dict(sh, opt=o_sh)
+
+
 def run_case(inp, case, out):
     name, shape = case
     cfg = C.config(get, name)
@@ -76,7 +104,7 @@ def run_case(inp, case, out):
     pre = C.prefix(name)
     params = _params(inp, name, LM(cfg).param_defs())
     opt = make_optimizer(cfg.optimizer)
-    sh = state_shardings(cfg, plan)
+    sh = _fitted(state_shardings(cfg, plan), opt.init(params), mesh)
     for path, s in _paths(sh["params"]):
         out[f"{key}/pshape{path}"] = np.asarray(
             s.shard_shape(_leaf(params, path).shape))
