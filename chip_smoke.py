@@ -12,7 +12,8 @@ Phases, each of which fails the run:
    fails the run; ``cuobjdump -sass`` must find HMMA/HGMMA (tensor-core)
    instructions in every bf16 ``flash_fwd_kernel_tc`` (D 16-256) and in
    the ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per
-   kernel is printed);
+   kernel is printed); phase 13's traces run in a process of their own
+   beside phases 1-2;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
    ``flash_attention`` against its plain version (bf16 within 2e-2, f32
@@ -251,6 +252,24 @@ Phases, each of which fails the run:
    each step's forward / backward / collective / optimizer ms, the peak
    memory a rank, the collectives' calls and host seconds, the kernels'
    local shapes, and the kernels' times at those shapes.
+13. the dry run held to the card — ``repro_torch.launch.dryrun.dry_step``
+   (the sweep's core) traces each cell's step on fake ``cuda:0`` tensors
+   (every kernel's launches counted by the trace's recorder, none
+   launched; in a spawned process beside phases 1-2, which time nothing,
+   as the traces take the host's CPU), then the card runs the same step on real tensors, once
+   and then ``DRY_STEPS`` times: phase 5c's
+   Zamba2-1.2B whole at B4 x S2048 and Mixtral-8x7B at 1 of 32 layers at
+   B2 x S2048 (train steps), and phase 5's Mixtral at 4 layers through a
+   B1 x S2048 prefill and a decode step at the engine's B8 against its
+   4096-slot cache.  Fails unless each
+   kernel's launches in the trace equal the card's ``launches`` counters
+   for the first timed step and ``expected_launches``, the roofline's step
+   time (H100 SXM data sheet) is no more than the median timed step, and
+   the traced peak is within ``DRY_PEAK_TOL`` of
+   ``torch.cuda.max_memory_allocated`` over that first timed step (the
+   step's arguments included).  Prints each
+   cell's compute, memory and collective terms, the dominant one, its
+   FLOPs and bytes, and the measured step time and peak.
 
 The last line of standard output is a JSON object with ``"ok": true`` and
 the device; the line before it the card's name and power limit, and the
@@ -268,6 +287,7 @@ import math
 import os
 import pathlib
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -278,12 +298,6 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
-
-
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
-BF16_FLOPS = 989e12              # H100 SXM, dense bf16 on the tensor cores
-TF32_FLOPS = 495e12              # H100 SXM, dense TF32 on the tensor cores
 
 
 def say(msg: str) -> None:
@@ -1108,13 +1122,9 @@ def serve_config():
 
 
 def kernel_fns() -> dict:
-    """The model paths' kernel wrappers, each with its launch count."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.gelu_stepwise import gelu_stepwise
-    from repro_torch.kernels.router_topk import router_topk
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    return {"flash_attention": flash_attention, "router_topk": router_topk,
-            "ssd_scan": ssd_scan, "gelu_stepwise": gelu_stepwise}
+    """The kernel wrappers, each with its launch count."""
+    from repro_torch.kernels import wrappers
+    return wrappers()
 
 
 def zero_launches() -> dict:
@@ -2605,16 +2615,16 @@ def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
 
 
 def kernel_row(name: str, cu: str, replaces: str, launches: int, err: float,
-               ms: float, plain_ms: float, t_bytes: float, t_ops: float,
-               library_ms) -> dict:
-    """One entry of the ``kernels`` line; the bound is the larger of the
-    bytes over the memory rate and the operations over the peak rate."""
+               ms: float, plain_ms: float, work, library_ms) -> dict:
+    """One entry of the ``kernels`` line; the bound is the kernel module's
+    ``work()`` (``kernels/backend.py:Work``, the count the dry run sums):
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate for their type."""
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{cu}.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": work.bound_s * 1e3,
+            "bound_by": work.bound_by, "library_ms": library_ms}
 
 
 def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
@@ -2626,17 +2636,16 @@ def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
     and ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     work)
     B, H, Hkv, S, D, W = shape
     Sq = sq or S
     q = torch.randn(B, H, Sq, D, generator=g).to(torch.bfloat16).to(dev)
     k = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
     v = torch.randn(B, Hkv, S, D, generator=g).to(torch.bfloat16).to(dev)
-    # query i (aligned to the end of the keys) sees S - Sq + i + 1 keys when
-    # causal (the window does not bind), all S otherwise
-    pairs = (Sq * (2 * S - Sq + 1) // 2) if causal else Sq * S
-    flops = 4 * D * pairs * B * H           # q.k and p.v, 2 FLOP per MAC
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    # q.k and p.v over the pairs the mask admits; q, k, v read, o written
+    w = work(q.shape, Hkv, S, q.dtype, causal, W)
+    flops, nbytes = w.flops, w.bytes
     ms = graph_ms(lambda: flash_attention(q, k, v, causal, W))
     eager = time_ms(lambda: flash_attention(q, k, v, causal, W))
     plain = time_ms(lambda: flash_attention_plain(q, k, v, causal, W),
@@ -2646,8 +2655,7 @@ def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
         q, k, v, is_causal=causal and Sq == S, enable_gqa=True))
     row = kernel_row(name, "flash_attention",
                      "src/repro/kernels/flash_attention.py:35", launches, err,
-                     ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
-                     flops / BF16_FLOPS * 1e3, lib)
+                     ms, plain, w, lib)
     say(f"[time] {name} B{B} H{H}/{Hkv} Sq{Sq} Sk{S} D{D} bf16 "
         f"{'causal' if causal else 'non-causal'}: "
         f"{ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms per eager "
@@ -2781,15 +2789,14 @@ def time_gelu(dev: torch.device, g: torch.Generator, name: str,
     element (nine steps and the tanh) are far under it."""
     import torch.nn.functional as F
     from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
-                                                   gelu_stepwise_plain)
+                                                   gelu_stepwise_plain, work)
     x = (torch.randn(*shape, generator=g) * 4).to(torch.bfloat16).to(dev)
     n = x.numel()
     ms = graph_ms(lambda: gelu_stepwise(x))
     plain = time_ms(lambda: gelu_stepwise_plain(x), reps=3, iters=5)
     lib = graph_ms(lambda: F.gelu(x, approximate="tanh"))
     row = kernel_row(name, "gelu_stepwise", "src/repro/models/layers.py:71",
-                     launches, err, ms, plain, 2 * n * 2 / HBM_BYTES_PER_S
-                     * 1e3, 10 * n / F32_FLOPS * 1e3, lib)
+                     launches, err, ms, plain, work(n, x.dtype), lib)
     say(f"[time] {name} {tuple(shape)} bf16: {ms:.4f} ms on the device "
         f"(CUDA graph), plain (nine eager ops) {plain:.4f} ms, F.gelu "
         f"{lib:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
@@ -2856,17 +2863,17 @@ def time_router(dev: torch.device, g: torch.Generator, name: str, T: int,
     (Mixtral's E8 K2 unless given; capacity from the model's formula)
     beside its plain version and its bound."""
     from repro_torch.core.device import expert_capacity
-    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    from repro_torch.kernels.router_topk import (router_topk,
+                                                 router_topk_plain, work)
     cap = expert_capacity(T, E, K, 1.25)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
-    nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
-    ops = T * E * (5 + K)         # max, sub, exp, add, div; a compare a pick
+    w = work(T, E, K)             # max, sub, exp, add, div; a compare a pick
+    nbytes = w.bytes
     ms = graph_ms(lambda: router_topk(logits, K, cap))
     eager = time_ms(lambda: router_topk(logits, K, cap))
     plain = time_ms(lambda: router_topk_plain(logits, K, cap))
     row = kernel_row(name, "router_topk", "src/repro/kernels/router_topk.py:26",
-                     launches, err, ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
-                     ops / F32_FLOPS * 1e3, None)
+                     launches, err, ms, plain, w, None)
     say(f"[time] {name} T{T} E{E} K{K}: {ms:.4f} ms on the device (CUDA "
         f"graph), {eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} B) on {card}")
@@ -2911,8 +2918,10 @@ def route_time(dev: torch.device, name: str, T: int, E: int, K: int) -> dict:
     capacity (1.25x the mean load), its plain version's time per eager
     call and its byte bound."""
     from repro_torch.core.device import expert_capacity
-    from repro_torch.kernels.a2a_fused import a2a_route, a2a_route_plain
-    from repro_torch.kernels.router_topk import router_topk, router_topk_plain
+    from repro_torch.kernels.a2a_fused import (a2a_route, a2a_route_plain,
+                                               route_work)
+    from repro_torch.kernels.router_topk import (router_topk,
+                                                 router_topk_plain, work)
     g = torch.Generator().manual_seed(T + E + K)
     logits = (torch.randn(T, E, generator=g) * 2).to(dev)
     cap = expert_capacity(T, E, K, 1.25)
@@ -2920,15 +2929,15 @@ def route_time(dev: torch.device, name: str, T: int, E: int, K: int) -> dict:
         ms = graph_ms(lambda: router_topk(logits, K, cap))
         plain = time_ms(lambda: router_topk_plain(logits, K, cap), reps=3,
                         iters=5)
-        nbytes = T * E * 4 + T * K * (4 + 4 + 4 + 1)
+        w = work(T, E, K)
     else:
         ms = graph_ms(lambda: a2a_route(logits, cap))
         plain = time_ms(lambda: a2a_route_plain(logits, cap), reps=3,
                         iters=5)
-        nbytes = T * E * 4 + T * (4 + 4 + 1)
+        w = route_work(T, E)
     return {"name": name, "T": T, "E": E, "K": K, "ms": ms,
-            "plain_ms": plain, "bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "plain_ms": plain, "bytes": w.bytes,
+            "bound_ms": w.bytes_s * 1e3}
 
 
 def time_routes(dev: torch.device, card: str) -> list:
@@ -2964,7 +2973,7 @@ def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
     ``models/ssm.py`` calls it; xLSTM's mLSTM layer is H = G = 4,
     N = P = 384 (numerator) or P = 1 (normaliser), as ``models/xlstm.py``
     calls it."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain, work
     g = torch.Generator().manual_seed(7)
     S, Q = 2048, 256
     q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, "model")
@@ -2975,23 +2984,15 @@ def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
                                      return_state=True))
     plain = time_ms(lambda: ssd_scan_plain(q, k, v, la, Q, out_dtype=f32),
                     reps=3, iters=5)
+    # the causal half of the bf16 scores at the bf16 rate, the products
+    # with an f32 operand as 3xTF32 (the kernel module's work())
+    w = work(B, H, G, S, N, P, Q, q.dtype, v.dtype, la.dtype, f32)
+    flops, nbytes = w.flops, w.bytes
     chunk_heads = -(-S // Q) * B * H
-    # the causal half (pairs s <= t) of the scores q.k, a product of two
-    # bf16 inputs, exact in fp32, so the tensor cores' bf16 rate; then the
-    # causal half of the decay-weighted sum over f32 v and the two
-    # (Q,N)x(N,P)-sized products with the fp32 state.  Those keep fp32
-    # accuracy as 3xTF32 on the tensor cores (the kernel's way, and the
-    # fastest the card has): three TF32 products each, at the TF32 rate
     score_flops = chunk_heads * Q * (Q + 1) * N
-    f32_flops = chunk_heads * (Q * (Q + 1) * P + 4 * Q * N * P)
-    qk_rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
-    flops = score_flops + f32_flops
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, la)) \
-        + B * H * S * P * 4 + B * H * N * P * 4          # y, state (f32)
+    f32_flops = flops - score_flops
     row = kernel_row(name, "ssd_scan", "src/repro/kernels/ssd_scan.py:26",
-                     launches, err, ms, plain, nbytes / HBM_BYTES_PER_S * 1e3,
-                     (score_flops / qk_rate + 3 * f32_flops / TF32_FLOPS)
-                     * 1e3, None)
+                     launches, err, ms, plain, w, None)
     say(f"[time] {name} B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 "
         f"q/k, f32 v/y): {ms:.4f} ms on the device (CUDA graph), "
         f"{eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
@@ -3010,7 +3011,8 @@ def a2a_rows(dev: torch.device, T: int, cap: int, launches: dict,
     their bounds; rows named ``a2a_route<suffix>``, ``a2a_combine<suffix>``
     with ``launches`` of the path they report."""
     from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
-                                               a2a_route, a2a_route_plain)
+                                               a2a_route, a2a_route_plain,
+                                               combine_work, route_work)
     E, D = N_EXPERTS, D_MODEL
     g = torch.Generator().manual_seed(2)
     e = torch.randint(0, E, (T,), generator=g)
@@ -3020,26 +3022,22 @@ def a2a_rows(dev: torch.device, T: int, cap: int, launches: dict,
     idx, _pos, keep = a2a_route(logits, cap)
     kept = int(keep.sum())
     rows = []
-    route_bytes = T * E * 4 + T * (4 + 4 + 1)
-    route_ops = T * E * 5                    # sub, exp, add, div, compare
-    combine_bytes = T * (4 + 1) + kept * D * 2 + T * D * 2
-    for name, kern, plain, args, nbytes, ops in (
+    for name, kern, plain, args, w in (
             ("a2a_route", a2a_route, a2a_route_plain, (logits, cap),
-             route_bytes, route_ops),
+             route_work(T, E)),
             ("a2a_combine", a2a_combine, a2a_combine_plain, (ys, idx, keep),
-             combine_bytes, 0)):
+             combine_work(T, D * 2, kept))):
         ms = graph_ms(lambda: kern(*args))
         eager_ms = time_ms(lambda: kern(*args))
         plain_ms = time_ms(lambda: plain(*args))
         rows.append(kernel_row(
             name + suffix, "a2a_fused", "src/repro/kernels/a2a_fused.py:48",
-            launches[name], errs[name], ms, plain_ms,
-            nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3, None))
+            launches[name], errs[name], ms, plain_ms, w, None))
         say(f"[time] {name + suffix} T{T} cap {cap}: {ms:.4f} ms on the "
             f"device (CUDA graph), {eager_ms:.4f} ms per eager call, plain "
             f"{plain_ms:.4f} ms per eager call, bound "
             f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']}, "
-            f"{nbytes} B) on {card}")
+            f"{w.bytes} B) on {card}")
     return rows
 
 
@@ -6193,6 +6191,208 @@ def tp_families_rows(dev: torch.device, card: str, errs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run held to the card's own step
+# ---------------------------------------------------------------------------
+DRY_PEAK_TOL = 0.02              # the traced peak against the card's
+DRY_DECODE_POS = 2048            # the decode step's position in its cache
+DRY_STEPS = 3                    # timed steps of a cell, after one
+
+
+def dry_cells() -> list:
+    """(tag, config, mode, batch, seq): phase 5c's two training cells, and
+    phase 5's Mixtral at 4 layers through one prefill and one decode step
+    at the engine's batch against its cache (``seq`` the cache's length)."""
+    (z, zb, zs), (m, mb, ms) = train_configs()
+    return [("zamba2-1.2b train", z, "train", zb, zs),
+            ("mixtral-8x7b 1L train", m, "train", mb, ms),
+            ("mixtral-8x7b 4L prefill", serve_config(), "prefill", 1, 2048),
+            ("mixtral-8x7b 4L decode", serve_config(), "decode",
+             SERVE_BATCH, SERVE_CACHE)]
+
+
+def dry_real_args(cfg, mode: str, B: int, S: int, plan, params=None):
+    """(step, args) on the card, shaped as ``dry_step`` shapes them: the
+    train state of ``init_state``, or the parameters (``params`` when
+    given) and, for decode, zero caches of ``cache_specs``; tokens from a
+    seed."""
+    from repro_torch.configs import cache_specs
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.dryrun import LR
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.steps import (init_state, make_decode_step,
+                                           make_prefill_step, make_train_step)
+    dev = plan.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = lambda *shape: torch.randint(0, cfg.vocab, shape, generator=gen,
+                                       device=dev, dtype=torch.int32)
+    if mode == "train":
+        opt = make_optimizer(cfg.optimizer)
+        return (make_train_step(cfg, plan, LR, opt),
+                (init_state(cfg, plan, gen, opt), {"tokens": tok(B, S)}))
+    params = params if params is not None else LM(cfg).init(gen)
+    if mode == "prefill":
+        return (make_prefill_step(cfg, plan, cache_len=S),
+                (params, {"tokens": tok(B, S)}))
+    caches = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                            device=dev),
+                      cache_specs(cfg, B, S))
+    pos = torch.tensor(DRY_DECODE_POS, dtype=torch.int32, device=dev)
+    return (make_decode_step(cfg, plan, cache_len=S),
+            (params, caches, {"token": tok(B, 1), "pos": pos}))
+
+
+def dry_traces() -> tuple:
+    """Phase 13's traces: ``dry_step`` of every cell on fake ``cuda:0``
+    tensors of a one-card plan.  Returns ``({tag: trace}, seconds)``."""
+    import importlib
+    from repro_torch.core.plan import single_device_plan
+    from repro_torch.launch.dryrun import dry_step
+    importlib.import_module("torch._dynamo")   # the first checkpoint's
+    t0 = time.perf_counter()
+    plan = single_device_plan()
+    res = {tag: dry_step(cfg, mode, B, S, plan)
+           for tag, cfg, mode, B, S in dry_cells()}
+    return res, time.perf_counter() - t0
+
+
+def _dry_traces_into(out) -> None:
+    try:
+        out.put(dry_traces())
+    except Exception:                         # noqa: BLE001 - sent back
+        import traceback
+        out.put((None, traceback.format_exc()))
+
+
+def start_dry_traces():
+    """Start :func:`dry_traces` in a spawned process, beside phases 1-2
+    (the build and the kernels' checks time nothing), so the traces take
+    no timed phase's host and the script's process never holds a fake
+    tensor."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_dry_traces_into, args=(out,), daemon=True)
+    proc.start()
+    return proc, out
+
+
+def finish_dry_traces(handle, timeout_s: float = 600.0) -> tuple:
+    """The traces' results and seconds, the process stopped; a trace that
+    failed fails the run."""
+    import queue
+    proc, out = handle
+    t0 = time.perf_counter()
+    try:
+        res, secs = out.get(timeout=timeout_s)
+    except queue.Empty:
+        res, secs = None, f"no result in {timeout_s} s"
+    finally:
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    if res is None:
+        fail(f"dry run traces failed:\n{secs}")
+    say(f"[dry-run] the traces (dry_step on fake cuda:0 tensors, their own "
+        f"process beside phases 1-2): {secs:.1f} s; waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    return res, secs
+
+
+def dry_cell(plan, tag: str, cfg, mode: str, B: int, S: int, dry: dict,
+             card: str, params=None) -> dict:
+    """One cell of phase 13: the card's step beside its trace ``dry``.
+    One step first (the first call's one-off allocations and
+    initialisation), then ``DRY_STEPS`` timed steps: the first of them
+    gives the launches and the peak, their median the step time."""
+    import dataclasses
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.dryrun import roofline_of
+    dev = plan.device
+    gc_cuda()
+    step, args = dry_real_args(dataclasses.replace(cfg), mode, B, S, plan,
+                               params)
+    step(*args)
+    sync(dev)
+    # what the card holds besides the step's arguments (they count, as the
+    # trace counts them)
+    base = torch.cuda.memory_allocated(dev) - sum(
+        t.untyped_storage().nbytes() for t in
+        {id(t.untyped_storage()): t for t in tree_leaves(args)
+         if isinstance(t, torch.Tensor)}.values())
+    kernels = zero_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(DRY_STEPS):
+        t0 = time.perf_counter()
+        out = step(*args)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        del out
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            card_launches = read_launches(kernels)
+    secs = statistics.median(times)
+    n = cfg.n_params_active()
+    tokens = B * S if mode != "decode" else B
+    terms = roofline_of(dry, 1, (6.0 if mode == "train" else 2.0) * n
+                        * tokens)
+    want = nonzero(expected_launches(cfg, {"train": 2, "prefill": 1}.get(
+        mode, 0), int(mode == "decode")))
+    pred = dry["mem"]["peak_bytes"]
+    off = pred / peak - 1
+    say(f"[dry-run] {tag} on {card}: roofline (H100 SXM data sheet) "
+        f"compute {terms.compute_s * 1e3:.3f} ms, memory "
+        f"{terms.memory_s * 1e3:.3f} ms, collective "
+        f"{terms.collective_s * 1e3:.3f} ms, dominant {terms.dominant}; "
+        f"{dry['flops']:.6g} FLOP ({dry['flops_kernels']:.6g} in kernels), "
+        f"{dry['bytes']:.6g} B ({dry['bytes_kernels']:.6g} in kernels); "
+        f"measured step {secs * 1e3:.1f} ms (median of {DRY_STEPS} after "
+        f"one; the first {times[0] * 1e3:.1f} ms) (the roofline "
+        f"{terms.step_time_s / secs:.1%} of it); peak traced "
+        f"{pred / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB ({off:+.1%}; "
+        f"arguments {dry['mem']['argument_bytes'] / 1e9:.3f} GB); launches "
+        f"traced {dry['kernel_launches']}, card {card_launches}, expected "
+        f"{want}; traced in {dry['trace_s']:.1f} s")
+    if not dry["kernel_launches"] == card_launches == want:
+        fail(f"dry run {tag}: launches traced {dry['kernel_launches']}, on "
+             f"the card {card_launches}, expected {want}")
+    if terms.step_time_s > secs:
+        fail(f"dry run {tag}: the roofline's step {terms.step_time_s:.4f} s "
+             f"exceeds the measured {secs:.4f} s: the count is wrong")
+    if abs(off) > DRY_PEAK_TOL:
+        fail(f"dry run {tag}: traced peak {pred / 1e9:.3f} GB against "
+             f"{peak / 1e9:.3f} GB measured ({off:+.1%})")
+    return {"step_s": secs, "roofline_s": terms.step_time_s, "peak": peak,
+            "traced_peak": pred, "launches": card_launches,
+            "trace_s": dry["trace_s"],
+            "params": args[0] if mode == "prefill" else None}
+
+
+def phase_dry_run(card: str, traces=None) -> dict:
+    """Phase 13 (see the module's docstring).  ``traces`` are
+    :func:`dry_traces`' results, taken beside phases 1-2; without them the
+    traces run here."""
+    from repro_torch.core.plan import single_device_plan
+    t0 = time.perf_counter()
+    if traces is None:
+        traces = dry_traces()
+        say(f"[dry-run] the traces (dry_step on fake cuda:0 tensors, here):"
+            f" {traces[1]:.1f} s")
+    dry = traces[0]
+    plan = single_device_plan()
+    out, params = {}, None
+    for tag, cfg, mode, B, S in dry_cells():
+        out[tag] = dry_cell(plan, tag, cfg, mode, B, S, dry[tag], card,
+                            params)
+        params = out[tag].pop("params")       # the prefill's, for decode
+    gc_cuda()
+    say(f"[dry-run] phase 13 {time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     import gc
     if not torch.cuda.is_available():
@@ -6207,8 +6407,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    traces = start_dry_traces()
     card = phase_card()
     kernels = phase_kernels(dev)
+    traces = finish_dry_traces(traces)
     main = phase_main_path(dev)
     main["kernels"] = kernels
     hyb = phase_hybrid(main)
@@ -6287,6 +6489,7 @@ def main() -> int:
     rows += tensor_parallel_rows(dev, card["card"], errs,
                                  train[train_configs()[1][0].name])
     rows += tp_families_rows(dev, card["card"], errs)
+    phase_dry_run(card["card"], traces)
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card["card"])

@@ -1,9 +1,13 @@
 """Architecture config schema and the assigned shape grid.
 
 A copy of ``src/repro/configs/base.py`` (``Config``, ``SHAPES``,
-``reduced()``) without its JAX parts: the ``ShapeDtypeStruct`` stand-ins
-(``batch_specs``, ``cache_specs``) belong to the dry run, which the port does
-not have yet, and the parameter counts walk the port's own ``ParamDef`` tree.
+``reduced()``).  Its ``ShapeDtypeStruct`` stand-ins (``_sds``,
+``batch_specs``, ``cache_specs``) are meta tensors of the global shape and
+type here, each with its ``sharding`` (a
+:class:`~repro_torch.core.plan.TorchSharding`), as
+``models.params.shape_structs`` makes the parameters'; the dry run
+(``launch/dryrun.py``) reads them.  The parameter counts walk the port's own
+``ParamDef`` tree.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 
 # the assigned shape grid (LM transformer shapes) -----------------------------
@@ -192,3 +198,69 @@ class Config:
         if self.family == "ssm":
             return [("mlstm", 2), ("slstm", 1)]
         return None
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-tensor stand-ins)
+# ---------------------------------------------------------------------------
+def _sds(shape, dtype, plan=None, axes=None) -> torch.Tensor:
+    """A meta tensor of ``shape`` and ``dtype`` (nothing allocated) whose
+    ``sharding`` is ``plan.sharding_for(axes, shape)``, or ``None`` without
+    a plan."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    t.sharding = None if plan is None else plan.sharding_for(axes, shape)
+    return t
+
+
+def batch_specs(cfg: Config, shape_name: str, plan=None, batch=None,
+                seq=None) -> Dict[str, torch.Tensor]:
+    """Model-input stand-ins for a shape cell, at the global shape (the
+    port's steps take the global batch on every rank).  Front ends are
+    stubs: [audio]/[vlm] get precomputed frame/patch embeddings."""
+    sh = SHAPES[shape_name]
+    B = batch if batch is not None else sh["batch"]
+    S = seq if seq is not None else sh["seq"]
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    if sh["mode"] in ("train", "prefill"):
+        if cfg.family == "encdec":
+            dec = max(32, S // 8)
+            return {"frames": _sds((B, S, cfg.d_model), bf16, plan,
+                                   ("batch", None, None)),
+                    "tokens": _sds((B, dec), i32, plan, ("batch", None))}
+        out = {"tokens": _sds((B, S), i32, plan, ("batch", None))}
+        if cfg.family == "vlm":
+            out["embeds"] = _sds((B, S, cfg.d_model), bf16, plan,
+                                 ("batch", None, None))
+            out["mrope_positions"] = _sds((3, B, S), i32, plan,
+                                          (None, "batch", None))
+        return out
+
+    # decode: one new token against a cache of length S
+    out = {"token": _sds((B, 1), i32, plan, ("batch", None)),
+           "pos": _sds((), i32, plan, ())}
+    if cfg.family == "vlm":
+        out["embeds"] = _sds((B, 1, cfg.d_model), bf16, plan,
+                             ("batch", None, None))
+        out["mrope_positions"] = _sds((3, B, 1), i32, plan,
+                                      (None, "batch", None))
+    return out
+
+
+def cache_specs(cfg: Config, B: int, S: int, plan=None) -> Dict[str, Any]:
+    """Stand-ins for the decode caches of ``LM(cfg).cache_defs(B, S)``,
+    each with its ``LM.cache_shardings`` sharding."""
+    from ..models.lm import LM
+    lm = LM(cfg)
+    defs = lm.cache_defs(B, S)
+    shard = lm.cache_shardings(B, S, plan) if plan is not None else None
+
+    def walk(d, s):
+        if isinstance(d, dict):
+            return {k: walk(v, None if s is None else s[k])
+                    for k, v in d.items()}
+        shape, dtype = d
+        t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        t.sharding = s
+        return t
+    return walk(defs, shard)

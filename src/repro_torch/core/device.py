@@ -314,7 +314,10 @@ def a2a_dispatch(left_fns: Sequence[Callable], right_fns: Sequence[Callable],
             e = (((t_idx % nL) + (t_idx // nL)) % nR).to(torch.int32)
         cap = T if capacity_factor is None else \
             expert_capacity(T, nR, 1, capacity_factor)
-        logits = torch.nn.functional.one_hot(e.long(), nR).to(torch.float32)
+        # compared with the lanes, not F.one_hot, which reads the routes'
+        # range on the host (a wait inside the device segment)
+        logits = (e.long()[:, None] == torch.arange(nR, device=e.device)
+                  ).to(torch.float32)
         if sharded and capacity_factor is None:
             # sharded expert compute: every rank runs the hop on its own
             # tokens (capacity is lossless, so per-shard cursors cannot

@@ -112,16 +112,31 @@ class HardwareSpec:
     hbm_bw: float            # per card, B/s
     link_bw: float           # NVLink, per direction, B/s
     hbm_bytes: float
+    net_bw: float            # the network between nodes, per card, each way
+    cards_per_node: int      # cards that NVLink joins
+    peak_flops_tf32: float
+    peak_flops_f32: float    # outside the tensor cores
+    sms: int
+    smem_per_block: int      # bytes a block may opt in to
 
 
-# NVIDIA's H100 SXM data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
-# 900 GB/s NVLink (450 GB/s each way), 80 GB; rates at the 700 W limit
+# NVIDIA's H100 SXM data sheet: 989 TFLOP/s dense bf16, 495 TF32, 67 f32,
+# 3.35 TB/s HBM3, 900 GB/s NVLink (450 GB/s each way), 80 GB; rates at the
+# 700 W limit.  The DGX H100 data sheet: 8 GPUs a node on NVLink, and 8
+# ConnectX-7 ports of 400 Gb/s InfiniBand NDR, one a GPU (50 GB/s each
+# way).  The Hopper tuning guide: 132 SMs, 227 KB of shared memory a block
 H100_SXM = HardwareSpec(
     name="h100_sxm",
     peak_flops_bf16=989e12,
     hbm_bw=3.35e12,
     link_bw=450e9,
     hbm_bytes=80e9,
+    net_bw=50e9,
+    cards_per_node=8,
+    peak_flops_tf32=495e12,
+    peak_flops_f32=67e12,
+    sms=132,
+    smem_per_block=232448,
 )
 
 
@@ -133,7 +148,8 @@ class RooflineTerms:
     collective_s: float
     flops_total: float = 0.0
     bytes_total: float = 0.0
-    coll_bytes: float = 0.0
+    coll_bytes: float = 0.0      # over NVLink, a card
+    coll_bytes_net: float = 0.0  # over the network between nodes, a card
     model_flops: float = 0.0
     model_flops_s: float = 0.0   # time to run model_flops at peak
 
@@ -159,15 +175,21 @@ class RooflineTerms:
 def roofline(flops_total: float, bytes_total: float,
              coll_bytes_per_card: float, n_cards: int,
              hw: HardwareSpec = H100_SXM,
+             coll_bytes_net_per_card: float = 0.0,
              model_flops: float = 0.0) -> RooflineTerms:
     """flops_total/bytes_total are totals over the cards; collective bytes
-    are per-card link traffic (:func:`collective_link_bytes`)."""
+    are per-card link traffic (:func:`collective_link_bytes`): over NVLink
+    inside a node, and over the network for a group that spans nodes (the
+    reference's DCI term)."""
+    net_s = coll_bytes_net_per_card / hw.net_bw if coll_bytes_net_per_card \
+        else 0.0
     return RooflineTerms(
         flops_total / (n_cards * hw.peak_flops_bf16),
         bytes_total / (n_cards * hw.hbm_bw),
-        coll_bytes_per_card / hw.link_bw,
+        coll_bytes_per_card / hw.link_bw + net_s,
         flops_total=flops_total, bytes_total=bytes_total,
-        coll_bytes=coll_bytes_per_card, model_flops=model_flops,
+        coll_bytes=coll_bytes_per_card,
+        coll_bytes_net=coll_bytes_net_per_card, model_flops=model_flops,
         model_flops_s=model_flops / (n_cards * hw.peak_flops_bf16))
 
 

@@ -33,6 +33,13 @@ transport carried, :data:`ROUTE_SECONDS` their host time.  Compute never
 leaves the device.  Rendezvous is a ``file://`` store under a temporary
 directory, never a fixed TCP port.
 
+The dry run (``launch/dryrun.py``) joins torch's ``fake`` process group
+(:func:`init_fake`): one process is one rank of a world of 256 or 512,
+every group and collective is the real code path, and a collective moves
+nothing.  While :func:`recording` is active, :func:`_carry` hands every
+collective it carries to the recorder: its name, its per-rank operand
+bytes, the global ranks of its group and its mesh axis.
+
     results = spmd.launch(fn, 2, *args)     # fn(*args) on two GPU ranks
     results = spmd.launch(fn, 2, *args, device="cpu")    # on CPU ranks
 """
@@ -129,6 +136,17 @@ def init_from_env(device: Any = None) -> None:
     dist.init_process_group(backend, init_method="env://", rank=rank,
                             world_size=world)
     _STATE.update(backend=backend, device=dev)
+
+
+def init_fake(rank: int, world: int, device: Any) -> None:
+    """Join torch's ``fake`` process group as ``rank`` of ``world`` (no
+    peer, no card: every collective returns at once and moves nothing),
+    computing on ``device``, which is never made current.  The dry run's
+    world; :func:`finish` leaves it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    _STATE.update(backend="fake", device=torch.device(device))
 
 
 def finish() -> None:
@@ -316,8 +334,8 @@ def _count(op: str, route: str) -> None:
 def _route(op: str, t: torch.Tensor) -> str:
     b = _STATE["backend"] or (dist.get_backend() if dist.is_initialized()
                               else "gloo")
-    if b == "nccl":
-        return "nccl"
+    if b in ("nccl", "fake"):
+        return b
     if not t.is_cuda:
         return "gloo"
     return "host" if op in HOST_ROUTED else "gloo-cuda"
@@ -329,25 +347,55 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _carry(op: str, t: torch.Tensor, body: Callable, out_shape=None
-           ) -> torch.Tensor:
-    """Run ``body(src, dst) -> None`` (a blocking collective) for ``t``:
-    on the device, or through pinned host memory where the backend does
-    not carry ``op`` for a CUDA tensor.  Returns the destination."""
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recording(sink: Callable):
+    """Inside, every collective :func:`_carry` carries first calls
+    ``sink(op, operand_bytes, ranks, axis)``: the collective's name, this
+    rank's operand in bytes (the shard an all-gather sends, the whole
+    input of a reduce-scatter), the global ranks of its group and its mesh
+    axis."""
+    _RECORDERS.append(sink)
+    try:
+        yield
+    finally:
+        _RECORDERS.remove(sink)
+
+
+def _carry(op: str, t: torch.Tensor, body: Callable, out_shape=None,
+           group=None, axis: Optional[str] = None) -> torch.Tensor:
+    """Run ``body(src, dst) -> None`` (a blocking collective over
+    ``group``, the process group of mesh axis ``axis``) for ``t``: on the
+    device, or through pinned host memory where the backend does not carry
+    ``op`` for a CUDA tensor.  Returns the destination."""
     route = _route(op, t)
     _count(op, route)
+    quiet = contextlib.nullcontext()
+    if _RECORDERS:
+        from torch.utils._python_dispatch import _disable_current_modes
+        ranks = tuple(dist.get_process_group_ranks(group))
+        for sink in _RECORDERS:
+            sink(op, t.numel() * t.element_size(), ranks, axis)
+        # the transport's own work (gloo copies into the outputs, NCCL
+        # does not) is the collective's, not the step's ops: hidden from
+        # the recorders' dispatch modes
+        quiet = _disable_current_modes()
     shape = t.shape if out_shape is None else out_shape
     t0 = time.perf_counter()
     if route != "host":
         src = t.contiguous()
         dst = torch.empty(shape, dtype=t.dtype, device=t.device)
-        body(src, dst)
+        with quiet:
+            body(src, dst)
     else:
         src = _pinned(t.contiguous())
         host = torch.empty(shape, dtype=t.dtype, pin_memory=True)
-        body(src, host)
+        with quiet:
+            body(src, host)
         dst = host.to(t.device)
-    if route != "nccl":
+    if route not in ("nccl", "fake"):
         sec = ROUTE_SECONDS.setdefault(op, {})
         sec[route] = sec.get(route, 0.0) + time.perf_counter() - t0
     return dst
@@ -360,7 +408,7 @@ def _all_reduce(x: torch.Tensor, mesh: TorchMesh, axes, op) -> torch.Tensor:
         def body(src, dst, g=g):
             dst.copy_(src)
             dist.all_reduce(dst, op=op, group=g)
-        x = _carry("all_reduce", x, body)
+        x = _carry("all_reduce", x, body, group=g, axis=a)
     return x
 
 
@@ -373,7 +421,7 @@ def _all_gather(x: torch.Tensor, mesh: TorchMesh, axis: str, dim: int
 
     def body(src, dst):
         dist.all_gather(list(dst.chunk(n)), src, group=g)
-    out = _carry("all_gather", xm, body, shape)
+    out = _carry("all_gather", xm, body, shape, group=g, axis=axis)
     # contiguous in the operand's layout: a product over a permuted view
     # could take another GEMM (and round otherwise) than over the whole
     return out.movedim(0, dim).contiguous()
@@ -390,7 +438,7 @@ def _reduce_scatter(x: torch.Tensor, mesh: TorchMesh, axis: str, dim: int
 
     def body(src, dst):
         _REDUCE_SCATTER(dst, src, group=g)
-    out = _carry("reduce_scatter", xm, body, shape)
+    out = _carry("reduce_scatter", xm, body, shape, group=g, axis=axis)
     return out.movedim(0, dim).contiguous()
 
 
@@ -404,7 +452,7 @@ def _all_to_all(x: torch.Tensor, mesh: TorchMesh, axis: str,
 
     def body(src, dst):
         dist.all_to_all_single(dst, src, group=g)
-    got = _carry("all_to_all", xm, body)
+    got = _carry("all_to_all", xm, body, group=g, axis=axis)
     # block j came from rank j: put it back in place of the split dim,
     # then concatenate the blocks along concat_axis
     blocks = [b.movedim(0, split_axis) for b in got.chunk(n)]
@@ -433,7 +481,7 @@ def _ppermute(x: torch.Tensor, mesh: TorchMesh, axis: str,
         if ops:
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
-    return _carry("ppermute", x, body)
+    return _carry("ppermute", x, body, group=g, axis=axis)
 
 
 def all_sum(x: torch.Tensor, mesh: TorchMesh, axes) -> torch.Tensor:

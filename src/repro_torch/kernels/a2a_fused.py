@@ -15,7 +15,9 @@ and bounds):
 
 Each kernel wrapper runs its plain PyTorch version (``*_plain``) for a CPU
 tensor and launches the kernel for a CUDA tensor; ``launches`` on the
-wrapper counts the kernel launches.
+wrapper counts the kernel launches (a fake CUDA tensor launches nothing
+and hands the launch to ``backend.note_launch``);
+``route_work``/``combine_work`` are the bounds' operations and bytes.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from . import backend
+from ..core.perf_model import H100_SXM
 from .router_topk import launch_plan, workspace
 
 
@@ -60,7 +63,10 @@ def a2a_route_plain(logits: torch.Tensor, capacity: int
     for j in range(1, E):
         s = s + u[:, j]
     idx = torch.argmax(u / s[:, None], dim=-1)
-    onehot = torch.nn.functional.one_hot(idx, E).to(torch.int32)
+    # compared with the experts, not F.one_hot, which reads the indices'
+    # range on the host
+    onehot = (idx[:, None] == torch.arange(E, device=idx.device)).to(
+        torch.int32)
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
     return idx.to(torch.int32), pos.to(torch.int32), pos < capacity
 
@@ -73,6 +79,8 @@ def a2a_route(logits: torch.Tensor, capacity: int
     if logits.dim() != 2 or logits.shape[1] < 1:
         raise ValueError(f"a2a_route needs logits (T, E>=1), got "
                          f"{tuple(logits.shape)}")
+    if backend.noted():
+        backend.note("a2a_route", route_work(*logits.shape))
     if not backend.use_kernel(logits):
         return a2a_route_plain(logits, capacity)
     T, E = logits.shape
@@ -87,6 +95,9 @@ def a2a_route(logits: torch.Tensor, capacity: int
         return idx, pos, keep
     ws = workspace(plan, x.device)
     cap = max(-2 ** 31, min(int(capacity), 2 ** 31 - 1))
+    if backend.is_fake(x):
+        backend.note_launch("a2a_route")
+        return idx, pos, keep
     err = _lib().a2a_route_launch(
         x.data_ptr(), T, E, cap, plan.blocks, plan.tokens_per_block,
         plan.threads, idx.data_ptr(), pos.data_ptr(), keep.data_ptr(),
@@ -98,6 +109,14 @@ def a2a_route(logits: torch.Tensor, capacity: int
 
 
 a2a_route.launches = 0
+
+
+def route_work(T: int, E: int) -> backend.Work:
+    """fp32 logits read once, idx and pos (4 bytes) and keep (1) written
+    once a token; a sub, exp, add, div and compare an element, in fp32."""
+    ops = T * E * 5
+    return backend.Work(ops, T * E * 4 + T * (4 + 4 + 1),
+                        ops / H100_SXM.peak_flops_f32)
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +140,9 @@ def a2a_combine(ys: torch.Tensor, idx: torch.Tensor,
     if ys.dim() < 2 or idx.shape != (ys.shape[1],) or keep.shape != idx.shape:
         raise ValueError(f"a2a_combine: ys {tuple(ys.shape)}, idx "
                          f"{tuple(idx.shape)}, keep {tuple(keep.shape)}")
+    if backend.noted():
+        backend.note("a2a_combine", combine_work(
+            ys.shape[1], math.prod(ys.shape[2:]) * ys.element_size()))
     if not backend.use_kernel(ys):
         return a2a_combine_plain(ys, idx, keep)
     if idx.dtype != torch.int32 or keep.dtype != torch.bool:
@@ -135,6 +157,9 @@ def a2a_combine(ys: torch.Tensor, idx: torch.Tensor,
     row_bytes = math.prod(ys.shape[2:]) * ys.element_size()
     if T == 0 or row_bytes == 0:
         return out
+    if backend.is_fake(ys):
+        backend.note_launch("a2a_combine")
+        return out
     unit = next(u for u in (16, 8, 4, 2, 1)
                 if row_bytes % u == 0 and ys.data_ptr() % u == 0
                 and out.data_ptr() % u == 0)
@@ -147,6 +172,15 @@ def a2a_combine(ys: torch.Tensor, idx: torch.Tensor,
 
 
 a2a_combine.launches = 0
+
+
+def combine_work(T: int, row_bytes: int, kept=None) -> backend.Work:
+    """idx (4 bytes) and keep (1) read a token, the ``kept`` tokens' rows
+    read (all ``T`` unless the data says how many), every row written; no
+    arithmetic."""
+    kept = T if kept is None else kept
+    return backend.Work(0, T * (4 + 1) + kept * row_bytes + T * row_bytes,
+                        0.0)
 
 
 # ---------------------------------------------------------------------------

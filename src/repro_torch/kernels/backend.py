@@ -11,11 +11,26 @@ source is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 source and the ``csrc/*.cuh`` headers it includes, so an edited source or
 header never meets a stale library) and loaded with
 ``ctypes``.  Nothing is built or imported when this module is imported.
+
+The dry run (``launch/dryrun.py``) runs the steps on fake tensors
+(``torch._subclasses.FakeTensor``: a shape, a type and a device, no
+storage).  A wrapper given a fake CUDA tensor takes one branch of its own:
+it allocates the outputs and workspace a launch would (on fake tensors,
+so the dry run's memory count sees them), hands the launch it stands in
+for to :func:`note_launch` and returns, touching no library, no pointer,
+no stream and no ``launches`` counter (those count real launches only); a
+real CUDA tensor never takes it, and a failed build still raises.  Every
+wrapper call, on any path, hands its :class:`Work` to :func:`note`.  A torch built without CUDA has no CUDA
+device for autograd to take a fake CUDA tensor's gradient on, so there the
+dry run traces on fake CPU tensors inside :func:`fake_cuda`, and those take
+the same branch.  Each kernel module's ``work(...)`` gives the operations
+and bytes behind the kernel's bound in ``PERF.md`` (H100 SXM data sheet).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,9 +41,11 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
 import torch
+
+from ..core.perf_model import H100_SXM
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,14 +57,90 @@ _lock = threading.Lock()
 PTXAS_REPORT: Dict[str, str] = {}
 
 
+_FAKE_CUDA = threading.local()
+_NOTES: list = []
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """``t`` is a fake tensor (no storage: the dry run's)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+@contextlib.contextmanager
+def fake_cuda():
+    """Inside (in this thread), a fake CPU tensor takes the kernels' CUDA
+    path as a fake CUDA tensor does: the dry run's trace of the card's
+    path where torch has no CUDA."""
+    before = getattr(_FAKE_CUDA, "on", False)
+    _FAKE_CUDA.on = True
+    try:
+        yield
+    finally:
+        _FAKE_CUDA.on = before
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
+    (run the plain version); any other device raises.  Inside
+    :func:`fake_cuda` a fake CPU tensor counts as CUDA."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
-        return False
+        return getattr(_FAKE_CUDA, "on", False) and is_fake(t)
     raise RuntimeError(f"no kernel for tensors on {t.device}")
+
+
+class Work(NamedTuple):
+    """One kernel call's work: its operations, the bytes it must move
+    (each input read once, each output written once) and the time its
+    operations take at their types' peak rates on an H100 SXM."""
+    flops: float
+    bytes: float
+    ops_s: float
+
+    @property
+    def bytes_s(self) -> float:
+        return self.bytes / H100_SXM.hbm_bw
+
+    @property
+    def bound_s(self) -> float:
+        """The least time the card could take: the larger of the two."""
+        return max(self.bytes_s, self.ops_s)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_s >= self.ops_s else "operations"
+
+
+@contextlib.contextmanager
+def noting(on_call: Callable, on_launch: Callable):
+    """Inside, every kernel wrapper call, on any path, calls
+    ``on_call(name, work)`` with its :class:`Work`, and every launch a
+    wrapper's fake branch stands in for calls ``on_launch(name)``."""
+    sinks = (on_call, on_launch)
+    _NOTES.append(sinks)
+    try:
+        yield
+    finally:
+        _NOTES.remove(sinks)
+
+
+def noted() -> bool:
+    """Whether a :func:`noting` sink listens (a wrapper computes its work
+    only then)."""
+    return bool(_NOTES)
+
+
+def note(name: str, work: Work) -> None:
+    for on_call, _ in _NOTES:
+        on_call(name, work)
+
+
+def note_launch(name: str) -> None:
+    """A fake tensor's launch of kernel ``name``: nothing ran."""
+    for _, on_launch in _NOTES:
+        on_launch(name)
 
 
 def _nvcc() -> str:

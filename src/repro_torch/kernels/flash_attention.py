@@ -13,6 +13,9 @@ would miss the f32 tolerance.
 (:func:`flash_attention_plain`, the reference's ``ref.attention_ref`` with
 queries aligned to the end of the keys) for CPU tensors and launches the
 kernel for CUDA tensors; ``flash_attention.launches`` counts the launches.
+A fake CUDA tensor (the dry run's) launches nothing and hands the launch
+to ``backend.note_launch`` (``backend``'s docstring); :func:`work` is the
+operations and bytes behind the kernel's bound.
 As in the reference, the backward pass has no kernel: it recomputes through
 the plain version and takes its VJP, the port of ``ops.py``'s VJP rule
 (``_fa_bwd``: ``jax.vjp`` of ``ref.attention_ref``).  The profiler sees it
@@ -24,9 +27,11 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from . import backend
+from ..core.perf_model import H100_SXM
 
 NEG_INF = -2.0e38
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -96,8 +101,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k and v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
+    fake = backend.is_fake(q)
+    if q.dtype == torch.bfloat16 and not fake and any(t.data_ptr() % 16
+                                                      for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes 16-byte aligned "
                          "bfloat16 q, k, v (its copies are 16 bytes wide)")
     if max(Sq, Sk, B, H) >= 2 ** 31 or Sk < 1:
@@ -105,6 +111,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(B {B}, H {H}, Sq {Sq}, Sk {Sk})")
     o = torch.empty_like(q)
     if Sq == 0 or B == 0:
+        return o
+    if fake:
+        backend.note_launch("flash_attention")
         return o
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
@@ -146,7 +155,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the tensor cores, a float32 one on the FMA units (a dispatch by type:
     TF32 would miss the f32 tolerance)."""
     _check(q, k, v)
+    if backend.noted():
+        backend.note("flash_attention", work(
+            q.shape, k.shape[1], k.shape[2], q.dtype, causal, window))
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits, queries aligned to the end of
+    the keys: the kernel's work, whatever tiles it skips."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window and window > 0 \
+        else np.zeros(Sq, dtype=np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def work(q_shape, Hkv: int, Sk: int, dtype: torch.dtype,
+         causal: bool = True, window: int = 0) -> backend.Work:
+    """The kernel's work for q ``(B, H, Sq, D)`` against ``Sk`` keys of
+    ``Hkv`` heads: q.k and p.v, 2 FLOP a multiply-add each, over the pairs
+    the mask admits, on the tensor cores in bf16 (the FMA units in f32);
+    q, k, v read once and o written once."""
+    B, H, Sq, D = q_shape
+    flops = 4 * D * visible_pairs(Sq, Sk, causal, window) * B * H
+    nbytes = dtype.itemsize * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D)
+    rate = H100_SXM.peak_flops_bf16 if dtype == torch.bfloat16 \
+        else H100_SXM.peak_flops_f32
+    return backend.Work(flops, nbytes, flops / rate)
 
 
 flash_attention.launches = 0

@@ -12,9 +12,11 @@ XLA fuses the steps there.
 
 :func:`gelu_stepwise` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors; ``gelu_stepwise.launches`` counts the
-launches.  The backward recomputes the plain version and takes its
-gradient, which rounds each step as ``jax.grad`` does; the profiler sees it
-as the range ``gelu_stepwise.recompute_backward``.
+launches (a fake CUDA tensor launches nothing and hands the launch to
+``backend.note_launch``; :func:`work` is the bound's operations and
+bytes).  The backward recomputes the plain
+version and takes its gradient, which rounds each step as ``jax.grad``
+does; the profiler sees it as the range ``gelu_stepwise.recompute_backward``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import threading
 import torch
 
 from . import backend
+from ..core.perf_model import H100_SXM
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -68,9 +71,12 @@ def _launch(g: torch.Tensor) -> torch.Tensor:
     if g.numel() == 0:
         return y
     k, c = _consts(g.dtype)
-    err = _lib().gelu_stepwise_launch(g.data_ptr(), y.data_ptr(), g.numel(),
-                                      _DTYPES[g.dtype], k, c,
-                                      backend.current_stream(g.device))
+    if backend.is_fake(g):
+        backend.note_launch("gelu_stepwise")
+        return y
+    err = _lib().gelu_stepwise_launch(
+        g.data_ptr(), y.data_ptr(), g.numel(), _DTYPES[g.dtype], k, c,
+        backend.current_stream(g.device))
     with _count_lock:
         gelu_stepwise.launches += 1
     backend.check(err, "gelu_stepwise")
@@ -98,7 +104,16 @@ class _GeluStepwise(torch.autograd.Function):
 def gelu_stepwise(g: torch.Tensor) -> torch.Tensor:
     """gelu (tanh form) of ``g`` in g's type, each step rounded as
     ``jax.nn.gelu``'s are, with the gradient ``jax.grad`` gives it."""
+    if backend.noted():
+        backend.note("gelu_stepwise", work(g.numel(), g.dtype))
     return _GeluStepwise.apply(g)
+
+
+def work(n: int, dtype: torch.dtype) -> backend.Work:
+    """Each of ``n`` elements read and written once; ~10 fp32 operations
+    an element (nine steps and the tanh), far under the bytes."""
+    return backend.Work(10 * n, 2 * n * dtype.itemsize,
+                        10 * n / H100_SXM.peak_flops_f32)
 
 
 gelu_stepwise.launches = 0

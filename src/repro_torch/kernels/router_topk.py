@@ -19,9 +19,12 @@ launches the kernel for CUDA tensors; ``router_topk.launches`` counts the
 launches.  The plain version repeats the kernel's arithmetic (``exp(x -
 max)`` summed left to right, repeated argmax with the first index on ties,
 the weights' sum taken in k order), so on the card the two agree exactly on
-``idx``, ``pos`` and ``keep``.  :func:`launch_plan` is the kernel's grid,
-and :func:`tile_positions` its decomposition of the positions (per-tile
-ranks, a look-back over the tiles' histograms) in plain PyTorch.
+``idx``, ``pos`` and ``keep``.  A fake CUDA tensor launches nothing and
+hands the launch to ``backend.note_launch``; :func:`work` is the bound's
+operations and bytes.
+:func:`launch_plan` is the kernel's grid, and :func:`tile_positions` its
+decomposition of the positions (per-tile ranks, a look-back over the
+tiles' histograms) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import backend
+from ..core.perf_model import H100_SXM
 
 _SMEM_MAX = 232448          # bytes of shared memory one Hopper block may use
 MAX_K = 8
@@ -207,7 +211,10 @@ def router_topk_plain(logits: torch.Tensor, top_k: int,
         total = total + w
     w = torch.cat(ws, dim=1) / torch.clamp(total, min=1e-9)
     idx = torch.cat(idxs, dim=1)
-    onehot = torch.nn.functional.one_hot(idx.reshape(-1), E).to(torch.int32)
+    # compared with the experts, not F.one_hot, which reads the indices'
+    # range on the host
+    onehot = (idx.reshape(-1, 1) == torch.arange(E, device=idx.device)
+              ).to(torch.int32)
     pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
     pos = pos.reshape(T, top_k).to(torch.int32)
     return w, idx.to(torch.int32), pos, pos < capacity
@@ -260,7 +267,18 @@ def router_topk(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
     if not 1 <= top_k <= min(E, MAX_K):
         raise ValueError(f"router_topk takes 1 <= top_k <= min(E, {MAX_K}); "
                          f"got top_k={top_k}, E={E}")
+    if backend.noted():
+        backend.note("router_topk", work(T, E, top_k))
     return _RouterTopK.apply(logits, top_k, capacity)
+
+
+def work(T: int, E: int, K: int) -> backend.Work:
+    """fp32 logits read once; w, idx, pos (4 bytes) and keep (1) written
+    once a (token, k); a max, sub, exp, add and div an element and a
+    compare an element a pick, in fp32."""
+    ops = T * E * (5 + K)
+    return backend.Work(ops, T * E * 4 + T * K * (4 + 4 + 4 + 1),
+                        ops / H100_SXM.peak_flops_f32)
 
 
 def _launch(x: torch.Tensor, top_k: int, capacity: int,
@@ -276,6 +294,9 @@ def _launch(x: torch.Tensor, top_k: int, capacity: int,
         return w, idx, pos, keep
     ws = workspace(plan, x.device)
     cap = max(-2 ** 31, min(int(capacity), 2 ** 31 - 1))
+    if backend.is_fake(x):
+        backend.note_launch("router_topk")
+        return w, idx, pos, keep
     err = _lib().router_topk_launch(
         x.data_ptr(), T, E, top_k, cap, plan.blocks, plan.tokens_per_block,
         plan.threads, w.data_ptr(), idx.data_ptr(), pos.data_ptr(),

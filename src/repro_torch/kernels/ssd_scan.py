@@ -9,7 +9,10 @@ Port of ``src/repro/kernels/ssd_scan.py:ssd_scan`` as wrapped by
 
 :func:`ssd_scan` runs the plain PyTorch version (:func:`ssd_scan_plain`, a
 chunkwise loop with the TPU kernel's arithmetic) for CPU tensors and launches
-the kernel for CUDA tensors; ``ssd_scan.launches`` counts the launches.
+the kernel for CUDA tensors; ``ssd_scan.launches`` counts the launches (a
+fake CUDA tensor launches nothing and hands the launch to
+``backend.note_launch``, its grid planned for an H100 SXM's SMs and shared
+memory; :func:`work` is the bound's operations and bytes).
 Where it differs from the TPU kernel: it can return the final fp32 state
 (prefill hands it to decode), it takes any S (the tail chunk is masked), q
 and k may have G < H heads (read as head ``h // (H/G)``), and ``out_dtype``
@@ -33,6 +36,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from . import backend
+from ..core.perf_model import H100_SXM
 
 CLIP = (-60.0, 0.0)              # the TPU kernel's exponent clip
 TILE, LD_F32, LD_W = 64, 72, 68  # csrc/ssd_scan.cu: kT, kLdF, kLdW
@@ -202,21 +206,28 @@ def _launch(q, k, v, log_a, chunk: int, out_dtype: torch.dtype):
         return y, torch.zeros((B, H, N, P), dtype=torch.float32,
                               device=q.device)
     Q = min(chunk, S)
-    plan = launch_plan(B, H, S, P, Q, *_device_limits(q.device))
+    fake = backend.is_fake(q)
+    limits = (H100_SXM.sms, H100_SXM.smem_per_block) if fake \
+        else _device_limits(q.device)
+    plan = launch_plan(B, H, S, P, Q, *limits)
     # the chunks' states (the last is the final state), then the zeroed
     # int32 words of the kernel's block ticket and chunk flags
     nc, words = -(-S // Q), B * H * N * P
     buf = torch.empty(nc * words + 1 + nc * B * H, dtype=torch.float32,
                       device=q.device)
     buf[nc * words:].view(torch.int32).zero_()
-    err = _lib().ssd_scan_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), buf.data_ptr(), B, H, G, S, N, P, Q, plan.score_tiles,
-        plan.smem, _DTYPES[q.dtype], _DTYPES[v.dtype], _DTYPES[log_a.dtype],
-        _DTYPES[out_dtype], backend.current_stream(q.device))
-    with _count_lock:
-        ssd_scan.launches += 1
-    backend.check(err, "ssd_scan")
+    if fake:
+        backend.note_launch("ssd_scan")
+    else:
+        err = _lib().ssd_scan_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+            y.data_ptr(), buf.data_ptr(), B, H, G, S, N, P, Q,
+            plan.score_tiles, plan.smem, _DTYPES[q.dtype], _DTYPES[v.dtype],
+            _DTYPES[log_a.dtype], _DTYPES[out_dtype],
+            backend.current_stream(q.device))
+        with _count_lock:
+            ssd_scan.launches += 1
+        backend.check(err, "ssd_scan")
     state = buf[(nc - 1) * words:nc * words].view(B, H, N, P)
     # a copy, so the other chunks' states are not kept alive with it
     return y, (state.clone() if nc > 1 else state)
@@ -258,9 +269,38 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     FMAs; every product with an f32 operand keeps fp32 accuracy (3xTF32 on
     the tensor cores)."""
     _check(q, k, v, log_a)
+    if backend.noted():
+        B, G, S, N = q.shape
+        backend.note("ssd_scan", work(
+            B, v.shape[1], G, S, N, v.shape[3], chunk, q.dtype, v.dtype,
+            log_a.dtype, out_dtype or q.dtype))
     y, state = _SSDScan.apply(q, k, v, log_a, int(chunk),
                               out_dtype or q.dtype)
     return (y, state) if return_state else y
 
 
 ssd_scan.launches = 0
+
+
+def work(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
+         q_dtype: torch.dtype, v_dtype: torch.dtype, la_dtype: torch.dtype,
+         out_dtype: torch.dtype) -> backend.Work:
+    """The causal half (pairs s <= t) of each chunk's scores q.k, a
+    product of two bf16 inputs exact in fp32, at the tensor cores' bf16
+    rate (the FMA units' for f32 q/k); then the causal half of the
+    decay-weighted sum over v and the two (Q,N)x(N,P)-sized products with
+    the fp32 state, which keep fp32 accuracy as 3xTF32 on the tensor
+    cores (the kernel's way, and the fastest the card has): three TF32
+    products each.  q, k, v, log_a read once; y and the final fp32 state
+    written once."""
+    Q = min(chunk, S)
+    chunk_heads = -(-S // Q) * B * H if S else 0
+    score = chunk_heads * Q * (Q + 1) * N
+    f32 = chunk_heads * (Q * (Q + 1) * P + 4 * Q * N * P)
+    nbytes = 2 * B * G * S * N * q_dtype.itemsize \
+        + B * H * S * P * (v_dtype.itemsize + out_dtype.itemsize) \
+        + B * H * S * la_dtype.itemsize + B * H * N * P * 4
+    qk_rate = H100_SXM.peak_flops_bf16 if q_dtype == torch.bfloat16 \
+        else H100_SXM.peak_flops_f32
+    return backend.Work(score + f32, nbytes,
+                        score / qk_rate + 3 * f32 / H100_SXM.peak_flops_tf32)

@@ -128,16 +128,21 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
 
 def _write_decode(cache: torch.Tensor, new: torch.Tensor,
                   cache_pos) -> None:
-    """Write the one-token ``new`` (B, 1, kv, D) at ``cache_pos`` (scalar or
-    (B,)) of ``cache`` (B, S, kv, D), in place.  The slot is clamped into
-    the cache as ``lax.dynamic_update_slice`` clamps its start."""
+    """Write the one-token ``new`` (B, 1, kv, D) at ``cache_pos`` (an int,
+    a scalar tensor or (B,)) of ``cache`` (B, S, kv, D), in place, without
+    reading a tensor position on the host.  The slot is clamped into the
+    cache as ``lax.dynamic_update_slice`` clamps its start."""
     B, S = cache.shape[:2]
     new = new[:, 0].to(cache.dtype)
-    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
-        rows = torch.arange(B, device=cache.device)
-        cache[rows, cache_pos.long().clamp(0, S - 1)] = new
-    else:
+    if not isinstance(cache_pos, torch.Tensor):
         cache[:, min(max(int(cache_pos), 0), S - 1)] = new
+        return
+    slot = cache_pos.long().clamp(0, S - 1)
+    if cache_pos.dim() == 1:
+        rows = torch.arange(B, device=cache.device)
+        cache[rows, slot] = new
+    else:                        # one slot for all, read on the device
+        cache.index_copy_(1, slot.reshape(1), new[:, None])
 
 
 def attention(x, p, cfg, *, positions, causal=True, window=0, cache=None,

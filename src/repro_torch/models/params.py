@@ -87,9 +87,11 @@ def _init_block(d: ParamDef, gen: torch.Generator, device: torch.device,
     (the same pieces from ``gen``, so the same numbers) but keeping only
     the block: the whole is never held."""
     shape = tuple(sl.stop - sl.start for sl in slices)
-    if d.init in ("zeros", "ones") or shape == tuple(d.shape):
-        return _init_leaf(d, gen, device)[slices] if shape != tuple(
-            d.shape) else _init_leaf(d, gen, device)
+    if shape == tuple(d.shape):
+        return _init_leaf(d, gen, device)
+    if d.init in ("zeros", "ones"):          # a fill draws nothing
+        return (torch.zeros if d.init == "zeros" else torch.ones)(
+            shape, dtype=d.dtype, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     std = d.scale if d.init == "embed" else d.scale / math.sqrt(
         max(fan_in, 1))

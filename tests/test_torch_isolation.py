@@ -77,12 +77,13 @@ def test_no_source_file_imports_jax_or_the_reference():
 # the modules the rank processes import (a rank starts without JAX), the
 # smoke run and its tools: none loads JAX or the reference
 RANK_SIDE = ("spmd_cases", "tp_cases", "tp_family_cases", "tp_layout_cases",
-             "graph_spmd_cases", "fsdp_gather_cases")
+             "graph_spmd_cases", "fsdp_gather_cases", "dryrun_cases")
 ROOT = SRC.parent
 
 
 @pytest.mark.parametrize("module", RANK_SIDE + (
-    "chip_smoke", "phase10_alone", "phase11_alone", "phase12_alone"))
+    "chip_smoke", "phase10_alone", "phase11_alone", "phase12_alone",
+    "phase13_alone"))
 def test_rank_side_helpers_and_the_smoke_load_no_jax(module):
     path = ":".join(str(p) for p in (SRC, ROOT / "tests", ROOT,
                                      ROOT / "tools"))
