@@ -44,7 +44,13 @@ Phases, each of which fails the run:
    in the mLSTM block's types at S 2048 and each of phase 5d's prompt
    lengths, and in all three types at S 1000; f32
    within 1e-4 of the output's scale: sums in another order; a bf16 y one
-   bf16 step, 2**-7 relative, more);
+   bf16 step, 2**-7 relative, more); ``gelu_stepwise`` and
+   ``silu_stepwise``, forward and backward, against their plain versions
+   bit for bit (NaN equal to NaN) at :data:`GELU_CASES` and
+   :data:`SILU_CASES`: the models' activations (Whisper, a rank's half of
+   it, Gemma-7B's prefill, Mixtral's and Kimi-K2's experts, Zamba2's
+   gates), decode steps, f32, sizes off the 16-byte vectors, an
+   unaligned view and magnitudes from 2**-140 to 2**100;
 3. main path — ``pipeline(pre, all_to_all([left]*2, experts), post)``
    compiled for the device and run through ``FFGraph.compile(...).run`` at
    the widths of the repo's Mixtral-8x7B config (d_model 4096, moe_d_ff
@@ -83,16 +89,23 @@ Phases, each of which fails the run:
    under activation checkpointing) and ``make_pipeline(SyntheticLMSource)``
    for 6 steps: Zamba2-1.2B at full width and depth at B4 x S2048, then
    Mixtral-8x7B at full width cut to 1 of its 32 layers at B2 x S2048,
+   Gemma-7B at full width cut to 2 of its 28 layers at B2 x S2048 and
+   Whisper-medium whole at B8 clips of 1500 frames and 187 decoder tokens
+   (``ClipSource``; its attention drawn as :func:`tf_tame` draws it),
    weights from seed 0.  The loss must be finite at every step and lower at
    the last than at the first; each kernel of the path must launch twice
    per block per step (forward and recompute: Zamba2 ``ssd_scan`` 76 and
    ``flash_attention`` 10, Mixtral ``flash_attention`` and ``router_topk``
-   2); the driver's final checkpoint (under ``build/``, deleted after) must
-   restore bit for bit.  Prints the train tokens/s (B*S over the median
-   step after the first), each step's forward, backward and optimizer ms
-   (CUDA events), the peak memory, the checkpoint's bytes and seconds, and
-   a profile of one step with the recompute backward of attention and
-   ``ssd_scan`` (their ``record_function`` ranges) on their own.  Then one
+   2) and each activation's backward kernel once (Gemma
+   ``gelu_stepwise_bwd`` 2, Whisper 48, Zamba2 ``silu_stepwise_bwd`` 76);
+   the peak must stay within the card's 80 GB; the driver's final
+   checkpoint (under ``build/``, deleted after) must restore bit for bit.
+   Prints the train tokens/s (the batch's tokens, and frames, over the
+   median step after the first), each step's forward, backward and
+   optimizer ms (CUDA events), the peak memory, the checkpoint's bytes and
+   seconds, and a profile of one step with the recompute backward of
+   attention and ``ssd_scan`` (their ``record_function`` ranges) on their
+   own.  Then one
    loss and gradient of reduced Zamba2 and Mixtral on the card against
    the CPU (loss within 2e-2, every leaf's cosine >= 0.99), the router's
    weight gradient through the kernel against the plain recompute's, and
@@ -135,8 +148,12 @@ Phases, each of which fails the run:
    beside ``scaled_dot_product_attention``; Kimi's router at E384 K8;
    ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), phase 5e's
    (attention at Qwen2-VL's group of 6, Whisper's encoder and its cross
-   attention at Sq 32 and 1, beside ``scaled_dot_product_attention``), and
-   the phase-3 items/s; then the
+   attention at Sq 32 and 1, beside ``scaled_dot_product_attention``),
+   ``gelu_stepwise`` and ``silu_stepwise`` forward and backward at
+   Whisper's B8 x 1500 x 4096, Gemma's 2567 x 24576, Mixtral's experts at
+   a 5000-token prefill and Zamba2's Mamba2 gate at B4 x S2048 (beside
+   ``F.gelu``, ``F.silu`` and ``aten.gelu_backward`` /
+   ``aten.silu_backward``), and the phase-3 items/s; then the
    routing kernels at :data:`ROUTE_TIMES` (``router_topk`` at decode's T 8,
    prefill's T 1859-5000 and wide routers; ``a2a_route`` at T 512 and 4096),
    each with its grid, beside an empty kernel's time (the latency floor)
@@ -484,9 +501,9 @@ def phase_kernels(dev: torch.device) -> dict:
     err.update(rows)
     err["ssd_scan"], rows, n_ssd = check_ssd(dev)
     err.update(rows)
-    gelu, n_gelu = check_gelu(dev)
-    err.update(gelu)
-    return {"checks": checks + n_flash + n_router + n_ssd + n_gelu,
+    stepwise, n_stepwise = check_stepwise(dev)
+    err.update(stepwise)
+    return {"checks": checks + n_flash + n_router + n_ssd + n_stepwise,
             "max_abs_err": err}
 
 
@@ -685,7 +702,9 @@ def check_flash(dev: torch.device) -> tuple:
 # batch, there in f32 as a model with fp32 parameters runs it), then sizes
 # under and off the kernel's 16-byte vectors and an unaligned view; a row
 # "wide" draws magnitudes from 2**-140 to 2**100 (subnormal products,
-# overflow to infinity, rounding carries into the exponent)
+# overflow to infinity, rounding carries into the exponent).  Each case
+# holds the forward and the backward kernel (its row is the forward row's
+# with ``_bwd`` after the kernel's name)
 GELU_CASES = [((8, 1500, 4096), torch.bfloat16, 0, "gelu_stepwise"),
               ((8, 1, 4096), torch.bfloat16, 0, None),
               ((8, 1500, 2048), torch.bfloat16, 0, "gelu_stepwise_tp"),
@@ -698,36 +717,80 @@ GELU_CASES = [((8, 1500, 4096), torch.bfloat16, 0, "gelu_stepwise"),
               ((5, 333), torch.float32, 1, None),
               ((1 << 20,), torch.bfloat16, 0, "wide"),
               ((1 << 20,), torch.float32, 0, "wide")]
+# the same for silu: Mixtral's experts at a 5000-token prefill (E8 x C1568
+# x 14336) and a decode step's (8 tokens, top-2: C 8), Zamba2's Mamba2 gates
+# at its training batch (B4 x S2048 x 4096) and a decode step, in f32 as
+# well, Kimi-K2's experts (E384 top-8 at 2048 tokens: C 56 x 2048), then
+# the edges above
+SILU_CASES = [((8, 1568, 14336), torch.bfloat16, 0, "silu_stepwise"),
+              ((8, 8, 14336), torch.bfloat16, 0, None),
+              ((4, 2048, 4096), torch.bfloat16, 0, "silu_stepwise_zamba2"),
+              ((4, 2048, 4096), torch.float32, 0, None),
+              ((8, 1, 4096), torch.bfloat16, 0, None),
+              ((384, 56, 2048), torch.bfloat16, 0, None),
+              ((1,), torch.bfloat16, 0, None), ((7,), torch.float32, 0, None),
+              ((3, 37, 64), torch.bfloat16, 0, None),
+              ((5, 333), torch.bfloat16, 1, None),
+              ((5, 333), torch.float32, 1, None),
+              ((1 << 20,), torch.bfloat16, 0, "wide"),
+              ((1 << 20,), torch.float32, 0, "wide")]
 
 
-def check_gelu(dev: torch.device) -> tuple:
-    """``gelu_stepwise`` against its plain version, bit for bit (each step
-    rounds to the type in both); the worst error by ``kernels`` row and
-    the number of cases."""
-    from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
-                                                   gelu_stepwise_plain)
+def bwd_row(row: str) -> str:
+    """The ``kernels`` row of a forward row's backward kernel."""
+    return row.replace("_stepwise", "_stepwise_bwd")
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit, a NaN equal to a NaN (an infinite product times a zero
+    difference is NaN in both versions)."""
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(got[~nan],
+                                                          want[~nan])
+
+
+def check_stepwise(dev: torch.device) -> tuple:
+    """``gelu_stepwise`` and ``silu_stepwise``, forward and backward,
+    against their plain versions, bit for bit (each step rounds to the
+    type in both); the worst error by ``kernels`` row and the number of
+    cases."""
+    from repro_torch.kernels import gelu_stepwise as G, silu_stepwise as S
     g = torch.Generator().manual_seed(17)
     rows = {}
-    for shape, dtype, offset, row in GELU_CASES:
-        n = math.prod(shape)
-        x = torch.randn(n + offset, generator=g) * 4
-        if row == "wide":
-            x = x * torch.exp2(torch.randint(-140, 100, x.shape,
-                                             generator=g).float())
-        x = x.to(dtype).to(dev)[offset:].view(shape)
-        got, want = gelu_stepwise(x), gelu_stepwise_plain(x)
-        torch.cuda.synchronize()
-        e = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            fail(f"gelu_stepwise != plain at {shape} {dtype} offset "
-                 f"{offset}: max |err| {e}, "
-                 f"{int((got != want).sum())} of {n} elements differ")
-        if row and row != "wide":
-            rows[row] = e
-        del x, got, want
-    say(f"[kernels] gelu_stepwise equals its plain version bit for bit "
-        f"({len(GELU_CASES)} cases)")
-    return rows, len(GELU_CASES)
+    kernels = (("gelu", GELU_CASES, G.gelu_stepwise, G.gelu_stepwise_plain,
+                G.gelu_stepwise_bwd, G.gelu_stepwise_vjp_plain),
+               ("silu", SILU_CASES, S.silu_stepwise, S.silu_stepwise_plain,
+                S.silu_stepwise_bwd, S.silu_stepwise_vjp_plain))
+    n_cases = 0
+    for kernel, cases, fwd, plain, bwd, vjp in kernels:
+        for shape, dtype, offset, row in cases:
+            n = math.prod(shape)
+            x = torch.randn(n + offset, generator=g) * 4
+            if row == "wide":
+                x = x * torch.exp2(torch.randint(-140, 100, x.shape,
+                                                 generator=g).float())
+            x = x.to(dtype).to(dev)[offset:].view(shape)
+            dy = torch.randn(n + offset, generator=g).to(dtype).to(dev)[
+                offset:].view(shape)
+            for what, got, want in (("forward", fwd(x), plain(x)),
+                                    ("backward", bwd(x, dy), vjp(x, dy))):
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                diff = diff[diff.isfinite()]
+                e = float(diff.max()) if diff.numel() else 0.0
+                if got.dtype != dtype or not same_bits(got, want):
+                    fail(f"{kernel}_stepwise {what} != plain at {shape} "
+                         f"{dtype} offset {offset}: max |err| {e}, "
+                         f"{int((got != want).sum())} of {n} elements "
+                         f"differ")
+                if row and row != "wide":
+                    rows[row if what == "forward" else bwd_row(row)] = e
+                del got, want, diff
+            n_cases += 2
+            del x, dy
+    say(f"[kernels] gelu_stepwise and silu_stepwise equal their plain "
+        f"versions bit for bit, forward and backward ({n_cases} cases)")
+    return rows, n_cases
 
 
 # the prompt lengths of phase 5d's requests (serve_prompts at numpy seed 0:
@@ -1143,31 +1206,46 @@ def nonzero(want: dict) -> dict:
     return {n: c for n, c in want.items() if c}
 
 
-def expected_launches(cfg, prefills: int, steps: int) -> dict:
-    """Launches a model path must make over ``prefills`` prefills and
-    ``steps`` decode steps: attention once per attention block per prefill
-    (decode's self-attention is plain; a ``dec`` block adds its cross
-    attention, which runs the kernel at every decode step too), the router
-    once per MoE layer per prefill and decode step, the recurrence once per
-    Mamba2 layer and twice per mLSTM layer (numerator and normaliser) per
-    prefill (decode runs the plain step), and for a gelu model the gelu
-    once per dense MLP per prefill and decode step (the encoder's at
-    prefill only)."""
+def expected_launches(cfg, prefills: int, steps: int,
+                      backward: int = 0) -> dict:
+    """Launches a model path must make over ``prefills`` prefills (or
+    forward passes), ``steps`` decode steps and ``backward`` backward
+    passes: attention once per attention block per prefill (decode's
+    self-attention is plain; a ``dec`` block adds its cross attention,
+    which runs the kernel at every decode step too), the router once per
+    MoE layer per prefill and decode step, the recurrence once per Mamba2
+    layer and twice per mLSTM layer (numerator and normaliser) per prefill
+    (decode runs the plain step); the MLP's activation (gelu or silu, the
+    config's) once per dense MLP per prefill and decode step (the
+    encoder's at prefill only), and silu besides once per MoE layer (the
+    experts; twice with a shared expert) and twice per Mamba2 (``xi``,
+    ``z``) and mLSTM (its two gates) layer per prefill and decode step;
+    each activation's backward kernel once per backward pass for each of
+    its prefill launches."""
     n = {}
     for kind, count in cfg.segments:
         n[kind] = n.get(kind, 0) + count
     dense = n.get("dense", 0) + n.get("shared_attn", 0)
-    enc, dec = n.get("enc", 0), n.get("dec", 0)
-    want = {"flash_attention": (dense + n.get("moe", 0) + enc + 2 * dec)
-            * prefills + dec * steps}
-    if n.get("moe"):
-        want["router_topk"] = n["moe"] * (prefills + steps)
+    enc, dec, moe = n.get("enc", 0), n.get("dec", 0), n.get("moe", 0)
+    want = {"flash_attention": (dense + moe + enc + 2 * dec) * prefills
+            + dec * steps}
+    if moe:
+        want["router_topk"] = moe * (prefills + steps)
     if n.get("mamba2") or n.get("mlstm"):
         want["ssd_scan"] = (n.get("mamba2", 0) + 2 * n.get("mlstm", 0)) \
             * prefills
-    if cfg.act == "gelu" and dense + enc + dec:
-        want["gelu_stepwise"] = (dense + enc + dec) * prefills \
-            + (dense + dec) * steps
+    per = {}                      # (calls a prefill, calls a decode step)
+    if dense + enc + dec:
+        per[f"{cfg.act}_stepwise"] = (dense + enc + dec, dense + dec)
+    gates = moe * (1 + bool(cfg.n_shared_experts)) \
+        + 2 * (n.get("mamba2", 0) + n.get("mlstm", 0))
+    if gates:
+        a, b = per.get("silu_stepwise", (0, 0))
+        per["silu_stepwise"] = (a + gates, b + gates)
+    for name, (pre, per_step) in per.items():
+        want[name] = pre * prefills + per_step * steps
+        if backward:
+            want[f"{name}_bwd"] = pre * backward
     return want
 
 
@@ -1247,6 +1325,10 @@ def no_host_wait(dev: torch.device):
 # Hopper names its kernels nvjet_*, sm90_xmma_* or *gemm*)
 KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
                    ("flash_attention", ("flash_fwd_kernel",)),
+                   ("gelu_stepwise", ("GeluFwd",)),
+                   ("gelu_stepwise_bwd", ("GeluBwd",)),
+                   ("silu_stepwise", ("SiluFwd",)),
+                   ("silu_stepwise_bwd", ("SiluBwd",)),
                    ("router_topk", ("router_topk", "route_kernel")),
                    ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
                    ("elementwise (torch)", ("elementwise", "CatArray")),
@@ -1266,8 +1348,10 @@ def device_breakdown(dev: torch.device, fn, ranges: tuple = (),
     kernel count per family; the names of the largest kernels of no family
     follow.  For each name in ``ranges`` (a ``record_function`` range in
     the code), the device time of the kernels launched inside it (summed
-    over the range's calls and every op under them) goes into ``out`` as
-    (ms, calls); those kernels are counted in the families too."""
+    over the range's calls and every op under them; for a range whose
+    only kernel is launched through ctypes, which the profiler ties to no
+    op, the range's own device-side record) goes into ``out`` as (ms,
+    calls); those kernels are counted in the families too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
@@ -1283,6 +1367,13 @@ def device_breakdown(dev: torch.device, fn, ranges: tuple = (),
             named[e.name] = (ms + _kernel_us(e) / 1e3, calls + 1)
     for e in prof.key_averages():
         if e.key in ranges:
+            # the device-side record spans from the range's first kernel
+            # to its last, others' between included: read only where the
+            # range's own kernels are not tied to it
+            if named.get(e.key, (1.0,))[0] == 0.0 and e.device_type == \
+                    torch.autograd.DeviceType.CUDA:
+                named[e.key] = (e.self_device_time_total / 1e3,
+                                named[e.key][1])
             continue
         us = getattr(e, "self_device_time_total", 0.0)
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2043,25 +2134,77 @@ def phase_front_ends(plan) -> dict:
 TRAIN_STEPS = 6
 TRAIN_PEAK_LR, TRAIN_WARMUP = 3e-3, 20
 TRAIN_MIXTRAL_LAYERS = 1         # of 32: 1.72 B parameters, ~20.6 GB of state
+TRAIN_GEMMA_LAYERS = 2           # of 28: 1.34 B parameters, 13.4 GB of state
+TRAIN_WHISPER_FRAMES = 1500      # a clip's frames; Whisper-medium whole
+# configs whose seed-0 draw trains from :func:`tf_tame`'s attention: at
+# Whisper-medium's depth the draw's encoder gradients reach 1e24, their
+# squares overflow the fp32 global norm and the clip zeroes every update
+TRAIN_TAMED = ("whisper-medium",)
 CARD_GB = 80
 RECOMPUTE_RANGES = ("flash_attention.recompute_backward",
-                    "ssd_scan.recompute_backward", "router_topk.backward")
+                    "ssd_scan.recompute_backward", "router_topk.backward",
+                    "gelu_stepwise.backward", "silu_stepwise.backward")
 
 
 def train_configs() -> list:
     """(config, batch, seq): Zamba2-1.2B whole at B4 x S2048, Mixtral-8x7B
-    cut to 1 of its 32 layers at B2 x S2048."""
+    cut to 1 of its 32 layers at B2 x S2048, Gemma-7B cut to 2 of its 28
+    at B2 x S2048, Whisper-medium whole at B8 clips of 1500 frames (seq;
+    the decoder's tokens as ``configs.batch_specs`` sizes them)."""
     import dataclasses
     from repro_torch.configs import get
     return [(get("zamba2-1.2b"), 4, 2048),
             (dataclasses.replace(get("mixtral-8x7b"),
-                                 n_layers=TRAIN_MIXTRAL_LAYERS), 2, 2048)]
+                                 n_layers=TRAIN_MIXTRAL_LAYERS), 2, 2048),
+            (dataclasses.replace(get("gemma-7b"),
+                                 n_layers=TRAIN_GEMMA_LAYERS), 2, 2048),
+            (get("whisper-medium"), 8, TRAIN_WHISPER_FRAMES)]
+
+
+class ClipSource:
+    """Whisper's training batches: ``SyntheticLMSource``'s tokens as the
+    decoder's, at the length ``configs.batch_specs`` gives a train cell of
+    ``frames`` frames, and the encoder's frames (the stub front end's
+    output, as ``batch_specs`` has it) N(0, 0.1²) in fp32 from a Philox
+    counter at the same index; the state is the token source's."""
+
+    def __init__(self, cfg, frames: int, batch: int, seed: int = 0):
+        from repro_torch.configs import batch_specs
+        from repro_torch.data import SyntheticLMSource
+        dec = batch_specs(cfg, "train_4k", batch=batch,
+                          seq=frames)["tokens"].shape[1]
+        self.tokens = SyntheticLMSource(cfg.vocab, dec, batch, seed=seed)
+        self.shape = (batch, frames, cfg.d_model)
+
+    def next_batch(self) -> dict:
+        import numpy as np
+        at = self.tokens.state()
+        rng = np.random.Generator(np.random.Philox(key=at["seed"] + 1,
+                                                   counter=at["index"]))
+        out = self.tokens.next_batch()
+        out["frames"] = rng.standard_normal(self.shape, np.float32) * 0.1
+        return out
+
+    def state(self) -> dict:
+        return self.tokens.state()
+
+    def restore(self, state: dict) -> None:
+        self.tokens.restore(state)
+
+
+def train_source(cfg, batch: int, seq: int, seed: int = 0):
+    """The training data of ``cfg``: tokens, and frames for an encdec."""
+    from repro_torch.data import SyntheticLMSource
+    if cfg.family == "encdec":
+        return ClipSource(cfg, seq, batch, seed)
+    return SyntheticLMSource(cfg.vocab, seq, batch, seed=seed)
 
 
 def train_launches_per_step(cfg) -> dict:
     """Each kernel of the path runs twice a step: in the forward, and again
-    when activation checkpointing recomputes its block for the backward."""
-    return expected_launches(cfg, 2, 0)
+    when activation checkpointing recomputes its block for the backward;
+    each activation's backward kernel once."""
+    return expected_launches(cfg, 2, 0, 1)
 
 
 class PhaseClock:
@@ -2149,7 +2292,7 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
     ``check_launches=False`` is for a rehearsal on the CPU."""
     import shutil
     from repro_torch.core.tree import jax_leaves
-    from repro_torch.data import SyntheticLMSource, make_pipeline
+    from repro_torch.data import make_pipeline
     from repro_torch.models.lm import LM
     from repro_torch.models.params import count_params
     from repro_torch.optim.schedules import cosine_warmup
@@ -2160,6 +2303,8 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
     base_gb = torch.cuda.memory_allocated(dev) / 1e9 if cuda else 0.0
     t0 = time.perf_counter()
     state = init_state(cfg, plan, torch.Generator(device=dev).manual_seed(0))
+    if cfg.name in TRAIN_TAMED:
+        tf_tame(cfg, state["params"])
     sync(dev)
     n_params = count_params(LM(cfg).param_defs())
     state_gb = sum(t.numel() * t.element_size()
@@ -2172,8 +2317,8 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
     clock = PhaseClock() if cuda else None
     step = make_train_step(cfg, plan, cosine_warmup(
         TRAIN_PEAK_LR, TRAIN_WARMUP, steps))
-    pipe = make_pipeline(SyntheticLMSource(cfg.vocab, seq, batch, seed=0),
-                         plan, n_batches=steps)
+    pipe = make_pipeline(train_source(cfg, batch, seq), plan,
+                         n_batches=steps)
     if snapshot_after is not None:
         pipe = SnapshotPipeline(pipe, snapshot_after)
     ckpt_dir = ROOT / "build" / f"train_ckpt_{cfg.name}"
@@ -2212,14 +2357,20 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
         if check_launches and per_step != want:
             fail(f"{cfg.name}: kernel launches per step {per_step}, "
                  f"expected {want}")
+        if peak_gb > CARD_GB:
+            fail(f"{cfg.name}: peak memory {peak_gb:.2f} GB over the card's "
+                 f"{CARD_GB} GB")
         med = sorted(dts[1:])[len(dts[1:]) // 2]
-        tok_s = batch * seq / med
-        say(f"[train] {cfg.name}: {tok_s:.1f} train tokens/s (B*S over the "
-            f"median step after the first, synchronised: {med * 1e3:.1f} ms;"
-            f" first step {dts[0] * 1e3:.1f} ms); peak memory {peak_gb:.2f} "
-            f"GB of {CARD_GB} ({peak_gb - base_gb:.2f} GB above the "
-            f"{base_gb:.2f} GB earlier phases hold); driver run {wall:.1f} s "
-            f"with the final checkpoint")
+        # tokens a batch: B x S, and an encdec's frames besides its tokens
+        n_tok = sum(v.shape[0] * v.shape[1] for v in
+                    train_source(cfg, batch, seq).next_batch().values())
+        tok_s = n_tok / med
+        say(f"[train] {cfg.name}: {tok_s:.1f} train tokens/s ({n_tok} a "
+            f"batch over the median step after the first, synchronised: "
+            f"{med * 1e3:.1f} ms; first step {dts[0] * 1e3:.1f} ms); peak "
+            f"memory {peak_gb:.2f} GB of {CARD_GB} ({peak_gb - base_gb:.2f} "
+            f"GB above the {base_gb:.2f} GB earlier phases hold); driver run "
+            f"{wall:.1f} s with the final checkpoint")
         split = clock.split()[:steps] if clock else []
         for i, s in enumerate(split):
             say(f"[train] {cfg.name} step {i}: forward {s['forward']:.1f} "
@@ -2248,12 +2399,11 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
             f"state bit for bit ({n} leaves) in {restore_s:.1f} s")
         ranges = {}
         if cuda:
-            tokens = torch.as_tensor(SyntheticLMSource(
-                cfg.vocab, seq, batch, seed=1).next_batch()["tokens"],
-                device=dev)
+            one = {k: torch.as_tensor(v, device=dev) for k, v in
+                   train_source(cfg, batch, seq, seed=1).next_batch().items()}
 
             def one_step():
-                driver.state, _ = step(driver.state, {"tokens": tokens})
+                driver.state, _ = step(driver.state, one)
             say(f"[profile] {cfg.name} train step B{batch} x S{seq}: "
                 f"{device_breakdown(dev, one_step, RECOMPUTE_RANGES, ranges)}")
             say(f"[profile] {cfg.name} the same step's backward ranges "
@@ -2554,7 +2704,8 @@ def phase_train_all(dev: torch.device) -> dict:
         torch.cuda.empty_cache()
         # Mixtral's parameters after phase 10a's steps, which 10a equals
         out[cfg.name] = phase_train(single_device_plan(), cfg, batch, seq,
-                                    snapshot_after=MD_STEPS_A if i else None)
+                                    snapshot_after=MD_STEPS_A if i == 1
+                                    else None)
     gc.collect()
     torch.cuda.empty_cache()
     train_parity(dev)
@@ -2685,20 +2836,46 @@ def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
     rows.append(time_router(dev, g, "router_topk", S,
                             serve["launches"]["router_topk"],
                             errs["router_topk"], card))
+    rows.append(time_stepwise(dev, g, "silu", "silu_stepwise",
+                              SILU_CASES[0][0],
+                              serve["launches"]["silu_stepwise"],
+                              errs["silu_stepwise"], card))
     return rows
 
 
 def time_train_kernels(dev: torch.device, train: dict, errs: dict,
                        card: str) -> list:
     """The training path's kernels at its shapes (phase 5c), each with its
-    launches in that phase's driver run: attention over Zamba2's B4 x S2048
+    launches in that phase's driver run: the activations' backward kernels
+    (silu at Mixtral's experts of a 5000-token prefill, as phase 5's
+    forward row, and at Zamba2's Mamba2 gates at B4 x S2048, forward too;
+    gelu at Whisper's B8 x 1500 x 4096 and Gemma-7B's 2567 x 24576, as the
+    forward rows of phases 5d and 5e), attention over Zamba2's B4 x S2048
     (D64) and Mixtral's B2 x S2048 (D128), the router over Mixtral's 4096
     tokens, ``ssd_scan`` over Zamba2's B4."""
-    zamba, mixtral = (train[cfg.name]["launches"]
-                      for cfg, _, _ in train_configs())
+    zamba, mixtral, gemma, whisper = (train[cfg.name]["launches"]
+                                      for cfg, _, _ in train_configs())
     g = torch.Generator().manual_seed(9)
     time_recompute_backward(dev, g, train, card)
-    return [time_flash(dev, g, "flash_attention_train_d64",
+    zgate = SILU_CASES[2][0]
+    return [time_stepwise(dev, g, "silu", "silu_stepwise_bwd",
+                          SILU_CASES[0][0], mixtral["silu_stepwise_bwd"],
+                          errs["silu_stepwise_bwd"], card, backward=True),
+            time_stepwise(dev, g, "silu", "silu_stepwise_zamba2", zgate,
+                          zamba["silu_stepwise"],
+                          errs["silu_stepwise_zamba2"], card),
+            time_stepwise(dev, g, "silu", "silu_stepwise_bwd_zamba2", zgate,
+                          zamba["silu_stepwise_bwd"],
+                          errs["silu_stepwise_bwd_zamba2"], card,
+                          backward=True),
+            time_stepwise(dev, g, "gelu", "gelu_stepwise_bwd",
+                          GELU_CASES[0][0], whisper["gelu_stepwise_bwd"],
+                          errs["gelu_stepwise_bwd"], card, backward=True),
+            time_stepwise(dev, g, "gelu", "gelu_stepwise_bwd_gemma",
+                          GELU_CASES[4][0], gemma["gelu_stepwise_bwd"],
+                          errs["gelu_stepwise_bwd_gemma"], card,
+                          backward=True),
+            time_flash(dev, g, "flash_attention_train_d64",
                        (4, 32, 32, 2048, 64, 4096),
                        zamba["flash_attention"], errs["flash_attention"],
                        card),
@@ -2734,9 +2911,10 @@ def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
                      errs["ssd_scan_xlstm"], card, H=4, G=4, N=384, P=384),
             time_ssd(dev, "ssd_scan_xlstm_p1", 1, xl // 2,
                      errs["ssd_scan_xlstm_p1"], card, H=4, G=4, N=384, P=1),
-            time_gelu(dev, g, "gelu_stepwise_gemma", (1, 2567, 24576),
-                      fams["gemma-7b"]["launches"]["gelu_stepwise"],
-                      errs["gelu_stepwise_gemma"], card)]
+            time_stepwise(dev, g, "gelu", "gelu_stepwise_gemma",
+                          (1, 2567, 24576),
+                          fams["gemma-7b"]["launches"]["gelu_stepwise"],
+                          errs["gelu_stepwise_gemma"], card)]
 
 
 def time_front_end_kernels(dev: torch.device, fronts: dict, errs: dict,
@@ -2773,34 +2951,63 @@ def time_front_end_kernels(dev: torch.device, fronts: dict, errs: dict,
                        clip["cross_decode"],
                        errs["flash_attention_cross_decode"], card, sq=1,
                        causal=False),
-            time_gelu(dev, g, "gelu_stepwise", (WHISPER_B, WHISPER_FRAMES,
-                                                4096),
-                      clip["prefill"]["gelu_stepwise"]
-                      + clip["decode"]["gelu_stepwise"],
-                      errs["gelu_stepwise"], card)]
+            time_stepwise(dev, g, "gelu", "gelu_stepwise",
+                          (WHISPER_B, WHISPER_FRAMES, 4096),
+                          clip["prefill"]["gelu_stepwise"]
+                          + clip["decode"]["gelu_stepwise"],
+                          errs["gelu_stepwise"], card)]
 
 
-def time_gelu(dev: torch.device, g: torch.Generator, name: str,
-              shape: tuple, launches: int, err: float, card: str) -> dict:
-    """``gelu_stepwise`` over bf16 activations of ``shape`` beside its plain
-    version and ``F.gelu`` (the one PyTorch call for gelu's tanh form; it
+# (module, its forward's one PyTorch call, its backward's, the plain
+# versions' eager op counts, where the reference calls the activation)
+STEPWISE = {
+    "gelu": ("gelu_stepwise",
+             lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+             lambda x, dy: torch.ops.aten.gelu_backward(dy, x,
+                                                        approximate="tanh"),
+             (9, 21), "src/repro/models/layers.py:71"),
+    "silu": ("silu_stepwise", torch.nn.functional.silu,
+             lambda x, dy: torch.ops.aten.silu_backward(dy, x), (5, 10),
+             "src/repro/models/moe.py:106"),
+}
+
+
+def time_stepwise(dev: torch.device, g: torch.Generator, kernel: str,
+                  name: str, shape: tuple, launches: int, err: float,
+                  card: str, backward: bool = False) -> dict:
+    """``gelu_stepwise`` or ``silu_stepwise`` (``kernel``), forward or
+    ``backward``, over bf16 activations of ``shape`` beside its plain
+    version and the one PyTorch call for it (``F.gelu``'s tanh form or
+    ``F.silu``; ``aten.gelu_backward`` / ``aten.silu_backward``: each
     rounds once, so it is not the same function to the last bit).  Bound:
-    the bytes, each element read and written once; ~10 fp32 operations an
-    element (nine steps and the tanh) are far under it."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
-                                                   gelu_stepwise_plain, work)
+    the bytes, each element read (x, and dy backward) and written once;
+    the fp32 operations (``work``) are far under it."""
+    import importlib
+    module, lib_fwd, lib_bwd, ops, replaces = STEPWISE[kernel]
+    K = importlib.import_module(f"repro_torch.kernels.{module}")
     x = (torch.randn(*shape, generator=g) * 4).to(torch.bfloat16).to(dev)
-    n = x.numel()
-    ms = graph_ms(lambda: gelu_stepwise(x))
-    plain = time_ms(lambda: gelu_stepwise_plain(x), reps=3, iters=5)
-    lib = graph_ms(lambda: F.gelu(x, approximate="tanh"))
-    row = kernel_row(name, "gelu_stepwise", "src/repro/models/layers.py:71",
-                     launches, err, ms, plain, work(n, x.dtype), lib)
-    say(f"[time] {name} {tuple(shape)} bf16: {ms:.4f} ms on the device "
-        f"(CUDA graph), plain (nine eager ops) {plain:.4f} ms, F.gelu "
-        f"{lib:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
-        f"{4 * n} B), {row['bound_ms'] / ms:.1%} of the bound on {card}")
+    if backward:
+        dy = torch.randn(*shape, generator=g).to(torch.bfloat16).to(dev)
+        run = lambda: getattr(K, f"{module}_bwd")(x, dy)
+        plain = lambda: getattr(K, f"{module}_vjp_plain")(x, dy)
+        lib = lambda: lib_bwd(x, dy)
+    else:
+        run = lambda: getattr(K, module)(x)
+        plain = lambda: getattr(K, f"{module}_plain")(x)
+        lib = lambda: lib_fwd(x)
+    ms = graph_ms(run)
+    plain_ms = time_ms(plain, reps=3, iters=5)
+    lib_ms = graph_ms(lib)
+    w = K.work(x.numel(), x.dtype, backward)
+    row = kernel_row(name, module, replaces, launches, err, ms, plain_ms, w,
+                     lib_ms)
+    say(f"[time] {name} {tuple(shape)} bf16 "
+        f"{'backward' if backward else 'forward'}: {ms:.4f} ms on the "
+        f"device (CUDA graph), plain ({ops[backward]} eager ops) "
+        f"{plain_ms:.4f} ms, one PyTorch call {lib_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {w.bytes:.0f} B), "
+        f"{row['bound_ms'] / ms:.1%} of the bound on {card}")
+    del x
     return row
 
 
@@ -2815,7 +3022,7 @@ def time_recompute_backward(dev: torch.device, g: torch.Generator,
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.router_topk import router_topk
     from repro_torch.kernels.ssd_scan import ssd_scan
-    (zcfg, zb, zs), (mcfg, mb, ms_) = train_configs()
+    (zcfg, zb, zs), (mcfg, mb, ms_) = train_configs()[:2]
     bf16 = torch.bfloat16
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
@@ -6182,10 +6389,10 @@ def tp_families_rows(dev: torch.device, card: str, errs: dict) -> list:
     for name, P in (("ssd_scan_tp_xlstm", 384), ("ssd_scan_tp_xlstm_p1", 1)):
         rows.append(time_ssd(dev, name, 1, n.get(name, 0), errs[name], card,
                              H=2, G=2, N=384, P=P))
-    rows.append(time_gelu(dev, g, "gelu_stepwise_tp",
-                          (WHISPER_B, WHISPER_FRAMES, 2048),
-                          n.get("gelu_stepwise_tp", 0),
-                          errs["gelu_stepwise_tp"], card))
+    rows.append(time_stepwise(dev, g, "gelu", "gelu_stepwise_tp",
+                              (WHISPER_B, WHISPER_FRAMES, 2048),
+                              n.get("gelu_stepwise_tp", 0),
+                              errs["gelu_stepwise_tp"], card))
     say(f"[tp-families] phase 12 with its kernels' rows "
         f"{time.perf_counter() - t0:.1f} s on {card}")
     return rows
@@ -6203,7 +6410,7 @@ def dry_cells() -> list:
     """(tag, config, mode, batch, seq): phase 5c's two training cells, and
     phase 5's Mixtral at 4 layers through one prefill and one decode step
     at the engine's batch against its cache (``seq`` the cache's length)."""
-    (z, zb, zs), (m, mb, ms) = train_configs()
+    (z, zb, zs), (m, mb, ms) = train_configs()[:2]
     return [("zamba2-1.2b train", z, "train", zb, zs),
             ("mixtral-8x7b 1L train", m, "train", mb, ms),
             ("mixtral-8x7b 4L prefill", serve_config(), "prefill", 1, 2048),
@@ -6340,7 +6547,7 @@ def dry_cell(plan, tag: str, cfg, mode: str, B: int, S: int, dry: dict,
     terms = roofline_of(dry, 1, (6.0 if mode == "train" else 2.0) * n
                         * tokens)
     want = nonzero(expected_launches(cfg, {"train": 2, "prefill": 1}.get(
-        mode, 0), int(mode == "decode")))
+        mode, 0), int(mode == "decode"), int(mode == "train")))
     pred = dry["mem"]["peak_bytes"]
     off = pred / peak - 1
     say(f"[dry-run] {tag} on {card}: roofline (H100 SXM data sheet) "

@@ -21,6 +21,7 @@ import torch
 
 from ..core.plan import model_plan
 from ..kernels.gelu_stepwise import gelu_stepwise
+from ..kernels.silu_stepwise import silu_stepwise
 from .params import ParamDef
 
 
@@ -79,36 +80,6 @@ def apply_norm(x, p, kind: str = "rms"):
     return layer_norm(x, p["w"], p["b"])
 
 
-# -- silu as jax.nn.silu rounds it ---------------------------------------------
-def _logistic(x: torch.Tensor) -> torch.Tensor:
-    return torch.reciprocal(torch.exp(-x) + 1)
-
-
-class _SiluStepwise(torch.autograd.Function):
-    """Forward and backward as XLA computes ``jax.nn.silu`` and its VJP,
-    every step out of place and rounded to x's type: y = x * s with
-    s = 1 / (1 + exp(-x)); dx = g * s + (x * g) * (s * (1 - s)), the
-    logistic's JVP rule.  Only x is saved; s is recomputed."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return x * _logistic(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        s = _logistic(x)
-        return g * s + (x * g) * (s * (1 - s))
-
-
-def silu_stepwise(x: torch.Tensor) -> torch.Tensor:
-    """silu as ``jax.nn.silu`` computes it: x * (1 / (1 + exp(-x))), every
-    step rounded to x's type (``F.silu`` rounds once), with the gradient
-    ``jax.grad`` gives it, rounded the same way."""
-    return _SiluStepwise.apply(x)
-
-
 # -- GLU MLP (SwiGLU / GeGLU) --------------------------------------------------
 def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
     lead = (layers,) if layers else ()
@@ -122,7 +93,7 @@ def mlp_defs(d_model: int, d_ff: int, layers: Optional[int] = None):
 
 def activation(g: torch.Tensor, act: str) -> torch.Tensor:
     # jax.nn.gelu and jax.nn.silu round each of their steps (in bf16);
-    # the gelu kernel does so in one pass
+    # each kernel does so in one pass
     return gelu_stepwise(g) if act == "gelu" else silu_stepwise(g)
 
 

@@ -91,7 +91,9 @@ def _causal_conv(x, w, state=None):
         buf = torch.cat([state, x], dim=1)                    # (B,K,C)
         y = torch.einsum("bkc,kc->bc", buf.float(), w.float())[:, None]
         state.copy_(buf[:, 1:])
-        return y.to(x.dtype), state
+        # einsum may return a strided result; the gates' kernel takes a
+        # contiguous one
+        return y.to(x.dtype).contiguous(), state
     S = x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))                           # (B,S+K-1,C)
     y = sum(xp[:, i:i + S].float() * w[i].float() for i in range(K))

@@ -18,7 +18,13 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
-                                               gelu_stepwise_plain)
+                                               gelu_stepwise_bwd,
+                                               gelu_stepwise_plain,
+                                               gelu_stepwise_vjp_plain)
+from repro_torch.kernels.silu_stepwise import (silu_stepwise,
+                                               silu_stepwise_bwd,
+                                               silu_stepwise_plain,
+                                               silu_stepwise_vjp_plain)
 from repro_torch.kernels import a2a_fused as a2a_module
 from repro_torch.kernels import router_topk as router_module
 from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
@@ -184,57 +190,107 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
     assert flash_attention.launches == 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,offset", [
+STEPWISE_SHAPES = [
     ((1,), 0), ((7,), 0), ((3, 37, 64), 0),       # under and off a vector
-    ((2, 1500, 4096), 0),                          # Whisper's MLP
-    ((2567, 24576), 0),                            # Gemma-7B's prefill
     ((8, 1, 4096), 0),                             # a decode step
     ((5, 333), 1),                                 # an unaligned view
     ((1 << 20,), -1),                              # magnitudes 2**-140..2**100
-])
-def test_gelu_kernel_matches_plain(cuda, dtype, shape, offset):
-    """Bit for bit the plain version's nine eager ops: each step rounds to
-    the type in both (the kernel's products and sums are not contracted
-    into FMAs), wide values included: subnormal products, overflow to
-    infinity, roundings that carry into the exponent (offset -1)."""
-    g = torch.Generator().manual_seed(len(shape) * 100 + shape[-1])
+]
+
+
+def _stepwise_inputs(cuda, dtype, shape, offset, seed):
+    """x and dy of ``shape`` on the card (views at ``offset`` elements into
+    their storage); offset -1 draws x's magnitudes from 2**-140 to
+    2**100."""
+    g = torch.Generator().manual_seed(seed)
     n = 1
     for d in shape:
         n *= d
-    flat = torch.randn(n + max(offset, 0), generator=g) * 4
-    if offset < 0:
-        flat = flat * torch.exp2(torch.randint(-140, 100, flat.shape,
-                                               generator=g).float())
-    x = flat.to(dtype).to(cuda)[max(offset, 0):].view(shape)
-    got = gelu_stepwise(x)
-    want = gelu_stepwise_plain(x)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == x.shape
-    assert torch.equal(got, want) or (
-        torch.equal(got.isnan(), want.isnan())
-        and torch.equal(got[~got.isnan()], want[~want.isnan()]))
+    out = []
+    for scale in (4.0, 1.0):
+        flat = torch.randn(n + max(offset, 0), generator=g) * scale
+        if offset < 0 and not out:
+            flat = flat * torch.exp2(torch.randint(-140, 100, flat.shape,
+                                                   generator=g).float())
+        out.append(flat.to(dtype).to(cuda)[max(offset, 0):].view(shape))
+    return out
+
+
+def _same(got, want):
+    """Bit for bit, a NaN equal to a NaN."""
+    return got.dtype == want.dtype and got.shape == want.shape and (
+        torch.equal(got, want) or (
+            torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got[~got.isnan()], want[~want.isnan()])))
 
 
 @pytest.mark.cuda
-def test_gelu_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", STEPWISE_SHAPES + [
+    ((2, 1500, 4096), 0),                          # Whisper's MLP
+    ((2567, 24576), 0),                            # Gemma-7B's prefill
+])
+def test_gelu_kernel_matches_plain(cuda, dtype, shape, offset):
+    """Bit for bit the plain versions' eager ops, forward (nine) and
+    backward (XLA's VJP): each step rounds to the type in both (the
+    kernels' products and sums are not contracted into FMAs), wide values
+    included: subnormal products, overflow to infinity, roundings that
+    carry into the exponent (offset -1)."""
+    x, dy = _stepwise_inputs(cuda, dtype, shape, offset,
+                             len(shape) * 100 + shape[-1])
+    got, want = gelu_stepwise(x), gelu_stepwise_plain(x)
+    dx, dx_plain = gelu_stepwise_bwd(x, dy), gelu_stepwise_vjp_plain(x, dy)
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(dx, dx_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", STEPWISE_SHAPES + [
+    ((8, 1568, 14336), 0),           # Mixtral's experts, a 5000-token prefill
+    ((4, 2048, 4096), 0),            # Zamba2's Mamba2 gate at B4 x S2048
+])
+def test_silu_kernel_matches_plain(cuda, dtype, shape, offset):
+    """Bit for bit the plain versions' eager ops, forward and backward
+    (expf and the correctly rounded reciprocal, as torch's exp and
+    reciprocal compute them), wide values included."""
+    x, dy = _stepwise_inputs(cuda, dtype, shape, offset,
+                             len(shape) * 100 + shape[-1] + 1)
+    got, want = silu_stepwise(x), silu_stepwise_plain(x)
+    dx, dx_plain = silu_stepwise_bwd(x, dy), silu_stepwise_vjp_plain(x, dy)
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(dx, dx_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gelu", "silu"])
+def test_gelu_kernel_counts_launches_and_rejects_what_it_cannot_take(
+        cuda, kernel):
+    """Each direction counts its own launches; the backward through
+    autograd launches the backward kernel once (the gradient of ``sum``
+    is an expanded, not contiguous, tensor: the autograd function makes it
+    contiguous) and equals the plain VJP."""
+    fwd, bwd, vjp = {
+        "gelu": (gelu_stepwise, gelu_stepwise_bwd, gelu_stepwise_vjp_plain),
+        "silu": (silu_stepwise, silu_stepwise_bwd, silu_stepwise_vjp_plain),
+    }[kernel]
     x = torch.randn(4, 8, device=cuda, dtype=torch.bfloat16)
-    gelu_stepwise.launches = 0
-    gelu_stepwise(x)
-    assert gelu_stepwise.launches == 1
+    fwd.launches = bwd.launches = 0
+    fwd(x)
+    assert (fwd.launches, bwd.launches) == (1, 0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        gelu_stepwise(x.half())
+        fwd(x.half())
     with pytest.raises(ValueError, match="contiguous"):
-        gelu_stepwise(x.t())
-    assert gelu_stepwise.launches == 1
-    # the backward recomputes the plain version: no launch
+        fwd(x.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(x.t(), x.t())
+    with pytest.raises(ValueError, match="one type and shape"):
+        bwd(x, x.float())
+    assert (fwd.launches, bwd.launches) == (1, 0)
     a = x.float().requires_grad_(True)
-    gelu_stepwise(a).sum().backward()
-    b = x.float().requires_grad_(True)
-    gelu_stepwise_plain(b).sum().backward()
-    assert gelu_stepwise.launches == 2
-    assert torch.equal(a.grad, b.grad)
+    fwd(a).sum().backward()
+    assert (fwd.launches, bwd.launches) == (2, 1)
+    assert torch.equal(a.grad, vjp(x.float(), torch.ones_like(a)))
 
 
 @pytest.mark.cuda

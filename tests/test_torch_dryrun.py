@@ -184,7 +184,13 @@ def test_every_family_calls_its_kernels(dry_ranks):
         calls[name] |= set(d["kernel_work"])
     assert "router_topk" in calls["mixtral-8x7b"]
     assert "ssd_scan" in calls["zamba2-1.2b"] & calls["xlstm-125m"]
-    assert "gelu_stepwise" in calls["gemma-7b"] & calls["whisper-medium"]
+    gelu = {"gelu_stepwise", "gelu_stepwise_bwd"}
+    silu = {"silu_stepwise", "silu_stepwise_bwd"}
+    for name in ("gemma-7b", "whisper-medium"):
+        assert gelu <= calls[name] and not silu & calls[name], name
+    for name in ("mixtral-8x7b", "xlstm-125m", "qwen2-vl-2b", "llama3.2-3b"):
+        assert silu <= calls[name] and not gelu & calls[name], name
+    assert gelu | silu <= calls["zamba2-1.2b"]     # the shared block's gelu
     assert all("flash_attention" in calls[n] for n in C.CONFIGS
                if n != "xlstm-125m")
 
@@ -231,6 +237,20 @@ BOUND_ROWS = [
      0.0000501, "bytes"),
     ("gelu Whisper B8x1500x4096", lambda K: K.gelu_stepwise.work(
         8 * 1500 * 4096, BF16), 0.0587, "bytes"),
+    ("gelu Whisper backward", lambda K: K.gelu_stepwise.work(
+        8 * 1500 * 4096, BF16, True), 0.0880, "bytes"),
+    ("gelu Gemma 2567x24576", lambda K: K.gelu_stepwise.work(
+        2567 * 24576, BF16), 0.0753, "bytes"),
+    ("gelu Gemma backward", lambda K: K.gelu_stepwise.work(
+        2567 * 24576, BF16, True), 0.1130, "bytes"),
+    ("silu Mixtral experts T5000", lambda K: K.silu_stepwise.work(
+        8 * 1568 * 14336, BF16), 0.2147, "bytes"),
+    ("silu Mixtral experts backward", lambda K: K.silu_stepwise.work(
+        8 * 1568 * 14336, BF16, True), 0.3221, "bytes"),
+    ("silu Zamba2 gate B4xS2048", lambda K: K.silu_stepwise.work(
+        4 * 2048 * 4096, BF16), 0.0401, "bytes"),
+    ("silu Zamba2 gate backward", lambda K: K.silu_stepwise.work(
+        4 * 2048 * 4096, BF16, True), 0.0601, "bytes"),
 ]
 
 
@@ -238,7 +258,8 @@ BOUND_ROWS = [
 def test_work_gives_the_bound_column(row):
     from repro_torch import kernels as K
     from repro_torch.kernels import (a2a_fused, flash_attention,  # noqa: F401
-                                     gelu_stepwise, router_topk, ssd_scan)
+                                     gelu_stepwise, router_topk,
+                                     silu_stepwise, ssd_scan)
     _, work, bound_ms, by = row
     w = work(K)
     assert w.bound_s * 1e3 == pytest.approx(bound_ms, rel=0.01)
@@ -352,6 +373,9 @@ def _fake_call(name):
         "ssd_scan": lambda: fn(x(1, 1, 8, 4), x(1, 1, 8, 4), x(1, 2, 8, 4),
                                x(1, 2, 8), 4),
         "gelu_stepwise": lambda: fn(x(4, 8)),
+        "gelu_stepwise_bwd": lambda: fn(x(4, 8), x(4, 8)),
+        "silu_stepwise": lambda: fn(x(4, 8)),
+        "silu_stepwise_bwd": lambda: fn(x(4, 8), x(4, 8)),
         "a2a_route": lambda: fn(x(16, 4), 8),
         "a2a_combine": lambda: fn(x(4, 16, 3),
                                   torch.zeros(16, dtype=torch.int32),
@@ -361,7 +385,9 @@ def _fake_call(name):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "router_topk",
-                                  "ssd_scan", "gelu_stepwise", "a2a_route",
+                                  "ssd_scan", "gelu_stepwise",
+                                  "gelu_stepwise_bwd", "silu_stepwise",
+                                  "silu_stepwise_bwd", "a2a_route",
                                   "a2a_combine"])
 def test_a_fake_launch_counts_in_the_recorder_not_the_wrapper(name,
                                                               monkeypatch):

@@ -38,7 +38,9 @@ from repro_torch.core.params import from_numpy
 from repro_torch.core.plan import single_device_plan as tplan
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
-                                               gelu_stepwise_plain)
+                                               gelu_stepwise_bwd,
+                                               gelu_stepwise_plain,
+                                               gelu_stepwise_vjp_plain)
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLMmod
@@ -142,21 +144,22 @@ def test_gelu_stepwise_rounds_as_the_reference():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gelu_stepwise_wrapper_runs_its_plain_version_on_the_cpu(dtype):
     """On a CPU tensor the kernel's wrapper is its plain version, forward and
-    gradient bit for bit, and counts no launch; the gradient is the plain
-    steps' own, which ``test_encdec_loss_and_grads_match_the_reference``
-    holds to ``jax.grad``."""
+    gradient bit for bit, and counts no launch; the gradient is
+    ``gelu_stepwise_vjp_plain``, XLA's VJP step by step, which
+    ``test_gelu_stepwise_gradient_is_the_references`` holds to
+    ``jax.vjp``."""
     g = (torch.from_numpy(np.random.default_rng(5).standard_normal(
         (3, 37, 64), dtype=np.float32)) * 3).to(dtype)
     dy = torch.randn(g.shape, generator=torch.Generator().manual_seed(6)
                      ).to(dtype)
-    before = gelu_stepwise.launches
-    a, b = (g.clone().requires_grad_(True) for _ in range(2))
-    got, want = gelu_stepwise(a), gelu_stepwise_plain(b)
-    assert got.dtype == dtype and torch.equal(got, want)
-    (ga,), (gb,) = (torch.autograd.grad(y, x, dy)
-                    for y, x in ((got, a), (want, b)))
-    assert torch.equal(ga, gb)
-    assert gelu_stepwise.launches == before
+    before = (gelu_stepwise.launches, gelu_stepwise_bwd.launches)
+    a = g.clone().requires_grad_(True)
+    got = gelu_stepwise(a)
+    assert got.dtype == dtype and torch.equal(got, gelu_stepwise_plain(g))
+    (ga,) = torch.autograd.grad(got, a, dy)
+    assert torch.equal(ga, gelu_stepwise_vjp_plain(g, dy))
+    assert torch.equal(gelu_stepwise_bwd(g, dy), ga)
+    assert (gelu_stepwise.launches, gelu_stepwise_bwd.launches) == before
 
 
 # -- blocks ------------------------------------------------------------------
