@@ -9,10 +9,11 @@ Phases, each of which fails the run:
    in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; each kernel's registers and spill bytes
    (``-Xptxas -v``) are printed, and an attention instance that spills
-   fails the run; ``cuobjdump -sass`` must find HMMA/HGMMA (tensor-core)
-   instructions in every bf16 ``flash_fwd_kernel_tc`` (D 16-256) and in
-   the ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per
-   kernel is printed); phase 13's traces run in a process of their own
+   fails the run; ``cuobjdump -sass`` must find HGMMA (``wgmma``)
+   instructions in every bf16 ``flash_fwd_kernel_wgmma`` (D 16-256), no
+   flash kernel with HMMA (``mma.sync``) alone, and HMMA or HGMMA in the
+   ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per kernel
+   is printed); phase 13's traces run in a process of their own
    beside phases 1-2;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
@@ -25,9 +26,12 @@ Phases, each of which fails the run:
    mask over 1500 frames at B8 and 4096 at B1, and its cross attention,
    32 and 1 queries against 1500 frames at B8), on the grid of
    ``tests/test_kernels.py`` and at the kernels' tile edges (lengths 1,
-   15, 17, 63, 65, 129, q_offset off the tile, windows whose edge falls
-   inside a tile, a group of 6, one query against 65 keys without a mask;
-   D 16-256, f32 and bf16); at Mixtral's D128 S2048, Whisper's encoder,
+   15, 17, 63, 65, 127-129, 255-257, q_offset off the tile, windows whose
+   edge falls inside a tile, a group of 6, one query against 65 keys
+   without a mask; D 16-256, f32 and bf16), and where the bf16 kernel
+   splits the keys (Sq 1, 32 and 64 against 1500 and 4096 keys, a split
+   every key of which is masked for some rows, an uneven last split); at
+   Mixtral's D128 S2048, Whisper's encoder,
    its cross attention at Sq 32 and 1 and Gemma's D256, at most 1% of the
    bf16 outputs may differ from the plain version's (P V at the
    reference's fp32 precision: P's two bf16 halves);
@@ -387,17 +391,23 @@ def check_spills(backend) -> None:
 
 
 # the kernels that must run on the tensor cores: (library, name prefix,
-# count of instantiations): the bf16 flash kernel for each head dim, the
-# recurrence with bf16 q/k (template <QK_BF16, V_BF16>) for f32 and bf16 v;
-# their SASS must hold HMMA (mma.sync) or HGMMA (wgmma)
-TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_tc<", 5),
-                       ("ssd_scan", "ssd_scan_kernel<1,", 2))
+# count of instantiations, instructions of which one must be there): the
+# bf16 flash kernel for each head dim on wgmma (HGMMA), the recurrence with
+# bf16 q/k (template <QK_BF16, V_BF16>) for f32 and bf16 v on mma.sync
+# (HMMA) or wgmma; and the library whose kernels may not run on mma.sync
+# alone (a flash kernel with HMMA and no HGMMA is the old design)
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_wgmma<", 5,
+                        ("HGMMA",)),
+                       ("ssd_scan", "ssd_scan_kernel<1,", 2,
+                        ("HMMA", "HGMMA")))
+HGMMA_ONLY = ("flash_attention", "flash_fwd_kernel")
 
 
 def sass_mma_counts(lib: pathlib.Path) -> dict:
-    """HMMA/HGMMA instructions per kernel of a built library, by
-    ``cuobjdump -sass``; keys are the kernels' names with their template
-    arguments as mangled (``ILi64EE`` -> ``<64>``)."""
+    """HMMA and HGMMA instructions per kernel of a built library, by
+    ``cuobjdump -sass``: ``{kernel: {"HMMA": n, "HGMMA": n}}``, keyed by
+    the kernels' names with their template arguments as mangled
+    (``ILi64EE`` -> ``<64>``)."""
     import os
     import re
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
@@ -412,9 +422,11 @@ def sass_mma_counts(lib: pathlib.Path) -> dict:
         if m:
             fn = kernel_name(m.group(1))
             fn = m.group(1) if fn in counts else fn
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            continue
+        m = re.search(r"\b(HG?MMA)\b", line)
+        if fn is not None and m:
+            counts[fn][m.group(1)] += 1
     return counts
 
 
@@ -436,14 +448,22 @@ def kernel_name(mangled: str) -> str:
 
 def check_tensor_cores(backend) -> None:
     """Fail unless every bf16 instantiation of the tensor-core kernels
-    holds HMMA or HGMMA instructions; print the count per kernel."""
-    for name, symbol, n in TENSOR_CORE_KERNELS:
+    holds one of its instructions (the flash kernel HGMMA), or if a flash
+    kernel holds HMMA without HGMMA; print the counts per kernel."""
+    for name, symbol, n, need in TENSOR_CORE_KERNELS:
         counts = sass_mma_counts(backend.library_path(name))
         say(f"[build] {name}: HMMA/HGMMA per kernel {counts}")
         tc = {fn: c for fn, c in counts.items() if fn.startswith(symbol)}
-        if len(tc) != n or not all(tc.values()):
+        if len(tc) != n or not all(any(c[i] for i in need)
+                                   for c in tc.values()):
             fail(f"{name}: expected {n} instantiations of {symbol} with "
-                 f"HMMA/HGMMA instructions, found {tc}")
+                 f"{' or '.join(need)} instructions, found {tc}")
+        if name == HGMMA_ONLY[0]:
+            old = {fn: c for fn, c in counts.items()
+                   if fn.startswith(HGMMA_ONLY[1]) and c["HMMA"]
+                   and not c["HGMMA"]}
+            if old:
+                fail(f"{name}: flash kernels on mma.sync alone: {old}")
 
 
 # ---------------------------------------------------------------------------
@@ -511,16 +531,37 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 # (B, H, Hkv, Sq, Sk, D, causal, window, dtypes): Mixtral's attention at the
 # serving shapes, then the grid of tests/test_kernels.py:22-30
 BF16, F32 = (torch.bfloat16,), (torch.float32, torch.bfloat16)
-# (B, H, Hkv, Sq, Sk, causal, window) at the edges of the kernels' 64-row
-# tiles and 16-row mma fragments: lengths of 1, 15, 17, 63, 65 and 129,
-# q_offset = Sk - Sq off the tile, windows whose edge falls inside a tile
+# (B, H, Hkv, Sq, Sk, causal, window) at the edges of the kernels' tiles
+# (the f32 kernel's 64 rows, the bf16 kernel's 128 query rows in two
+# warpgroups of 64 and its 128-key tiles, 64 at D 256) and 16-row
+# fragments: lengths of 1, 15, 17, 63, 65, 127-129 and 255-257, q_offset =
+# Sk - Sq off the tile, windows whose edge falls inside a tile
 FLASH_EDGES = [(1, 2, 2, 1, 1, True, 0), (2, 4, 2, 15, 15, True, 0),
                (1, 4, 1, 17, 129, True, 0), (1, 2, 2, 63, 63, False, 0),
                (1, 4, 2, 65, 65, True, 7), (1, 4, 4, 129, 129, True, 100),
                (1, 2, 1, 1, 65, True, 0), (1, 8, 2, 100, 1000, True, 300),
                (2, 2, 2, 65, 129, False, 0), (1, 4, 2, 129, 200, True, 33),
                (1, 12, 2, 65, 129, True, 0),     # a GQA group of 6
-               (1, 2, 2, 1, 65, False, 0)]       # one query, every key
+               (1, 2, 2, 1, 65, False, 0),       # one query, every key
+               (1, 4, 2, 127, 127, True, 0),     # the q tile - 1
+               (1, 2, 2, 128, 255, True, 0),     # the q tile, 2 KV tiles - 1
+               (1, 4, 1, 129, 257, False, 0),    # the q tile + 1, tiles + 1
+               (1, 2, 2, 256, 256, True, 0),     # two q tiles, whole tiles
+               (1, 4, 2, 200, 300, True, 90)]    # window edges, keys 11, 139
+# (B, H, Hkv, Sq, Sk, D, causal, window) where the bf16 kernel splits the
+# keys (launch_plan): Sq 1, 32 and 64 against 1500 and 4096 keys at B8
+# H8 (64 blocks, 2 splits) and B1 H16 (6 splits of 2 tiles, 8 of 4);
+# causal with Sq 64 against 4128 keys at B1 H4 (33 splits of one tile:
+# the last, keys 4096-4127, masked for rows 0-31), the same at D128 with
+# Sq 32 against 4112; H20 against 4096 keys (6 splits, the last of 2 tiles
+# where the others take 6); D256 at one query (24 splits of 64 keys)
+FLASH_SPLITS = [(B, H, H, Sq, Sk, 64, False, 0)
+                for B, H in ((8, 8), (1, 16)) for Sq in (1, 32, 64)
+                for Sk in (1500, 4096)] + [
+    (1, 4, 2, 64, 4128, 64, True, 0),
+    (1, 4, 4, 32, 4112, 128, True, 0),
+    (1, 20, 4, 32, 4096, 64, False, 0),
+    (1, 2, 2, 1, 1500, 256, False, 0)]
 FLASH_CASES = [
     (1, 32, 8, 2048, 2048, 128, True, 4096, BF16),
     (1, 32, 8, 5000, 5000, 128, True, 4096, BF16),   # ragged, past the window
@@ -555,7 +596,8 @@ FLASH_CASES = [
                                   (1, 4, 2, 100, 100, 16))
      for c, w in ((True, 0), (True, 64), (False, 0))
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32) for D in (16, 32, 64, 128, 256)
-     for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES]
+     for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES
+] + [case + (BF16,) for case in FLASH_SPLITS]
 
 
 # the cases at phase 5e's, 11's and 12's shapes, by the ``kernels`` row
@@ -623,8 +665,21 @@ def check_flash(dev: torch.device) -> tuple:
     (a dict by row), and the number of cases.  bf16 is also held to
     :data:`FLASH_SCALE_TOL` of the output's scale, and with every key
     visible over Sk >= 1500 a planted tail-drop must fail that limit."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     launch_plan)
+    for D in FA.HEAD_DIMS:
+        plan = launch_plan(1, 1, 1, 1, 1, D)
+        tiling = tuple(FA._lib().flash_attention_tiling(D, i)
+                       for i in range(4))
+        if tiling != (plan.block_q, plan.block_k, plan.stages, plan.smem):
+            fail(f"flash_attention: the library's tiling at D {D} (rows, "
+                 f"keys, stages, shared bytes) {tiling} is not launch_plan's")
+    unsplit = [c for c in FLASH_SPLITS if launch_plan(*c[:6]).splits < 2]
+    if unsplit:
+        fail(f"flash_attention: FLASH_SPLITS cases the plan does not split: "
+             f"{unsplit}")
     g = torch.Generator().manual_seed(3)
     worst, d256, n = 0.0, 0.0, 0
     rows = {name: 0.0 for name in FLASH_ROWS.values()}
@@ -2430,7 +2485,7 @@ def loss_and_grads(cfg, params, tokens: torch.Tensor) -> tuple:
 
 
 # the card's kernels sum in another order than the CPU's plain versions
-# (the attention kernel in 64-key tiles, P V from P's two bf16 halves), so
+# (the attention kernel in 128-key tiles, P V from P's two bf16 halves), so
 # the router logits of the two runs differ a little and a token near a tie between
 # experts may be routed differently; the CPU replays the card's routing and
 # these bound the difference: the logits' rms difference, relative to their

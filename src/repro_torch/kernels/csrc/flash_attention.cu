@@ -4,47 +4,66 @@
 // flash_attention (body `_kernel`).  Same function: q (B,H,Sq,D) and k, v
 // (B,Hkv,Sk,D), f32 or bf16; queries aligned to the END of the keys
 // (q_offset = Sk - Sq); causal and sliding-window masks; fp32 running max,
-// denominator and accumulator across KV tiles; masked scores set to -1e38
-// and the output divided by max(l, 1e-30), as the TPU kernel does; KV head
-// h / (H/Hkv), never repeated.  The TPU grid walks the KV blocks of one Q
+// denominator and accumulator across KV tiles; masked scores out of the
+// softmax (-1e38 as in the TPU kernel, -inf in the bf16 kernel: the same
+// output) and the output divided by max(l, 1e-30), as the TPU kernel does;
+// KV head h / (H/Hkv), never repeated.  The TPU grid walks the KV blocks of one Q
 // tile as its sequential last dimension with the running state in VMEM
-// scratch; here one block owns one (b, h, 64-query tile) and loops over the
-// KV tiles itself, the running state in registers.  The loop covers only the
+// scratch; here one block owns one (b, h, query tile) and loops over the KV
+// tiles itself, the running state in registers.  The loop covers only the
 // tiles the causal and window predicates can reach (the TPU kernel's
 // `pl.when` skip, made into loop bounds).  Any Sq and Sk: q rows past Sq are
 // computed on zeros and not stored, keys past Sk are masked.  D is a
 // template parameter (16, 32, 64, 128, 256).
 //
-// bf16: `flash_fwd_kernel_tc`, on the tensor cores (FlashAttention-2's
-// forward pass).  4 warps, each owning 16 of the block's 64 query rows.  The
-// Q tile is loaded once into registers as mma A-fragments (ldmatrix).  K and
-// V tiles of 64 keys stay bf16 in shared memory, rows padded by 16 bytes (8
-// consecutive rows of an ldmatrix then fall on 32 distinct banks), double
-// buffered with cp.async so that the next tile's load overlaps this tile's
-// products; rows past Sq or Sk are zero-filled (src-size 0).  S = Q K^T is
-// mma.sync m16n8k16 bf16 -> fp32; the online softmax runs on the
-// accumulator fragments (a row's max and sum over the four lanes of a quad,
-// by shuffles; fp32 m and l); P is split in registers into two bf16
-// A-fragments (hi and lo, below) for P V, V read with ldmatrix.trans: no
-// round trip through shared memory.  Masks are applied only on tiles that straddle the
-// diagonal, the window's edge or Sk.  The grid is (H, q tiles, B) with the
-// q tiles in reverse, so the longest causal tiles of every head start first
-// and the tail of the last wave runs short tiles.
+// bf16: `flash_fwd_kernel_wgmma`, on Hopper's warpgroup tensor cores fed by
+// TMA (FlashAttention-3's shape, hopper.cuh's primitives).  A block of 384
+// threads: warpgroup 0 produces, warpgroups 1 and 2 consume, each owning 64
+// of the block's 128 query rows.  One producer thread loads the Q tile once
+// and then the K and V tiles (BK keys) into a ring of STAGES stages, each
+// tile a TMA copy of the 3-D tensor map (D, S, B*heads) swizzled over 128
+// bytes (a D 16 or 32 row holds 32 or 64 bytes and takes that swizzle);
+// rows past Sq or Sk land as zeros, never the next head's.  Full barriers
+// (K and V apart, so Q K^T starts while V lands) carry the copies' bytes,
+// empty barriers the consumers' release.  setmaxnreg gives the producer 32
+// registers a thread and the consumers 232.  Per KV tile a consumer
+// warpgroup computes S = Q K^T with wgmma, both operands K-major in shared
+// memory; the online softmax runs on the fp32 accumulator fragments (a row's
+// max and sum over the four lanes of a quad); P is split in registers into
+// two bf16 A-fragments (hi and lo, below) and O += P V is two register-A
+// wgmmas against the same V tile, read MN-major (transposed) by its
+// descriptor: no round trip of P through shared memory.  Within a
+// warpgroup P V of tile it - 1 runs under the softmax of tile it; the two
+// warpgroups share each K/V tile and take turns to issue their products
+// (ping-pong, named barriers; not at D 256, where it was slower), so one's
+// softmax runs under the other's products.  Masks are applied only on
+// tiles that straddle the diagonal, the window's edge or Sk, and a
+// warpgroup skips the products of a tile none of its rows can see.  The
+// grid is (H, q tiles x splits, B) with the q tiles in reverse, so the
+// longest causal tiles start first.
 //
-// Head dim 256 (Gemma) changes two things.  A warp's O accumulator is
-// 128 fp32 registers a thread (16 rows x 256 columns over 32 lanes); Q's
-// fragments kept in registers would add 64 and the S tile of 64 keys 32, past
-// the 255-register limit, so the kernel would spill.  At D 256 the kernel
-// therefore (a) reads Q's A-fragments from shared memory at each k-step
-// (ldmatrix, 16 a KV tile per warp) instead of holding them, and (b) takes
-// KV tiles of 32 keys, so S is 16 registers.  ptxas gives the instance 254
-// registers a thread and no spill (240 before P V took P's two bf16
-// halves; chip_smoke.py prints its report per instance and fails on a
-// spill).  The shared memory is then (64 + 4 x 32) rows x 264 x 2 B =
-// 101,376 B, where 64-key tiles would take 168,960 B, one block to an SM.
-// Two blocks fit an SM only while the registers allow it too: 256 (254
-// rounded up) x 128 threads x 2 = 65,536, the whole register file; past
-// 256 a thread, one block.
+// Tiles (kernels/flash_attention.py:launch_plan reads the same): 128 query
+// rows; 128 keys a KV tile up to D 128, 64 at D 256; 4 stages up to D 64,
+// 3 at D 128, 2 at D 256.  A consumer thread holds O (D / 2 fp32), S (BK /
+// 2 fp32) and P's halves (BK / 2 registers): 128 + 32 + 32 at D 256, under
+// the 232 registers.  Shared memory, Q + 2 x STAGES x BK x D x 2 bytes: at
+// D 128 32 KB + 192 KB, at D 256 64 KB + 128 KB; one block an SM.
+// tools/flash_variants.py times the tiles and the ping-pong against their
+// alternatives on the card.
+//
+// Split over the keys.  When two splits of the (B, H, q tile) grid fit in
+// one wave of 132 blocks and the keys span two tiles or more (a rank's
+// Whisper cross attention at Sq 1 or 32 against 1500 frames: 64 blocks),
+// the wrapper asks for n_split > 1 (launch_plan's):
+// split s takes KV tiles [s per, (s + 1) per), per = ceil(tiles / n_split),
+// and writes its unnormalised fp32 O, its m and l to the wrapper's scratch.
+// The last block of a (b, h, q tile) to finish, by an atomic ticket (the
+// writes fenced before it, the reads from L2 after), merges them in the
+// same launch: M = max m_s, O = sum 2^(m_s - M) O_s / max(sum 2^(m_s - M)
+// l_s, 1e-30).  A split that saw only masked keys for a row (m_s = -1e38)
+// weighs 0 there, as the TPU kernel's `corr` makes such keys count.  The
+// tickets are zeroed on the stream before each launch: a CUDA graph's
+// replays and two streams never share them.
 //
 // Numerics of the bf16 kernel.  The reference scales q by 1/sqrt(D) in fp32
 // before the product; scaling the bf16 q would add a rounding, so the kernel
@@ -55,9 +74,8 @@
 // rounded to bf16 as the operand: each fp32 p is split into hi = bf16(p) and
 // lo = bf16(p - hi), and hi V + lo V go into the same fp32 accumulator.  V is
 // bf16, exact in fp32, so the two products carry about 16 bits of P where
-// one bf16 P carries 8 (and TF32 would carry 11); P V then costs two mma
-// instructions where it cost one, the kernel's products about 1.5x.  l sums
-// the fp32 P.
+// one bf16 P carries 8 (and TF32 would carry 11); P V then costs two wgmmas
+// where it cost one, the kernel's products about 1.5x.  l sums the fp32 P.
 //
 // f32: `flash_fwd_kernel`, fp32 FMAs from shared memory (one block of 256
 // threads, four lanes sharing a query row, K/V tiles staged as fp32; 32-key
@@ -65,79 +83,47 @@
 // is a dispatch by type, not a fallback: the serving path is bf16, and
 // TF32 tensor cores would miss the f32 tolerance (2e-5).
 //
-// Bound on an H100: operations.  At B1 H32 D128 S2048 causal the products
-// are ~3.4e10 FLOP (35 us at the 989 TFLOP/s bf16 tensor-core peak) against
-// ~42 MB moved (12.5 us at 3.35 TB/s).  What holds the bf16 kernel back now:
-// mma.sync reaches about two thirds of Hopper's tensor-core rate at best
-// (wgmma fed by TMA, with producer and consumer warps, reaches the rest),
-// and each tile pays a block barrier with only 4 warps to hide it.
+// Bound on an H100: operations for long sequences, bytes for few queries.
+// At B1 H32 D128 S2048 causal the products are ~3.4e10 FLOP (35 us at the
+// 989 TFLOP/s bf16 tensor-core peak; the hi/lo P makes the kernel's own
+// 1.5x that) against ~42 MB moved (12.5 us at 3.35 TB/s); Whisper's cross
+// attention at Sq 1 reads 49 MB of K and V (14.7 us) for 0.1 GFLOP.
 //
-// The launcher takes PyTorch's current stream, allocates nothing and returns
-// cudaGetLastError() right after the launch.
+// The launchers take PyTorch's current stream, allocate nothing (the
+// wrapper passes the split's scratch) and return cudaGetLastError() right
+// after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1.0e38f;     // the TPU kernel's NEG_INF
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on wgmma
 // ---------------------------------------------------------------------------
-constexpr int kTcThreads = 128;         // 4 warps x 16 query rows
-constexpr int kTcBQ = 64;               // query rows per block
-template <int D> struct TcTile {
-  static constexpr int LD = D + 8;      // padded bf16 row: 16 bytes extra
-  static constexpr int BK = D > 128 ? 32 : 64;   // keys per KV tile
-  static constexpr bool kQReg = D <= 128;        // Q's fragments in registers
-  static constexpr int smem_bytes = (kTcBQ + 4 * BK) * LD * 2;
+constexpr int kWgThreads = 384;         // producer + 2 consumer warpgroups
+constexpr int kWgBQ = 128;              // query rows per block, 64 a consumer
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 232;      // 32 x 128 + 232 x 256 <= 168 x 384
+
+template <int D> struct WgTile {
+  static constexpr int BK = D > 128 ? 64 : 128;          // keys per KV tile
+  static constexpr int STAGES = D > 128 ? 2 : D == 128 ? 3 : 4;
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;   // swizzle bytes
+  static constexpr int CE = SW / 2;     // bf16 columns of a slab
+  static constexpr int NCH = D / CE;    // slabs across D
+  static constexpr int Q_BYTES = kWgBQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int BAR_BYTES = 256;
+  // 1024 bytes of slack to align the tiles on the swizzle's atoms
+  static constexpr int smem_bytes =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // (a, b) -> their bf16 pair hi and the bf16 pair of what hi leaves out,
 // lo = bf16(x - float(hi)): hi + lo carries about 16 bits of each value
@@ -156,208 +142,464 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// rows [row0, row0 + R) of a (rows, D) bf16 matrix into a padded tile,
-// zero-filling rows at or past `rows`
-template <int D, int R>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows) {
-  constexpr int CPR = D / 8;            // 16-byte chunks per row
-  constexpr int LD = TcTile<D>::LD;
+// One block's work, as the producer and the consumers see it.
+struct Job {
+  int H, Sq, Sk, causal, window, n_split;
+  int bh, bhk, q0, qt, n_qt, split, q_offset;
+  int n_wg;                             // consumer warpgroups with rows
+  int t_begin, n_tiles;                 // this split's reachable KV tiles
+  float scale_log2;
+};
+
+// the producer thread: Q once, then K and V of each tile into the ring
+template <int D>
+__device__ __forceinline__ void produce(const Job& j, const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint32_t sQ,
+                                        uint32_t sK, uint32_t sV,
+                                        uint64_t* qbar, uint64_t* fullK,
+                                        uint64_t* fullV, uint64_t* empty) {
+  using T = WgTile<D>;
+  constexpr int BK = T::BK, ST = T::STAGES, SW = T::SW, CE = T::CE;
+  hopper::tma_prefetch(tk);
+  hopper::tma_prefetch(tv);
+  hopper::mbar_expect_tx(qbar, T::Q_BYTES);
 #pragma unroll
-  for (int i = threadIdx.x; i < R * CPR; i += kTcThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * LD + c,
-               src + static_cast<size_t>(ok ? row0 + r : 0) * D + c, ok);
+  for (int c = 0; c < T::NCH; ++c)
+    hopper::tma_load_3d(sQ + c * kWgBQ * SW, tq, c * CE, j.q0, j.bh, qbar);
+  for (int it = 0; it < j.n_tiles; ++it) {
+    const int s = it % ST;
+    if (it >= ST) hopper::mbar_wait(empty + s, ((it / ST) - 1) & 1);
+    const int k0 = (j.t_begin + it) * BK;
+    hopper::mbar_expect_tx(fullK + s, T::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c)
+      hopper::tma_load_3d(sK + s * T::KV_BYTES + c * BK * SW, tk, c * CE, k0,
+                          j.bhk, fullK + s);
+    hopper::mbar_expect_tx(fullV + s, T::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < T::NCH; ++c)
+      hopper::tma_load_3d(sV + s * T::KV_BYTES + c * BK * SW, tv, c * CE, k0,
+                          j.bhk, fullV + s);
   }
 }
 
+// S = Q K^T for the warpgroup's 64 rows and tile `it`, issued (not waited);
+// the first k-step overwrites sc (scale-d 0), which is neither cleared nor
+// fenced first: a register written while another wgmma runs (even by an
+// empty asm) makes ptxas serialize the two
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq,
-                    int Sk, int causal, int window, float scale_log2) {
-  constexpr int LD = TcTile<D>::LD;
-  constexpr int BK = TcTile<D>::BK;
-  constexpr bool kQReg = TcTile<D>::kQReg;
-  constexpr int KS = D / 16;            // k-steps of Q K^T
-  constexpr int KQ = kQReg ? KS : 1;    // Q fragments held at once
-  constexpr int NS = BK / 8;            // 8-key column blocks of S
-  constexpr int ND = D / 8;             // 8-wide column blocks of O
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kTcBQ * LD;  // [2][BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;
-
-  const int h = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;   // longest first
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q_offset = Sk - Sq;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qg = q + (static_cast<size_t>(b) * H + h) * Sq * D;
-  const __nv_bfloat16* kg = k + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-  const __nv_bfloat16* vg = v + (static_cast<size_t>(b) * Hkv + hk) * Sk * D;
-
-  // the KV tiles some query of this tile can reach
-  const int q_first = q0 + q_offset;
-  const int q_last = min(q0 + kTcBQ, Sq) - 1 + q_offset;
-  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
-
-  load_tile<D, kTcBQ>(Qs, qg, q0, Sq);
-  if (n_tiles > 0) {
-    load_tile<D, BK>(Ks, kg, k_begin, Sk);
-    load_tile<D, BK>(Vs, vg, k_begin, Sk);
+__device__ __forceinline__ void issue_s(float (&sc)[WgTile<D>::BK / 2],
+                                        uint32_t qrows, uint32_t kst) {
+  using T = WgTile<D>;
+  constexpr int BK = T::BK, SW = T::SW;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 32 / SW, off = kk * 32 % SW;
+    const uint64_t da =
+        hopper::smem_desc(qrows + c * kWgBQ * SW + off, 16, 8 * SW, SW);
+    const uint64_t db =
+        hopper::smem_desc(kst + c * BK * SW + off, 16, 8 * SW, SW);
+    hopper::Wgmma<BK>::template ss<0, 0>(sc, da, db, kk > 0);
   }
-  cp_async_commit();
+  hopper::wgmma_commit();
+}
 
-  // this lane's two query rows: g and g + 8 of the warp's 16
-  const int row0 = warp * 16 + g;
-  const int qpos0 = q0 + row0 + q_offset;
+// O += hi V + lo V for one tile, V MN-major, issued (not waited)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&ph)[WgTile<D>::BK / 16][4],
+                                         uint32_t (&pl)[WgTile<D>::BK / 16][4],
+                                         uint32_t vst) {
+  using T = WgTile<D>;
+  constexpr int BK = T::BK, SW = T::SW;
+  hopper::fence_operands(acc);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    hopper::fence_operands(ph[kk]);
+    hopper::fence_operands(pl[kk]);
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv =
+        hopper::smem_desc(vst + kk * 16 * SW, BK * SW, 8 * SW, SW);
+    hopper::Wgmma<D>::template rs<1>(acc, ph[kk], dv, 1);
+    hopper::Wgmma<D>::template rs<1>(acc, pl[kk], dv, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// mask tile k0's scores in place (only on a tile that straddles an edge),
+// then the online softmax on x = s log2(e) / sqrt(D): the new row max (of
+// the raw scores, scaled once), corr (the old sums' factor), p = 2^(x - m)
+// in place, one fma and one ex2 a score, l = l corr + sum p.  A masked
+// score is -inf: its p is 0, and a row that has seen no key keeps m =
+// -1e38, l = 0 and O = 0 (the TPU kernel's -1e38 scores give such a row p
+// = 1 until the first visible key's corr zeroes it: the same output).
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        const Job& j, int k0, int wq_first,
+                                        int wq_last, int qpos0, int t) {
+  const bool edge = k0 + BK > j.Sk ||
+                    (j.causal && k0 + BK - 1 > wq_first) ||
+                    (j.window > 0 && k0 <= wq_last - j.window);
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float x = sc[i];
+    if (edge) {
+      const int kpos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int qpos = qpos0 + ((i >> 1) & 1) * 8;
+      const bool ok = kpos < j.Sk && (!j.causal || kpos <= qpos) &&
+                      (j.window <= 0 || kpos > qpos - j.window);
+      x = ok ? x : __int_as_float(0xff800000);   // -inf
+    }
+    sc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * j.scale_log2);
+    corr[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], j.scale_log2, -m[(i >> 1) & 1]));
+    ps[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+}
+
+// P split into two bf16 A-fragments straight from the fp32 p: keys 16 kk ..
+// 16 kk + 15 are the accumulators' n8 blocks 2 kk and 2 kk + 1
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&sc)[BK / 2],
+                                        uint32_t (&ph)[BK / 16][4],
+                                        uint32_t (&pl)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], ph[kk][e],
+                 pl[kk][e]);
+}
+
+// the last block of a (b, h, q tile) merges the splits' O, m and l: a
+// thread a row takes M and 1/L in one pass (into shared memory), then a
+// thread a 16-column chunk of a row sums the splits' O
+template <int D>
+__device__ __forceinline__ void merge_splits(const Job& j,
+                                             __nv_bfloat16* __restrict__ o,
+                                             const float* part,
+                                             const float* pm,
+                                             const float* pl_, float* stat,
+                                             int ct, int threads) {
+  const int rows = min(j.q0 + kWgBQ, j.Sq) - j.q0;
+  const size_t split0 = static_cast<size_t>(j.bh) * j.n_split * j.Sq + j.q0;
+  for (int r = ct; r < rows; r += threads) {
+    float M = kNegInf, L = 0.0f;
+#pragma unroll 4
+    for (int sp = 0; sp < j.n_split; ++sp) {
+      const size_t i = split0 + static_cast<size_t>(sp) * j.Sq + r;
+      const float ms = __ldcg(pm + i), ls = __ldcg(pl_ + i);
+      const float mn = fmaxf(M, ms);
+      L = L * exp2_approx(M - mn) + ls * exp2_approx(ms - mn);
+      M = mn;
+    }
+    stat[r] = M;
+    stat[kWgBQ + r] = 1.0f / fmaxf(L, 1e-30f);
+  }
+  hopper::bar_sync(1, threads);
+  for (int item = ct; item < rows * (D / 16); item += threads) {
+    const int r = item / (D / 16), c = item % (D / 16);
+    const float M = stat[r], inv = stat[kWgBQ + r];
+    float a[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a[e] = 0.0f;
+#pragma unroll 4
+    for (int sp = 0; sp < j.n_split; ++sp) {
+      const size_t i = split0 + static_cast<size_t>(sp) * j.Sq + r;
+      const float w = exp2_approx(__ldcg(pm + i) - M);
+      const float4* src = reinterpret_cast<const float4*>(part + i * D) + 4 * c;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float4 x = __ldcg(src + v);
+        a[4 * v] += w * x.x;
+        a[4 * v + 1] += w * x.y;
+        a[4 * v + 2] += w * x.z;
+        a[4 * v + 3] += w * x.w;
+      }
+    }
+    uint32_t packed[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 h2 =
+          __floats2bfloat162_rn(a[2 * e] * inv, a[2 * e + 1] * inv);
+      packed[e] = *reinterpret_cast<const uint32_t*>(&h2);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(
+        o + (static_cast<size_t>(j.bh) * j.Sq + j.q0 + r) * D + 16 * c);
+    dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+  }
+}
+
+// a consumer warpgroup (wg 0 or 1): rows [q0 + 64 wg, q0 + 64 wg + 64).
+// Per tile it the products of tile it - 1's P V run while the softmax of
+// tile it runs: S(it) and P V(it - 1) are issued together, the wait for
+// S(it) leaves P V(it - 1) in flight, and O is rescaled once it lands.
+template <int D>
+__device__ __forceinline__ void consume(const Job& j, int wg, int tid,
+                                        uint32_t sQ, uint32_t sK, uint32_t sV,
+                                        uint64_t* qbar, uint64_t* fullK,
+                                        uint64_t* fullV, uint64_t* empty,
+                                        int* last, float* stat,
+                                        __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ part,
+                                        int* __restrict__ tickets) {
+  using T = WgTile<D>;
+  constexpr int BK = T::BK, ST = T::STAGES, SW = T::SW;
+  constexpr bool kPingPong = D <= 128;
+  const int lt = tid % 128;
+  const int warp = lt / 32, lane = lt % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_wg = j.q0 + 64 * wg;
+  const int wq_first = r_wg + j.q_offset;
+  const int wq_last = min(r_wg + 64, j.Sq) - 1 + j.q_offset;
+  const int row0 = r_wg + 16 * warp + g;          // this lane's rows: +0, +8
+  const int qpos0 = row0 + j.q_offset;
+  const uint32_t qrows = sQ + 64 * wg * SW;
+
+  // the tiles some row of this warpgroup sees: [w_lo, w_hi) of n_tiles
+  int w_lo = 0, w_hi = j.n_tiles;
+  if (j.causal) w_hi = min(w_hi, max(0, wq_last / BK - j.t_begin + 1));
+  if (j.window > 0) {
+    const int x = wq_first - j.window + 1;        // the first key row 0 sees
+    if (x > 0) w_lo = min(j.n_tiles, max(0, x / BK - j.t_begin));
+  }
+  w_hi = max(w_hi, w_lo);
+
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};            // this lane's part of the row sums
-  float acc[ND][4];
+  float corr[2];
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  uint32_t qf[KQ][4];
-  const __nv_bfloat16* qrow = Qs + (warp * 16 + (lane & 15)) * LD +
-                              (lane >> 4) * 8;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float sc[BK / 2];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * BK;
-    const int buf = it & 1;
-    // one barrier a tile: past it, tile it has landed and every warp is
-    // done with tile it-1, whose buffers then take tile it+1
-    cp_async_wait<0>();
-    __syncthreads();
-    if (it + 1 < n_tiles) {
-      load_tile<D, BK>(Ks + (buf ^ 1) * BK * LD, kg, k0 + BK, Sk);
-      load_tile<D, BK>(Vs + (buf ^ 1) * BK * LD, vg, k0 + BK, Sk);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* Kt = Ks + buf * BK * LD;
-    const __nv_bfloat16* Vt = Vs + buf * BK * LD;
-    if constexpr (kQReg) {
-      if (it == 0) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], qrow + kk * 16);
-      }
-    }
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if constexpr (!kQReg) ldsm_x4(qf[0], qrow + kk * 16);
-      const uint32_t (&qa)[4] = qf[kQReg ? kk : 0];
-#pragma unroll
-      for (int j2 = 0; j2 < NS / 2; ++j2) {
-        uint32_t bk[4];
-        ldsm_x4(bk, Kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                        kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j2], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * j2 + 1], qa, bk[2], bk[3]);
-      }
-    }
-
-    // scale, mask (only on tiles that straddle an edge), online softmax
-    const bool edge = k0 + BK > Sk ||
-                      (causal && k0 + BK - 1 > q_first) ||
-                      (window > 0 && k0 <= q_last - window);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (edge) {
-          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-          const int qpos = qpos0 + (e >> 1) * 8;
-          const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          x = ok ? x : kNegInf;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2_approx(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2_approx(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-
-    // O += P V: P split into two bf16 A-fragments straight from the S
-    // accumulators, hi = bf16(p) and lo = bf16(p - hi), both against the
-    // same V fragment into the same fp32 sums
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + it % ST);
+  };
+  // ping-pong: with two warpgroups at work they take turns to issue a
+  // tile's products (named barriers 3 and 4), warpgroup 0 first, so one's
+  // softmax runs under the other's products; a tile a warpgroup passes
+  // takes its turn all the same, so both take n_tiles turns
+  const bool pp = kPingPong && j.n_wg == 2;
+  auto turn = [&]() {
+    if (pp) hopper::bar_sync(3 + wg, 256);
+  };
+  auto hand_over = [&](int it) {
+    if (pp && !(wg == 1 && it == j.n_tiles - 1))
+      hopper::bar_arrive(4 - wg, 256);
+  };
+  if (pp && wg == 1 && j.n_tiles > 0) hopper::bar_arrive(3, 256);
+  auto pass = [&](int it) {             // a tile no row here sees
+    hopper::mbar_wait(fullK + it % ST, (it / ST) & 1);
+    hopper::mbar_wait(fullV + it % ST, (it / ST) & 1);
+    release(it);
+    turn();
+    hand_over(it);
+  };
+  auto take = [&](int it) {             // tile it's K has landed
+    hopper::mbar_wait(fullK + it % ST, (it / ST) & 1);
+  };
+  auto k_tile = [&](int it) { return sK + (it % ST) * T::KV_BYTES; };
+  auto pv = [&](int it) {               // O += P V(it), issued
+    hopper::mbar_wait(fullV + it % ST, (it / ST) & 1);
+    issue_pv<D>(acc, ph, pl, sV + (it % ST) * T::KV_BYTES);
+  };
+  auto pv_landed = [&](int it) {        // after the wait that covers it
+    hopper::fence_operands(acc);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int j2 = 0; j2 < ND / 2; ++j2) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                               LD + j2 * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * j2], ph, bv[0], bv[1]);
-        mma_bf16(acc[2 * j2], pl, bv[0], bv[1]);
-        mma_bf16(acc[2 * j2 + 1], ph, bv[2], bv[3]);
-        mma_bf16(acc[2 * j2 + 1], pl, bv[2], bv[3]);
-      }
+      hopper::fence_operands(ph[kk]);
+      hopper::fence_operands(pl[kk]);
     }
+    release(it);
+  };
+  auto scores = [&](int it) {
+    softmax<BK>(sc, m, l, corr, j, (j.t_begin + it) * BK, wq_first, wq_last,
+                qpos0, t);
+  };
+
+  hopper::mbar_wait(qbar, 0);
+  for (int it = 0; it < w_lo; ++it) pass(it);
+  if (w_lo < w_hi) {
+    take(w_lo);
+    turn();
+    issue_s<D>(sc, qrows, k_tile(w_lo));
+    hand_over(w_lo);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+    scores(w_lo);
+    split_p<BK>(sc, ph, pl);
+    for (int it = w_lo + 1; it < w_hi; ++it) {
+      take(it);
+      turn();
+      issue_s<D>(sc, qrows, k_tile(it));
+      pv(it - 1);
+      hand_over(it);
+      hopper::wgmma_wait<1>();          // S(it) landed, P V(it - 1) runs
+      hopper::fence_operands(sc);
+      scores(it);
+      hopper::wgmma_wait<0>();
+      pv_landed(it - 1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      split_p<BK>(sc, ph, pl);
+    }
+    pv(w_hi - 1);
+    hopper::wgmma_wait<0>();
+    pv_landed(w_hi - 1);
   }
-  cp_async_wait<0>();                   // no copy outlives the block
+  for (int it = w_hi; it < j.n_tiles; ++it) pass(it);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
   }
+  if (j.n_split == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= j.Sq) continue;
+      const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = o + (static_cast<size_t>(j.bh) * j.Sq + qi) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv,
+                                  acc[4 * c + 2 * r + 1] * inv);
+    }
+    return;
+  }
+
+  // this split's unnormalised O, m and l, then the ticket
+  const size_t rows_all =
+      static_cast<size_t>(gridDim.z) * j.H * j.n_split * j.Sq;
+  float* pm = part + rows_all * D;
+  float* pl_ = pm + rows_all;
+  const size_t rbase = static_cast<size_t>(j.bh * j.n_split + j.split) * j.Sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + row0 + 8 * r;
-    if (qi >= Sq) continue;
-    __nv_bfloat16* orow = o + (static_cast<size_t>(b) * H + h) * Sq * D +
-                          static_cast<size_t>(qi) * D;
+    const int qi = row0 + 8 * r;
+    if (qi >= j.Sq) continue;
+    float* prow = part + (rbase + qi) * D;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * r] * l[r],
-                                acc[j][2 * r + 1] * l[r]);
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(prow + 8 * c + 2 * t) =
+          make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    if (t == 0) {
+      pm[rbase + qi] = m[r];
+      pl_[rbase + qi] = l[r];
+    }
+  }
+  const int threads = 128 * j.n_wg;
+  __threadfence();
+  hopper::bar_sync(1, threads);
+  if (tid == 128)
+    *last = atomicAdd(tickets + j.bh * j.n_qt + j.qt, 1) == j.n_split - 1;
+  hopper::bar_sync(1, threads);
+  if (!*last) return;
+  __threadfence();
+  merge_splits<D>(j, o, part, pm, pl_, stat, tid - 128, threads);
+}
+
+// part: n_split > 1 only; the splits' fp32 O (B*H, n_split, Sq, D), then m
+// and l (B*H, n_split, Sq) each.  tickets: (B*H, q tiles), zeroed.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                       int* __restrict__ tickets, int H, int Hkv, int Sq,
+                       int Sk, int causal, int window, float scale_log2,
+                       int n_split) {
+  using T = WgTile<D>;
+  constexpr int BK = T::BK, ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = hopper::smem_u32(base);
+  const uint32_t sK = sQ + T::Q_BYTES;            // stage s at + s KV_BYTES
+  const uint32_t sV = sK + ST * T::KV_BYTES;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + T::Q_BYTES + 2 * ST * T::KV_BYTES);
+  uint64_t* qbar = bars;
+  uint64_t* fullK = bars + 1;
+  uint64_t* fullV = bars + 1 + ST;
+  uint64_t* empty = bars + 1 + 2 * ST;
+  int* last = reinterpret_cast<int*>(bars + 1 + 3 * ST);
+
+  Job j;
+  j.H = H, j.Sq = Sq, j.Sk = Sk, j.causal = causal, j.window = window;
+  j.n_split = n_split, j.scale_log2 = scale_log2;
+  const int h = blockIdx.x, b = blockIdx.z;
+  j.n_qt = (Sq + kWgBQ - 1) / kWgBQ;
+  j.qt = j.n_qt - 1 - static_cast<int>(blockIdx.y) / n_split;  // longest 1st
+  j.split = static_cast<int>(blockIdx.y) % n_split;
+  j.q0 = j.qt * kWgBQ;
+  j.bh = b * H + h;
+  j.bhk = b * Hkv + h / (H / Hkv);
+  j.q_offset = Sk - Sq;
+  j.n_wg = Sq - j.q0 > 64 ? 2 : 1;
+  // the KV tiles some query of this tile can reach, within this split
+  const int q_first = j.q0 + j.q_offset;
+  const int q_last = min(j.q0 + kWgBQ, Sq) - 1 + j.q_offset;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int per = ((Sk + BK - 1) / BK + n_split - 1) / n_split;
+  j.t_begin = max(k_begin / BK, j.split * per);
+  j.n_tiles =
+      max(0, min((k_end + BK - 1) / BK, (j.split + 1) * per) - j.t_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(fullK + s, 1);
+      hopper::mbar_init(fullV + s, 1);
+      hopper::mbar_init(empty + s, 4 * j.n_wg);   // one arrival a warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform to the compiler (setmaxnreg's
+  // regions must not reconverge)
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wgi == 0) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 0)
+      produce<D>(j, &tq, &tk, &tv, sQ, sK, sV, qbar, fullK, fullV, empty);
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    if (wgi - 1 < j.n_wg)
+      consume<D>(j, wgi - 1, tid, sQ, sK, sV, qbar, fullK, fullV, empty,
+                 last, reinterpret_cast<float*>(base), o, part, tickets);
   }
 }
 
@@ -502,21 +744,37 @@ cudaError_t raise_smem(K kernel, size_t smem, bool* raised) {
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int H, int Hkv, int Sq, int Sk, int causal, int window,
-              cudaStream_t stream) {
-  const size_t smem = TcTile<D>::smem_bytes;
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int H, int Hkv, int Sq, int Sk, int causal, int window,
+                 int n_split, float* part, int* tickets,
+                 cudaStream_t stream) {
+  using T = WgTile<D>;
+  if (n_split < 1 || (n_split > 1 && (part == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool raised = false;
-  cudaError_t err = raise_smem(flash_fwd_kernel_tc<D>, smem, &raised);
+  cudaError_t err = raise_smem(flash_fwd_kernel_wgmma<D>, T::smem_bytes,
+                               &raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(H, (Sq + kTcBQ - 1) / kTcBQ, B);
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int e = hopper::encode_3d(&tq, bf16, 2, q, D, Sq,
+                            static_cast<uint64_t>(B) * H, T::CE, kWgBQ,
+                            T::SW);
+  if (e == 0)
+    e = hopper::encode_3d(&tk, bf16, 2, k, D, Sk,
+                          static_cast<uint64_t>(B) * Hkv, T::CE, T::BK,
+                          T::SW);
+  if (e == 0)
+    e = hopper::encode_3d(&tv, bf16, 2, v, D, Sk,
+                          static_cast<uint64_t>(B) * Hkv, T::CE, T::BK,
+                          T::SW);
+  if (e != 0) return e;
+  const dim3 grid(H, ((Sq + kWgBQ - 1) / kWgBQ) * n_split, B);
   const float scale_log2 =
       1.4426950408889634f / sqrtf(static_cast<float>(D));
-  flash_fwd_kernel_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, Hkv, Sq, Sk, causal, window, scale_log2);
+  flash_fwd_kernel_wgmma<D><<<grid, kWgThreads, T::smem_bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), part, tickets, H, Hkv, Sq,
+      Sk, causal, window, scale_log2, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -539,12 +797,38 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window, int dtype,
-           cudaStream_t s) {
-  if (dtype == 0)
+           int n_split, float* part, int* tickets, cudaStream_t s) {
+  if (dtype == 0 && n_split == 1)
     return launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
   if (dtype == 1)
-    return launch_tc<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    return launch_wgmma<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
+                           n_split, part, tickets, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D> long long tiling(int which) {
+  using T = WgTile<D>;
+  switch (which) {
+    case 0: return kWgBQ;
+    case 1: return T::BK;
+    case 2: return T::STAGES;
+    case 3: return T::smem_bytes;
+    default: return -1;
+  }
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int H, int Hkv, int Sq, int Sk, int D, int causal, int window,
+             int dtype, int n_split, float* part, int* tickets,
+             cudaStream_t s) {
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 32: return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 64: return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 128: return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 256: return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -557,14 +841,31 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int Sq, int Sk,
                            int D, int causal, int window, int dtype,
                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window, dtype, 1,
+                  nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only, the keys split n_split ways (launch_plan's): part holds
+// B*H*n_split*Sq*(D + 2) floats, tickets B*H*ceil(Sq / 128) ints, zeroed
+int flash_attention_split_launch(const void* q, const void* k,
+                                 const void* v, void* o, int B, int H,
+                                 int Hkv, int Sq, int Sk, int D, int causal,
+                                 int window, int n_split, float* part,
+                                 int* tickets, void* stream) {
+  return dispatch(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window, 1,
+                  n_split, part, tickets, static_cast<cudaStream_t>(stream));
+}
+
+// the bf16 kernel's tiling at head dim D: which = 0 query rows a block, 1
+// keys a KV tile, 2 stages, 3 dynamic shared memory in bytes; -1 otherwise
+long long flash_attention_tiling(int D, int which) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
-    case 32: return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
-    case 64: return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
-    case 128: return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
-    case 256: return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return tiling<16>(which);
+    case 32: return tiling<32>(which);
+    case 64: return tiling<64>(which);
+    case 128: return tiling<128>(which);
+    case 256: return tiling<256>(which);
+    default: return -1;
   }
 }
 

@@ -3,11 +3,14 @@
 Port of ``src/repro/kernels/flash_attention.py:flash_attention`` as wrapped
 by ``src/repro/kernels/ops.py:flash_attention``.  The CUDA kernel is
 ``csrc/flash_attention.cu`` (its header gives the design and the bound).
-The kernel is chosen by type, not as a fallback: bfloat16 runs on the tensor
-cores (``mma.sync``, fp32 accumulation; P V at the reference's fp32
-precision, P split into two bf16 halves, hi and lo, whose products sum into
-one fp32 accumulator), float32 on the FMA units, since TF32 tensor cores
-would miss the f32 tolerance.
+The kernel is chosen by type, not as a fallback: bfloat16 runs on Hopper's
+warpgroup tensor cores (``wgmma`` fed by TMA, fp32 accumulation; P V at the
+reference's fp32 precision, P split into two bf16 halves, hi and lo, whose
+products sum into one fp32 accumulator), float32 on the FMA units, since
+TF32 tensor cores would miss the f32 tolerance.  :func:`launch_plan` is the
+bf16 kernel's tiling and its split over the keys for calls whose grid
+cannot fill the card (Whisper's cross attention at 1 or 32 queries);
+a split call's scratch is allocated here, one launch all the same.
 
 :func:`flash_attention` runs the plain PyTorch version
 (:func:`flash_attention_plain`, the reference's ``ref.attention_ref`` with
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +42,13 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
+# the bf16 kernel's tiling (csrc/flash_attention.cu: kWgBQ, WgTile<D>):
+# query rows a block, keys a KV tile and ring stages by head dim
+BLOCK_Q = 128
+BLOCK_K = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+STAGES = {16: 4, 32: 4, 64: 4, 128: 3, 256: 2}
+SMS = 132                   # an H100 SXM's SMs: one block each at a time
+
 
 def _lib() -> ctypes.CDLL:
     lib = backend.load("flash_attention")
@@ -45,8 +56,73 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_split_launch.argtypes = \
+            [p, p, p, p] + [i] * 9 + [p, p, p]
+        lib.flash_attention_split_launch.restype = i
+        lib.flash_attention_tiling.argtypes = [i, i]
+        lib.flash_attention_tiling.restype = ctypes.c_longlong
         lib._ff_typed = True
     return lib
+
+
+class LaunchPlan(NamedTuple):
+    block_q: int           # query rows a block (two warpgroups of 64)
+    block_k: int           # keys a KV tile
+    stages: int            # K/V tiles in flight
+    smem: int              # dynamic shared memory of a block, bytes
+    q_tiles: int           # ceil(Sq / block_q)
+    kv_tiles: int          # ceil(Sk / block_k)
+    splits: int            # key splits, 1 unless two fit in one wave
+    tiles_per_split: int   # split s takes KV tiles [s per, (s + 1) per)
+    blocks: int            # B * H * q_tiles * splits
+    partial_floats: int    # the splits' fp32 O, m and l; 0 unsplit
+    tickets: int           # int32 tickets, one a (b, h, q tile); 0 unsplit
+
+
+def launch_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int,
+                D: int) -> LaunchPlan:
+    """The bf16 kernel's grid for q ``(B, H, Sq, D)`` against ``Sk`` keys
+    of ``Hkv`` heads: one block of 128 query rows a (b, h, q tile), each
+    over every KV tile of :data:`BLOCK_K` keys its rows reach.  Where two
+    splits of that grid still fit in one wave of :data:`SMS` blocks (a
+    block fills an SM) and the keys span two tiles or more, the keys are
+    split ``SMS // grid`` ways, at most one a tile, then as few as cover
+    the tiles at ``ceil(kv_tiles / splits)`` each, so no split is empty: a
+    rank's Whisper cross attention, B8 H8 at Sq 1 against 1500 frames, 64
+    blocks, takes 2 splits of 12 tiles in one wave.  A grid of 67-131
+    blocks is not split: a second wave of half the work costs more than
+    the SMs it leaves idle (B8 H16 at Sq 1, 128 blocks, is slower in two
+    splits than in one on an H100: ``tools/flash_variants.py``)."""
+    if D not in BLOCK_K:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    bk = BLOCK_K[D]
+    q_tiles = -(-Sq // BLOCK_Q)
+    kv_tiles = -(-Sk // bk)
+    grid = B * H * q_tiles
+    splits = 1
+    if 2 * grid <= SMS and kv_tiles >= 2:
+        splits = min(SMS // max(grid, 1), kv_tiles)
+    per = -(-kv_tiles // splits)
+    splits = -(-kv_tiles // per)
+    if q_tiles * splits > 65535:
+        raise ValueError(f"flash_attention: {q_tiles} query tiles x "
+                         f"{splits} splits exceed the grid's 65535")
+    smem = 1024 + 2 * D * (BLOCK_Q + 2 * STAGES[D] * bk) + 256
+    split = splits > 1
+    return LaunchPlan(BLOCK_Q, bk, STAGES[D], smem, q_tiles, kv_tiles,
+                      splits, per, grid * splits,
+                      B * H * splits * Sq * (D + 2) if split else 0,
+                      B * H * q_tiles if split else 0)
+
+
+def split_keys(plan: LaunchPlan, Sk: int) -> list:
+    """The key ranges ``(start, stop)`` of each split's KV tiles, split by
+    split and tile by tile, as the kernel walks them."""
+    bk, per = plan.block_k, plan.tiles_per_split
+    return [[(t * bk, min((t + 1) * bk, Sk))
+             for t in range(s * per, min((s + 1) * per, plan.kv_tiles))]
+            for s in range(plan.splits)]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,13 +188,28 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if Sq == 0 or B == 0:
         return o
+    plan = launch_plan(B, H, Hkv, Sq, Sk, D) if q.dtype == torch.bfloat16 \
+        else None
+    part = tickets = None
+    if plan is not None and plan.splits > 1:
+        # the splits' scratch, before the fake branch: the dry run's peak
+        # holds it; the tickets zeroed on the stream, one set a call
+        part = torch.empty(plan.partial_floats, dtype=torch.float32,
+                           device=q.device)
+        tickets = torch.zeros(plan.tickets, dtype=torch.int32,
+                              device=q.device)
     if fake:
         backend.note_launch("flash_attention")
         return o
-    err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
-        Sq, Sk, D, int(bool(causal)), int(window), _DTYPES[q.dtype],
-        backend.current_stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+            Hkv, Sq, Sk, D, int(bool(causal)), int(window))
+    if part is not None:
+        err = _lib().flash_attention_split_launch(
+            *args, plan.splits, part.data_ptr(), tickets.data_ptr(),
+            backend.current_stream(q.device))
+    else:
+        err = _lib().flash_attention_launch(
+            *args, _DTYPES[q.dtype], backend.current_stream(q.device))
     with _count_lock:
         flash_attention.launches += 1
     backend.check(err, "flash_attention")
@@ -152,8 +243,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when Sq == Sk, chunked prefill when Sq < Sk); ``window > 0`` adds the
     sliding-window mask.  Any Sq and Sk; the kernel takes D in
     ``HEAD_DIMS`` and float32 or bfloat16: a bfloat16 CUDA tensor runs on
-    the tensor cores, a float32 one on the FMA units (a dispatch by type:
-    TF32 would miss the f32 tolerance)."""
+    the tensor cores (``wgmma``; keys split as :func:`launch_plan` says), a
+    float32 one on the FMA units (a dispatch by type: TF32 would miss the
+    f32 tolerance)."""
     _check(q, k, v)
     if backend.noted():
         backend.note("flash_attention", work(

@@ -3,8 +3,9 @@
 Every test here but one needs a CUDA device and skips without one (the
 one checks in plain Python that the ``ssd_scan`` cases reach every branch
 of the kernel's tiling).  The routing kernels (``router_topk``,
-``a2a_route``) are also held at their tiles' edges, under CUDA-graph replay
-and on two streams at once.  The module
+``a2a_route``) and the split form of ``flash_attention`` are also held at
+their tiles' edges, under CUDA-graph replay and on two streams at once.
+The module
 imports only torch and the port, so on a machine without JAX it runs as
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,8 +16,10 @@ import torch
 
 from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import launch_plan as flash_plan
 from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
                                                gelu_stepwise_bwd,
                                                gelu_stepwise_plain,
@@ -150,11 +153,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal,
     (1, 4, 2, 129, 200, True, 33),
     (1, 12, 2, 65, 129, True, 0),    # a GQA group of 6
     (1, 2, 2, 1, 65, False, 0),      # one query, every key
+    (1, 4, 2, 127, 127, True, 0),    # the bf16 kernel's q tile - 1
+    (1, 2, 2, 128, 255, True, 0),    # the q tile, two KV tiles - 1
+    (1, 4, 1, 129, 257, False, 0),   # the q tile + 1, two KV tiles + 1
+    (1, 2, 2, 256, 256, True, 0),    # two q tiles, whole KV tiles
+    (1, 4, 2, 200, 300, True, 90),   # window edges at keys 11 and 139
 ])
 def test_flash_kernel_matches_plain_at_tile_edges(cuda, D, dtype, B, H, Hkv,
                                                   Sq, Sk, causal, window):
-    """Lengths, offsets and window edges that cut the kernels' 64-row tiles
-    and 16-row mma fragments."""
+    """Lengths, offsets and window edges that cut the kernels' tiles (the
+    f32 kernel's 64 rows, the bf16 kernel's 128 query rows in warpgroups of
+    64 and its KV tiles of 128 keys, 64 at D 256) and 16-row fragments."""
     g = torch.Generator().manual_seed(D * 1000 + Sq * 7 + Sk)
     q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(cuda)
     k = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(cuda)
@@ -188,6 +197,104 @@ def test_flash_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
                         dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
         flash_attention(a, a, a)
     assert flash_attention.launches == 1
+
+
+# (B, H, Hkv, Sq, Sk, D, causal, window) where the bf16 kernel splits the
+# keys (chip_smoke.py's FLASH_SPLITS): 1, 32 and 64 queries against 1500
+# and 4096 keys, a last split every key of which is masked for some rows,
+# an uneven last split, D 256 at one query
+FLASH_SPLIT_CASES = [(B, H, H, Sq, Sk, 64, False, 0)
+                     for B, H in ((8, 8), (1, 16)) for Sq in (1, 32, 64)
+                     for Sk in (1500, 4096)] + [
+    (1, 4, 2, 64, 4128, 64, True, 0),
+    (1, 4, 4, 32, 4112, 128, True, 0),
+    (1, 20, 4, 32, 4096, 64, False, 0),
+    (1, 2, 2, 1, 1500, 256, False, 0)]
+
+
+def _flash_inputs(cuda, B, H, Hkv, Sq, Sk, D, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(torch.bfloat16).to(cuda)
+            for shape in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", FLASH_SPLIT_CASES)
+def test_flash_kernel_matches_plain_where_it_splits(cuda, B, H, Hkv, Sq, Sk,
+                                                    D, causal, window):
+    """The split form (launch_plan's splits > 1, merged in the same launch)
+    against the plain version, one launch a call."""
+    assert flash_plan(B, H, Hkv, Sq, Sk, D).splits > 1
+    q, k, v = _flash_inputs(cuda, B, H, Hkv, Sq, Sk, D, Sq + Sk + D)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal, window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = (got.float() - want.float()).abs().max() / want.abs().max()
+    assert float(err) <= FLASH_SCALE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_library_tiling_is_the_plans(cuda):
+    """The library's tiling (csrc/flash_attention.cu) is launch_plan's."""
+    lib = flash_module._lib()
+    for D in HEAD_DIMS:
+        plan = flash_plan(1, 1, 1, 1, 1, D)
+        got = tuple(lib.flash_attention_tiling(D, i) for i in range(4))
+        assert got == (plan.block_q, plan.block_k, plan.stages, plan.smem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
+    (8, 8, 8, 1, 1500, 64, False), (1, 4, 2, 64, 4128, 64, True)])
+def test_flash_split_replays_in_a_cuda_graph(cuda, B, H, Hkv, Sq, Sk, D,
+                                             causal):
+    """A split call captured in a CUDA graph and replayed three times gives
+    the same output each time, the eager call's: the capture holds the
+    tickets' zeroing, so every replay merges afresh."""
+    q, k, v = _flash_inputs(cuda, B, H, Hkv, Sq, Sk, D, 7)
+    want = flash_attention(q, k, v, causal, 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, causal, 0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, causal, 0)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_flash_split_on_two_streams_at_once(cuda):
+    """Split calls on two streams at once give what the same calls give one
+    after the other: each call has its own scratch and tickets."""
+    a = _flash_inputs(cuda, 8, 8, 8, 1, 1500, 64, 8)
+    b = _flash_inputs(cuda, 1, 16, 16, 32, 4096, 64, 9)
+    want_a = flash_attention(*a, False, 0)
+    want_b = flash_attention(*b, False, 0)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            ga = flash_attention(*a, False, 0)
+        with torch.cuda.stream(s2):
+            gb = flash_attention(*b, False, 0)
+        got.append((ga, gb))
+    torch.cuda.synchronize()
+    for ga, gb in got:
+        assert torch.equal(ga, want_a) and torch.equal(gb, want_b)
 
 
 STEPWISE_SHAPES = [
