@@ -8,12 +8,13 @@ Phases, each of which fails the run:
 1. card — its name and power limit; the CUDA kernels built from the sources
    in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; each kernel's registers and spill bytes
-   (``-Xptxas -v``) are printed, and an attention instance that spills
-   fails the run; ``cuobjdump -sass`` must find HGMMA (``wgmma``)
-   instructions in every bf16 ``flash_fwd_kernel_wgmma`` (D 16-256), no
-   flash kernel with HMMA (``mma.sync``) alone, and HMMA or HGMMA in the
-   ``ssd_scan_kernel`` instantiations with bf16 q/k (the count per kernel
-   is printed); phase 13's traces run in a process of their own
+   (``-Xptxas -v``) are printed, and an attention or ``ssd_scan``
+   instance that spills fails the run; ``cuobjdump -sass`` must find HGMMA
+   (``wgmma``) instructions in every bf16 ``flash_fwd_kernel_wgmma`` (D
+   16-256) and in every ``ssd_scan_kernel_wgmma`` (the bf16-q/k
+   recurrence: P tiles of 64 and 8, f32 and bf16 v), and no flash kernel
+   with HMMA (``mma.sync``) alone (the count per kernel is printed); phase
+   13's traces run in a process of their own
    beside phases 1-2;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
@@ -333,13 +334,39 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # phase 1: the card and the build
 # ---------------------------------------------------------------------------
-def phase_card() -> dict:
-    from repro_torch.kernels import backend
+def card_name(fallback: str = "nvidia-smi unavailable") -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi unavailable"
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else fallback
+
+
+def tool_start(ap) -> tuple:
+    """The timing tools' start (``tools/time_*.py``): ``--src DIR`` times
+    the ``repro_torch`` package under ``DIR/src`` instead of this
+    checkout's (an unpacked copy of another commit, built into its own
+    ``build/``), so two trees can run in one call in turns.  Parses ``ap``
+    with that option added, fails without a GPU, and returns ``(args,
+    card, package root)``."""
+    ap.add_argument("--src", help="a checkout whose src/repro_torch to time")
+    args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, str(pathlib.Path(args.src).resolve() / "src"))
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from repro_torch.kernels import backend
+    card = card_name(torch.cuda.get_device_name(0))
+    pkg = pathlib.Path(backend.__file__).parents[2]
+    say(f"[card] {card}; package {pkg}")
+    return args, card, pkg
+
+
+def phase_card() -> dict:
+    from repro_torch.kernels import backend
+    card = card_name()
     say(f"[card] {card}")
     say(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -376,8 +403,8 @@ def ptxas_usage(report: str) -> dict:
 
 def check_spills(backend) -> None:
     """Print each kernel's registers and spill bytes; fail if an instance
-    of the attention kernels spills (its D 256 layout is chosen not to).
-    A library built before this run has no report."""
+    of the attention kernels (its D 256 layout is chosen not to) or of the
+    recurrence spills.  A library built before this run has no report."""
     if "flash_attention" not in backend.PTXAS_REPORT:
         say("[build] flash_attention: built before this run, no ptxas report")
     for name in sorted(backend.PTXAS_REPORT):
@@ -385,21 +412,23 @@ def check_spills(backend) -> None:
         say(f"[build] {name}: (registers, spill store B, spill load B) per "
             f"kernel {usage}")
         spilled = {fn: u for fn, u in usage.items()
-                   if fn.startswith("flash_fwd_kernel") and (u[1] or u[2])}
+                   if fn.startswith(NO_SPILL) and (u[1] or u[2])}
         if spilled:
             fail(f"{name}: instances that spill: {spilled}")
 
 
+# the kernels whose instances may not spill
+NO_SPILL = ("flash_fwd_kernel", "ssd_scan_kernel")
 # the kernels that must run on the tensor cores: (library, name prefix,
 # count of instantiations, instructions of which one must be there): the
 # bf16 flash kernel for each head dim on wgmma (HGMMA), the recurrence with
-# bf16 q/k (template <QK_BF16, V_BF16>) for f32 and bf16 v on mma.sync
-# (HMMA) or wgmma; and the library whose kernels may not run on mma.sync
-# alone (a flash kernel with HMMA and no HGMMA is the old design)
+# bf16 q/k (template <PT, V_BF16>: P tiles of 64 and 8, f32 and bf16 v) on
+# wgmma; and the library whose kernels may not run on mma.sync alone (a
+# flash kernel with HMMA and no HGMMA is the old design)
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_wgmma<", 5,
                         ("HGMMA",)),
-                       ("ssd_scan", "ssd_scan_kernel<1,", 2,
-                        ("HMMA", "HGMMA")))
+                       ("ssd_scan", "ssd_scan_kernel_wgmma<", 4,
+                        ("HGMMA",)))
 HGMMA_ONLY = ("flash_attention", "flash_fwd_kernel")
 
 
@@ -448,8 +477,8 @@ def kernel_name(mangled: str) -> str:
 
 def check_tensor_cores(backend) -> None:
     """Fail unless every bf16 instantiation of the tensor-core kernels
-    holds one of its instructions (the flash kernel HGMMA), or if a flash
-    kernel holds HMMA without HGMMA; print the counts per kernel."""
+    holds one of its instructions (HGMMA), or if a flash kernel holds HMMA
+    without HGMMA; print the counts per kernel."""
     for name, symbol, n, need in TENSOR_CORE_KERNELS:
         counts = sass_mma_counts(backend.library_path(name))
         say(f"[build] {name}: HMMA/HGMMA per kernel {counts}")
@@ -900,10 +929,11 @@ def check_router(dev: torch.device) -> tuple:
 
 
 # (B, H, G, S, N, P, chunk, types): Zamba2's prefill (one group of q/k for
-# 64 heads, and phase 11's 32 a rank), the grid of
-# tests/test_kernels.py:61-66, and xLSTM-125m's mLSTM (4 heads of N = P =
-# 384, and its P = 1 normaliser) at phase 5d's prompt lengths and the timed
-# 2048.  Types: "model" is the Mamba2 and mLSTM
+# 64 heads, and phase 11's 32 a rank; 8 chunks at S 2048, 20 at S 5000),
+# the grid of tests/test_kernels.py:61-66, xLSTM-125m's mLSTM (4 heads of
+# N = P = 384, and its P = 1 normaliser, also on a rank's 2) at phase 5d's
+# prompt lengths and the timed 2048, and the edges of the bf16 kernel's
+# tiling (launch_plan's P tiles of 64 and 8).  Types: "model" is the Mamba2 and mLSTM
 # blocks' call (bf16 q/k, f32 v and log_a, f32 y), "f32" and "bf16" give
 # every tensor that type.
 SSD_ALL = ("model", "f32", "bf16")
@@ -924,6 +954,15 @@ SSD_CASES = [
     (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
     (1, 4, 4, 1000, 384, 384, 256, SSD_ALL),
     (1, 4, 4, 1000, 384, 1, 256, SSD_ALL),
+    # the bf16 kernel's tiling edges: P at a 64-column tile +- 1 and at the
+    # 8-column tile +- 1, N 384 at S = chunk +- 1, a chain of 20 chunks
+    (1, 2, 2, 300, 64, 63, 256, ("model", "bf16")),
+    (1, 2, 2, 300, 64, 65, 256, ("model", "bf16")),
+    (1, 2, 2, 300, 64, 7, 256, ("model", "bf16")),
+    (1, 2, 2, 300, 64, 9, 256, ("model", "bf16")),
+    (1, 2, 2, 255, 384, 384, 256, ("model", "bf16")),
+    (1, 2, 2, 257, 384, 384, 256, ("model", "bf16")),
+    (1, 2, 2, 1280, 384, 384, 64, ("model",)),
 ] + [(1, 4, 4, S, 384, P, 256, ("model",))
      for S in (2048,) + FAMILY_LENS for P in (384, 1)]
 # the model-type cases at phase 11's and 12's shapes, by the ``kernels``
@@ -3247,7 +3286,8 @@ def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
     plain = time_ms(lambda: ssd_scan_plain(q, k, v, la, Q, out_dtype=f32),
                     reps=3, iters=5)
     # the causal half of the bf16 scores at the bf16 rate, the products
-    # with an f32 operand as 3xTF32 (the kernel module's work())
+    # with an f32 operand as two or three TF32 products (the kernel
+    # module's work())
     w = work(B, H, G, S, N, P, Q, q.dtype, v.dtype, la.dtype, f32)
     flops, nbytes = w.flops, w.bytes
     chunk_heads = -(-S // Q) * B * H
@@ -3259,8 +3299,8 @@ def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
         f"q/k, f32 v/y): {ms:.4f} ms on the device (CUDA graph), "
         f"{eager:.4f} ms per eager call, plain {plain:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {score_flops:.4g} "
-        f"FLOP of bf16 scores, {f32_flops:.4g} FLOP with an f32 operand as "
-        f"3xTF32, {nbytes} B); "
+        f"FLOP of bf16 scores, {f32_flops:.4g} FLOP with an f32 operand in "
+        f"TF32 parts, {nbytes} B); "
         f"{flops / ms / 1e9:.1f} TFLOP/s on {card}")
     return row
 
@@ -6669,13 +6709,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(phases: str) -> None:
+        laps.append(time.perf_counter())
+        say(f"[phases] {phases} {laps[-1] - laps[-2]:.1f} s")
     traces = start_dry_traces()
     card = phase_card()
     kernels = phase_kernels(dev)
     traces = finish_dry_traces(traces)
+    lap("1-2")
     main = phase_main_path(dev)
     main["kernels"] = kernels
     hyb = phase_hybrid(main)
+    lap("3-4")
     from repro_torch.core.plan import single_device_plan
     cfg = serve_config()
     serve = phase_serve(single_device_plan(), cfg, serve_prompts(cfg.vocab))
@@ -6685,11 +6732,14 @@ def main() -> int:
     hcfg = get("zamba2-1.2b")                # full width, full depth
     hybrid = phase_serve(single_device_plan(), hcfg,
                          serve_prompts(hcfg.vocab))
+    lap("5-5b")
     train = phase_train_all(dev)
+    lap("5c")
     gc.collect()
     torch.cuda.empty_cache()
     fams = phase_families(single_device_plan())
     fronts = phase_front_ends(single_device_plan())
+    lap("5d-5e")
     errs = kernels["max_abs_err"]
     rows = phase_times(dev, main, card["card"])
     rows += time_serving_kernels(dev, serve, hybrid, errs, card["card"])
@@ -6699,6 +6749,7 @@ def main() -> int:
     rows += time_family_kernels(dev, fams, errs, card["card"])
     rows += time_front_end_kernels(dev, fronts, errs, card["card"])
     time_routes(dev, card["card"])
+    lap("6")
     gc.collect()
     torch.cuda.empty_cache()
     t7 = time.perf_counter()

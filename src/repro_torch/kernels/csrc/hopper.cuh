@@ -1,9 +1,10 @@
 // Hopper's (sm_90a) primitives for the hand-written kernels, in inline PTX:
 // mbarriers, TMA tensor copies and their tensor maps, the wgmma shared-memory
-// descriptor, warpgroup matrix multiply-accumulate (bf16 -> fp32, A from
-// shared memory or from registers) with its fence, commit and wait, named
+// descriptor, warpgroup matrix multiply-accumulate (bf16 -> fp32 and tf32 ->
+// fp32, A from shared memory or from registers) with its fence, commit and
+// wait, the fence between shared-memory writes and the async proxy, named
 // barriers and setmaxnreg.  Written for flash_attention.cu; ssd_scan.cu's
-// redesign is to take the same ones.
+// bf16 kernel takes the same ones.
 //
 // Layouts.  A tile copied by TMA with a swizzle of W bytes (32, 64 or 128)
 // lands as rows of W bytes, each 8-row group an atom of 8 W bytes whose
@@ -21,6 +22,15 @@
 //   of 16 keys moves the start 16 W bytes.
 // Every tile's base is 1024-byte aligned, so the atoms' swizzle phase is
 // the address's own and the descriptors' base offset is 0.
+//
+// tf32 (32-bit) operands in shared memory are K-major only: wgmma has no
+// transpose bit for them (PTX ISA, wgmma.mma_async: imm-trans-a and
+// imm-trans-b exist for .f16 and .bf16 alone).  A K-major tf32 tile has the
+// same bytes as a bf16 one: rows of 128 bytes (32 tf32), 8-row atoms, a
+// k-step of 8 tf32 moving the start 32 bytes.  A from registers for tf32
+// (m64nNk8) is four b32 registers a thread, the layout of mma.sync's
+// m16n8k8 tf32 A per warp: a[0] = (row g, column q), a[1] = (g + 8, q),
+// a[2] = (g, q + 4), a[3] = (g + 8, q + 4), rows 16 w .. of warp w.
 //
 // Accumulators of m64nNk16 (f32): thread t of the warpgroup, warp w = t /
 // 32, lane g = (t % 32) / 4, q = t % 4, holds d[4 j + 2 h + c] = D[16 w + g
@@ -110,6 +120,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (global_ns() - t0 > kWaitLimitNs) __trap();
 }
 
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -156,6 +167,19 @@ __device__ __forceinline__ void wgmma_commit() {
 
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (a wgmma's operands): writer side, before the
+// arrival that hands the tile over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// orders global-memory writes this thread has observed (by an acquire)
+// before its later async-proxy reads of them (a TMA copy)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 template <int R> __device__ __forceinline__ void fence_operands(float (&r)[R]) {
@@ -420,6 +444,50 @@ template <> struct Wgmma<256> {
   }
 };
 
+// m64nNk8 tf32 x tf32 -> f32: d = A B + (scale_d ? d : 0), B K-major (no
+// transpose for 32-bit types).  rs: A from registers (four tf32 a thread),
+// B by descriptor.  At the N the kernels use (ssd_scan.cu: 8 and 64).
+template <int N> struct WgmmaTf32;
+
+template <> struct WgmmaTf32<8> {
+  static __device__ __forceinline__ void rs(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
+template <> struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+        : "memory");
+  }
+};
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -452,8 +520,9 @@ inline EncodeTiled encode_tiled() {
 
 // A row-major 3-D tensor (d2, d1, d0) of `elem` bytes an element, d0
 // contiguous, as a tensor map whose box is (box0, box1, 1), swizzled over
-// `swizzle` bytes (box0 * elem of them); rows past d1 read as zeros, never
-// the next d2 slice's.  Returns a cudaError_t.
+// `swizzle` bytes (box0 * elem of them; 0: not swizzled, rows of box0
+// elements one after the other); rows past d1 read as zeros, never the
+// next d2 slice's.  Returns a cudaError_t.
 inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
                      const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
                      uint32_t box0, uint32_t box1, int swizzle) {
@@ -464,9 +533,10 @@ inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapSwizzle swz =
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                      : CU_TENSOR_MAP_SWIZZLE_32B;
+      : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult res = fn(map, type, 3, const_cast<void*>(ptr), dims, strides,
                           box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

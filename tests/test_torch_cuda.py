@@ -3,8 +3,9 @@
 Every test here but one needs a CUDA device and skips without one (the
 one checks in plain Python that the ``ssd_scan`` cases reach every branch
 of the kernel's tiling).  The routing kernels (``router_topk``,
-``a2a_route``) and the split form of ``flash_attention`` are also held at
-their tiles' edges, under CUDA-graph replay and on two streams at once.
+``a2a_route``), the split form of ``flash_attention`` and ``ssd_scan``'s
+chain of chunks are also held at their tiles' edges, under CUDA-graph
+replay and on two streams at once.
 The module
 imports only torch and the port, so on a machine without JAX it runs as
 
@@ -35,8 +36,9 @@ from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
                                              TOKENS_PER_BLOCK, router_topk,
                                              router_topk_plain)
 from repro_torch.kernels.router_topk import launch_plan as route_plan
+from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.ssd_scan import launch_plan, ssd_scan, \
-    ssd_scan_plain
+    ssd_scan_plain, wgmma_fits
 
 torch.set_num_threads(1)
 
@@ -718,24 +720,43 @@ SSD_KERNEL_CASES = [
     (1, 64, 1, 265, 64, 64, 256),    # Zamba2, a tail chunk of 9 steps
     (4, 64, 1, 133, 64, 64, 128),    # at B 4, a tail chunk of 5 steps
     (1, 2, 1, 200, 72, 130, 96),     # N, P past a 64 tile, not multiples
+    (1, 2, 2, 300, 64, 63, 256),     # P one under the 64-column tile
+    (1, 2, 2, 300, 64, 65, 256),     # one over: two P tiles
+    (1, 2, 2, 300, 64, 7, 256),      # the 8-column tile, P 7
+    (1, 2, 2, 300, 64, 9, 256),      # P 9: one 64-column tile
+    (1, 2, 2, 2048, 384, 1, 256),    # xLSTM's normaliser on a rank
+    (1, 2, 2, 255, 384, 384, 256),   # N 384 at S = chunk - 1
+    (1, 2, 2, 257, 384, 384, 256),   # and at S = chunk + 1
+    (1, 2, 1, 1280, 64, 64, 64),     # a chain of 20 chunks
+    (1, 2, 2, 70, 5, 3, 32),         # N 5: q, k padded to 8 columns
+    (1, 1, 1, 300, 448, 64, 256),    # N 448: bf16 q/k in the f32 kernel
 ]
 
 
 def test_ssd_kernel_cases_reach_every_p_tile():
-    """Every branch of the kernel's 64 x 64 tiling is held against the
-    plain version by some case (on an H100: 132 SMs, 232448 bytes of
-    opt-in shared memory a block): one and several chunks (the state
-    chain), one and several query tiles in a chunk, a tail tile, one and
-    several N and P tiles (P > 64 keeps every score tile), widths that are
-    not a multiple of the 16-byte copies, and q/k groups."""
+    """Every branch of the bf16 kernel's tiling (launch_plan's, on an H100:
+    132 SMs, 232448 bytes of opt-in shared memory a block) is held against
+    the plain version by some case: one and several chunks (the state
+    chain), one and several 128-row query blocks in a chunk, a tail tile,
+    one 64-row M-block of N (its k-steps split between the warpgroups) and
+    several, one and several P tiles, the 8- and the 64-column tile, P off
+    the tile's width, v's tiles by TMA (rows of 16-byte multiples) and
+    read by the builders (P 1, 3, 5, 7 ...), N padded to 8 columns, q/k
+    groups, and an N the block cannot hold (bf16 q/k in the f32-q/k
+    kernel).  The f32-q/k kernel runs the same cases."""
     seen = set()
     for B, H, G, S, N, P, chunk in SSD_KERNEL_CASES:
         Q = min(chunk, S)
-        plan = launch_plan(B, H, S, P, Q, 132, 232448)
-        seen |= {("chunks", -(-S // Q) > 1), ("t tiles", Q > 64),
-                 ("tail", S % 64 != 0), ("n tiles", N > 64),
-                 ("p tiles", plan.score_tiles > 1), ("scalar copies",
-                                                     P % 8 != 0),
+        seen.add(("wgmma", wgmma_fits(N, Q, P, 232448)))
+        if not wgmma_fits(N, Q, P, 232448):
+            continue
+        plan = launch_plan(B, H, S, -(-N // 8) * 8, P, Q, 132, 232448)
+        seen |= {("chunks", -(-S // Q) > 1), ("query blocks", Q > 128),
+                 ("tail", S % 64 != 0), ("n slabs", N > 64),
+                 ("p tiles", plan.blocks > -(-S // Q) * B * H),
+                 ("8-column tile", plan.p_tile == 8),
+                 ("P off the tile", P % plan.p_tile != 0),
+                 ("v by TMA", P % 4 == 0), ("N padded", N % 8 != 0),
                  ("groups", G < H)}
     assert seen == {(what, b) for what, _ in seen for b in (True, False)}
 
@@ -795,6 +816,78 @@ def test_ssd_kernel_counts_launches_and_rejects_what_it_cannot_take(cuda):
         ssd_scan(big, big, torch.zeros(1, 1, 1024, 128, device=cuda),
                  torch.zeros(1, 1, 1024, device=cuda), 1024)
     assert ssd_scan.launches == 1
+
+
+@pytest.mark.cuda
+def test_ssd_library_smem_is_the_plans(cuda):
+    """The bf16 kernel's shared memory (csrc/ssd_scan.cu's layout) is
+    launch_plan's formula, at every depth of its k ring and both tiles."""
+    lib = ssd_module._lib()
+    for N, Q in ((64, 256), (384, 256), (8, 64), (72, 96)):
+        for pt in (8, 64):
+            for ks in ssd_module.WG_K_STAGES:
+                assert lib.ssd_scan_wgmma_smem(N, Q, pt, ks) == \
+                    ssd_module.wgmma_smem_bytes(N, Q, pt, ks)
+
+
+def _ssd_model_call(case, seed, cuda):
+    B, H, G, S, N, P = case
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, la = _ssd_inputs(g, B, H, G, S, N, P, torch.bfloat16,
+                              torch.float32, cuda)
+    return lambda: ssd_scan(q, k, v, la, 256, out_dtype=torch.float32,
+                            return_state=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 64, 1, 2048, 64, 64),
+                                  (1, 4, 4, 2048, 384, 384),
+                                  (1, 4, 4, 2048, 384, 1)])
+def test_ssd_kernel_replays_in_a_cuda_graph(cuda, case):
+    """A call captured in a CUDA graph and replayed three times gives the
+    eager call's y and state each time: the capture holds the zeroing of
+    the ticket and the chain's flags, so every replay chains afresh."""
+    call = _ssd_model_call(case, 11, cuda)
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_on_two_streams_at_once(cuda):
+    """Calls on two streams at once give what the same calls give one after
+    the other: each call has its own chunk states, ticket and flags."""
+    a = _ssd_model_call((1, 64, 1, 2048, 64, 64), 12, cuda)
+    b = _ssd_model_call((1, 4, 4, 2048, 384, 384), 13, cuda)
+    want_a, want_b = a(), b()
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            ga = a()
+        with torch.cuda.stream(s2):
+            gb = b()
+        got.append((ga, gb))
+    torch.cuda.synchronize()
+    for ga, gb in got:
+        for x, y in zip(ga + gb, want_a + want_b):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -223,13 +223,13 @@ BOUND_ROWS = [
     ("router Kimi E384 K8 T2048", lambda K: K.router_topk.work(2048, 384, 8),
      0.00100, "bytes"),
     ("ssd Zamba2 serve B1", lambda K: K.ssd_scan.work(
-        1, 64, 1, 2048, 64, 64, 256, BF16, F32, F32, F32), 0.0283,
+        1, 64, 1, 2048, 64, 64, 256, BF16, F32, F32, F32), 0.0261,
      "operations"),
     ("ssd Zamba2 train B4", lambda K: K.ssd_scan.work(
-        4, 64, 1, 2048, 64, 64, 256, BF16, F32, F32, F32), 0.1130,
+        4, 64, 1, 2048, 64, 64, 256, BF16, F32, F32, F32), 0.1044,
      "operations"),
     ("ssd xLSTM P384", lambda K: K.ssd_scan.work(
-        1, 4, 4, 2048, 384, 384, 256, BF16, F32, F32, F32), 0.0350,
+        1, 4, 4, 2048, 384, 384, 256, BF16, F32, F32, F32), 0.0301,
      "operations"),
     ("ssd xLSTM P1", lambda K: K.ssd_scan.work(
         1, 4, 4, 2048, 384, 1, 256, BF16, F32, F32, F32), 0.0038, "bytes"),

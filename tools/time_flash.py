@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -46,25 +45,12 @@ SHAPES = [("mixtral_d128_serve", 1, 32, 8, 2048, 2048, 128, True, 4096),
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", help="a checkout whose src/repro_torch to time")
-    args = ap.parse_args()
-    if args.src:
-        sys.path.insert(0, str(pathlib.Path(args.src).resolve() / "src"))
+    _, card, pkg = cs.tool_start(
+        argparse.ArgumentParser(description=__doc__.splitlines()[0]))
     import torch
     import torch.nn.functional as F
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
-    from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import flash_attention, work
     dev = torch.device("cuda:0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        torch.cuda.get_device_name(0)
-    pkg = pathlib.Path(backend.__file__).parents[2]
-    cs.say(f"[card] {card}; package {pkg}")
     g = torch.Generator().manual_seed(5)
     out, sdpa, bound = {}, {}, {}
     for row, B, H, Hkv, Sq, Sk, D, causal, window in SHAPES:

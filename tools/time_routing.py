@@ -17,7 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -62,22 +61,10 @@ def sweep(dev) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", help="a checkout whose src/repro_torch to time")
     ap.add_argument("--sweep", action="store_true")
-    args = ap.parse_args()
-    if args.src:
-        sys.path.insert(0, str(pathlib.Path(args.src).resolve() / "src"))
+    args, card, _ = cs.tool_start(ap)
     import torch
-    if not torch.cuda.is_available():
-        cs.fail("torch.cuda.is_available() is false: this script needs a GPU")
-    from repro_torch.kernels import backend
     dev = torch.device("cuda:0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        torch.cuda.get_device_name(0)
-    cs.say(f"[card] {card}; package {pathlib.Path(backend.__file__).parents[2]}")
     floor = cs.empty_kernel_ms()
     cs.say(f"[time] empty kernel: {floor:.4f} ms")
     rows = []
