@@ -49,7 +49,13 @@ Phases, each of which fails the run:
    in the mLSTM block's types at S 2048 and each of phase 5d's prompt
    lengths, and in all three types at S 1000; f32
    within 1e-4 of the output's scale: sums in another order; a bf16 y one
-   bf16 step, 2**-7 relative, more); ``gelu_stepwise`` and
+   bf16 step, 2**-7 relative, more); its backward kernel ``ssd_scan_bwd``
+   against its plain backward at every training shape (Zamba2's B4, xLSTM's
+   numerator and normaliser on 4 heads and a rank's 2) and at ragged S, S
+   under a chunk, G < H, N and P off a tile, f32 and bf16 (f32 gradients
+   within 1e-4 of their scale, bf16 within 2**-7 of it), two calls bit for
+   bit and, at the training shapes, a CUDA graph's replay too
+   (:data:`SSD_BWD_CASES`); ``gelu_stepwise`` and
    ``silu_stepwise``, forward and backward, against their plain versions
    bit for bit (NaN equal to NaN) at :data:`GELU_CASES` and
    :data:`SILU_CASES`: the models' activations (Whisper, a rank's half of
@@ -101,16 +107,16 @@ Phases, each of which fails the run:
    the last than at the first; each kernel of the path must launch twice
    per block per step (forward and recompute: Zamba2 ``ssd_scan`` 76 and
    ``flash_attention`` 10, Mixtral ``flash_attention`` and ``router_topk``
-   2) and each activation's backward kernel once (Gemma
+   2) and each backward kernel once (Zamba2 ``ssd_scan_bwd`` 38; Gemma
    ``gelu_stepwise_bwd`` 2, Whisper 48, Zamba2 ``silu_stepwise_bwd`` 76);
    the peak must stay within the card's 80 GB; the driver's final
    checkpoint (under ``build/``, deleted after) must restore bit for bit.
    Prints the train tokens/s (the batch's tokens, and frames, over the
    median step after the first), each step's forward, backward and
    optimizer ms (CUDA events), the peak memory, the checkpoint's bytes and
-   seconds, and a profile of one step with the recompute backward of
-   attention and ``ssd_scan`` (their ``record_function`` ranges) on their
-   own.  Then one
+   seconds, and a profile of one step with attention's recompute backward
+   and ``ssd_scan``'s backward kernel (their ``record_function`` ranges)
+   on their own.  Then one
    loss and gradient of reduced Zamba2 and Mixtral on the card against
    the CPU (loss within 2e-2, every leaf's cosine >= 0.99), the router's
    weight gradient through the kernel against the plain recompute's, and
@@ -149,7 +155,8 @@ Phases, each of which fails the run:
    Zamba2's D64, with ``scaled_dot_product_attention`` beside it),
    ``ssd_scan`` at phase 5b's
    (B1 H64 S2048 N64 P64, chunk 256), the same kernels at phase 5c's
-   training shapes, phase 5d's (attention at Gemma's D256, B1 H16 S2048,
+   training shapes (and ``ssd_scan_bwd`` at Zamba2's B4, beside the plain
+   recompute it replaced), phase 5d's (attention at Gemma's D256, B1 H16 S2048,
    beside ``scaled_dot_product_attention``; Kimi's router at E384 K8;
    ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), phase 5e's
    (attention at Qwen2-VL's group of 6, Whisper's encoder and its cross
@@ -167,7 +174,8 @@ Phases, each of which fails the run:
    one Mixtral-8x7B MoE block (d_model 4096, 8 experts top-2 of 14336,
    ``router_topk`` on the card): 32 tasks of 2048 tokens from pinned
    memory, 8 in flight, equal to a synchronous loop of the same calls bit
-   for bit, offloaded in less host time than the blocks' device time,
+   for bit, offloaded in less host time than the blocks' device time (both
+   timed warm: the accelerator after an untimed round of the tasks),
    ``router_topk`` launched 32 times; phase 3's hop behind a farm of 4
    numpy featuriser workers, on threads and as a ``host_process`` farm
    forked after CUDA is up (the same items; the process run in stream
@@ -550,9 +558,12 @@ def phase_kernels(dev: torch.device) -> dict:
     err.update(rows)
     err["ssd_scan"], rows, n_ssd = check_ssd(dev)
     err.update(rows)
+    err["ssd_scan_bwd"], rows, n_ssd_bwd = check_ssd_bwd(dev)
+    err.update(rows)
     stepwise, n_stepwise = check_stepwise(dev)
     err.update(stepwise)
-    return {"checks": checks + n_flash + n_router + n_ssd + n_stepwise,
+    return {"checks": checks + n_flash + n_router + n_ssd + n_ssd_bwd
+            + n_stepwise,
             "max_abs_err": err}
 
 
@@ -1035,6 +1046,120 @@ def check_ssd(dev: torch.device) -> tuple:
     return worst, rows, n
 
 
+# (B, H, G, S, N, P, chunk, types) of the backward: every training path on
+# the card (Zamba2's Mamba2 layer at B4, xLSTM's numerator and P = 1
+# normaliser on 4 heads and on a rank's 2), ragged S (a tail of 136, S under
+# a chunk, a tail of 5 at chunk 128), G < H (one group and two), N and P
+# past a 64 tile, off a tile (63) and at P 1, f32 q/k and bf16 throughout,
+# and a chunk of 8192 (every kernel's shared memory past the 48 KB a block
+# gets without opting in)
+SSD_BWD_CASES = [
+    (4, 64, 1, 2048, 64, 64, 256, ("model",)),
+    (1, 4, 4, 2048, 384, 384, 256, ("model",)),
+    (1, 2, 2, 2048, 384, 384, 256, ("model",)),
+    (1, 4, 4, 2048, 384, 1, 256, ("model",)),
+    (1, 2, 2, 2048, 384, 1, 256, ("model",)),
+    (1, 64, 1, 5000, 64, 64, 256, SSD_ALL),
+    (1, 64, 1, 100, 64, 64, 256, SSD_ALL),
+    (4, 64, 1, 133, 64, 64, 128, SSD_ALL),
+    (1, 4, 2, 300, 64, 63, 256, ("model", "bf16")),
+    (1, 2, 1, 200, 72, 130, 96, ("f32", "bf16")),
+    (2, 3, 3, 256, 32, 64, 128, ("f32", "bf16")),
+    (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
+    (1, 2, 2, 257, 384, 384, 256, ("model", "bf16")),
+    (1, 2, 1, 8200, 16, 8, 8192, ("f32",)),
+]
+# the model-type cases at the training paths' shapes, by the ``kernels``
+# row; their kernel calls are also replayed in a CUDA graph
+SSD_BWD_ROWS = {(4, 64, 1, 2048, 64, 64): "ssd_scan_bwd_train",
+                (1, 2, 2, 2048, 384, 384): "ssd_scan_bwd_tp_xlstm",
+                (1, 2, 2, 2048, 384, 1): "ssd_scan_bwd_tp_xlstm_p1"}
+
+
+def ssd_bwd_inputs(g: torch.Generator, dev: torch.device, case: tuple,
+                   types: str) -> tuple:
+    """:func:`ssd_inputs` and the cotangents: dy ``(B,H,S,P)`` in y's type
+    (f32 for the model types), the final state's fp32 ``(B,H,N,P)`` (zero
+    at the training shapes, whose state is unused, as autograd hands it)."""
+    B, H, G, S, N, P = case[:6]
+    q, k, v, la = ssd_inputs(g, dev, B, H, G, S, N, P, types)
+    y_t = torch.float32 if types == "model" else q.dtype
+    gy = torch.randn(B, H, S, P, generator=g).to(y_t).to(dev)
+    gs = torch.randn(B, H, N, P, generator=g).to(dev)
+    if S == 2048:
+        gs.zero_()
+    return q, k, v, la, gy, gs
+
+
+def check_ssd_bwd(dev: torch.device) -> tuple:
+    """``ssd_scan_bwd`` against ``ssd_scan_bwd_plain`` at
+    :data:`SSD_BWD_CASES`: every gradient finite, of its input's type and
+    shape, f32 within ``SSD_TOL["f32"]`` of its scale (sums in other
+    orders) and bf16 within ``SSD_TOL["bf16"]`` of it (a group's dq and dk
+    sum each head's gradient rounded to bf16, and where the two versions
+    round a head to either side of a bf16 step the sum moves by that
+    head's step, however small the sum); a second call equal bit for bit, and at
+    :data:`SSD_BWD_ROWS` a CUDA graph's replay too.  Returns the worst
+    error over the scale, the model-type cases' worst by ``kernels`` row
+    and the number of cases."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
+    g = torch.Generator().manual_seed(16)
+    worst, n = 0.0, 0
+    rows = {name: 0.0 for name in SSD_BWD_ROWS.values()}
+    for case in SSD_BWD_CASES:
+        B, H, G, S, N, P, chunk, types = case
+        for t in types:
+            q, k, v, la, gy, gs = ssd_bwd_inputs(g, dev, case, t)
+            got = ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
+            again = ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
+            want = ssd_scan_bwd_plain(q, k, v, la, gy, gs, chunk)
+            torch.cuda.synchronize()
+            where = f"B{B} H{H}/G{G} S{S} N{N} P{P} chunk {chunk} ({t})"
+            row = SSD_BWD_ROWS.get(case[:6])
+            if row:
+                outs = []
+                graph = torch.cuda.CUDAGraph()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
+                torch.cuda.current_stream().wait_stream(side)
+                with torch.cuda.graph(graph):
+                    outs = ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
+                graph.replay()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(outs, got)):
+                    fail(f"ssd_scan_bwd: a CUDA graph's replay differs from "
+                         f"the eager call at {where}")
+                del graph, outs
+            for name, a, b, w, src in zip(("dq", "dk", "dv", "dlog_a"), got,
+                                          again, want, (q, k, v, la)):
+                if a.dtype != src.dtype or a.shape != src.shape:
+                    fail(f"ssd_scan_bwd {name} {a.dtype} {tuple(a.shape)} at "
+                         f"{where}, input {src.dtype} {tuple(src.shape)}")
+                if not torch.equal(a, b):
+                    fail(f"ssd_scan_bwd {name}: two calls differ at {where}")
+                tol = SSD_TOL["bf16" if a.dtype == torch.bfloat16 else "f32"]
+                af, wf = a.float(), w.float()
+                e = float((af - wf).abs().max())
+                scale = max(float(wf.abs().max()), 1e-30)
+                if not bool(torch.isfinite(af).all()) or not torch.allclose(
+                        af, wf, rtol=tol, atol=tol * scale):
+                    fail(f"ssd_scan_bwd {name} != plain at {where}: max |err| "
+                         f"{e}, scale {scale}")
+                worst = max(worst, e / scale)
+                if row and t == "model":
+                    rows[row] = max(rows[row], e)
+            n += 1
+            del q, k, v, la, gy, gs, got, again, want
+    say(f"[kernels] ssd_scan_bwd equals its plain backward ({n} cases; "
+        f"worst |err| / scale {worst:.3g}, the model types by row "
+        f"{ {r: float(f'{e:.3g}') for r, e in rows.items()} }; f32 within "
+        f"1e-4 of the scale, bf16 within 2**-7 of it; two calls and a CUDA "
+        f"graph's replay bit-equal)")
+    return worst, rows, n
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1309,7 +1434,8 @@ def expected_launches(cfg, prefills: int, steps: int,
     which runs the kernel at every decode step too), the router once per
     MoE layer per prefill and decode step, the recurrence once per Mamba2
     layer and twice per mLSTM layer (numerator and normaliser) per prefill
-    (decode runs the plain step); the MLP's activation (gelu or silu, the
+    (decode runs the plain step) and its backward kernel as often per
+    backward pass; the MLP's activation (gelu or silu, the
     config's) once per dense MLP per prefill and decode step (the
     encoder's at prefill only), and silu besides once per MoE layer (the
     experts; twice with a shared expert) and twice per Mamba2 (``xi``,
@@ -1326,8 +1452,10 @@ def expected_launches(cfg, prefills: int, steps: int,
     if moe:
         want["router_topk"] = moe * (prefills + steps)
     if n.get("mamba2") or n.get("mlstm"):
-        want["ssd_scan"] = (n.get("mamba2", 0) + 2 * n.get("mlstm", 0)) \
-            * prefills
+        ssd = n.get("mamba2", 0) + 2 * n.get("mlstm", 0)
+        want["ssd_scan"] = ssd * prefills
+        if backward:
+            want["ssd_scan_bwd"] = ssd * backward
     per = {}                      # (calls a prefill, calls a decode step)
     if dense + enc + dec:
         per[f"{cfg.act}_stepwise"] = (dense + enc + dec, dense + dec)
@@ -1418,6 +1546,7 @@ def no_host_wait(dev: torch.device):
 # kernel families by a substring of the CUDA kernel's name (cuBLAS on
 # Hopper names its kernels nvjet_*, sm90_xmma_* or *gemm*)
 KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
+                   ("ssd_scan_bwd", ("ssd_bwd_",)),
                    ("flash_attention", ("flash_fwd_kernel",)),
                    ("gelu_stepwise", ("GeluFwd",)),
                    ("gelu_stepwise_bwd", ("GeluBwd",)),
@@ -2236,7 +2365,7 @@ TRAIN_WHISPER_FRAMES = 1500      # a clip's frames; Whisper-medium whole
 TRAIN_TAMED = ("whisper-medium",)
 CARD_GB = 80
 RECOMPUTE_RANGES = ("flash_attention.recompute_backward",
-                    "ssd_scan.recompute_backward", "router_topk.backward",
+                    "ssd_scan.backward", "router_topk.backward",
                     "gelu_stepwise.backward", "silu_stepwise.backward")
 
 
@@ -2433,7 +2562,8 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
         with clock.timing() if clock else contextlib.nullcontext():
             out = driver.run()
         wall = time.perf_counter() - t1
-        launches = {name: kernels[name].launches for name in want}
+        launches = {name: kernels[name].launches if name in kernels else 0
+                    for name in want}
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda \
             else float("nan")
         losses = [h["loss"] for h in out["history"]]
@@ -2946,7 +3076,7 @@ def time_train_kernels(dev: torch.device, train: dict, errs: dict,
     gelu at Whisper's B8 x 1500 x 4096 and Gemma-7B's 2567 x 24576, as the
     forward rows of phases 5d and 5e), attention over Zamba2's B4 x S2048
     (D64) and Mixtral's B2 x S2048 (D128), the router over Mixtral's 4096
-    tokens, ``ssd_scan`` over Zamba2's B4."""
+    tokens, ``ssd_scan`` and its backward kernel over Zamba2's B4."""
     zamba, mixtral, gemma, whisper = (train[cfg.name]["launches"]
                                       for cfg, _, _ in train_configs())
     g = torch.Generator().manual_seed(9)
@@ -2980,7 +3110,9 @@ def time_train_kernels(dev: torch.device, train: dict, errs: dict,
             time_router(dev, g, "router_topk_train", 4096,
                         mixtral["router_topk"], errs["router_topk"], card),
             time_ssd(dev, "ssd_scan_train", 4, zamba["ssd_scan"],
-                     errs["ssd_scan"], card)]
+                     errs["ssd_scan"], card),
+            time_ssd_bwd(dev, "ssd_scan_bwd_train", 4, zamba["ssd_scan_bwd"],
+                         errs["ssd_scan_bwd_train"], card)]
 
 
 def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
@@ -3107,11 +3239,13 @@ def time_stepwise(dev: torch.device, g: torch.Generator, kernel: str,
 
 def time_recompute_backward(dev: torch.device, g: torch.Generator,
                             train: dict, card: str) -> dict:
-    """Each kernel's backward on the training path (the recompute through
-    the plain version and its VJP, the port of ``kernels/ops.py``'s VJP
-    rules; the router's is the VJP of its renormalised weights) at phase
-    5c's shapes: ms per call (CUDA events around ``torch.autograd.grad``,
-    eager, median of 3 x 3), and per step (one call a block a step)."""
+    """Each kernel's backward on the training path (attention's recompute
+    through its plain version and its VJP, the port of
+    ``kernels/ops.py``'s VJP rule; ``ssd_scan``'s backward kernel,
+    ``ssd_scan_bwd``; the router's VJP of its renormalised weights) at
+    phase 5c's shapes: ms per call (CUDA events around
+    ``torch.autograd.grad``, eager, median of 3 x 3), and per step (one
+    call a block a step)."""
     from repro_torch.core.device import expert_capacity
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.router_topk import router_topk
@@ -3305,6 +3439,50 @@ def time_ssd(dev: torch.device, name: str, B: int, launches: int, err: float,
     return row
 
 
+def ssd_recompute(q, k, v, la, gy, gs, chunk: int) -> tuple:
+    """The backward ``ssd_scan_bwd`` replaced: ``ssd_scan_plain`` run again
+    under autograd and differentiated (``torch.autograd.grad``)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, la)]
+    with torch.enable_grad():
+        y, state = ssd_scan_plain(*leaves, chunk, out_dtype=gy.dtype)
+        return torch.autograd.grad((y, state), leaves, (gy, gs))
+
+
+def time_ssd_bwd(dev: torch.device, name: str, B: int, launches: int,
+                 err: float, card: str, H: int = 64, G: int = 1, N: int = 64,
+                 P: int = 64) -> dict:
+    """``ssd_scan_bwd`` over B sequences of 2048 tokens, chunk 256, in the
+    blocks' types (dy f32, the final state's cotangent zero, as training
+    hands them; Zamba2's Mamba2 layer by default, xLSTM's mLSTM at H = G,
+    N = 384 and P 384 or 1): in a CUDA graph and eager, beside its plain
+    version (``ssd_scan_bwd_plain``), the plain recompute it replaced
+    (:func:`ssd_recompute`) and its bound (``work_backward``)."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd,
+                                              ssd_scan_bwd_plain,
+                                              work_backward)
+    g = torch.Generator().manual_seed(8)
+    S, Q = 2048, 256
+    args = ssd_bwd_inputs(g, dev, (B, H, G, S, N, P), "model") + (Q,)
+    ms = graph_ms(lambda: ssd_scan_bwd(*args))
+    eager = time_ms(lambda: ssd_scan_bwd(*args))
+    plain = time_ms(lambda: ssd_scan_bwd_plain(*args), reps=3, iters=3)
+    recompute = time_ms(lambda: ssd_recompute(*args), reps=3, iters=3)
+    q, _, v, la, gy, _, _ = args
+    w = work_backward(B, H, G, S, N, P, Q, q.dtype, v.dtype, la.dtype,
+                      gy.dtype)
+    row = kernel_row(name, "ssd_scan_bwd", "src/repro/kernels/ops.py:59",
+                     launches, err, ms, plain, w, None)
+    say(f"[time] {name} B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 q/k, "
+        f"f32 v/dy): {ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms "
+        f"per eager call, its plain version {plain:.4f} ms, the plain "
+        f"recompute it replaced {recompute:.4f} ms ({ms / recompute:.3f} of "
+        f"it), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+        f"{w.flops:.4g} FLOP, {w.bytes:.0f} B; "
+        f"{row['bound_ms'] / ms:.1%} of the bound) on {card}")
+    return row
+
+
 def a2a_rows(dev: torch.device, T: int, cap: int, launches: dict,
              errs: dict, card: str, suffix: str = "") -> list:
     """``a2a_route`` and ``a2a_combine`` over T tokens of phase 3's
@@ -3378,6 +3556,14 @@ def phase_times(dev: torch.device, main: dict, card: str) -> list:
 ACC_TASKS, ACC_TOKENS, ACC_INFLIGHT = 32, 2048, 8
 
 
+def device_segments(dev: torch.device) -> int:
+    """The caching allocator's count of device allocations (cudaMalloc
+    calls) so far; 0 off the card."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
+
+
 def phase_accelerator(plan, cfg, tasks: int = ACC_TASKS,
                       tokens: int = ACC_TOKENS, check_launches: bool = True,
                       card: str = "the CPU") -> dict:
@@ -3389,7 +3575,12 @@ def phase_accelerator(plan, cfg, tasks: int = ACC_TASKS,
     synchronous loop of the same calls bit for bit (or, where they do not,
     lie within what two synchronous loops differ by, which is printed), the
     host offloads all tasks in less than the device time of their blocks,
-    and ``router_topk`` launched once a task in the accelerator's run."""
+    and ``router_topk`` launched once a task in the accelerator's run.
+    Both sides are timed warm: the loop after one untimed block, the
+    accelerator after one untimed round of the same tasks, whose time and
+    new device segments (the dispatcher thread's one-off set-up: its
+    streams, their allocator pools grown while results are held, its
+    cuBLAS state) are printed beside the check."""
     from repro_torch.core import FF_EOS, TorchAccelerator
     from repro_torch.kernels.router_topk import router_topk
     from repro_torch.models.moe import moe_block, moe_defs
@@ -3428,9 +3619,20 @@ def phase_accelerator(plan, cfg, tasks: int = ACC_TASKS,
     block(xs[0].to(dev))            # warm-up: cuBLAS's kernels, the pool
     sync(dev)
     want, sync_s, device_s = sync_loop()
-    router_topk.launches = 0
     acc = TorchAccelerator(block, max_inflight=ACC_INFLIGHT, device=dev)
     acc.run_then_freeze()
+    segs = device_segments(dev)
+    t0 = time.perf_counter()
+    for x in xs:                    # warm-up: the dispatcher's first round
+        acc.offload(x)
+    for _ in xs:
+        if not acc.load_result(timeout=300)[0]:
+            fail(f"accelerator: the warm-up round failed ({acc.error!r})")
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    warm_segs = device_segments(dev) - segs
+    router_topk.launches = 0
+    segs = device_segments(dev)
     t0 = time.perf_counter()
     for x in xs:
         acc.offload(x)
@@ -3444,6 +3646,7 @@ def phase_accelerator(plan, cfg, tasks: int = ACC_TASKS,
         got.append(r)
     sync(dev)
     acc_s = time.perf_counter() - t0
+    timed_segs = device_segments(dev) - segs
     launches = router_topk.launches
     if acc.wait(60) != 0:
         fail(f"accelerator: the offloaded block raised {acc.error!r}")
@@ -3475,12 +3678,15 @@ def phase_accelerator(plan, cfg, tasks: int = ACC_TASKS,
         f"{tokens} tokens from pinned memory, max_inflight {ACC_INFLIGHT}: "
         f"equal to the synchronous loop {match}; router_topk launched "
         f"{launches} times; host offload {offload_s * 1e3:.1f} ms against "
-        f"{device_s * 1e3:.1f} ms of device time (CUDA events); "
+        f"{device_s * 1e3:.1f} ms of device time (CUDA events), "
+        f"{timed_segs} new device segments, after an untimed round of "
+        f"{warm_s * 1e3:.1f} ms and {warm_segs} new segments; "
         f"{tasks / acc_s:.1f} tasks/s offloaded against {tasks / sync_s:.1f} "
         f"tasks/s in the synchronous loop ({sync_s / acc_s:.2f}x) on {card}")
     return {"launches": launches, "offload_s": offload_s,
-            "device_s": device_s, "acc_tasks_s": tasks / acc_s,
-            "sync_tasks_s": tasks / sync_s, "bitwise": same}
+            "device_s": device_s, "warm_s": warm_s, "timed_segs": timed_segs,
+            "acc_tasks_s": tasks / acc_s, "sync_tasks_s": tasks / sync_s,
+            "bitwise": same}
 
 
 PROC_WORKERS = 4
@@ -5266,24 +5472,31 @@ class TpShapes:
     model's blocks (q, k, v of ``flash_attention`` and ``ssd_scan``; the
     logits of ``router_topk``; x of ``gelu_stepwise``) and, in ``counts``,
     its launches at each, by default from the attention, MoE and Mamba2
-    blocks, else from the (module, name) pairs of ``targets``."""
+    blocks, else from the (module, name) pairs of ``targets``: a kernel
+    wrapper's name where the model calls it, or (module, name, kernel) for
+    a function of the kernel's own module that launches it (the backward's
+    ``_launch_bwd``), its launches counted under ``kernel``."""
 
     def __init__(self, targets=None):
+        from repro_torch.kernels import wrappers
         from repro_torch.models import attention, moe, ssm
         self.seen = {}
-        self._orig = targets or [(attention, "flash_attention"),
-                                 (moe, "router_topk"), (ssm, "ssd_scan")]
-        self.counts = {}             # name -> shapes -> launches
+        self._orig = [(m, n) for m, n, *_ in targets or [
+            (attention, "flash_attention"), (moe, "router_topk"),
+            (ssm, "ssd_scan")]]
+        kernels = [t[2] if len(t) > 2 else t[1] for t in targets or
+                   self._orig]
+        self.counts = {}             # kernel -> shapes -> launches
         self._fns = [getattr(m, n) for m, n in self._orig]
-        for (m, n), fn in zip(self._orig, self._fns):
-            def wrap(*a, _fn=fn, _n=n, **k):
+        for (m, n), fn, kn in zip(self._orig, self._fns, kernels):
+            def wrap(*a, _fn=fn, _n=kn, _c=wrappers()[kn], **k):
                 key = tuple(tuple(t.shape) for t in a[:3]
                             if isinstance(t, torch.Tensor))
                 self.seen.setdefault(_n, set()).add(key)
-                before = _fn.launches
+                before = _c.launches
                 out = _fn(*a, **k)
                 by = self.counts.setdefault(_n, {})
-                by[key] = by.get(key, 0) + _fn.launches - before
+                by[key] = by.get(key, 0) + _c.launches - before
                 return out
             setattr(m, n, wrap)
 
@@ -5361,14 +5574,16 @@ def tp_train(plan, dev, out_dir: str) -> dict:
     return out
 
 
-def train_pair(plan, dev, cfg, ref, prep=None) -> dict:
+def train_pair(plan, dev, cfg, ref, prep=None, shapes=None) -> dict:
     """``TP_STEPS`` steps of ``make_train_step`` from the seed-0 draw (then
     ``prep(cfg, params)``) on phase 5c's batches and schedule: the losses,
-    the grad norms, the host times and their split, and each leaf's update
-    on this rank's block against the one-device steps' ``ref``
-    (:func:`tp_updates`); then the same steps with the gradient sum over
-    the model axis removed (``reduce_grads`` without its ``replicated``
-    axes), the fault the update limit must see."""
+    the grad norms, the host times and their split, each kernel's launches
+    (and, where ``shapes`` makes a :class:`TpShapes`, its launches by
+    shape, ``by_shape``), and each leaf's update on this rank's block
+    against the one-device steps' ``ref`` (:func:`tp_updates`); then the
+    same steps with the gradient sum over the model axis removed
+    (``reduce_grads`` without its ``replicated`` axes), the fault the
+    update limit must see."""
     from repro_torch.core.tree import jax_leaves
     from repro_torch.models.lm import LM
     from repro_torch.runtime import steps as st
@@ -5391,14 +5606,19 @@ def train_pair(plan, dev, cfg, ref, prep=None) -> dict:
     routes0 = tp_routes()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, norms, dts = [], [], []
-    with clock.timing():
-        for b in batches:
-            sync(dev)
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            dts.append(time.perf_counter() - t0)
+    seen = shapes() if shapes else None
+    try:
+        with clock.timing():
+            for b in batches:
+                sync(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                dts.append(time.perf_counter() - t0)
+    finally:
+        if seen:
+            seen.undo()
     launches = read_launches(kernels)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     routes = tp_routes_since(routes0)
@@ -5427,6 +5647,7 @@ def train_pair(plan, dev, cfg, ref, prep=None) -> dict:
             "fault_err": fault[0][0], "fault": show(fault),
             "n_split": sum(split), "n_leaves": len(split),
             "launches": launches, "peak_gb": peak_gb,
+            "by_shape": seen.counts if seen else {},
             "split": clock.split(), "dts": dts, "routes": routes}
 
 
@@ -6096,12 +6317,14 @@ def tf_train_config(name: str):
                                .segments_spec)
 
 
-def tf_train(plan, dev, out_dir: str, arch: str) -> dict:
+def tf_train(plan, dev, out_dir: str, arch: str, shapes=None) -> dict:
     """12a/12c's training: :func:`train_pair` at ``arch``'s
     :data:`TF_TRAIN_DEPTH`, from the seed-0 draw with :func:`tf_tame`,
-    held to the one-device steps of :func:`tf_references`."""
+    held to the one-device steps of :func:`tf_references` (launches by
+    shape where ``shapes`` makes a :class:`TpShapes`)."""
     return train_pair(plan, dev, tf_train_config(arch), torch.load(
-        pathlib.Path(out_dir) / f"{arch}_train.pt", mmap=True), tf_tame)
+        pathlib.Path(out_dir) / f"{arch}_train.pt", mmap=True), tf_tame,
+        shapes)
 
 
 def tf_served(plan, dev, cfg) -> dict:
@@ -6158,9 +6381,11 @@ def tf_xlstm(plan, dev, out_dir: str) -> dict:
     """12c: xLSTM-125m whole, served through the lock-step engine, then
     trained at its :data:`TF_TRAIN_DEPTH`."""
     from repro_torch.configs import get
+    from repro_torch.kernels import ssd_scan as ssd_module
     out = tf_served(plan, dev, get("xlstm-125m"))
     gc_cuda()
-    out["train"] = tf_train(plan, dev, out_dir, "xlstm-125m")
+    out["train"] = tf_train(plan, dev, out_dir, "xlstm-125m", lambda: TpShapes(
+        [(ssd_module, "_launch_bwd", "ssd_scan_bwd")]))
     return out
 
 
@@ -6401,6 +6626,17 @@ def tf_report(card: str, ranks: list, tr: float, tl: float) -> dict:
                                 f"{TF_TRAIN_DEPTH['xlstm-125m'][0]} of 12 "
                                 f"blocks", c["train"], card, TP_UPDATE_TOL,
                                 False)
+        # the mLSTM's two backward calls a layer, numerator and normaliser,
+        # each under its own row by v's P
+        bwd = {}
+        for key, k in c["train"]["by_shape"].get("ssd_scan_bwd", {}).items():
+            row = tf_row("12c", "ssd_scan_bwd", key)
+            bwd[row] = bwd.get(row, 0) + k
+        for row in ("ssd_scan_bwd_tp_xlstm", "ssd_scan_bwd_tp_xlstm_p1"):
+            if not bwd.get(row):
+                faults.append(f"12c rank {r}: {row} never launched in "
+                              f"training")
+            add(row, bwd.get(row, 0))
         for tag, x, what in (
                 ("12b", b, "Qwen2-VL-2B whole through the steps, B1 x S2048 "
                  f"embeddings with M-RoPE ids over a {VLM_GRID} x "
@@ -6437,11 +6673,12 @@ def tf_row(tag: str, kernel: str, key: tuple):
     """The ``kernels`` row a launch at ``key`` (the wrapper's argument
     shapes) of phase 12 counts under: the cp ranks' prefix blocks apart,
     Whisper's encoder, cross attention at prefill and decode and decoder
-    self-attention, the mLSTM's two scans, every gelu of 12d."""
+    self-attention, the mLSTM's two scans and their backward calls, every
+    gelu of 12d."""
     if kernel == "gelu_stepwise":
         return "gelu_stepwise_tp"
-    if kernel == "ssd_scan":
-        return "ssd_scan_tp_xlstm" + ("_p1" if key[2][-1] == 1 else "")
+    if kernel in ("ssd_scan", "ssd_scan_bwd"):
+        return kernel + "_tp_xlstm" + ("_p1" if key[2][-1] == 1 else "")
     (B, H, Sq, D), (_, Hkv, Sk, _) = key[0], key[1]
     if tag in ("12a", "12b"):
         model = "llama" if tag == "12a" else "qwen"
@@ -6459,7 +6696,8 @@ def tp_families_rows(dev: torch.device, card: str, errs: dict) -> list:
     D128) and Qwen2-VL (H12/2), rank 0's Sq 1024 against Sk 1024, rank 1's
     against Sk 2048; Whisper's at 8 of 16 heads (the encoder over 1500
     frames, the cross attention at Sq 32 and 1 against them, the decoder's
-    causal 32); the mLSTM's ``ssd_scan`` on 2 of 4 heads (P 384 and 1);
+    causal 32); the mLSTM's ``ssd_scan`` and its backward kernel on 2 of 4
+    heads (P 384 and 1);
     the gelu over a rank's 2048 of Whisper's 4096 channels."""
     t0 = time.perf_counter()
     n = phase_tp_families(card)["launches"]
@@ -6484,6 +6722,9 @@ def tp_families_rows(dev: torch.device, card: str, errs: dict) -> list:
     for name, P in (("ssd_scan_tp_xlstm", 384), ("ssd_scan_tp_xlstm_p1", 1)):
         rows.append(time_ssd(dev, name, 1, n.get(name, 0), errs[name], card,
                              H=2, G=2, N=384, P=P))
+        bwd = name.replace("ssd_scan", "ssd_scan_bwd")
+        rows.append(time_ssd_bwd(dev, bwd, 1, n.get(bwd, 0), errs[bwd], card,
+                                 H=2, G=2, N=384, P=P))
     rows.append(time_stepwise(dev, g, "gelu", "gelu_stepwise_tp",
                               (WHISPER_B, WHISPER_FRAMES, 2048),
                               n.get("gelu_stepwise_tp", 0),

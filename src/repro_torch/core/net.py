@@ -64,7 +64,11 @@ that fails to send (the peer closed after its EOS) does not mark the lane
 dead, so results still in flight are read before the reader judges the end
 of the stream; the heartbeat thread keeps its silence watch, which stands
 down once the peer's EOS has arrived (``NetLane._grant``,
-``NetLane._hb_loop``).  A lane still carries one package only: the control
+``NetLane._hb_loop``).  And a worker ends its connection by half-closing
+it and draining the parent's credits and heartbeats until the parent
+closes (``NetLane.finish``): closing with them unread reset the
+connection, and the reset dropped the worker's last frames, its EOS among
+them, before they were sent.  A lane still carries one package only: the control
 records that ride it pickled (:class:`~repro_torch.core.shm.WorkerStats`,
 :class:`~repro_torch.core.shm.ShmError`, the ``FN`` handshake's callable)
 name their package, and a port collector would not recognise the
@@ -525,6 +529,26 @@ class NetLane:
     def drained(self) -> bool:
         return self._closed and self.empty()
 
+    def finish(self, timeout: Optional[float] = None) -> None:
+        """End this side after its last frame: half-close the socket (the
+        peer reads every frame sent, then EOF), let the reader drain what
+        the peer still sends (credits, heartbeats) until the peer closes
+        its side or ``timeout`` (default the heartbeat timeout) passes,
+        then tear the link down.  Closing with unread input at once would
+        reset the connection, and the reset drops the frames still queued
+        to send: the peer would lose this side's last results and its
+        EOS."""
+        self._stop.set()            # no heartbeat after the half-close
+        try:
+            with self._send_lock:
+                self._sock.shutdown(socket.SHUT_WR)
+        except OSError:
+            pass
+        if self._reader is not threading.current_thread():
+            self._reader.join(self._hb_timeout if timeout is None
+                              else timeout)
+        self.shutdown()
+
     def shutdown(self) -> None:
         """Tear the link down: close the socket and stop the lane threads."""
         self._shutdown = True
@@ -601,7 +625,7 @@ def _serve_conn(sock: socket.socket, idx: int, *, credit: int,
             lane.push_eos()
         except BaseException:           # noqa: BLE001 - parent may be gone
             pass
-        lane.shutdown()
+        lane.finish()
 
 
 def worker_main(host: str = "127.0.0.1", port: int = 0, *, slots: int = 4,

@@ -11,9 +11,10 @@ def wrappers() -> dict:
     from .gelu_stepwise import gelu_stepwise, gelu_stepwise_bwd
     from .router_topk import router_topk
     from .silu_stepwise import silu_stepwise, silu_stepwise_bwd
-    from .ssd_scan import ssd_scan
+    from .ssd_scan import ssd_scan, ssd_scan_bwd
     return {"flash_attention": flash_attention, "router_topk": router_topk,
-            "ssd_scan": ssd_scan, "gelu_stepwise": gelu_stepwise,
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+            "gelu_stepwise": gelu_stepwise,
             "gelu_stepwise_bwd": gelu_stepwise_bwd,
             "silu_stepwise": silu_stepwise,
             "silu_stepwise_bwd": silu_stepwise_bwd,

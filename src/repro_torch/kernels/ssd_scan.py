@@ -1,9 +1,10 @@
 """Chunked gated linear recurrence (SSD / Mamba2 / mLSTM core), forward
-kernel plus recompute backward.
+and backward kernels.
 
 Port of ``src/repro/kernels/ssd_scan.py:ssd_scan`` as wrapped by
-``src/repro/kernels/ops.py:ssd_scan``.  The CUDA kernel is
-``csrc/ssd_scan.cu`` (its header gives the design and the bound).
+``src/repro/kernels/ops.py:ssd_scan``.  The CUDA kernels are
+``csrc/ssd_scan.cu`` (forward) and ``csrc/ssd_scan_bwd.cu`` (backward);
+their headers give the designs and the bounds.
 
     h_t = exp(log_a_t) h_{t-1} + k_t v_t^T ;   y_t = q_t . h_t
 
@@ -21,12 +22,15 @@ overrides the output type (the model path keeps y in fp32).  bf16 q/k
 P tile of :func:`launch_plan`'s ``p_tile`` columns), the chunks of a head
 chained through the state per P tile; f32 q/k run ``ssd_scan_kernel`` (a
 block per (b, h, chunk)).  The wrapper allocates the final state, the other
-chunks' states and the kernel's zeroed ticket and flags.  As in the
-reference, the backward pass has no kernel: it recomputes through the plain
-version and takes its VJP, the port of ``ops.py``'s VJP rule
-(``_ssd_bwd_rule``: ``jax.vjp`` of ``ref.ssd_scan_ref``), with the final
-state's cotangent added (autograd hands zeros when the state is unused).
-The profiler sees it as the range ``ssd_scan.recompute_backward``.
+chunks' states and the kernel's zeroed ticket and flags.
+The backward (:func:`ssd_scan_bwd`, the profiler's range
+``ssd_scan.backward``) computes what the reference's VJP rule computes
+(``ops.py``'s ``_ssd_bwd_rule``: ``jax.vjp`` of ``ref.ssd_scan_ref``),
+with the final state's cotangent added (autograd hands zeros when the
+state is unused): :func:`ssd_scan_bwd_plain` for CPU tensors, for CUDA
+tensors the kernels of ``csrc/ssd_scan_bwd.cu``, which recompute the
+chunks' states and keep nothing from the forward (``ssd_scan_bwd.launches``
+counts their calls; :func:`work_backward` is their bound).
 """
 
 from __future__ import annotations
@@ -111,6 +115,101 @@ def ssd_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + torch.einsum("bhsn,bhsp->bhnp", dk, vc)
         ys.append(y)
     return torch.cat(ys, dim=2)[:, :, :S].to(out_dtype), h
+
+
+def _in_clip(x: torch.Tensor) -> torch.Tensor:
+    """1 where an exponent lies inside the clip (its gradient passes, as
+    ``torch.clamp``'s does), else 0."""
+    return ((x >= CLIP[0]) & (x <= CLIP[1])).float()
+
+
+def ssd_scan_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       log_a: torch.Tensor, gy: torch.Tensor,
+                       gstate: Optional[torch.Tensor], chunk: int = 128):
+    """Plain version of the backward kernel: the gradients of
+    :func:`ssd_scan_plain`'s ``(y, state)`` for cotangents ``gy`` and
+    ``gstate`` (the final state's; ``None`` is zero), as ``(dq, dk, dv,
+    dlog_a)`` in the types of q, k, v and log_a.  The kernel's
+    decomposition, in fp32:  the chunks' entering states h_in by the
+    forward chain, the gradients of the states they leave, dh_out, by the
+    reverse chain  dh_in = e^tot dh_out + (diag(e^cum) q)^T dy  (the last
+    chunk's dh_out is ``gstate``), then per chunk, with A = (q k^T) masked
+    to s <= t, D_ts = e^(cum_t - cum_s), W = A D, dW = (dy v^T) masked:
+    dq = (dW D) k + diag(e^cum) dy h_in^T,  dk = (dW D)^T q +
+    diag(e^(tot - cum)) v dh_out^T,  dv = W^T dy + diag(e^(tot - cum)) k
+    dh_out, and dcum from dW W's row and column sums, the inter term and
+    the state terms (the last step also takes tot's), every exponential
+    clipped as the forward clips it and passing no gradient where it is
+    clipped; dlog_a is dcum's reverse cumsum within its chunk.  At G < H
+    each head's dq and dk are rounded to q's type (as autograd rounds them
+    where the forward widens q and k for each head), then each group's
+    heads summed in order in fp32 and rounded once more."""
+    B, G, S, N = q.shape
+    H, P = v.shape[1], v.shape[3]
+    dev = q.device
+    if S == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v), torch.zeros_like(log_a))
+    Q = min(chunk, S)
+    pad = -S % Q
+    nc = (S + pad) // Q
+    rep = H // G
+
+    def chunks(t, feat=True):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad) if feat
+                                    else (0, pad))
+        return t.reshape(t.shape[:2] + (nc, Q) + t.shape[3:])
+    qc = chunks(q.repeat_interleave(rep, dim=1))            # (B,H,nc,Q,N)
+    kc = chunks(k.repeat_interleave(rep, dim=1))
+    vc, gc = chunks(v), chunks(gy)                          # (B,H,nc,Q,P)
+    cum = torch.cumsum(chunks(log_a, feat=False), dim=-1)   # (B,H,nc,Q)
+    tot = cum[..., -1]
+    e_cum, e_rem = _exp_clip(cum), _exp_clip(tot[..., None] - cum)
+    e_tot = _exp_clip(tot)[..., None, None]
+    inc = torch.einsum("bhcsn,bhcsp->bhcnp", kc, e_rem[..., None] * vc)
+    up = torch.einsum("bhctn,bhctp->bhcnp", qc, e_cum[..., None] * gc)
+    h_in, dh_out = torch.empty_like(inc), torch.empty_like(inc)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+    for c in range(nc):
+        h_in[:, :, c] = h
+        h = e_tot[:, :, c] * h + inc[:, :, c]
+    dh = (torch.zeros_like(h) if gstate is None else gstate.float())
+    for c in reversed(range(nc)):
+        dh_out[:, :, c] = dh
+        dh = e_tot[:, :, c] * dh + up[:, :, c]
+
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    x = cum[..., :, None] - cum[..., None, :]               # (B,H,nc,t,s)
+    D = torch.where(mask, _exp_clip(x), 0.0)
+    W = torch.einsum("bhctn,bhcsn->bhcts", qc, kc) * D
+    dW = torch.where(mask, torch.einsum("bhctp,bhcsp->bhcts", gc, vc), 0.0)
+    dA = dW * D
+    gq = torch.einsum("bhctp,bhcnp->bhctn", gc, h_in)      # dy h_in^T
+    gk = torch.einsum("bhcsp,bhcnp->bhcsn", vc, dh_out)    # v dh_out^T
+    dq = torch.einsum("bhcts,bhcsn->bhctn", dA, kc) + e_cum[..., None] * gq
+    dk = torch.einsum("bhcts,bhctn->bhcsn", dA, qc) + e_rem[..., None] * gk
+    dv = torch.einsum("bhcts,bhctp->bhcsp", W, gc) \
+        + e_rem[..., None] * torch.einsum("bhcsn,bhcnp->bhcsp", kc, dh_out)
+    ww = dW * W * _in_clip(x)
+    st = e_rem * _in_clip(tot[..., None] - cum) * (kc * gk).sum(-1)
+    dcum = ww.sum(-1) - ww.sum(-2) - st \
+        + e_cum * _in_clip(cum) * (qc * gq).sum(-1)
+    dcum[..., -1] += st.sum(-1) + _exp_clip(tot) * _in_clip(tot) \
+        * (h_in * dh_out).sum((-2, -1))
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+
+    def unchunk(t):
+        t = t.reshape(t.shape[:2] + (nc * Q,) + t.shape[4:])
+        return t[:, :, :S]
+
+    def group_sum(t):
+        t = unchunk(t).to(q.dtype).float().reshape(B, G, rep, S, N)
+        out = t[:, :, 0]
+        for r in range(1, rep):
+            out = out + t[:, :, r]
+        return out.to(q.dtype)
+    return (group_sum(dq), group_sum(dk), unchunk(dv).to(v.dtype),
+            unchunk(dla).to(log_a.dtype))
 
 
 def _check(q, k, v, log_a) -> None:
@@ -342,7 +441,7 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, log_a, chunk, out_dtype):
         ctx.save_for_backward(q, k, v, log_a)
-        ctx.chunk, ctx.out_dtype = chunk, out_dtype
+        ctx.chunk = chunk
         if backend.use_kernel(q):
             return _launch(q, k, v, log_a, chunk, out_dtype)
         return ssd_scan_plain(q, k, v, log_a, chunk, out_dtype=out_dtype)
@@ -350,14 +449,126 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gstate):
         q, k, v, log_a = ctx.saved_tensors
-        with torch.enable_grad(), torch.profiler.record_function(
-                "ssd_scan.recompute_backward"):
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v, log_a)]
-            y, state = ssd_scan_plain(*leaves, ctx.chunk,
-                                      out_dtype=ctx.out_dtype)
-            grads = torch.autograd.grad((y, state), leaves, (gy, gstate),
-                                        allow_unused=True)
-        return tuple(grads) + (None, None)
+        with torch.profiler.record_function("ssd_scan.backward"):
+            return ssd_scan_bwd(q, k, v, log_a, gy, gstate, ctx.chunk) \
+                + (None, None)
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = backend.load("ssd_scan_bwd")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.ssd_scan_bwd_launch.argtypes = [p] * 11 + [strides] * 2 \
+            + [i] * 11 + [p]
+        lib.ssd_scan_bwd_launch.restype = i
+        lib.ssd_scan_bwd_smem.argtypes = [i]
+        lib.ssd_scan_bwd_smem.restype = ctypes.c_longlong
+        lib._ff_typed = True
+    return lib
+
+
+def bwd_smem_bytes(Q: int) -> int:
+    """The backward's largest dynamic shared memory of a block at chunk Q
+    (csrc/ssd_scan_bwd.cu's ``ssd_scan_bwd_smem``): the chunk kernel's six
+    fp32 64 x 68 tiles, the row and column sums, and the cumsum and each
+    row's sum of dW W over whole 64-row tiles; the states kernel's four
+    tiles, that cumsum and the chunk's two exponentials; or the finishing
+    kernel's dcum and state terms, Q each."""
+    qp = -(-Q // TILE) * TILE
+    return 4 * max(6 * TILE * LD_W + 6 * TILE + 2 * qp,
+                   4 * TILE * LD_W + qp + 2 * Q, 2 * Q)
+
+
+def bwd_workspace(B: int, H: int, G: int, S: int, N: int, P: int,
+                  Q: int) -> int:
+    """fp32 words of the backward's workspace (csrc/ssd_scan_bwd.cu's
+    ``Args``): every chunk's state slot twice (h_in, dh_out), each step's
+    partial sums of dcum (two, and two per 64-column n slab), each chunk's
+    e^tot <h_in, dh_out> per chain block of 1024 state elements and its
+    tot, the per-head fp32 dq that the chunks' sums go into, and at G < H
+    the per-head fp32 dk that the group sum reads."""
+    nc, ns = -(-S // Q), -(-N // TILE)
+    splits = -(-(N * P) // 1024)
+    return B * H * (2 * nc * N * P + S * (2 + 2 * ns) + nc * (splits + 1)
+                    + S * N * (2 if G != H else 1))
+
+
+def _launch_bwd(q, k, v, log_a, gy, gstate, chunk: int):
+    B, G, S, N = q.shape
+    H, P = v.shape[1], v.shape[3]
+    for name, t in (("q", q), ("k", k), ("v", v), ("log_a", log_a),
+                    ("gy", gy)):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"ssd_scan backward takes float32 or bfloat16 "
+                            f"tensors; {name} is {t.dtype}")
+        if t.device != q.device:
+            raise ValueError("ssd_scan backward: inputs on different devices")
+        if name != "gy" and not t.is_contiguous():
+            raise ValueError(f"ssd_scan backward takes contiguous q, k, v "
+                             f"and log_a; {name} is not")
+    if k.dtype != q.dtype:
+        raise TypeError(f"ssd_scan backward takes q and k of one type; got "
+                        f"{q.dtype}, {k.dtype}")
+    if tuple(gy.shape) != (B, H, S, P):
+        raise ValueError(f"ssd_scan backward: dy {tuple(gy.shape)}, "
+                         f"expected {(B, H, S, P)}")
+    if gstate is not None and (tuple(gstate.shape) != (B, H, N, P)
+                               or gstate.dtype != torch.float32
+                               or gstate.device != q.device):
+        raise ValueError(f"ssd_scan backward: the state's cotangent is "
+                         f"float32 {(B, H, N, P)} on q's device; got "
+                         f"{gstate.dtype} {tuple(gstate.shape)}")
+    dq, dk = torch.empty_like(q), torch.empty_like(k)
+    dv, dla = torch.empty_like(v), torch.empty_like(log_a)
+    if min(B, H, S, N, P) == 0:
+        for t in (dq, dk, dv, dla):
+            t.zero_()
+        return dq, dk, dv, dla
+    Q = min(chunk, S)
+    if chunk < 1 or max(B, H, S, N, P) >= 2 ** 31 or \
+            bwd_smem_bytes(Q) > H100_SXM.smem_per_block:
+        raise ValueError(f"ssd_scan backward: sizes out of range (B {B}, H "
+                         f"{H}, S {S}, N {N}, P {P}, chunk {chunk})")
+    ws = torch.empty(bwd_workspace(B, H, G, S, N, P, Q), dtype=torch.float32,
+                     device=q.device)
+    if backend.is_fake(q):
+        backend.note_launch("ssd_scan_bwd")
+        return dq, dk, dv, dla
+    st = (ctypes.c_longlong * 4)
+    err = _lib_bwd().ssd_scan_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+        gy.data_ptr(), gstate.data_ptr() if gstate is not None else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dla.data_ptr(),
+        ws.data_ptr(), st(*gy.stride()),
+        st(*(gstate.stride() if gstate is not None else (0,) * 4)),
+        B, H, G, S, N, P, Q, _DTYPES[q.dtype], _DTYPES[v.dtype],
+        _DTYPES[log_a.dtype], _DTYPES[gy.dtype],
+        backend.current_stream(q.device))
+    with _count_lock:
+        ssd_scan_bwd.launches += 1
+    backend.check(err, "ssd_scan_bwd")
+    return dq, dk, dv, dla
+
+
+def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, gy: torch.Tensor,
+                 gstate: Optional[torch.Tensor], chunk: int = 128) -> tuple:
+    """The gradients ``(dq, dk, dv, dlog_a)`` of :func:`ssd_scan`'s ``(y,
+    state)`` at q, k, v, log_a for cotangents ``gy`` (any strides) and
+    ``gstate`` (the final state's, fp32; ``None`` is zero), in the inputs'
+    types: :func:`ssd_scan_bwd_plain` for CPU tensors, the kernels of
+    ``csrc/ssd_scan_bwd.cu`` for CUDA tensors (one count in
+    ``ssd_scan_bwd.launches`` a call)."""
+    _check(q, k, v, log_a)
+    if backend.noted():
+        B, G, S, N = q.shape
+        backend.note("ssd_scan_bwd", work_backward(
+            B, v.shape[1], G, S, N, v.shape[3], chunk, q.dtype, v.dtype,
+            log_a.dtype, gy.dtype))
+    if backend.use_kernel(q):
+        return _launch_bwd(q, k, v, log_a, gy, gstate, chunk)
+    return ssd_scan_bwd_plain(q, k, v, log_a, gy, gstate, chunk)
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -387,6 +598,7 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0
 
 
 def work(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
@@ -417,3 +629,42 @@ def work(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
     tf32 = products(v_dtype) * with_v + products(q_dtype) * with_q
     return backend.Work(score + with_v + with_q, nbytes,
                         score / qk_rate + tf32 / H100_SXM.peak_flops_tf32)
+
+
+def work_backward(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
+                  q_dtype: torch.dtype, v_dtype: torch.dtype,
+                  la_dtype: torch.dtype, gy_dtype: torch.dtype
+                  ) -> backend.Work:
+    """The backward's least work: per chunk the causal halves of the five
+    Q x Q products (the scores q.k again, dy.v, and the three that give dq,
+    dk and dv's W^T dy) and the five (Q,N)x(N,P)-sized products (the state
+    increment, the reverse chain's term, dy h_in^T, v dh_out^T, k dh_out),
+    each product with an fp32 operand at fp32 accuracy as TF32 parts on the
+    tensor cores: three where both operands are fp32, two where one is
+    bf16 (exact in TF32); the scores of bf16 q, k at the bf16 rate.  q, k,
+    v, log_a, dy and the final state's cotangent read once; dq, dk, dv and
+    dlog_a written once."""
+    Q = min(chunk, S)
+    chunk_heads = -(-S // Q) * B * H if S else 0
+    causal, state = chunk_heads * Q * (Q + 1), chunk_heads * 2 * Q * N * P
+    bf = torch.bfloat16
+    qk, vb, gb = q_dtype == bf, v_dtype == bf, gy_dtype == bf
+
+    def parts(*exact):            # TF32 products for fp32 accuracy
+        return 1 + sum(not e for e in exact)
+    score = causal * N
+    tf32 = (causal * P * parts(gb, vb) + causal * N * 2 * parts(False, qk)
+            + causal * P * parts(False, gb)
+            + state * (3 * parts(qk, False) + parts(gb, False)
+                       + parts(vb, False)))
+    flops = score + causal * (2 * P + 2 * N) + 5 * state
+    nbytes = 2 * (2 * B * G * S * N * q_dtype.itemsize
+                  + B * H * S * (P * v_dtype.itemsize + la_dtype.itemsize)) \
+        + B * H * S * P * gy_dtype.itemsize + B * H * N * P * 4
+    if qk:
+        score_s = score / H100_SXM.peak_flops_bf16
+    else:
+        tf32 += score * parts(False, False)
+        score_s = 0.0
+    return backend.Work(flops, nbytes,
+                        score_s + tf32 / H100_SXM.peak_flops_tf32)

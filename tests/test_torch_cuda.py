@@ -15,6 +15,7 @@ imports only torch and the port, so on a machine without JAX it runs as
 import pytest
 import torch
 
+from ssd_bwd_cases import BWD_BAD_IDS, BWD_BAD_SHAPES, bwd_bad_inputs
 from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
 from repro_torch.kernels import flash_attention as flash_module
@@ -38,7 +39,7 @@ from repro_torch.kernels.router_topk import (ONE_BLOCK_MAX_T,
 from repro_torch.kernels.router_topk import launch_plan as route_plan
 from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.ssd_scan import launch_plan, ssd_scan, \
-    ssd_scan_plain, wgmma_fits
+    ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain, wgmma_fits
 
 torch.set_num_threads(1)
 
@@ -888,6 +889,150 @@ def test_ssd_kernel_on_two_streams_at_once(cuda):
     for ga, gb in got:
         for x, y in zip(ga + gb, want_a + want_b):
             assert torch.equal(x, y)
+
+
+# (B, H, G, S, N, P, chunk, qk/v/dy dtype or None for the model types) of
+# the backward: Zamba2's and xLSTM's training calls (on all heads and a
+# rank's), ragged S, S under a chunk, G < H, N and P past and off a tile,
+# P 1, f32 and bf16 throughout, and a chunk of 8192 (every kernel's shared
+# memory past the 48 KB a block gets without opting in)
+SSD_BWD_KERNEL_CASES = [
+    (4, 64, 1, 2048, 64, 64, 256, None),
+    (1, 4, 4, 2048, 384, 384, 256, None),
+    (1, 2, 2, 2048, 384, 1, 256, None),
+    (1, 64, 1, 600, 64, 64, 256, torch.float32),
+    (1, 8, 1, 100, 64, 64, 256, torch.bfloat16),
+    (4, 64, 1, 133, 64, 64, 128, torch.float32),
+    (1, 4, 2, 300, 64, 63, 256, torch.bfloat16),
+    (1, 2, 1, 200, 72, 130, 96, torch.float32),
+    (1, 2, 2, 257, 384, 384, 256, None),
+    (1, 1, 1, 64, 8, 8, 64, torch.float32),
+    (1, 2, 1, 8200, 16, 8, 8192, torch.float32),
+]
+
+
+def _ssd_bwd_inputs(case, cuda, state: bool):
+    """The forward's inputs, dy in y's type (f32 for the model types) and
+    the final state's fp32 cotangent (zero, as training hands it, or
+    drawn)."""
+    B, H, G, S, N, P, _, dtype = case
+    g = torch.Generator().manual_seed(S + N + P + H)
+    q, k, v, la = _ssd_inputs(g, B, H, G, S, N, P, dtype or torch.bfloat16,
+                              dtype or torch.float32, cuda)
+    if dtype is not None:
+        la = la.to(dtype)
+    gy = torch.randn(B, H, S, P, generator=g).to(dtype or torch.float32)
+    gs = torch.randn(B, H, N, P, generator=g) * state
+    return q, k, v, la, gy.to(cuda), gs.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", SSD_BWD_KERNEL_CASES)
+def test_ssd_bwd_kernel_matches_plain_and_repeats_bit_for_bit(cuda, case,
+                                                              state):
+    """``ssd_scan_bwd`` against ``ssd_scan_bwd_plain`` (f32 gradients
+    within 1e-4 of their scale: sums in other orders; bf16 within 2**-7 of
+    it: a group's dq and dk sum each head's gradient rounded to bf16, and a
+    head the two round to either side of a step moves the sum by the
+    head's step), each gradient in its input's type and shape, and a second
+    call equal bit for bit (no atomics, every sum in a fixed order)."""
+    args = _ssd_bwd_inputs(case, cuda, state) + (case[6],)
+    got = ssd_scan_bwd(*args)
+    again = ssd_scan_bwd(*args)
+    want = ssd_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, w, x in zip(got, again, want, args[:4]):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(),
+                                   rtol=SSD_TOL[a.dtype],
+                                   atol=SSD_TOL[a.dtype] * max(scale, 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_KERNEL_CASES[:3])
+def test_ssd_bwd_kernel_replays_in_a_cuda_graph(cuda, case):
+    """A backward captured in a CUDA graph and replayed gives the eager
+    call's gradients bit for bit."""
+    args = _ssd_bwd_inputs(case, cuda, True) + (case[6],)
+    want = ssd_scan_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ssd_scan_bwd(*args)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_autograd_on_the_card_launches_the_backward_kernel(cuda):
+    """Autograd through ``ssd_scan`` on CUDA tensors runs the backward
+    kernel once a call, with dy at the strides the model path hands it
+    (y transposed back to (B,S,H,P)), and gives its gradients."""
+    case = (1, 8, 1, 300, 64, 64, 256, None)
+    q, k, v, la, _, _ = _ssd_bwd_inputs(case, cuda, False)
+    leaves = [t.requires_grad_(True) for t in (q, k, v, la)]
+    gy = torch.randn(1, 300, 8, 64, device=cuda)
+    ssd_scan_bwd.launches = 0
+    y = ssd_scan(*leaves, 256, out_dtype=torch.float32).transpose(1, 2)
+    grads = torch.autograd.grad(y, leaves, gy)
+    assert ssd_scan_bwd.launches == 1
+    want = ssd_scan_bwd(q, k, v, la, gy.transpose(1, 2).contiguous(),
+                        torch.zeros(1, 8, 64, 64, device=cuda), 256)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    z = torch.zeros(1, 2, 8, 16, device=cuda)
+    la = torch.zeros(1, 2, 8, device=cuda)
+    ssd_scan_bwd.launches = 0
+    ssd_scan_bwd(z, z, z, la, z, None, 4)
+    assert ssd_scan_bwd.launches == 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        h = z.half()
+        ssd_scan_bwd(h, h, h, la, z, None, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
+        ssd_scan_bwd(t, t, t, la, z, None, 4)
+    with pytest.raises(ValueError, match="out of range"):
+        big = torch.zeros(1, 1, 65536, 8, device=cuda)
+        lb = torch.zeros(1, 1, 65536, device=cuda)
+        ssd_scan_bwd(big, big, big, lb, big, None, 65536)
+    assert ssd_scan_bwd.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", BWD_BAD_SHAPES, ids=BWD_BAD_IDS)
+def test_ssd_bwd_rejects_shapes_that_do_not_fit_on_the_card(cuda, bad):
+    """On CUDA tensors too the backward refuses q, k, v, log_a that do not
+    fit one another, and launches nothing."""
+    ssd_scan_bwd.launches = 0
+    with pytest.raises(ValueError, match="ssd_scan"):
+        ssd_scan_bwd(*bwd_bad_inputs(bad[1:], cuda), None, 4)
+    assert ssd_scan_bwd.launches == 0
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_library_smem_is_the_wrappers(cuda):
+    """The backward's largest shared memory (csrc/ssd_scan_bwd.cu) is the
+    wrapper's formula."""
+    lib = ssd_module._lib_bwd()
+    for Q in (1, 64, 100, 256, 4096, 8192):
+        assert lib.ssd_scan_bwd_smem(Q) == ssd_module.bwd_smem_bytes(Q)
 
 
 @pytest.mark.cuda

@@ -183,7 +183,8 @@ def test_every_family_calls_its_kernels(dry_ranks):
     for (_, name, _), d in dry_ranks.items():
         calls[name] |= set(d["kernel_work"])
     assert "router_topk" in calls["mixtral-8x7b"]
-    assert "ssd_scan" in calls["zamba2-1.2b"] & calls["xlstm-125m"]
+    assert {"ssd_scan", "ssd_scan_bwd"} <= calls["zamba2-1.2b"] \
+        & calls["xlstm-125m"]
     gelu = {"gelu_stepwise", "gelu_stepwise_bwd"}
     silu = {"silu_stepwise", "silu_stepwise_bwd"}
     for name in ("gemma-7b", "whisper-medium"):
@@ -193,6 +194,36 @@ def test_every_family_calls_its_kernels(dry_ranks):
     assert gelu | silu <= calls["zamba2-1.2b"]     # the shared block's gelu
     assert all("flash_attention" in calls[n] for n in C.CONFIGS
                if n != "xlstm-125m")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (beside ``tests/``), loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", C.CONFIGS)
+def test_each_familys_traced_launches_are_the_cards_formula(name):
+    """Every family's train step and prefill, traced on the CUDA path at a
+    reduced size, launch each kernel as often as ``chip_smoke.py``'s
+    ``expected_launches`` (the count phases 5c and 13 hold the card to):
+    a train step's forward twice (activation checkpointing recomputes
+    it) and each backward kernel once, ``ssd_scan_bwd`` once per Mamba2
+    layer and twice per mLSTM layer."""
+    from repro_torch.core.plan import single_device_plan
+    cs = _chip_smoke()
+    cfg = get(name).reduced()
+    plan = single_device_plan("cpu")
+    for mode, want in (("train", cs.expected_launches(cfg, 2, 0, 1)),
+                       ("prefill", cs.expected_launches(cfg, 1, 0))):
+        got = dryrun.dry_step(cfg, mode, 2, 64, plan,
+                              cuda_path=True)["kernel_launches"]
+        assert got == cs.nonzero(want), (name, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +264,14 @@ BOUND_ROWS = [
      "operations"),
     ("ssd xLSTM P1", lambda K: K.ssd_scan.work(
         1, 4, 4, 2048, 384, 1, 256, BF16, F32, F32, F32), 0.0038, "bytes"),
+    ("ssd backward Zamba2 train B4", lambda K: K.ssd_scan.work_backward(
+        4, 64, 1, 2048, 64, 64, 256, BF16, F32, F32, F32), 0.2871,
+     "operations"),
+    ("ssd backward xLSTM P384 a rank", lambda K: K.ssd_scan.work_backward(
+        1, 2, 2, 2048, 384, 384, 256, BF16, F32, F32, F32), 0.0379,
+     "operations"),
+    ("ssd backward xLSTM P1 a rank", lambda K: K.ssd_scan.work_backward(
+        1, 2, 2, 2048, 384, 1, 256, BF16, F32, F32, F32), 0.0038, "bytes"),
     ("a2a route T4096 E8", lambda K: K.a2a_fused.route_work(4096, 8),
      0.0000501, "bytes"),
     ("gelu Whisper B8x1500x4096", lambda K: K.gelu_stepwise.work(
@@ -372,6 +411,9 @@ def _fake_call(name):
         "router_topk": lambda: fn(x(16, 8), 2, 16),
         "ssd_scan": lambda: fn(x(1, 1, 8, 4), x(1, 1, 8, 4), x(1, 2, 8, 4),
                                x(1, 2, 8), 4),
+        "ssd_scan_bwd": lambda: fn(x(1, 1, 8, 4), x(1, 1, 8, 4),
+                                   x(1, 2, 8, 4), x(1, 2, 8), x(1, 2, 8, 4),
+                                   x(1, 2, 4, 4), 4),
         "gelu_stepwise": lambda: fn(x(4, 8)),
         "gelu_stepwise_bwd": lambda: fn(x(4, 8), x(4, 8)),
         "silu_stepwise": lambda: fn(x(4, 8)),
@@ -385,7 +427,7 @@ def _fake_call(name):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "router_topk",
-                                  "ssd_scan", "gelu_stepwise",
+                                  "ssd_scan", "ssd_scan_bwd", "gelu_stepwise",
                                   "gelu_stepwise_bwd", "silu_stepwise",
                                   "silu_stepwise_bwd", "a2a_route",
                                   "a2a_combine"])

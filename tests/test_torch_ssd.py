@@ -27,7 +27,9 @@ from repro.kernels.ops import ssd_scan as jssd
 from repro.models.ssm import chunked_gla as jgla
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_scan import launch_plan, p_tile, smem_bytes, \
-    ssd_scan, ssd_scan_plain, wgmma_fits, wgmma_smem_bytes
+    ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain, wgmma_fits, \
+    wgmma_smem_bytes
+from ssd_bwd_cases import BWD_BAD_IDS, BWD_BAD_SHAPES, bwd_bad_inputs
 
 torch.set_num_threads(1)
 
@@ -142,8 +144,11 @@ def test_ssd_scan_out_dtype_keeps_fp32():
 
 
 def test_ssd_scan_gradients_match_the_reference():
-    """Backward recomputes through the plain version, as ``ops.py``
-    recomputes through ``ref.ssd_scan_ref``."""
+    """On a CPU tensor the backward runs ``ssd_scan_bwd_plain``, the
+    backward kernel's decomposition (the chunks' states by the forward
+    chain, their gradients by the reverse chain, then each chunk's
+    gradients); held to ``jax.grad`` of the reference's ``ops.ssd_scan``,
+    whose VJP is ``jax.vjp`` of ``ref.ssd_scan_ref``, within 1e-4."""
     q, k, v, la = _inputs(9, 1, 2, 32, 8, 4)
     gy = np.random.default_rng(10).standard_normal((1, 2, 32, 4),
                                                    dtype=np.float32)
@@ -155,6 +160,269 @@ def test_ssd_scan_gradients_match_the_reference():
         _close(t.grad, g, 1e-4)
 
 
+# (name, B, H, G, S, N, P, chunk, log_a scale, a cotangent of the state):
+# a ragged tail chunk, S under a chunk, one group of q/k for three heads
+# and two for four, P = 1 (xLSTM's normaliser), the final state's cotangent,
+# and log_a that reaches the exponents' -60 clip inside a chunk
+BWD_CASES = [
+    ("ragged", 2, 3, 3, 40, 8, 5, 16, 0.1, False),
+    ("short", 2, 3, 3, 5, 8, 5, 16, 0.1, False),
+    ("grouped", 2, 3, 1, 37, 8, 4, 8, 0.1, False),
+    ("two_groups", 1, 4, 2, 48, 8, 6, 16, 0.1, True),
+    ("p1", 2, 3, 3, 33, 8, 1, 16, 0.1, False),
+    ("state", 1, 2, 2, 48, 8, 5, 16, 0.1, True),
+    ("clip", 1, 2, 2, 64, 8, 5, 32, 8.0, True),
+]
+# fp32 gradients against each oracle, relative to the gradient's scale:
+# the same function summed in other orders (the step-by-step oracle over
+# every step, chunked_gla and autograd over the chunks)
+BWD_TOL = 1e-5
+
+
+def _bwd_case(name, B, H, G, S, N, P, chunk, la_scale, with_state):
+    q, k, v, la = _inputs(S * H + P, B, H, S, N, P, G=G)
+    la = la * (la_scale / 0.1)
+    rng = np.random.default_rng(S + N)
+    gy = rng.standard_normal((B, H, S, P), dtype=np.float32)
+    gs = rng.standard_normal((B, H, N, P), dtype=np.float32) * with_state
+    return q, k, v, la, gy, gs
+
+
+def _group_sum(g, G):
+    """Per-head gradients of q or k (B,H,...) summed over each group."""
+    B, H = g.shape[:2]
+    return np.asarray(g).reshape(B, G, H // G, *g.shape[2:]).sum(2)
+
+
+def _close_grads(got, want, where, names=("dq", "dk", "dv", "dlog_a")):
+    for name, a, b in zip(names, got, want):
+        b = np.asarray(b, np.float32)
+        assert tuple(a.shape) == b.shape, (where, name)
+        scale = max(float(np.abs(b).max()), 1e-30)
+        err = float(np.abs(a.float().numpy() - b).max()) / scale
+        assert err <= BWD_TOL, (where, name, err)
+
+
+def _plain_bwd(case):
+    q, k, v, la, gy, gs = _bwd_case(*case)
+    return ssd_scan_bwd_plain(*_t(q, k, v, la, gy, gs), case[7])
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_bwd_plain_matches_the_reference_vjp(case):
+    """``ssd_scan_bwd_plain`` against ``jax.vjp`` of the step-by-step
+    oracle ``ref.ssd_scan_ref`` (the reference's backward, ``ops.py``'s
+    ``_ssd_bwd_rule``), q and k repeated over each group's heads there and
+    their gradients summed back; the oracle returns no state, so a case
+    with the state's cotangent adds its part by one more oracle step of
+    log_a 0 and zero k, v, whose y is q . h_S."""
+    name, B, H, G, S, N, P, chunk, _, with_state = case
+    q, k, v, la, gy, gs = _bwd_case(*case)
+    rep = H // G
+    qh, kh = (np.repeat(a, rep, axis=1) for a in (q, k))
+    got = _plain_bwd(case)
+    if with_state:
+        # y_{S+1} = q' . h_S for a step of log_a 0 and k = v = 0; with q'
+        # the identity over n for each p column the cotangent of those
+        # outputs is gs itself: N extra steps, step n reading row n
+        eye = np.broadcast_to(np.eye(N, dtype=np.float32), (B, H, N, N))
+        qx = np.concatenate([qh, eye], 2)
+        kx = np.concatenate([kh, np.zeros((B, H, N, N), np.float32)], 2)
+        vx = np.concatenate([v, np.zeros((B, H, N, P), np.float32)], 2)
+        lx = np.concatenate([la, np.zeros((B, H, N), np.float32)], 2)
+        gx = np.concatenate([gy, gs], 2)
+    else:
+        qx, kx, vx, lx, gx = qh, kh, v, la, gy
+    _, vjp = jax.vjp(jref.ssd_scan_ref, *map(jnp.asarray, (qx, kx, vx, lx)))
+    jq, jk, jv, jl = (np.asarray(t) for t in vjp(jnp.asarray(gx)))
+    want = (_group_sum(jq[:, :, :S], G), _group_sum(jk[:, :, :S], G),
+            jv[:, :, :S], jl[:, :, :S])
+    _close_grads(got, want, name)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_bwd_plain_matches_chunked_gla_grad(case):
+    """``ssd_scan_bwd_plain`` against ``jax.vjp`` of the reference's model
+    path ``chunked_gla`` (its exponents clipped as the kernels clip them)
+    for the cotangents of y and of its final state, in its (B,S,H,.)
+    layout; a ragged S is padded there to whole chunks with steps of log_a
+    0, zero q, k, v and dy, which change neither y nor the state."""
+    name, B, H, G, S, N, P, chunk, _, _ = case
+    q, k, v, la, gy, gs = _bwd_case(*case)
+    rep = H // G
+    Q = min(chunk, S)
+    pad = -S % Q
+
+    def lay(a):
+        a = np.pad(a, [(0, 0), (0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 3))
+        return np.ascontiguousarray(np.swapaxes(a, 1, 2))
+    qh, kh = (np.repeat(a, rep, axis=1) for a in (q, k))
+    args = [jnp.asarray(lay(a)) for a in (qh, kh, v, la)]
+    _, vjp = jax.vjp(lambda *a: jgla(*a, chunk=chunk), *args)
+    jq, jk, jv, jl = (np.swapaxes(np.asarray(t), 1, 2)[:, :, :S]
+                      for t in vjp((jnp.asarray(lay(gy)), jnp.asarray(gs))))
+    want = (_group_sum(jq, G), _group_sum(jk, G), jv, jl)
+    _close_grads(_plain_bwd(case), want, name)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_bwd_plain_matches_autograd_of_the_plain_forward(case):
+    """``ssd_scan_bwd_plain`` against autograd through ``ssd_scan_plain``
+    (the recompute the port's backward ran before it had a kernel), for
+    the cotangents of y and the final state."""
+    name, B, H, G, S, N, P, chunk, _, _ = case
+    q, k, v, la, gy, gs = _bwd_case(*case)
+    leaves = [t.requires_grad_(True) for t in _t(q, k, v, la)]
+    y, state = ssd_scan_plain(*leaves, chunk)
+    want = torch.autograd.grad((y, state), leaves,
+                               (torch.from_numpy(gy), torch.from_numpy(gs)))
+    _close_grads(_plain_bwd(case), [w.numpy() for w in want], name)
+
+
+# (B, H, G, S, N, P, chunk) with bf16 q/k shared by groups of heads: one
+# group of four, two of four, and Zamba2's one group of 64 heads
+BF16_GROUP_CASES = [(1, 4, 1, 40, 8, 5, 16), (1, 8, 2, 70, 8, 6, 32),
+                    (1, 64, 1, 48, 8, 4, 16)]
+
+
+def _bf16_group_case(B, H, G, S, N, P, chunk):
+    """The model path's types: q, k in bf16 (here as their f32 values), v
+    and log_a in fp32, and dy of bf16 values (the reference's y, and so its
+    cotangent, is bf16)."""
+    q, k, v, la = _inputs(S + H, B, H, S, N, P, G=G)
+    gy = np.random.default_rng(S + N).standard_normal((B, H, S, P),
+                                                      dtype=np.float32)
+    q, k, gy = (np.array(jnp.asarray(a).astype(jnp.bfloat16), np.float32)
+                for a in (q, k, gy))
+    return q, k, v, la, gy
+
+
+def _bf16_plain_bwd(case):
+    q, k, v, la, gy = _bf16_group_case(*case)
+    tq, tk = _t(q, k, dtype="bfloat16")
+    return ssd_scan_bwd_plain(tq, tk, *_t(v, la, gy), None, case[6])
+
+
+def test_bwd_plain_rounds_bf16_group_sums_as_autograd_does():
+    """bf16 q/k shared by a group of heads (each of
+    ``BF16_GROUP_CASES``), against autograd through ``ssd_scan_plain`` at
+    the same inputs (the recompute the port's backward ran before it had a
+    kernel; its forward widens q and k for each head, so autograd rounds
+    each head's dq and dk to bf16 and sums the group's): dq and dk bit for
+    bit, in bf16; dv and dlog_a in fp32 within ``BWD_TOL`` of their scale
+    (sums in other orders)."""
+    for case in BF16_GROUP_CASES:
+        q, k, v, la, gy = _bf16_group_case(*case)
+        got = _bf16_plain_bwd(case)
+        tq, tk = _t(q, k, dtype="bfloat16")
+        leaves = [t.requires_grad_(True) for t in (tq, tk, *_t(v, la))]
+        y, _ = ssd_scan_plain(*leaves, case[6], out_dtype=torch.float32)
+        want = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+        assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16,
+                                          torch.float32, torch.float32]
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a, b), case
+        _close_grads(got[2:], [w.numpy() for w in want[2:]], case,
+                     ("dv", "dlog_a"))
+
+
+@pytest.mark.parametrize("case", BF16_GROUP_CASES)
+def test_bwd_plain_bf16_group_sums_match_the_reference_vjp(case):
+    """bf16 q/k shared by a group of heads, against ``jax.vjp`` of
+    ``ref.ssd_scan_ref`` at the same bf16 q, k repeated over the heads
+    (its bf16 cotangents of q and k are each head's gradient rounded to
+    bf16), the heads of each group summed in order in fp32 and rounded to
+    bf16 once: dq and dk within one bf16 step (2**-8) of the largest of
+    their heads' gradients, element by element (a head whose fp32 gradient
+    the two round to either side of a step); dv and dlog_a within
+    ``BWD_TOL`` of their scale."""
+    B, H, G, S, N, P, _ = case
+    q, k, v, la, gy = _bf16_group_case(*case)
+    got = _bf16_plain_bwd(case)
+    rep = H // G
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(jref.ssd_scan_ref, jnp.asarray(np.repeat(q, rep, 1), bf),
+                     jnp.asarray(np.repeat(k, rep, 1), bf), jnp.asarray(v),
+                     jnp.asarray(la))
+    heads = [np.asarray(t.astype(jnp.float32))
+             for t in vjp(jnp.asarray(gy, bf))]
+    for a, h in zip(got[:2], heads[:2]):
+        h = h.reshape(B, G, rep, S, N)
+        want = h[:, :, 0].copy()
+        for r in range(1, rep):
+            want = want + h[:, :, r]
+        want = np.array(jnp.asarray(want).astype(bf), np.float32)
+        step = 2.0 ** -8 * np.abs(h).max(2)
+        assert (np.abs(a.float().numpy() - want) <= step).all(), case
+    _close_grads(got[2:], heads[2:], case, ("dv", "dlog_a"))
+
+
+def test_cpu_backward_is_the_plain_backward():
+    """Autograd through ``ssd_scan`` on CPU tensors gives
+    ``ssd_scan_bwd_plain``'s gradients bit for bit, with the state's
+    cotangent, through ``ssd_scan_bwd``."""
+    case = BWD_CASES[3]
+    q, k, v, la, gy, gs = _bwd_case(*case)
+    leaves = [t.requires_grad_(True) for t in _t(q, k, v, la)]
+    y, state = ssd_scan(*leaves, case[7], return_state=True)
+    got = torch.autograd.grad((y, state), leaves,
+                              (torch.from_numpy(gy), torch.from_numpy(gs)))
+    want = ssd_scan_bwd(*_t(q, k, v, la, gy, gs), case[7])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert ssd_scan_bwd.launches == 0
+
+
+def test_cuda_backward_reaches_no_plain_version(monkeypatch):
+    """On the CUDA path (fake CUDA tensors, as the dry run traces it) the
+    backward is the kernel's launch alone: neither plain version, nor
+    autograd of the plain forward, runs; the gradients take the inputs'
+    shapes and types and the workspace is allocated where the kernel's
+    would be."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import ssd_scan as module
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the CUDA path")
+    monkeypatch.setattr(module, "ssd_scan_plain", refuse)
+    monkeypatch.setattr(module, "ssd_scan_bwd_plain", refuse)
+    monkeypatch.setattr(backend, "load", refuse)
+    launches = []
+    with FakeTensorMode():
+        q, k = (torch.empty(2, 1, 40, 8, dtype=torch.bfloat16)
+                for _ in range(2))
+        v, la = torch.empty(2, 3, 40, 5), torch.empty(2, 3, 40)
+        leaves = [t.requires_grad_(True) for t in (q, k, v, la)]
+        with backend.noting(lambda n, w: None, launches.append), \
+                backend.fake_cuda():
+            y = ssd_scan(*leaves, 16, out_dtype=torch.float32)
+            grads = torch.autograd.grad(y.sum(), leaves)
+    assert launches == ["ssd_scan", "ssd_scan_bwd"]
+    assert [(g.shape, g.dtype) for g in grads] == [
+        (t.shape, t.dtype) for t in (q, k, v, la)]
+
+
+@pytest.mark.parametrize("B,H,G,S,N,P,Q", [
+    (4, 64, 1, 2048, 64, 64, 256), (1, 2, 2, 2048, 384, 384, 256),
+    (1, 3, 3, 100, 8, 1, 256), (2, 4, 2, 300, 72, 130, 96)])
+def test_bwd_workspace_and_shared_memory_fit(B, H, G, S, N, P, Q):
+    """The backward's workspace counts its parts (csrc/ssd_scan_bwd.cu's
+    ``Args``: two state slots a chunk, the partial sums of dcum, the chain
+    blocks' dot products and each chunk's tot, the per-head fp32 dq, and
+    dk at G < H), and a block's shared memory fits an H100's at every
+    chunk the model paths use and far past it."""
+    from repro_torch.kernels.ssd_scan import bwd_smem_bytes, bwd_workspace
+    nc, ns = -(-S // Q), -(-N // 64)
+    want = B * H * (2 * nc * N * P + S * (2 + 2 * ns)
+                    + nc * (-(-N * P // 1024) + 1) + S * N)
+    if G != H:
+        want += B * H * S * N
+    assert bwd_workspace(B, H, G, S, N, P, Q) == want
+    assert bwd_smem_bytes(Q) <= H100[1]
+    assert bwd_smem_bytes(8192) <= H100[1] < bwd_smem_bytes(40000)
+
+
 def test_ssd_scan_rejects_shapes_that_do_not_fit():
     q, k, v, la = _t(*_inputs(1, 1, 4, 8, 8, 4, G=2))
     with pytest.raises(ValueError, match="G | H"):
@@ -163,6 +431,14 @@ def test_ssd_scan_rejects_shapes_that_do_not_fit():
         ssd_scan(q, k, v, la[..., :-1])
     with pytest.raises(ValueError, match="q, k"):
         ssd_scan(q, k[..., :-1], v, la)
+
+
+@pytest.mark.parametrize("bad", BWD_BAD_SHAPES, ids=BWD_BAD_IDS)
+def test_ssd_scan_bwd_rejects_shapes_that_do_not_fit(bad):
+    """``ssd_scan_bwd`` (the public wrapper) refuses q, k, v, log_a that
+    do not fit one another, as the forward does."""
+    with pytest.raises(ValueError, match="ssd_scan"):
+        ssd_scan_bwd(*bwd_bad_inputs(bad[1:]), None, 4)
 
 
 @pytest.mark.parametrize("B,H,S,N,P,Q,want,pt,ks", [

@@ -19,6 +19,28 @@ median of 5).  Beside each row the bound (``work()``: the larger of the
 bytes over 3.35 TB/s and the products at their types' peaks).  Prints one
 JSON line of the results with the card's name and power limit.  ``--src
 DIR`` times another tree's package (``chip_smoke.tool_start``).
+
+    python3 tools/time_ssd.py --backward [--src DIR]
+
+times the backward at the training paths' shapes (:data:`BWD_SHAPES`:
+Zamba2's Mamba2 layer at B4, xLSTM's mLSTM on a rank's 2 heads and on all
+4, P 384 and 1), with dy f32 and the final state's cotangent zero as
+training hands them: ``torch.autograd.grad`` through the tree's
+``ssd_scan`` (what the model path runs: the backward kernel, or in a tree
+before it the plain recompute), eager, median of 3 x 3; the plain
+recompute (``chip_smoke.ssd_recompute``) the same way; and where the tree
+has it the kernel ``ssd_scan_bwd`` alone, in a CUDA graph and eager, beside
+its bound (``work_backward``), and the device time of each of its kernels
+in one call (torch.profiler).
+
+    python3 tools/time_ssd.py --train [--src DIR]
+
+runs phase 5c's Zamba2-1.2B training (``chip_smoke.phase_train``: B4 x
+S2048 from its seed-0 draw, ``TRAIN_STEPS`` steps through ``TrainDriver``)
+on the tree's package and prints its median step after the first, its
+forward/backward/optimizer split by step, its losses and its peak device
+memory (the launch counts are not held to this checkout's: a tree before
+the backward kernel launches none).
 """
 
 from __future__ import annotations
@@ -26,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import sys
 import time
 
@@ -44,6 +67,12 @@ SHAPES = [("xlstm_p384", 1, 4, 4, 384, 384),
           ("zamba2_h32", 1, 32, 1, 64, 64),
           ("zamba2_h16", 1, 16, 1, 64, 64)]
 S, CHUNK = 2048, 256
+# (row, B, H, G, N, P) of the backward: the training calls
+BWD_SHAPES = [("zamba2_train", 4, 64, 1, 64, 64),
+              ("xlstm_p384_h2", 1, 2, 2, 384, 384),
+              ("xlstm_p1_h2", 1, 2, 2, 384, 1),
+              ("xlstm_p384", 1, 4, 4, 384, 384),
+              ("xlstm_p1", 1, 4, 4, 384, 1)]
 
 
 def host_ms(fn, reps: int = 5, iters: int = 20) -> float:
@@ -64,9 +93,90 @@ def host_ms(fn, reps: int = 5, iters: int = 20) -> float:
     return sorted(meds)[len(meds) // 2]
 
 
+def kernel_split(fn) -> dict:
+    """Device milliseconds of each backward kernel (``ssd_bwd_*``) in one
+    call of ``fn`` after one unprofiled call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"ssd_bwd_\w+", e.key)
+        if m and e.self_device_time_total > 0:
+            out[m.group(0)] = out.get(m.group(0), 0.0) \
+                + e.self_device_time_total / 1e3
+    return out
+
+
+def backward(card: str) -> dict:
+    """``--backward``: see the module's docstring."""
+    import torch
+    from repro_torch.kernels import ssd_scan as module
+    kernel = getattr(module, "ssd_scan_bwd", None)
+    work = getattr(module, "work_backward", None)
+    dev = torch.device("cuda:0")
+    res = {"autograd_ms": {}, "recompute_ms": {}, "ms": {}, "eager_ms": {},
+           "bound_ms": {}, "kernel_ms": {}}
+    for row, B, H, G, N, P in BWD_SHAPES:
+        g = torch.Generator().manual_seed(8)
+        args = cs.ssd_bwd_inputs(g, dev, (B, H, G, S, N, P), "model")
+        q, k, v, la, gy, gs = args
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, la)]
+        y, state = module.ssd_scan(*leaves, CHUNK, out_dtype=torch.float32,
+                                   return_state=True)
+        res["autograd_ms"][row] = cs.time_ms(
+            lambda: torch.autograd.grad((y, state), leaves, (gy, gs),
+                                        retain_graph=True), reps=3, iters=3)
+        res["recompute_ms"][row] = cs.time_ms(
+            lambda: cs.ssd_recompute(*args, CHUNK), reps=3, iters=3)
+        line = (f"[time] backward {row} B{B} H{H}/G{G} S{S} N{N} P{P} chunk "
+                f"{CHUNK}: autograd through ssd_scan "
+                f"{res['autograd_ms'][row]:.4f} ms, the plain recompute "
+                f"{res['recompute_ms'][row]:.4f} ms (eager)")
+        if kernel is not None:
+            res["ms"][row] = cs.graph_ms(lambda: kernel(*args, CHUNK))
+            res["eager_ms"][row] = cs.time_ms(lambda: kernel(*args, CHUNK))
+            w = work(B, H, G, S, N, P, CHUNK, q.dtype, v.dtype, la.dtype,
+                     gy.dtype)
+            res["bound_ms"][row] = w.bound_s * 1e3
+            res["kernel_ms"][row] = kernel_split(lambda: kernel(*args, CHUNK))
+            line += (f"; ssd_scan_bwd {res['ms'][row]:.4f} ms (CUDA graph), "
+                     f"{res['eager_ms'][row]:.4f} ms eager, bound "
+                     f"{res['bound_ms'][row]:.4f} ms ({w.bound_by}); its "
+                     f"kernels in one profiled call {res['kernel_ms'][row]}")
+        cs.say(line + f" on {card}")
+        del args, q, k, v, la, gy, gs, leaves, y, state
+    return res
+
+
+def train(card: str) -> dict:
+    """``--train``: see the module's docstring."""
+    from repro_torch.core.plan import single_device_plan
+    cfg, batch, seq = cs.train_configs()[0]
+    res = cs.phase_train(single_device_plan(), cfg, batch, seq,
+                         check_launches=False)
+    cs.say(f"[time] {cfg.name} train step B{batch} x S{seq}: median "
+           f"{res['step_ms']:.1f} ms after the first, peak "
+           f"{res['peak_gb']:.2f} GB on {card}")
+    return {"arch": cfg.name, **{k: res[k] for k in (
+        "step_ms", "split", "losses", "peak_gb", "per_step")}}
+
+
 def main() -> int:
-    _, card, pkg = cs.tool_start(
-        argparse.ArgumentParser(description=__doc__.splitlines()[0]))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward at the training shapes")
+    ap.add_argument("--train", action="store_true",
+                    help="time Zamba2-1.2B's train step at B4 x S2048")
+    args, card, pkg = cs.tool_start(ap)
+    if args.backward or args.train:
+        res = backward(card) if args.backward else train(card)
+        print(json.dumps({"package": str(pkg), "card": card, **res}))
+        return 0
     import torch
     from repro_torch.kernels.ssd_scan import ssd_scan, work
     dev = torch.device("cuda:0")
