@@ -49,7 +49,9 @@ Phases, each of which fails the run:
    in the mLSTM block's types at S 2048 and each of phase 5d's prompt
    lengths, and in all three types at S 1000; f32
    within 1e-4 of the output's scale: sums in another order; a bf16 y one
-   bf16 step, 2**-7 relative, more); its backward kernel ``ssd_scan_bwd``
+   bf16 step, 2**-7 relative, more); its backward ``ssd_scan_bwd`` (both
+   of ``bwd_plan``'s kernels: the wgmma ones for bf16 q/k at N = P = 64 and
+   a chunk <= 256, PR 31's for the rest; the line names each row's)
    against its plain backward at every training shape (Zamba2's B4, xLSTM's
    numerator and normaliser on 4 heads and a rank's 2) and at ragged S, S
    under a chunk, G < H, N and P off a tile, f32 and bf16 (f32 gradients
@@ -426,16 +428,19 @@ def check_spills(backend) -> None:
 
 
 # the kernels whose instances may not spill
-NO_SPILL = ("flash_fwd_kernel", "ssd_scan_kernel")
+NO_SPILL = ("flash_fwd_kernel", "ssd_scan_kernel", "ssd_bwd_wg_")
 # the kernels that must run on the tensor cores: (library, name prefix,
 # count of instantiations, instructions of which one must be there): the
 # bf16 flash kernel for each head dim on wgmma (HGMMA), the recurrence with
 # bf16 q/k (template <PT, V_BF16>: P tiles of 64 and 8, f32 and bf16 v) on
-# wgmma; and the library whose kernels may not run on mma.sync alone (a
-# flash kernel with HMMA and no HGMMA is the old design)
+# wgmma, the wgmma backward's chain and chunk kernels; and the library
+# whose kernels may not run on mma.sync alone (a flash kernel with HMMA and
+# no HGMMA is the old design)
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_wgmma<", 5,
                         ("HGMMA",)),
                        ("ssd_scan", "ssd_scan_kernel_wgmma<", 4,
+                        ("HGMMA",)),
+                       ("ssd_scan_bwd_wgmma", "ssd_bwd_wg_ch", 2,
                         ("HGMMA",)))
 HGMMA_ONLY = ("flash_attention", "flash_fwd_kernel")
 
@@ -1052,7 +1057,10 @@ def check_ssd(dev: torch.device) -> tuple:
 # a chunk, a tail of 5 at chunk 128), G < H (one group and two), N and P
 # past a 64 tile, off a tile (63) and at P 1, f32 q/k and bf16 throughout,
 # and a chunk of 8192 (every kernel's shared memory past the 48 KB a block
-# gets without opting in)
+# gets without opting in).  ``bwd_plan`` sends the bf16-q/k cases at N = P
+# = 64 and chunk <= 256 to the wgmma kernels (among them G = H, two groups,
+# a chunk off whole 64-row tiles), the rest, a chunk of 512 among them, to
+# PR 31's
 SSD_BWD_CASES = [
     (4, 64, 1, 2048, 64, 64, 256, ("model",)),
     (1, 4, 4, 2048, 384, 384, 256, ("model",)),
@@ -1068,6 +1076,9 @@ SSD_BWD_CASES = [
     (1, 1, 1, 64, 8, 8, 64, ("f32", "bf16")),
     (1, 2, 2, 257, 384, 384, 256, ("model", "bf16")),
     (1, 2, 1, 8200, 16, 8, 8192, ("f32",)),
+    (2, 4, 4, 300, 64, 64, 128, ("model", "bf16")),
+    (1, 4, 2, 200, 64, 64, 96, ("model",)),
+    (1, 2, 1, 600, 64, 64, 512, ("model",)),
 ]
 # the model-type cases at the training paths' shapes, by the ``kernels``
 # row; their kernel calls are also replayed in a CUDA graph
@@ -1102,14 +1113,21 @@ def check_ssd_bwd(dev: torch.device) -> tuple:
     :data:`SSD_BWD_ROWS` a CUDA graph's replay too.  Returns the worst
     error over the scale, the model-type cases' worst by ``kernels`` row
     and the number of cases."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain
+    from repro_torch.kernels.ssd_scan import (_device_limits, bwd_plan,
+                                              ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
     g = torch.Generator().manual_seed(16)
     worst, n = 0.0, 0
     rows = {name: 0.0 for name in SSD_BWD_ROWS.values()}
+    by_kernel, row_kernel = {}, {}
+    limits = _device_limits(dev)
     for case in SSD_BWD_CASES:
         B, H, G, S, N, P, chunk, types = case
         for t in types:
             q, k, v, la, gy, gs = ssd_bwd_inputs(g, dev, case, t)
+            kernel = bwd_plan(B, H, G, S, N, P, chunk, q.dtype,
+                              *limits).kernel
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
             got = ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
             again = ssd_scan_bwd(q, k, v, la, gy, gs, chunk)
             want = ssd_scan_bwd_plain(q, k, v, la, gy, gs, chunk)
@@ -1150,13 +1168,17 @@ def check_ssd_bwd(dev: torch.device) -> tuple:
                 worst = max(worst, e / scale)
                 if row and t == "model":
                     rows[row] = max(rows[row], e)
+                    row_kernel[row] = kernel
             n += 1
             del q, k, v, la, gy, gs, got, again, want
-    say(f"[kernels] ssd_scan_bwd equals its plain backward ({n} cases; "
-        f"worst |err| / scale {worst:.3g}, the model types by row "
-        f"{ {r: float(f'{e:.3g}') for r, e in rows.items()} }; f32 within "
-        f"1e-4 of the scale, bf16 within 2**-7 of it; two calls and a CUDA "
-        f"graph's replay bit-equal)")
+    if set(by_kernel) != {"wgmma", "tiles"}:
+        fail(f"ssd_scan_bwd: the cases reached {by_kernel}, not both kernels")
+    say(f"[kernels] ssd_scan_bwd equals its plain backward ({n} cases, by "
+        f"kernel {by_kernel}; worst |err| / scale {worst:.3g}, the model "
+        f"types by row "
+        f"{ {r: (float(f'{e:.3g}'), row_kernel.get(r)) for r, e in rows.items()} }"
+        f"; f32 within 1e-4 of the scale, bf16 within 2**-7 of it; two calls "
+        f"and a CUDA graph's replay bit-equal)")
     return worst, rows, n
 
 
@@ -3458,11 +3480,15 @@ def time_ssd_bwd(dev: torch.device, name: str, B: int, launches: int,
     N = 384 and P 384 or 1): in a CUDA graph and eager, beside its plain
     version (``ssd_scan_bwd_plain``), the plain recompute it replaced
     (:func:`ssd_recompute`) and its bound (``work_backward``)."""
-    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd,
+    from repro_torch.kernels.ssd_scan import (_device_limits, bwd_plan,
+                                              ssd_scan_bwd,
                                               ssd_scan_bwd_plain,
                                               work_backward)
     g = torch.Generator().manual_seed(8)
     S, Q = 2048, 256
+    kernel = bwd_plan(B, H, G, S, N, P, Q, torch.bfloat16,
+                      *_device_limits(dev)).kernel
+    cu = "ssd_scan_bwd_wgmma" if kernel == "wgmma" else "ssd_scan_bwd"
     args = ssd_bwd_inputs(g, dev, (B, H, G, S, N, P), "model") + (Q,)
     ms = graph_ms(lambda: ssd_scan_bwd(*args))
     eager = time_ms(lambda: ssd_scan_bwd(*args))
@@ -3471,10 +3497,11 @@ def time_ssd_bwd(dev: torch.device, name: str, B: int, launches: int,
     q, _, v, la, gy, _, _ = args
     w = work_backward(B, H, G, S, N, P, Q, q.dtype, v.dtype, la.dtype,
                       gy.dtype)
-    row = kernel_row(name, "ssd_scan_bwd", "src/repro/kernels/ops.py:59",
+    row = kernel_row(name, cu, "src/repro/kernels/ops.py:59",
                      launches, err, ms, plain, w, None)
     say(f"[time] {name} B{B} H{H}/G{G} S{S} N{N} P{P} chunk {Q} (bf16 q/k, "
-        f"f32 v/dy): {ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms "
+        f"f32 v/dy; csrc/{cu}.cu): {ms:.4f} ms on the device (CUDA graph), "
+        f"{eager:.4f} ms "
         f"per eager call, its plain version {plain:.4f} ms, the plain "
         f"recompute it replaced {recompute:.4f} ms ({ms / recompute:.3f} of "
         f"it), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "

@@ -5,6 +5,8 @@
 // wait, the fence between shared-memory writes and the async proxy, named
 // barriers and setmaxnreg.  Written for flash_attention.cu; ssd_scan.cu's
 // bf16 kernel takes the same ones.
+// ssd_scan_bwd_wgmma.cu adds a 4-D copy, a tensor map of any strides and
+// m64n32k16 from shared memory.
 //
 // Layouts.  A tile copied by TMA with a swizzle of W bytes (32, 64 or 128)
 // lands as rows of W bytes, each 8-row group an atom of 8 W bytes whose
@@ -144,6 +146,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// the box at (c0, c1, c2, c3) of a 4-D tensor map, as tma_load_3d
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -255,6 +269,22 @@ template <> struct Wgmma<32> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(scale_d), "n"(TB)
+        : "memory");
+  }
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB)
         : "memory");
   }
 };
@@ -539,6 +569,38 @@ inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem,
                       : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult res = fn(map, type, 3, const_cast<void*>(ptr), dims, strides,
                           box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A tensor of `rank` (2-5) dimensions, dims[0] contiguous, strides[i] the
+// bytes between consecutive indices of dims[i + 1] (multiples of 16), as a
+// tensor map whose box is box[0..rank), swizzled over `swizzle` bytes (0:
+// not swizzled); out-of-bounds elements read as zeros.  Returns a
+// cudaError_t.
+inline int encode_strided(CUtensorMap* map, CUtensorMapDataType type,
+                          int rank, const void* ptr, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          int swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], step[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    step[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUtensorMapSwizzle swz =
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult res = fn(map, type, static_cast<cuuint32_t>(rank),
+                          const_cast<void*>(ptr), d, st, bx, step,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -27,10 +27,15 @@ The backward (:func:`ssd_scan_bwd`, the profiler's range
 ``ssd_scan.backward``) computes what the reference's VJP rule computes
 (``ops.py``'s ``_ssd_bwd_rule``: ``jax.vjp`` of ``ref.ssd_scan_ref``),
 with the final state's cotangent added (autograd hands zeros when the
-state is unused): :func:`ssd_scan_bwd_plain` for CPU tensors, for CUDA
-tensors the kernels of ``csrc/ssd_scan_bwd.cu``, which recompute the
-chunks' states and keep nothing from the forward (``ssd_scan_bwd.launches``
-counts their calls; :func:`work_backward` is their bound).
+state is unused): :func:`ssd_scan_bwd_plain` for CPU tensors; for CUDA
+tensors :func:`bwd_plan` picks the kernels, which recompute the chunks'
+states and keep nothing from the forward: ``csrc/ssd_scan_bwd_wgmma.cu``
+(wgmma fed by TMA, a chunk's dq on chip, the states and both chains in
+one launch) for bf16 q/k at N = P = 64 where a block holds the chunk's dq
+(Zamba2's layer), ``csrc/ssd_scan_bwd.cu`` (``mma.sync`` over 64-column
+slabs) for
+the rest (``ssd_scan_bwd.launches`` counts their calls; :func:`work_backward`
+is their bound).
 """
 
 from __future__ import annotations
@@ -481,17 +486,128 @@ def bwd_smem_bytes(Q: int) -> int:
 
 
 def bwd_workspace(B: int, H: int, G: int, S: int, N: int, P: int,
-                  Q: int) -> int:
-    """fp32 words of the backward's workspace (csrc/ssd_scan_bwd.cu's
-    ``Args``): every chunk's state slot twice (h_in, dh_out), each step's
+                  Q: int, kernel: str = "tiles") -> int:
+    """fp32 words of the backward's workspace: for ``kernel`` "wgmma"
+    :func:`bwd_wgmma_workspace`; for "tiles" csrc/ssd_scan_bwd.cu's
+    ``Args``: every chunk's state slot twice (h_in, dh_out), each step's
     partial sums of dcum (two, and two per 64-column n slab), each chunk's
     e^tot <h_in, dh_out> per chain block of 1024 state elements and its
     tot, the per-head fp32 dq that the chunks' sums go into, and at G < H
     the per-head fp32 dk that the group sum reads."""
+    if kernel == "wgmma":
+        return bwd_wgmma_workspace(B, H, G, S, Q)
     nc, ns = -(-S // Q), -(-N // TILE)
     splits = -(-(N * P) // 1024)
     return B * H * (2 * nc * N * P + S * (2 + 2 * ns) + nc * (splits + 1)
                     + S * N * (2 if G != H else 1))
+
+
+def _lib_bwd_wgmma() -> ctypes.CDLL:
+    lib = backend.load("ssd_scan_bwd_wgmma")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.ssd_scan_bwd_wgmma_launch.argtypes = [p] * 11 + [strides] * 2 \
+            + [i] * 8 + [p]
+        lib.ssd_scan_bwd_wgmma_launch.restype = i
+        lib.ssd_scan_bwd_wgmma_smem.argtypes = [i]
+        lib.ssd_scan_bwd_wgmma_smem.restype = ctypes.c_longlong
+        lib._ff_typed = True
+    return lib
+
+
+WG_BWD_RAW = 4   # csrc/ssd_scan_bwd_wgmma.cu: kChunkRaw
+
+
+def bwd_wgmma_smem(Q: int) -> int:
+    """The wgmma backward's larger dynamic shared memory of a block at chunk
+    Q (csrc/ssd_scan_bwd_wgmma.cu's ``chunk_layout`` and ``chain_layout``,
+    each past 1024 bytes of alignment).  The chunk kernel: dq^T of every
+    64-row query tile (16 KB each), k_j (8 KB), the V slot (v_j's three bf16
+    parts, 24 KB), two Q slots (q_i and dy_i's parts, 32 KB each), the two
+    warpgroups' dA parts (12 KB each), the raw half tiles (8 KB each), nine
+    fp32 arrays over the chunk and 80 floats, the mbarriers.  The chain
+    kernel: a ring of four tile stages (a bf16 tile, 8 KB, and a raw one,
+    16 KB), two chunk slots (a chunk's cumsum and scale), the mbarriers."""
+    qp = -(-Q // 64) * 64
+    chunk = (qp // 64) * 16384 + 8192 + 24576 + 2 * 32768 + 24576 \
+        + WG_BWD_RAW * 8192 + (9 * qp + 80) * 4 + 8 * (9 + 2 * WG_BWD_RAW)
+    chain = 4 * (8192 + 16384) + 4 * qp * 4 + 8 * (2 * 4 + 4)
+    return 1024 + max(chunk, chain)
+
+
+class BwdPlan(NamedTuple):
+    kernel: str      # "wgmma" (csrc/ssd_scan_bwd_wgmma.cu) or "tiles"
+    reason: str      # why "tiles": "f32 q/k", "N", "P" or "smem"; "" else
+    smem: int        # the largest dynamic shared memory of a block, bytes
+
+
+def bwd_plan(B: int, H: int, G: int, S: int, N: int, P: int, Q: int,
+             qk_dtype: torch.dtype, sms: int, smem_limit: int) -> BwdPlan:
+    """Which kernels take a backward call: a pure function of the shapes,
+    q/k's type and the card's SMs and opt-in shared memory, of which N, P,
+    the chunk, the type and the shared memory decide today.  The wgmma
+    kernels (csrc/ssd_scan_bwd_wgmma.cu) take bf16 q/k with N = P = 64 (the
+    width of their products) at a chunk whose dq^T and tiles fit a block
+    (:func:`bwd_wgmma_smem`: Q <= 256 on an H100); PR 31's kernels
+    (csrc/ssd_scan_bwd.cu, 64-column slabs) the rest: f32 q/k, N or P off
+    64 (xLSTM's 384 and its P 1), a chunk whose block does not fit.  A call
+    the plan gives the wgmma kernels launches them or raises."""
+    Q = max(1, min(Q, S))
+    if qk_dtype != torch.bfloat16:
+        reason = "f32 q/k"
+    elif N != 64:
+        reason = "N"
+    elif P != 64:
+        reason = "P"
+    elif bwd_wgmma_smem(Q) > smem_limit:
+        reason = "smem"
+    else:
+        return BwdPlan("wgmma", "", bwd_wgmma_smem(Q))
+    return BwdPlan("tiles", reason, bwd_smem_bytes(Q))
+
+
+def bwd_wgmma_workspace(B: int, H: int, G: int, S: int, Q: int) -> int:
+    """fp32 words of the wgmma backward's workspace (the launcher's
+    layout): h_in and dh_out of every chunk (two (chunks, B*H, 64, 64)
+    slot arrays), and at G < H each head's bf16 dq and dk (B, H, S, 64)
+    that the group sum reads."""
+    nc = -(-S // Q)
+    return 2 * nc * B * H * 4096 + (B * H * S * 64 if G != H else 0)
+
+
+def _launch_bwd_wgmma(q, k, v, log_a, gy, gstate, Q: int, dq, dk, dv, dla):
+    """The wgmma kernels.  The tensor maps want q, k and v 16-byte aligned
+    and dy's rows contiguous at 16-byte strides: others are copied."""
+    B, G, S, N = q.shape
+    H = v.shape[1]
+    fake = backend.is_fake(q)
+
+    def aligned(t):
+        return fake or t.data_ptr() % 16 == 0
+    q, k, v = (t if aligned(t) else t.clone() for t in (q, k, v))
+    eb = gy.element_size()
+    if not fake and (gy.stride(3) != 1 or gy.data_ptr() % 16 or any(
+            st * eb % 16 for st in gy.stride()[:3])):
+        gy = gy.contiguous() if not gy.is_contiguous() else gy.clone()
+    ws = torch.empty(bwd_wgmma_workspace(B, H, G, S, Q), dtype=torch.float32,
+                     device=q.device)
+    if fake:
+        backend.note_launch("ssd_scan_bwd")
+        return dq, dk, dv, dla
+    st = (ctypes.c_longlong * 4)
+    err = _lib_bwd_wgmma().ssd_scan_bwd_wgmma_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+        gy.data_ptr(), gstate.data_ptr() if gstate is not None else None,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dla.data_ptr(),
+        ws.data_ptr(), st(*gy.stride()),
+        st(*(gstate.stride() if gstate is not None else (0,) * 4)),
+        B, H, G, S, Q, _DTYPES[v.dtype], _DTYPES[log_a.dtype],
+        _DTYPES[gy.dtype], backend.current_stream(q.device))
+    with _count_lock:
+        ssd_scan_bwd.launches += 1
+    backend.check(err, "ssd_scan_bwd")
+    return dq, dk, dv, dla
 
 
 def _launch_bwd(q, k, v, log_a, gy, gstate, chunk: int):
@@ -526,13 +642,22 @@ def _launch_bwd(q, k, v, log_a, gy, gstate, chunk: int):
             t.zero_()
         return dq, dk, dv, dla
     Q = min(chunk, S)
-    if chunk < 1 or max(B, H, S, N, P) >= 2 ** 31 or \
-            bwd_smem_bytes(Q) > H100_SXM.smem_per_block:
+    if chunk < 1 or max(B, H, S, N, P) >= 2 ** 31:
+        raise ValueError(f"ssd_scan backward: sizes out of range (B {B}, H "
+                         f"{H}, S {S}, N {N}, P {P}, chunk {chunk})")
+    fake = backend.is_fake(q)
+    limits = (H100_SXM.sms, H100_SXM.smem_per_block) if fake \
+        else _device_limits(q.device)
+    plan = bwd_plan(B, H, G, S, N, P, Q, q.dtype, *limits)
+    if plan.kernel == "wgmma":
+        return _launch_bwd_wgmma(q, k, v, log_a, gy, gstate, Q, dq, dk, dv,
+                                 dla)
+    if bwd_smem_bytes(Q) > limits[1]:
         raise ValueError(f"ssd_scan backward: sizes out of range (B {B}, H "
                          f"{H}, S {S}, N {N}, P {P}, chunk {chunk})")
     ws = torch.empty(bwd_workspace(B, H, G, S, N, P, Q), dtype=torch.float32,
                      device=q.device)
-    if backend.is_fake(q):
+    if fake:
         backend.note_launch("ssd_scan_bwd")
         return dq, dk, dv, dla
     st = (ctypes.c_longlong * 4)
@@ -557,8 +682,8 @@ def ssd_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients ``(dq, dk, dv, dlog_a)`` of :func:`ssd_scan`'s ``(y,
     state)`` at q, k, v, log_a for cotangents ``gy`` (any strides) and
     ``gstate`` (the final state's, fp32; ``None`` is zero), in the inputs'
-    types: :func:`ssd_scan_bwd_plain` for CPU tensors, the kernels of
-    ``csrc/ssd_scan_bwd.cu`` for CUDA tensors (one count in
+    types: :func:`ssd_scan_bwd_plain` for CPU tensors, for CUDA tensors
+    the kernels :func:`bwd_plan` picks (one count in
     ``ssd_scan_bwd.launches`` a call)."""
     _check(q, k, v, log_a)
     if backend.noted():
@@ -639,10 +764,13 @@ def work_backward(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
     Q x Q products (the scores q.k again, dy.v, and the three that give dq,
     dk and dv's W^T dy) and the five (Q,N)x(N,P)-sized products (the state
     increment, the reverse chain's term, dy h_in^T, v dh_out^T, k dh_out),
-    each product with an fp32 operand at fp32 accuracy as TF32 parts on the
-    tensor cores: three where both operands are fp32, two where one is
-    bf16 (exact in TF32); the scores of bf16 q, k at the bf16 rate.  q, k,
-    v, log_a, dy and the final state's cotangent read once; dq, dk, dv and
+    each at fp32 accuracy on the tensor cores in the cheaper of two exact
+    forms: TF32 parts (three products where both operands are fp32, two
+    where one is bf16, exact in TF32) or bf16 parts (an fp32 operand in
+    three: six products against another fp32 operand, three against a bf16
+    one, as csrc/ssd_scan_bwd_wgmma.cu computes them); two bf16 operands
+    (the scores of bf16 q, k) one product at the bf16 rate.  q, k, v,
+    log_a, dy and the final state's cotangent read once; dq, dk, dv and
     dlog_a written once."""
     Q = min(chunk, S)
     chunk_heads = -(-S // Q) * B * H if S else 0
@@ -650,21 +778,18 @@ def work_backward(B: int, H: int, G: int, S: int, N: int, P: int, chunk: int,
     bf = torch.bfloat16
     qk, vb, gb = q_dtype == bf, v_dtype == bf, gy_dtype == bf
 
-    def parts(*exact):            # TF32 products for fp32 accuracy
-        return 1 + sum(not e for e in exact)
+    def secs(*exact):             # tensor-core seconds a product's FLOP
+        n = sum(not e for e in exact)
+        return min((1 + n) / H100_SXM.peak_flops_tf32,
+                   (1, 3, 6)[n] / H100_SXM.peak_flops_bf16)
     score = causal * N
-    tf32 = (causal * P * parts(gb, vb) + causal * N * 2 * parts(False, qk)
-            + causal * P * parts(False, gb)
-            + state * (3 * parts(qk, False) + parts(gb, False)
-                       + parts(vb, False)))
+    tensor_s = (score * secs(qk, qk) + causal * P * secs(gb, vb)
+                + causal * N * 2 * secs(False, qk)
+                + causal * P * secs(False, gb)
+                + state * (3 * secs(qk, False) + secs(gb, False)
+                           + secs(vb, False)))
     flops = score + causal * (2 * P + 2 * N) + 5 * state
     nbytes = 2 * (2 * B * G * S * N * q_dtype.itemsize
                   + B * H * S * (P * v_dtype.itemsize + la_dtype.itemsize)) \
         + B * H * S * P * gy_dtype.itemsize + B * H * N * P * 4
-    if qk:
-        score_s = score / H100_SXM.peak_flops_bf16
-    else:
-        tf32 += score * parts(False, False)
-        score_s = 0.0
-    return backend.Work(flops, nbytes,
-                        score_s + tf32 / H100_SXM.peak_flops_tf32)
+    return backend.Work(flops, nbytes, tensor_s)

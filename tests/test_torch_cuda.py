@@ -908,7 +908,32 @@ SSD_BWD_KERNEL_CASES = [
     (1, 2, 2, 257, 384, 384, 256, None),
     (1, 1, 1, 64, 8, 8, 64, torch.float32),
     (1, 2, 1, 8200, 16, 8, 8192, torch.float32),
+    (1, 64, 1, 600, 64, 64, 256, None),
+    (2, 4, 4, 300, 64, 64, 128, None),
+    (1, 4, 2, 200, 64, 64, 96, None),
+    (1, 2, 1, 600, 64, 64, 512, None),
+    (1, 16, 1, 1000, 64, 64, 256, torch.bfloat16),
 ]
+
+
+def test_ssd_bwd_kernel_cases_reach_both_kernels():
+    """The backward's cases reach both kernels ``bwd_plan`` picks on an
+    H100 (132 SMs, 232448 bytes): the wgmma kernels (bf16 q/k, N = P = 64,
+    chunk <= 256) with one and several chunks, a tail chunk, S under the
+    chunk, a chunk off whole 64-row tiles, G < H and G = H, and the model
+    and all-bf16 types; PR 31's for f32 q/k, N, P and a chunk past them."""
+    seen, wg = set(), set()
+    for B, H, G, S, N, P, chunk, dtype in SSD_BWD_KERNEL_CASES:
+        plan = ssd_module.bwd_plan(B, H, G, S, N, P, chunk,
+                                   dtype or torch.bfloat16, 132, 232448)
+        seen.add(plan.reason or plan.kernel)
+        if plan.kernel == "wgmma":
+            Q = min(chunk, S)
+            wg |= {("chunks", S > Q), ("tail", S % Q != 0),
+                   ("S < chunk", S < chunk), ("tiles", Q % 64 != 0),
+                   ("groups", G < H), ("model types", dtype is None)}
+    assert seen == {"wgmma", "f32 q/k", "N", "P", "smem"}
+    assert wg == {(what, b) for what, _ in wg for b in (True, False)}
 
 
 def _ssd_bwd_inputs(case, cuda, state: bool):
@@ -1033,6 +1058,16 @@ def test_ssd_bwd_library_smem_is_the_wrappers(cuda):
     lib = ssd_module._lib_bwd()
     for Q in (1, 64, 100, 256, 4096, 8192):
         assert lib.ssd_scan_bwd_smem(Q) == ssd_module.bwd_smem_bytes(Q)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_wgmma_library_smem_is_the_plans(cuda):
+    """The wgmma backward's largest shared memory
+    (csrc/ssd_scan_bwd_wgmma.cu's layouts) is the plan's formula."""
+    lib = ssd_module._lib_bwd_wgmma()
+    for Q in (1, 40, 64, 96, 100, 128, 200, 256, 300):
+        assert lib.ssd_scan_bwd_wgmma_smem(Q) == \
+            ssd_module.bwd_wgmma_smem(Q)
 
 
 @pytest.mark.cuda

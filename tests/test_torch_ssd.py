@@ -418,9 +418,132 @@ def test_bwd_workspace_and_shared_memory_fit(B, H, G, S, N, P, Q):
                     + nc * (-(-N * P // 1024) + 1) + S * N)
     if G != H:
         want += B * H * S * N
-    assert bwd_workspace(B, H, G, S, N, P, Q) == want
+    assert bwd_workspace(B, H, G, S, N, P, Q, "tiles") == want
     assert bwd_smem_bytes(Q) <= H100[1]
     assert bwd_smem_bytes(8192) <= H100[1] < bwd_smem_bytes(40000)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (beside ``tests/``), loaded by path."""
+    import importlib.util
+    import pathlib
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (B, H, G, S, N, P, chunk, q/k type) of every backward the model paths
+# make on the card (Zamba2's Mamba2 layer at B4 and on a rank's 32 heads,
+# xLSTM's numerator and normaliser on 4 heads and on a rank's 2), and the
+# kernels ``bwd_plan`` gives each
+BWD_MODEL_SHAPES = [
+    ((4, 64, 1, 2048, 64, 64, 256, BF16), "wgmma"),
+    ((4, 32, 1, 2048, 64, 64, 256, BF16), "wgmma"),
+    ((1, 4, 4, 2048, 384, 384, 256, BF16), "tiles"),
+    ((1, 2, 2, 2048, 384, 384, 256, BF16), "tiles"),
+    ((1, 4, 4, 2048, 384, 1, 256, BF16), "tiles"),
+    ((1, 2, 2, 2048, 384, 1, 256, BF16), "tiles"),
+]
+
+
+@pytest.mark.parametrize("case,kernel", BWD_MODEL_SHAPES,
+                         ids=[str(c[0][:6]) for c in BWD_MODEL_SHAPES])
+def test_bwd_plan_at_the_model_paths(case, kernel):
+    """Zamba2's backward (bf16 q/k, N = P = 64, chunk 256) takes the wgmma
+    kernels; xLSTM's (N = P = 384, and P = 1) PR 31's 64-column slabs."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    B, H, G, S, N, P, Q, qk = case
+    plan = bwd_plan(B, H, G, S, N, P, Q, qk, *H100)
+    assert plan.kernel == kernel
+    assert plan.smem <= H100[1]
+
+
+def _card_bwd_cases():
+    """``chip_smoke.py``'s ``SSD_BWD_CASES`` by q/k type: the model and
+    bf16 types give bf16 q/k, f32 f32."""
+    cs = _chip_smoke()
+    return [case[:7] + (BF16 if t in ("model", "bf16") else F32,)
+            for case in cs.SSD_BWD_CASES for t in case[7]]
+
+
+def test_bwd_plan_branches_are_reached_by_the_card_cases():
+    """Every branch of ``bwd_plan`` is held on the card by some case of
+    phase 2 (``chip_smoke.py``'s ``SSD_BWD_CASES``) or of the model paths:
+    the wgmma kernels, and PR 31's for f32 q/k, N off 64, P off 64 and a
+    chunk whose block does not fit (8192).  The wgmma cases cover one and
+    several chunks, a tail chunk, S under the chunk, a chunk off whole
+    64-row tiles, G < H and G = H, f32 and bf16 v/dy."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    cs = _chip_smoke()
+    seen, wg = set(), set()
+    cases = [c for c, _ in BWD_MODEL_SHAPES] + _card_bwd_cases()
+    for B, H, G, S, N, P, chunk, qk in cases:
+        plan = bwd_plan(B, H, G, S, N, P, chunk, qk, *H100)
+        seen.add(plan.reason or plan.kernel)
+        if plan.kernel == "wgmma":
+            Q = min(chunk, S)
+            wg |= {("chunks", S > Q), ("tail", S % Q != 0),
+                   ("S < chunk", S < chunk), ("tiles", Q % 64 != 0),
+                   ("groups", G < H)}
+    assert seen == {"wgmma", "f32 q/k", "N", "P", "smem"}
+    assert wg == {(what, b) for what, _ in wg for b in (True, False)}
+    types = {t for case in cs.SSD_BWD_CASES for t in case[7]
+             if bwd_plan(*case[:7], BF16, *H100).kernel == "wgmma"
+             and t != "f32"}
+    assert types == {"model", "bf16"}
+
+
+@pytest.mark.parametrize("Q", [1, 40, 64, 96, 100, 128, 200, 256, 257, 300])
+def test_bwd_wgmma_shared_memory_fits_wherever_planned(Q):
+    """Wherever the plan picks the wgmma kernels their blocks fit an H100's
+    232,448 bytes (Q <= 256), and past it the plan takes PR 31's kernels,
+    whose shared memory fits."""
+    from repro_torch.kernels.ssd_scan import bwd_plan, bwd_smem_bytes, \
+        bwd_wgmma_smem
+    plan = bwd_plan(4, 64, 1, 2048, 64, 64, Q, BF16, *H100)
+    assert plan.kernel == ("wgmma" if Q <= 256 else "tiles")
+    assert plan.smem <= H100[1]
+    if plan.kernel == "wgmma":
+        assert plan.smem == bwd_wgmma_smem(Q)
+    else:
+        assert plan.smem == bwd_smem_bytes(Q) and bwd_wgmma_smem(Q) > H100[1]
+
+
+@pytest.mark.parametrize("B,H,G,S,N,P,chunk,qk", [
+    (4, 64, 1, 2048, 64, 64, 256, BF16), (2, 4, 2, 265, 64, 64, 128, BF16),
+    (1, 4, 4, 100, 64, 64, 256, BF16), (1, 2, 2, 2048, 384, 384, 256, BF16),
+    (2, 4, 2, 300, 72, 130, 96, F32)])
+def test_bwd_workspace_is_what_the_wrapper_allocates(B, H, G, S, N, P, chunk,
+                                                     qk, monkeypatch):
+    """On the CUDA path (fake CUDA tensors) the backward allocates one fp32
+    workspace of ``bwd_workspace``'s words for the kernels the plan picks,
+    and launches once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.ssd_scan import bwd_plan, bwd_workspace
+    sizes, empty = [], torch.empty
+
+    def record(*shape, **kw):
+        t = empty(*shape, **kw)
+        if t.dim() == 1 and t.dtype == torch.float32:
+            sizes.append(t.numel())
+        return t
+    monkeypatch.setattr(torch, "empty", record)
+    launches = []
+    with FakeTensorMode():
+        q, k = (empty(B, G, S, N, dtype=qk) for _ in range(2))
+        v, la, gy = empty(B, H, S, P), empty(B, H, S), empty(B, H, S, P)
+        with backend.noting(lambda n, w: None, launches.append), \
+                backend.fake_cuda():
+            ssd_scan_bwd(q, k, v, la, gy, None, chunk)
+    Q = min(chunk, S)
+    kernel = bwd_plan(B, H, G, S, N, P, Q, qk, *H100).kernel
+    assert sizes == [bwd_workspace(B, H, G, S, N, P, Q, kernel)]
+    assert launches == ["ssd_scan_bwd"]
 
 
 def test_ssd_scan_rejects_shapes_that_do_not_fit():

@@ -31,7 +31,9 @@ before it the plain recompute), eager, median of 3 x 3; the plain
 recompute (``chip_smoke.ssd_recompute``) the same way; and where the tree
 has it the kernel ``ssd_scan_bwd`` alone, in a CUDA graph and eager, beside
 its bound (``work_backward``), and the device time of each of its kernels
-in one call (torch.profiler).
+in one call (torch.profiler), with the kernels ``bwd_plan`` picks for the
+row (``wgmma``: csrc/ssd_scan_bwd_wgmma.cu; ``tiles``: csrc/ssd_scan_bwd.cu,
+which a tree without ``bwd_plan`` runs for every row).
 
     python3 tools/time_ssd.py --train [--src DIR]
 
@@ -120,7 +122,8 @@ def backward(card: str) -> dict:
     work = getattr(module, "work_backward", None)
     dev = torch.device("cuda:0")
     res = {"autograd_ms": {}, "recompute_ms": {}, "ms": {}, "eager_ms": {},
-           "bound_ms": {}, "kernel_ms": {}}
+           "bound_ms": {}, "kernel_ms": {}, "kernel": {}}
+    plan = getattr(module, "bwd_plan", None)
     for row, B, H, G, N, P in BWD_SHAPES:
         g = torch.Generator().manual_seed(8)
         args = cs.ssd_bwd_inputs(g, dev, (B, H, G, S, N, P), "model")
@@ -138,13 +141,17 @@ def backward(card: str) -> dict:
                 f"{res['autograd_ms'][row]:.4f} ms, the plain recompute "
                 f"{res['recompute_ms'][row]:.4f} ms (eager)")
         if kernel is not None:
+            res["kernel"][row] = plan(
+                B, H, G, S, N, P, CHUNK, q.dtype,
+                *module._device_limits(dev)).kernel if plan else "tiles"
             res["ms"][row] = cs.graph_ms(lambda: kernel(*args, CHUNK))
             res["eager_ms"][row] = cs.time_ms(lambda: kernel(*args, CHUNK))
             w = work(B, H, G, S, N, P, CHUNK, q.dtype, v.dtype, la.dtype,
                      gy.dtype)
             res["bound_ms"][row] = w.bound_s * 1e3
             res["kernel_ms"][row] = kernel_split(lambda: kernel(*args, CHUNK))
-            line += (f"; ssd_scan_bwd {res['ms'][row]:.4f} ms (CUDA graph), "
+            line += (f"; ssd_scan_bwd ({res['kernel'][row]}) "
+                     f"{res['ms'][row]:.4f} ms (CUDA graph), "
                      f"{res['eager_ms'][row]:.4f} ms eager, bound "
                      f"{res['bound_ms'][row]:.4f} ms ({w.bound_by}); its "
                      f"kernels in one profiled call {res['kernel_ms'][row]}")
