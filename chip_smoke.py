@@ -8,12 +8,14 @@ Phases, each of which fails the run:
 1. card — its name and power limit; the CUDA kernels built from the sources
    in ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
    source, all started together; each kernel's registers and spill bytes
-   (``-Xptxas -v``) are printed, and an attention or ``ssd_scan``
+   (``-Xptxas -v``) are printed, and an attention forward or ``ssd_scan``
    instance that spills fails the run; ``cuobjdump -sass`` must find HGMMA
    (``wgmma``) instructions in every bf16 ``flash_fwd_kernel_wgmma`` (D
    16-256) and in every ``ssd_scan_kernel_wgmma`` (the bf16-q/k
-   recurrence: P tiles of 64 and 8, f32 and bf16 v), and no flash kernel
-   with HMMA (``mma.sync``) alone (the count per kernel is printed); phase
+   recurrence: P tiles of 64 and 8, f32 and bf16 v), and no forward flash
+   kernel with HMMA (``mma.sync``) alone (the count per kernel is printed;
+   attention's backward, ``csrc/flash_attention_bwd.cu``, is on mma.sync
+   by design until its Hopper redesign); phase
    13's traces run in a process of their own
    beside phases 1-2;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
@@ -57,7 +59,16 @@ Phases, each of which fails the run:
    under a chunk, G < H, N and P off a tile, f32 and bf16 (f32 gradients
    within 1e-4 of their scale, bf16 within 2**-7 of it), two calls bit for
    bit and, at the training shapes, a CUDA graph's replay too
-   (:data:`SSD_BWD_CASES`); ``gelu_stepwise`` and
+   (:data:`SSD_BWD_CASES`); attention's backward ``flash_attention_bwd`` (a
+   dq kernel and a dk/dv kernel, on mma.sync in bf16 and the FMA units in
+   f32) against ``flash_attention_bwd_plain`` at phase 5c's four training
+   shapes, Whisper's decoder self and cross attention, a GQA group of 6, a
+   window inside S, a context-parallel prefix (Sq < Sk), rows that see no
+   key (causal, Sq > Sk) and ragged tails at every head dim (f32 gradients
+   within 1e-4 of their scale, bf16 within 2**-7 of it), the forward's
+   log-sum-exp within 1e-5 of the plain version's, two calls bit for bit
+   and, at the training shapes, a CUDA graph's replay too, the cases
+   counted by kernel (:data:`FLASH_BWD_CASES`); ``gelu_stepwise`` and
    ``silu_stepwise``, forward and backward, against their plain versions
    bit for bit (NaN equal to NaN) at :data:`GELU_CASES` and
    :data:`SILU_CASES`: the models' activations (Whisper, a rank's half of
@@ -110,15 +121,19 @@ Phases, each of which fails the run:
    per block per step (forward and recompute: Zamba2 ``ssd_scan`` 76 and
    ``flash_attention`` 10, Mixtral ``flash_attention`` and ``router_topk``
    2) and each backward kernel once (Zamba2 ``ssd_scan_bwd`` 38; Gemma
-   ``gelu_stepwise_bwd`` 2, Whisper 48, Zamba2 ``silu_stepwise_bwd`` 76);
+   ``gelu_stepwise_bwd`` 2, Whisper 48, Zamba2 ``silu_stepwise_bwd`` 76;
+   ``flash_attention_bwd`` once per attention launch of the forward:
+   Zamba2 5, Mixtral 1, Gemma 2, Whisper 72);
    the peak must stay within the card's 80 GB; the driver's final
    checkpoint (under ``build/``, deleted after) must restore bit for bit.
    Prints the train tokens/s (the batch's tokens, and frames, over the
    median step after the first), each step's forward, backward and
    optimizer ms (CUDA events), the peak memory, the checkpoint's bytes and
-   seconds, and a profile of one step with attention's recompute backward
-   and ``ssd_scan``'s backward kernel (their ``record_function`` ranges)
-   on their own.  Then one
+   seconds, and a profile of one step with attention's and ``ssd_scan``'s
+   backward kernels (their ``record_function`` ranges) on their own; a
+   step whose profile still shows the plain recompute's range
+   (``flash_attention.recompute_backward``, :data:`RETIRED_RANGES`)
+   fails.  Then one
    loss and gradient of reduced Zamba2 and Mixtral on the card against
    the CPU (loss within 2e-2, every leaf's cosine >= 0.99), the router's
    weight gradient through the kernel against the plain recompute's, and
@@ -158,7 +173,10 @@ Phases, each of which fails the run:
    ``ssd_scan`` at phase 5b's
    (B1 H64 S2048 N64 P64, chunk 256), the same kernels at phase 5c's
    training shapes (and ``ssd_scan_bwd`` at Zamba2's B4, beside the plain
-   recompute it replaced), phase 5d's (attention at Gemma's D256, B1 H16 S2048,
+   recompute it replaced; ``flash_attention_bwd`` at the four models'
+   training shapes, in a CUDA graph and eager, beside its plain version,
+   the plain recompute it replaced and ``scaled_dot_product_attention``'s
+   backward), phase 5d's (attention at Gemma's D256, B1 H16 S2048,
    beside ``scaled_dot_product_attention``; Kimi's router at E384 K8;
    ``ssd_scan`` at xLSTM's B1 H4 S2048 N = P = 384 and P = 1), phase 5e's
    (attention at Qwen2-VL's group of 6, Whisper's encoder and its cross
@@ -565,10 +583,12 @@ def phase_kernels(dev: torch.device) -> dict:
     err.update(rows)
     err["ssd_scan_bwd"], rows, n_ssd_bwd = check_ssd_bwd(dev)
     err.update(rows)
+    err["flash_attention_bwd"], rows, n_flash_bwd = check_flash_bwd(dev)
+    err.update(rows)
     stepwise, n_stepwise = check_stepwise(dev)
     err.update(stepwise)
     return {"checks": checks + n_flash + n_router + n_ssd + n_ssd_bwd
-            + n_stepwise,
+            + n_flash_bwd + n_stepwise,
             "max_abs_err": err}
 
 
@@ -1182,6 +1202,138 @@ def check_ssd_bwd(dev: torch.device) -> tuple:
     return worst, rows, n
 
 
+# (B, H, Hkv, Sq, Sk, D, causal, window, types) of attention's backward:
+# phase 5c's four training shapes (Zamba2's shared block B4 H32/32 D64 and
+# Mixtral's B2 H32/8 D128, both causal with the window 4096, which does not
+# bind at S 2048; Gemma-7B's B2 H16/16 D256 causal; Whisper's encoder B8
+# H16/16 D64 over 1500 frames without a mask), Whisper's decoder
+# self-attention over its 187 tokens and its cross attention (187 and 1
+# queries against 1500 frames), a GQA group of 6, a window inside S, a
+# context-parallel prefix block (Sq < Sk), rows that see no key (causal, Sq
+# > Sk) and ragged tails at every head dim; f32 on several
+FLASH_BWD_CASES = [
+    (4, 32, 32, 2048, 2048, 64, True, 4096, BF16),
+    (2, 32, 8, 2048, 2048, 128, True, 4096, BF16),
+    (2, 16, 16, 2048, 2048, 256, True, 0, BF16),
+    (8, 16, 16, 1500, 1500, 64, False, 0, BF16),
+    (8, 16, 16, 187, 187, 64, True, 0, BF16),
+    (8, 16, 16, 187, 1500, 64, False, 0, F32),
+    (8, 16, 16, 1, 1500, 64, False, 0, BF16),
+    (1, 12, 2, 1000, 1000, 128, True, 0, F32),
+    (1, 8, 2, 1000, 1000, 128, True, 300, F32),
+    (1, 8, 8, 512, 2048, 64, True, 0, BF16),
+    (1, 4, 4, 300, 200, 64, True, 0, F32),
+] + [(1, 4, 2, 129, 257, D, True, 0, F32) for D in (16, 32, 64, 128, 256)]
+# phase 5c's shapes by ``kernels`` row; their calls are also replayed in a
+# CUDA graph
+FLASH_BWD_ROWS = {
+    (4, 32, 32, 2048, 2048, 64): "flash_attention_bwd_train_d64",
+    (2, 32, 8, 2048, 2048, 128): "flash_attention_bwd_train_d128",
+    (2, 16, 16, 2048, 2048, 256): "flash_attention_bwd_train_d256",
+    (8, 16, 16, 1500, 1500, 64): "flash_attention_bwd_train_encoder"}
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def flash_bwd_inputs(g: torch.Generator, dev: torch.device, case: tuple,
+                     dtype: torch.dtype) -> tuple:
+    """q, k, v, the kernel forward's o and lse, and dO at the strides the
+    model hands the backward (its (B, Sq, H, D) cotangent transposed)."""
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    B, H, Hkv, Sq, Sk, D, causal, window = case[:8]
+    q = torch.randn(B, H, Sq, D, generator=g).to(dtype).to(dev)
+    k = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(dev)
+    v = torch.randn(B, Hkv, Sk, D, generator=g).to(dtype).to(dev)
+    do = torch.randn(B, Sq, H, D, generator=g).to(dtype).to(dev)
+    o, lse = flash_attention_with_lse(q, k, v, causal, window)
+    return q, k, v, o, lse, do.transpose(1, 2), causal, window
+
+
+def check_flash_bwd(dev: torch.device) -> tuple:
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` at
+    :data:`FLASH_BWD_CASES`: every gradient finite, of its input's type and
+    shape, f32 within 1e-4 of its scale (sums in other orders) and bf16
+    within 2**-7 of it (each query head's dk and dv round to bf16 before a
+    GQA group sums them, and a head the two versions round to either side
+    of a step moves the sum by it); the forward's lse within 1e-5 of the
+    plain version's; a second call equal bit for bit (no atomics), and at
+    :data:`FLASH_BWD_ROWS` a CUDA graph's replay too.  Returns the worst
+    error over the scale, the training shapes' worst by ``kernels`` row and
+    the number of cases; counts the cases by kernel (bf16 on mma.sync, f32
+    on the FMA units) and fails unless both ran."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_lse_plain)
+    g = torch.Generator().manual_seed(17)
+    worst, n, by_kernel = 0.0, 0, {}
+    rows = {name: 0.0 for name in FLASH_BWD_ROWS.values()}
+    for case in FLASH_BWD_CASES:
+        for dtype in case[8]:
+            args = flash_bwd_inputs(g, dev, case, dtype)
+            kernel = "mma (bf16)" if dtype == torch.bfloat16 else "fma (f32)"
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+            got = flash_attention_bwd(*args)
+            again = flash_attention_bwd(*args)
+            want = flash_attention_bwd_plain(*args)
+            _, lse_plain = flash_attention_lse_plain(*args[:3], *args[6:])
+            torch.cuda.synchronize()
+            B, H, Hkv, Sq, Sk, D, causal, window = case[:8]
+            where = (f"B{B} H{H}/{Hkv} Sq{Sq} Sk{Sk} D{D} "
+                     f"{'causal' if causal else 'non-causal'} window "
+                     f"{window} {dtype}")
+            if not torch.allclose(args[4], lse_plain, rtol=1e-5, atol=1e-5):
+                fail(f"flash_attention: the forward's lse != plain at {where}"
+                     f": max |err| "
+                     f"{float((args[4] - lse_plain).abs().max())}")
+            row = FLASH_BWD_ROWS.get(case[:6])
+            if row:
+                graph = torch.cuda.CUDAGraph()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    flash_attention_bwd(*args)
+                torch.cuda.current_stream().wait_stream(side)
+                with torch.cuda.graph(graph):
+                    outs = flash_attention_bwd(*args)
+                graph.replay()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(outs, got)):
+                    fail(f"flash_attention_bwd: a CUDA graph's replay differs "
+                         f"from the eager call at {where}")
+                del graph, outs
+            for name, a, b, w, src in zip(("dq", "dk", "dv"), got, again,
+                                          want, args[:3]):
+                if a.dtype != src.dtype or a.shape != src.shape:
+                    fail(f"flash_attention_bwd {name} {a.dtype} "
+                         f"{tuple(a.shape)} at {where}, input {src.dtype} "
+                         f"{tuple(src.shape)}")
+                if not torch.equal(a, b):
+                    fail(f"flash_attention_bwd {name}: two calls differ at "
+                         f"{where}")
+                tol = FLASH_BWD_TOL[dtype]
+                af, wf = a.float(), w.float()
+                e = float((af - wf).abs().max())
+                scale = max(float(wf.abs().max()), 1e-30)
+                if not bool(torch.isfinite(af).all()) or not torch.allclose(
+                        af, wf, rtol=tol, atol=tol * scale):
+                    fail(f"flash_attention_bwd {name} != plain at {where}: "
+                         f"max |err| {e}, scale {scale}")
+                worst = max(worst, e / scale)
+                if row and dtype == torch.bfloat16:
+                    rows[row] = max(rows[row], e)
+            n += 1
+            del args, got, again, want, lse_plain
+    if set(by_kernel) != {"mma (bf16)", "fma (f32)"}:
+        fail(f"flash_attention_bwd: the cases reached {by_kernel}, not both "
+             f"kernels")
+    say(f"[kernels] flash_attention_bwd equals its plain backward ({n} cases,"
+        f" by kernel {by_kernel}; worst |err| / scale {worst:.3g}, the "
+        f"training shapes' |err| by row "
+        f"{ {r: float(f'{e:.3g}') for r, e in rows.items()} }; f32 within "
+        f"1e-4 of the scale, bf16 within 2**-7 of it; the forward's lse "
+        f"within 1e-5; two calls and a CUDA graph's replay bit-equal)")
+    return worst, rows, n
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1453,7 +1605,8 @@ def expected_launches(cfg, prefills: int, steps: int,
     forward passes), ``steps`` decode steps and ``backward`` backward
     passes: attention once per attention block per prefill (decode's
     self-attention is plain; a ``dec`` block adds its cross attention,
-    which runs the kernel at every decode step too), the router once per
+    which runs the kernel at every decode step too) and its backward
+    kernel once per such launch per backward pass, the router once per
     MoE layer per prefill and decode step, the recurrence once per Mamba2
     layer and twice per mLSTM layer (numerator and normaliser) per prefill
     (decode runs the plain step) and its backward kernel as often per
@@ -1469,8 +1622,10 @@ def expected_launches(cfg, prefills: int, steps: int,
         n[kind] = n.get(kind, 0) + count
     dense = n.get("dense", 0) + n.get("shared_attn", 0)
     enc, dec, moe = n.get("enc", 0), n.get("dec", 0), n.get("moe", 0)
-    want = {"flash_attention": (dense + moe + enc + 2 * dec) * prefills
-            + dec * steps}
+    attn = dense + moe + enc + 2 * dec
+    want = {"flash_attention": attn * prefills + dec * steps}
+    if backward:
+        want["flash_attention_bwd"] = attn * backward
     if moe:
         want["router_topk"] = moe * (prefills + steps)
     if n.get("mamba2") or n.get("mlstm"):
@@ -1570,6 +1725,7 @@ def no_host_wait(dev: torch.device):
 KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan_kernel",)),
                    ("ssd_scan_bwd", ("ssd_bwd_",)),
                    ("flash_attention", ("flash_fwd_kernel",)),
+                   ("flash_attention_bwd", ("fa_bwd_",)),
                    ("gelu_stepwise", ("GeluFwd",)),
                    ("gelu_stepwise_bwd", ("GeluBwd",)),
                    ("silu_stepwise", ("SiluFwd",)),
@@ -2386,9 +2542,12 @@ TRAIN_WHISPER_FRAMES = 1500      # a clip's frames; Whisper-medium whole
 # squares overflow the fp32 global norm and the clip zeroes every update
 TRAIN_TAMED = ("whisper-medium",)
 CARD_GB = 80
-RECOMPUTE_RANGES = ("flash_attention.recompute_backward",
+RECOMPUTE_RANGES = ("flash_attention.backward",
                     "ssd_scan.backward", "router_topk.backward",
                     "gelu_stepwise.backward", "silu_stepwise.backward")
+# ranges of backwards that recomputed a kernel through its plain version and
+# have a kernel now: a profiled step that shows one fails
+RETIRED_RANGES = ("flash_attention.recompute_backward",)
 
 
 def train_configs() -> list:
@@ -2650,8 +2809,17 @@ def phase_train(plan, cfg, batch: int, seq: int, steps: int = TRAIN_STEPS,
 
             def one_step():
                 driver.state, _ = step(driver.state, one)
+            profiled = device_breakdown(
+                dev, one_step, RECOMPUTE_RANGES + RETIRED_RANGES, ranges)
             say(f"[profile] {cfg.name} train step B{batch} x S{seq}: "
-                f"{device_breakdown(dev, one_step, RECOMPUTE_RANGES, ranges)}")
+                f"{profiled}")
+            retired = {r: ranges.pop(r) for r in RETIRED_RANGES
+                       if r in ranges}
+            if retired and check_launches:
+                fail(f"{cfg.name}: the profiled step ran {retired}, a plain "
+                     f"recompute the backward kernels replaced")
+            if retired:
+                say(f"[profile] {cfg.name}: retired ranges {retired}")
             say(f"[profile] {cfg.name} the same step's backward ranges "
                 f"(their kernels, also counted in the families above): "
                 + "; ".join(f"{name} {ms:.3f} ms over {c} calls"
@@ -3064,6 +3232,62 @@ def time_flash(dev: torch.device, g: torch.Generator, name: str, shape: tuple,
     return row
 
 
+def flash_recompute(q, k, v, o, lse, do, causal: bool, window: int):
+    """The backward ``flash_attention_bwd`` replaced: ``flash_attention_plain``
+    run again under autograd and differentiated (``torch.autograd.grad``)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = flash_attention_plain(*leaves, causal, window)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def time_flash_bwd(dev: torch.device, name: str, case: tuple, launches: int,
+                   err: float, card: str) -> dict:
+    """``flash_attention_bwd`` at a training shape ``case`` of
+    :data:`FLASH_BWD_CASES` in bf16: in a CUDA graph and eager, beside its
+    plain version
+    (``flash_attention_bwd_plain``), the plain recompute it replaced
+    (:func:`flash_recompute`), the backward of
+    ``scaled_dot_product_attention`` (autograd of one bf16 call, a
+    yardstick only) and its bound (``work_backward``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, work_backward)
+    g = torch.Generator().manual_seed(10)
+    args = flash_bwd_inputs(g, dev, case, torch.bfloat16)
+    B, H, Hkv, Sq, Sk, D, causal, window = case[:8]
+    ms = graph_ms(lambda: flash_attention_bwd(*args))
+    eager = time_ms(lambda: flash_attention_bwd(*args))
+    plain = time_ms(lambda: flash_attention_bwd_plain(*args), reps=3,
+                    iters=3)
+    recompute = time_ms(lambda: flash_recompute(*args), reps=3, iters=3)
+    q, k, v, _, _, do = args[:6]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    # SDPA's causal mask is aligned to the start of the keys: Sq == Sk here
+    y = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                       enable_gqa=Hkv != H)
+    lib = time_ms(lambda: torch.autograd.grad(y, leaves, do,
+                                              retain_graph=True),
+                  reps=3, iters=5)
+    w = work_backward(q.shape, Hkv, Sk, q.dtype, causal, window)
+    row = kernel_row(name, "flash_attention_bwd",
+                     "src/repro/kernels/ops.py:40", launches, err, ms, plain,
+                     w, lib)
+    say(f"[time] {name} B{B} H{H}/{Hkv} Sq{Sq} Sk{Sk} D{D} bf16 "
+        f"{'causal' if causal else 'non-causal'} (csrc/flash_attention_"
+        f"bwd.cu): {ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms "
+        f"per eager call, its "
+        f"plain version {plain:.4f} ms, the plain recompute it replaced "
+        f"{recompute:.4f} ms ({ms / recompute:.3f} of it), "
+        f"scaled_dot_product_attention's backward {lib:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {w.flops:.4g} FLOP "
+        f"in five products, eight as the kernel issues them; {w.bytes:.0f}"
+        f" B; {row['bound_ms'] / ms:.1%} of the bound) on {card}")
+    del args, leaves, y
+    return row
+
+
 def time_serving_kernels(dev: torch.device, serve: dict, hybrid: dict,
                          errs: dict, card: str) -> list:
     """The serving path's kernels at its shapes: attention over a 2048-token
@@ -3098,7 +3322,9 @@ def time_train_kernels(dev: torch.device, train: dict, errs: dict,
     gelu at Whisper's B8 x 1500 x 4096 and Gemma-7B's 2567 x 24576, as the
     forward rows of phases 5d and 5e), attention over Zamba2's B4 x S2048
     (D64) and Mixtral's B2 x S2048 (D128), the router over Mixtral's 4096
-    tokens, ``ssd_scan`` and its backward kernel over Zamba2's B4."""
+    tokens, ``ssd_scan`` and its backward kernel over Zamba2's B4; the
+    attention backward kernel at the four models' training shapes (each
+    row's launches its model's in phase 5c)."""
     zamba, mixtral, gemma, whisper = (train[cfg.name]["launches"]
                                       for cfg, _, _ in train_configs())
     g = torch.Generator().manual_seed(9)
@@ -3134,7 +3360,12 @@ def time_train_kernels(dev: torch.device, train: dict, errs: dict,
             time_ssd(dev, "ssd_scan_train", 4, zamba["ssd_scan"],
                      errs["ssd_scan"], card),
             time_ssd_bwd(dev, "ssd_scan_bwd_train", 4, zamba["ssd_scan_bwd"],
-                         errs["ssd_scan_bwd_train"], card)]
+                         errs["ssd_scan_bwd_train"], card)] + [
+            time_flash_bwd(dev, row, shape, launches["flash_attention_bwd"],
+                           errs[row], card)
+            for shape, row, launches in zip(
+                FLASH_BWD_CASES[:4], FLASH_BWD_ROWS.values(),
+                (zamba, mixtral, gemma, whisper))]
 
 
 def time_family_kernels(dev: torch.device, fams: dict, errs: dict,
@@ -3261,9 +3492,9 @@ def time_stepwise(dev: torch.device, g: torch.Generator, kernel: str,
 
 def time_recompute_backward(dev: torch.device, g: torch.Generator,
                             train: dict, card: str) -> dict:
-    """Each kernel's backward on the training path (attention's recompute
-    through its plain version and its VJP, the port of
-    ``kernels/ops.py``'s VJP rule; ``ssd_scan``'s backward kernel,
+    """Each kernel's backward on the training path, as autograd runs it
+    (attention's backward kernel, ``flash_attention_bwd``, the range
+    ``flash_attention.backward``; ``ssd_scan``'s backward kernel,
     ``ssd_scan_bwd``; the router's VJP of its renormalised weights) at
     phase 5c's shapes: ms per call (CUDA events around
     ``torch.autograd.grad``, eager, median of 3 x 3), and per step (one

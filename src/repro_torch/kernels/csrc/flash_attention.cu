@@ -89,6 +89,16 @@
 // 1.5x that) against ~42 MB moved (12.5 us at 3.35 TB/s); Whisper's cross
 // attention at Sq 1 reads 49 MB of K and V (14.7 us) for 0.1 GFLOP.
 //
+// The row statistic for the backward.  Given a non-null lse (B,H,Sq) fp32,
+// which the wrapper passes only where autograd will take the gradient (a
+// serving call passes null and writes nothing), each kernel writes every
+// row's log-sum-exp of its scaled scores in the NATURAL base, the base
+// csrc/flash_attention_bwd.cu reads: the bf16 kernel, which works in base
+// 2 with log2(e) / sqrt(D) folded into its scores, writes ln 2 (m + log2
+// l) from its base-2 running max and sum (the split merge ln 2 (M + log2
+// L)); the f32 kernel, whose scale is in its staged q, m + ln l.  A row
+// that sees no key gets +inf (exp(s - lse) = 0 on any key).
+//
 // The launchers take PyTorch's current stream, allocate nothing (the
 // wrapper passes the split's scratch) and return cudaGetLastError() right
 // after the launch.
@@ -140,6 +150,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// a row's log-sum-exp in the natural base, as the backward reads it, from
+// the base-2 running max m (of x = s log2(e) / sqrt(D)) and sum l = sum
+// 2^(x - m): ln 2 (m + log2 l); +inf for a row that saw no key (l = 0)
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * 0.6931471805599453f
+                  : __int_as_float(0x7f800000);
 }
 
 // One block's work, as the producer and the consumers see it.
@@ -298,6 +316,7 @@ __device__ __forceinline__ void split_p(const float (&sc)[BK / 2],
 template <int D>
 __device__ __forceinline__ void merge_splits(const Job& j,
                                              __nv_bfloat16* __restrict__ o,
+                                             float* __restrict__ lse,
                                              const float* part,
                                              const float* pm,
                                              const float* pl_, float* stat,
@@ -316,6 +335,8 @@ __device__ __forceinline__ void merge_splits(const Job& j,
     }
     stat[r] = M;
     stat[kWgBQ + r] = 1.0f / fmaxf(L, 1e-30f);
+    if (lse != nullptr)
+      lse[static_cast<size_t>(j.bh) * j.Sq + j.q0 + r] = lse_of(M, L);
   }
   hopper::bar_sync(1, threads);
   for (int item = ct; item < rows * (D / 16); item += threads) {
@@ -363,6 +384,7 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
                                         uint64_t* fullV, uint64_t* empty,
                                         int* last, float* stat,
                                         __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse,
                                         float* __restrict__ part,
                                         int* __restrict__ tickets) {
   using T = WgTile<D>;
@@ -485,6 +507,8 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
       const int qi = row0 + 8 * r;
       if (qi >= j.Sq) continue;
       const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && t == 0)
+        lse[static_cast<size_t>(j.bh) * j.Sq + qi] = lse_of(m[r], l[r]);
       __nv_bfloat16* orow = o + (static_cast<size_t>(j.bh) * j.Sq + qi) * D;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
@@ -523,17 +547,19 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
   hopper::bar_sync(1, threads);
   if (!*last) return;
   __threadfence();
-  merge_splits<D>(j, o, part, pm, pl_, stat, tid - 128, threads);
+  merge_splits<D>(j, o, lse, part, pm, pl_, stat, tid - 128, threads);
 }
 
 // part: n_split > 1 only; the splits' fp32 O (B*H, n_split, Sq, D), then m
-// and l (B*H, n_split, Sq) each.  tickets: (B*H, q tiles), zeroed.
+// and l (B*H, n_split, Sq) each.  tickets: (B*H, q tiles), zeroed.  lse:
+// (B*H, Sq) fp32 or null (lse_of).
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       float* __restrict__ part,
                        int* __restrict__ tickets, int H, int Hkv, int Sq,
                        int Sk, int causal, int window, float scale_log2,
                        int n_split) {
@@ -599,7 +625,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     hopper::setmaxnreg_inc<kConsumerRegs>();
     if (wgi - 1 < j.n_wg)
       consume<D>(j, wgi - 1, tid, sQ, sK, sV, qbar, fullK, fullV, empty,
-                 last, reinterpret_cast<float*>(base), o, part, tickets);
+                 last, reinterpret_cast<float*>(base), o, lse, part, tickets);
   }
 }
 
@@ -619,7 +645,8 @@ template <int D> struct Tile {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H,
                  int Hkv, int Sq, int Sk, int causal, int window,
                  float scale) {
   constexpr int BK = Tile<D>::BK;
@@ -727,6 +754,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + qbase + static_cast<size_t>(qi) * D;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) orow[d * kRowThreads + sub] = acc[d] / denom;
+    // the row's log-sum-exp, natural base (the scale is in Qs); +inf for a
+    // row that saw no key (m never left -1e38).  Written after o: before
+    // it, the D 32 instance spilled
+    if (lse != nullptr && sub == 0)
+      lse[qbase / D + qi] = m > kNegInf ? m + __logf(l)
+                                        : __int_as_float(0x7f800000);
   }
 }
 
@@ -744,7 +777,8 @@ cudaError_t raise_smem(K kernel, size_t smem, bool* raised) {
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B,
                  int H, int Hkv, int Sq, int Sk, int causal, int window,
                  int n_split, float* part, int* tickets,
                  cudaStream_t stream) {
@@ -773,13 +807,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const float scale_log2 =
       1.4426950408889634f / sqrtf(static_cast<float>(D));
   flash_fwd_kernel_wgmma<D><<<grid, kWgThreads, T::smem_bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), part, tickets, H, Hkv, Sq,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, part, tickets, H, Hkv, Sq,
       Sk, causal, window, scale_log2, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B,
                int H, int Hkv, int Sq, int Sk, int causal, int window,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * Tile<D>::smem_floats;
@@ -789,19 +824,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, Sq, Sk,
       causal, window, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B,
            int H, int Hkv, int Sq, int Sk, int causal, int window, int dtype,
            int n_split, float* part, int* tickets, cudaStream_t s) {
   if (dtype == 0 && n_split == 1)
-    return launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    return launch_f32<D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window,
+                         s);
   if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window,
+    return launch_wgmma<D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window,
                            n_split, part, tickets, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -817,16 +854,17 @@ template <int D> long long tiling(int which) {
   }
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B,
              int H, int Hkv, int Sq, int Sk, int D, int causal, int window,
              int dtype, int n_split, float* part, int* tickets,
              cudaStream_t s) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
-    case 32: return launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
-    case 64: return launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
-    case 128: return launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
-    case 256: return launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
+    case 256: return launch<256>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal, window, dtype, n_split, part, tickets, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -836,23 +874,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, o contiguous (bf16: 16-byte
-// aligned); o is (B,H,Sq,D).
+// aligned); o is (B,H,Sq,D); lse (B,H,Sq) fp32, each row's log-sum-exp in
+// the natural base (+inf for a row that sees no key), or null.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int Hkv, int Sq, int Sk,
-                           int D, int causal, int window, int dtype,
+                           void* o, float* lse, int B, int H, int Hkv, int Sq,
+                           int Sk, int D, int causal, int window, int dtype,
                            void* stream) {
-  return dispatch(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window, dtype, 1,
+  return dispatch(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal, window, dtype, 1,
                   nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 only, the keys split n_split ways (launch_plan's): part holds
 // B*H*n_split*Sq*(D + 2) floats, tickets B*H*ceil(Sq / 128) ints, zeroed
 int flash_attention_split_launch(const void* q, const void* k,
-                                 const void* v, void* o, int B, int H,
+                                 const void* v, void* o, float* lse, int B,
+                                 int H,
                                  int Hkv, int Sq, int Sk, int D, int causal,
                                  int window, int n_split, float* part,
                                  int* tickets, void* stream) {
-  return dispatch(q, k, v, o, B, H, Hkv, Sq, Sk, D, causal, window, 1,
+  return dispatch(q, k, v, o, lse, B, H, Hkv, Sq, Sk, D, causal, window, 1,
                   n_split, part, tickets, static_cast<cudaStream_t>(stream));
 }
 

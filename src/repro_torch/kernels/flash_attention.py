@@ -1,4 +1,4 @@
-"""Blocked (flash) GQA attention, forward kernel plus recompute backward.
+"""Blocked (flash) GQA attention: the forward kernel and the backward's.
 
 Port of ``src/repro/kernels/flash_attention.py:flash_attention`` as wrapped
 by ``src/repro/kernels/ops.py:flash_attention``.  The CUDA kernel is
@@ -19,10 +19,18 @@ kernel for CUDA tensors; ``flash_attention.launches`` counts the launches.
 A fake CUDA tensor (the dry run's) launches nothing and hands the launch
 to ``backend.note_launch`` (``backend``'s docstring); :func:`work` is the
 operations and bytes behind the kernel's bound.
-As in the reference, the backward pass has no kernel: it recomputes through
-the plain version and takes its VJP, the port of ``ops.py``'s VJP rule
-(``_fa_bwd``: ``jax.vjp`` of ``ref.attention_ref``).  The profiler sees it
-as the range ``flash_attention.recompute_backward``.
+
+The backward.  The reference has no backward kernel: ``ops.py``'s VJP rule
+(``_fa_bwd``) is ``jax.vjp`` of ``ref.attention_ref``.  The port computes
+that VJP without the score matrix: where autograd will take the gradient,
+the forward also keeps each row's fp32 log-sum-exp (B, H, Sq), and
+:func:`flash_attention_bwd` recomputes P from it, tile by tile, in
+``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dk/dv kernel; its
+header gives the design) for CUDA tensors, or in
+:func:`flash_attention_bwd_plain`, the same decomposition in fp32 torch,
+for CPU tensors.  ``flash_attention_bwd.launches`` counts its calls on the
+card; :func:`work_backward` is its bound; the profiler sees it as the
+range ``flash_attention.backward``.
 """
 
 from __future__ import annotations
@@ -54,10 +62,10 @@ def _lib() -> ctypes.CDLL:
     lib = backend.load("flash_attention")
     if not getattr(lib, "_ff_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.flash_attention_launch.argtypes = [p] * 5 + [i] * 9 + [p]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_split_launch.argtypes = \
-            [p, p, p, p] + [i] * 9 + [p, p, p]
+            [p] * 5 + [i] * 9 + [p, p, p]
         lib.flash_attention_split_launch.restype = i
         lib.flash_attention_tiling.argtypes = [i, i]
         lib.flash_attention_tiling.restype = ctypes.c_longlong
@@ -125,11 +133,21 @@ def split_keys(plan: LaunchPlan, Sk: int) -> list:
             for s in range(plan.splits)]
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: int = 0
-                          ) -> torch.Tensor:
-    """Plain version: the whole score matrix in fp32, GQA by repeating the
-    KV heads, queries aligned to the end of the keys."""
+def _mask(Sq: int, Sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """(Sq, Sk): the keys each query sees, queries aligned to the end of
+    the keys."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _plain(q, k, v, causal, window, with_lse):
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if Hkv != H:
@@ -137,17 +155,88 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = v.repeat_interleave(H // Hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         / torch.sqrt(torch.tensor(float(D)))
-    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window and window > 0:
-        mask &= kpos > qpos - window
+    mask = _mask(Sq, Sk, causal, window, q.device)
     s = torch.where(mask[None, None], s,
                     torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    return o, torch.where(mask.any(-1)[None, None], lse,
+                          torch.tensor(float("inf"), device=q.device))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int = 0
+                          ) -> torch.Tensor:
+    """Plain version: the whole score matrix in fp32, GQA by repeating the
+    KV heads, queries aligned to the end of the keys."""
+    return _plain(q, k, v, causal, window, False)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              window: int = 0) -> tuple:
+    """:func:`flash_attention_plain`'s output and each row's fp32
+    log-sum-exp, ``(B, H, Sq)``: natural base, of the scaled scores
+    ``q.k / sqrt(D)`` the row sees; ``+inf`` for a row that sees no key
+    (a causal call with Sq > Sk), so that ``exp(s - lse)`` is 0 there."""
+    return _plain(q, k, v, causal, window, True)
+
+
+def no_key_rows(Sq: int, Sk: int, causal: bool) -> int:
+    """The leading query rows that see no key: ``Sq - Sk`` of a causal
+    call with Sq > Sk, else 0.  The reference's softmax over such a row's
+    all-NEG_INF scores is uniform, so its gradient reaches no q and no k,
+    and each key's v takes ``do / Sk`` of the row."""
+    return max(0, Sq - Sk) if causal else 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True, window: int = 0) -> tuple:
+    """Plain version of the backward, the decomposition the kernel
+    computes, in fp32: P = exp(S / sqrt(D) - lse) on the keys a row sees
+    (0 elsewhere), dP = dO V^T, the row's delta = rowsum(P o dP) (the
+    recomputed fp32 P and dP, not dO.O from the bf16 o, which puts dq 5-10x
+    further from the reference: the kernel's header), dS =
+    P o (dP - delta) / sqrt(D); dq = dS K, each query head's dk = dS^T Q
+    and dv = P^T dO (plus ``do / Sk`` of each row that sees no key,
+    :func:`no_key_rows`), rounded to the inputs' type head by head and
+    summed over a GQA group in fp32, as autograd of
+    :func:`flash_attention_plain` does (``repeat_interleave``, then
+    ``.float()``).  ``o``, the forward's output, is read neither here
+    nor by the kernel (delta comes from P and dP)."""
+    del o
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) \
+        / torch.sqrt(torch.tensor(float(D)))
+    mask = _mask(Sq, Sk, causal, window, q.device)[None, None]
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta) / torch.sqrt(torch.tensor(float(D)))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    n0 = no_key_rows(Sq, Sk, causal)
+    if n0:
+        dv = dv + dof[:, :, :n0].sum(2, keepdim=True) / Sk
+
+    def group(t, dtype):
+        t = t.to(dtype)
+        if G == 1:
+            return t
+        return t.float().view(B, Hkv, G, Sk, D).sum(2).to(dtype)
+    return dq.to(q.dtype), group(dk, k.dtype), group(dv, v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -163,7 +252,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: int) -> torch.Tensor:
+            causal: bool, window: int, with_lse: bool = False):
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -186,8 +275,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: sizes out of range "
                          f"(B {B}, H {H}, Sq {Sq}, Sk {Sk})")
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if Sq == 0 or B == 0:
-        return o
+        return (o, lse) if with_lse else o
     plan = launch_plan(B, H, Hkv, Sq, Sk, D) if q.dtype == torch.bfloat16 \
         else None
     part = tickets = None
@@ -200,9 +291,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               device=q.device)
     if fake:
         backend.note_launch("flash_attention")
-        return o
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-            Hkv, Sq, Sk, D, int(bool(causal)), int(window))
+        return (o, lse) if with_lse else o
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, B, H, Hkv, Sq, Sk, D,
+            int(bool(causal)), int(window))
     if part is not None:
         err = _lib().flash_attention_split_launch(
             *args, plan.splits, part.data_ptr(), tickets.data_ptr(),
@@ -213,27 +305,149 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _count_lock:
         flash_attention.launches += 1
     backend.check(err, "flash_attention")
-    return o
+    return (o, lse) if with_lse else o
+
+
+# -- the backward ------------------------------------------------------------
+def _lib_bwd() -> ctypes.CDLL:
+    lib = backend.load("flash_attention_bwd")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [strides] \
+            + [i] * 9 + [p]
+        lib.flash_attention_bwd_launch.restype = i
+        lib._ff_typed = True
+    return lib
+
+
+def bwd_workspace(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+                  dtype: torch.dtype) -> int:
+    """fp32 words of the backward's workspace: each query row's delta
+    (B, H, Sq), which the dq kernel writes and the dk/dv kernel reads, and
+    for bf16 inputs with a GQA group (H > Hkv) the group's fp32 sums of
+    dk and dv (B, Hkv, Sk, D each), into which each query head's gradient
+    goes rounded to bf16."""
+    sums = 2 * B * Hkv * Sk * D if H != Hkv and dtype == torch.bfloat16 \
+        else 0
+    return B * H * Sq + sums
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, window: int) -> tuple:
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention backward takes q, k, v, o and "
+                            f"do of one type; {name} is {t.dtype}, q "
+                            f"{q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention backward takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: o and do must be "
+                         f"{tuple(q.shape)} and lse float32 {(B, H, Sq)}; "
+                         f"got {tuple(o.shape)}, {tuple(do.shape)}, "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError("flash_attention backward: inputs on different "
+                         "devices")
+    # q, k, v and lse as the forward takes and leaves them; dO at any
+    # strides whose rows are contiguous and 16-byte aligned (the model's
+    # transposed cotangent), else copied; o is not read (delta comes from
+    # P and dP)
+    if not all(t.is_contiguous() for t in (q, k, v, lse)):
+        raise ValueError("flash_attention backward takes contiguous q, k, "
+                         "v and lse")
+    fake = backend.is_fake(q)
+    if q.dtype == torch.bfloat16 and not fake and any(t.data_ptr() % 16
+                                                      for t in (q, k, v)):
+        raise ValueError("flash_attention backward takes 16-byte aligned "
+                         "bfloat16 q, k, v (its copies are 16 bytes wide)")
+    eb = do.element_size()
+    if not fake and (do.stride(3) != 1 or do.data_ptr() % 16 or any(
+            st * eb % 16 for st in do.stride()[:3])):
+        do = do.contiguous() if not do.is_contiguous() else do.clone()
+    if max(Sq, Sk, B, H) >= 2 ** 31 or Sk < 1:
+        raise ValueError(f"flash_attention backward: sizes out of range "
+                         f"(B {B}, H {H}, Sq {Sq}, Sk {Sk})")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if Sq == 0 or B == 0:
+        return dq, dk.zero_(), dv.zero_()
+    ws = torch.empty(bwd_workspace(B, H, Hkv, Sq, Sk, D, q.dtype),
+                     dtype=torch.float32, device=q.device)
+    if fake:
+        backend.note_launch("flash_attention_bwd")
+        return dq, dk, dv
+    st = ctypes.c_longlong * 4
+    err = _lib_bwd().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), ws.data_ptr(), st(*do.stride()), B, H, Hkv, Sq, Sk,
+        D, int(bool(causal)), int(window), _DTYPES[q.dtype],
+        backend.current_stream(q.device))
+    with _count_lock:
+        flash_attention_bwd.launches += 1
+    backend.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> tuple:
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v
+    for the cotangent ``do`` (any strides), given the forward's output
+    ``o`` and fp32 log-sum-exp ``lse`` (:func:`flash_attention_lse_plain`'s
+    convention), in the inputs' type: :func:`flash_attention_bwd_plain`
+    for CPU tensors, for CUDA tensors the kernels of
+    ``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dk/dv kernel; one
+    count in ``flash_attention_bwd.launches`` a call)."""
+    _check(q, k, v)
+    if backend.noted():
+        backend.note("flash_attention_bwd", work_backward(
+            q.shape, k.shape[1], k.shape[2], q.dtype, causal, window))
+    if backend.use_kernel(q):
+        return _launch_bwd(q, k, v, o, lse, do, bool(causal), int(window))
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, window)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True,
+                             window: int = 0) -> tuple:
+    """The forward and its row statistic, outside autograd: ``(o, lse)``,
+    o as :func:`flash_attention` gives it and lse as
+    :func:`flash_attention_lse_plain` defines it; the kernel for CUDA
+    tensors (one launch), the plain version for CPU tensors."""
+    _check(q, k, v)
+    if backend.use_kernel(q):
+        return _launch(q, k, v, bool(causal), int(window), True)
+    return flash_attention_lse_plain(q, k, v, causal, window)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, causal, window, with_lse):
         ctx.causal, ctx.window = causal, window
-        if backend.use_kernel(q):
-            return _launch(q, k, v, causal, window)
-        return flash_attention_plain(q, k, v, causal, window)
+        if not with_lse:
+            if backend.use_kernel(q):
+                return _launch(q, k, v, causal, window)
+            return flash_attention_plain(q, k, v, causal, window)
+        o, lse = flash_attention_with_lse(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad(), torch.profiler.record_function(
-                "flash_attention.recompute_backward"):
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = flash_attention_plain(*leaves, ctx.causal, ctx.window)
-            grads = torch.autograd.grad(out, leaves, g)
-        return grads + (None, None)
+    def backward(ctx, g, _glse=None):
+        q, k, v, o, lse = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention.backward"):
+            grads = flash_attention_bwd(q, k, v, o, lse, g, ctx.causal,
+                                        ctx.window)
+        return grads + (None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,12 +459,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``HEAD_DIMS`` and float32 or bfloat16: a bfloat16 CUDA tensor runs on
     the tensor cores (``wgmma``; keys split as :func:`launch_plan` says), a
     float32 one on the FMA units (a dispatch by type: TF32 would miss the
-    f32 tolerance)."""
+    f32 tolerance).  Where autograd will take the gradient (grad mode on
+    and an input that requires it) the forward also keeps each row's
+    log-sum-exp for :func:`flash_attention_bwd`."""
     _check(q, k, v)
     if backend.noted():
         backend.note("flash_attention", work(
             q.shape, k.shape[1], k.shape[2], q.dtype, causal, window))
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    with_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, bool(causal), int(window), with_lse)
+    return out[0] if with_lse else out
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -277,5 +496,29 @@ def work(q_shape, Hkv: int, Sk: int, dtype: torch.dtype,
     return backend.Work(flops, nbytes, flops / rate)
 
 
-flash_attention.launches = 0
+def work_backward(q_shape, Hkv: int, Sk: int, dtype: torch.dtype,
+                  causal: bool = True, window: int = 0) -> backend.Work:
+    """The backward's least work for q ``(B, H, Sq, D)`` against ``Sk``
+    keys of ``Hkv`` heads: five products over the pairs the mask admits,
+    2 FLOP a multiply-add (q.k again, dO.v, and the three that give dv =
+    P^T dO, dk = dS^T Q and dq = dS K); its time on the tensor cores
+    counts the form the kernel issues in bf16: the last three have an
+    fp32 operand (P or dS) split into two bf16 halves, two products each,
+    so eight products' time at the bf16 rate (the FMA units' five at the
+    f32 rate for f32 inputs).  The kernel's second sweep over the scores
+    for each row's delta is its own choice and not counted.  q, k, v, o
+    and dO read once with the fp32 lse; dq, dk and dv written once."""
+    B, H, Sq, D = q_shape
+    product = 2 * D * visible_pairs(Sq, Sk, causal, window) * B * H
+    q_like = B * H * Sq * D
+    kv = B * Hkv * Sk * D
+    nbytes = dtype.itemsize * (4 * q_like + 4 * kv) + 4 * B * H * Sq
+    if dtype == torch.bfloat16:
+        ops_s = 8 * product / H100_SXM.peak_flops_bf16
+    else:
+        ops_s = 5 * product / H100_SXM.peak_flops_f32
+    return backend.Work(5 * product, nbytes, ops_s)
 
+
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -20,7 +20,11 @@ from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
 from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_lse_plain,
+                                                 flash_attention_plain,
+                                                 flash_attention_with_lse)
 from repro_torch.kernels.flash_attention import launch_plan as flash_plan
 from repro_torch.kernels.gelu_stepwise import (gelu_stepwise,
                                                gelu_stepwise_bwd,
@@ -298,6 +302,191 @@ def test_flash_split_on_two_streams_at_once(cuda):
     torch.cuda.synchronize()
     for ga, gb in got:
         assert torch.equal(ga, want_a) and torch.equal(gb, want_b)
+
+
+# (B, H, Hkv, Sq, Sk, D, causal, window) of the backward: the four models'
+# training attention at reduced sizes (Zamba2's H32/32 D64 causal,
+# Mixtral's GQA 4 of D128 with a window inside S, Gemma-7B's D256,
+# Whisper's encoder without a mask and its cross attention at 37 and 1
+# queries), a group of 6, a context-parallel prefix (Sq < Sk) with a
+# window, rows that see no key (causal, Sq > Sk) and ragged lengths at
+# every head dim
+FLASH_BWD_CASES = [
+    (2, 8, 8, 256, 256, 64, True, 0),
+    (1, 8, 2, 300, 300, 128, True, 64),
+    (1, 4, 4, 200, 200, 256, True, 0),
+    (2, 4, 4, 150, 150, 64, False, 0),
+    (2, 4, 4, 37, 150, 64, False, 0),
+    (2, 4, 4, 1, 150, 64, False, 0),
+    (1, 6, 1, 130, 130, 128, True, 0),
+    (1, 4, 2, 70, 300, 16, True, 32),
+    (1, 2, 2, 100, 60, 32, True, 0),
+] + [(1, 4, 2, 65, 97, D, True, 0) for D in HEAD_DIMS]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _flash_bwd_inputs(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal, window):
+    """q, k, v, the forward's o and lse from the kernel, and dO at the
+    strides the model hands it (the (B, Sq, H, D) cotangent transposed)."""
+    g = torch.Generator().manual_seed(B + H + Sq + Sk + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    do = torch.randn(B, Sq, H, D, generator=g).to(dtype).to(cuda)
+    o, lse = flash_attention_with_lse(q, k, v, causal, window)
+    return q, k, v, o, lse, do.transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_and_repeats_bit_for_bit(
+        cuda, dtype, B, H, Hkv, Sq, Sk, D, causal, window):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` on the
+    same inputs (f32 gradients within 1e-4 of their scale: sums in other
+    orders; bf16 within 2**-7 of it: each head's gradient rounds to bf16
+    and a GQA group sums the rounded heads), each gradient in its input's
+    type and shape, a second call equal bit for bit (no atomics), one
+    launch a call; and the forward's lse is the plain one's."""
+    args = _flash_bwd_inputs(cuda, dtype, B, H, Hkv, Sq, Sk, D, causal,
+                             window) + (causal, window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args)
+    again = flash_attention_bwd(*args)
+    assert flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_plain(*args)
+    _, lse_plain = flash_attention_lse_plain(*args[:3], causal, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(args[4], lse_plain, rtol=1e-5, atol=1e-5)
+    for a, b, w, x in zip(got, again, want, args[:3]):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(
+            a.float(), w.float(), rtol=FLASH_BWD_TOL[dtype],
+            atol=FLASH_BWD_TOL[dtype] * max(scale, 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal", [
+    (8, 8, 8, 1, 1500, 64, False), (1, 4, 2, 64, 4128, 64, True),
+    (1, 4, 4, 300, 300, 128, True)])
+def test_flash_forward_lse_matches_plain(cuda, B, H, Hkv, Sq, Sk, D, causal):
+    """The lse the bf16 kernel writes, split (merged in the launch) and
+    unsplit, is the plain version's."""
+    q, k, v = _flash_inputs(cuda, B, H, Hkv, Sq, Sk, D, 11)
+    o, lse = flash_attention_with_lse(q, k, v, causal, 0)
+    want_o, want = flash_attention_lse_plain(q, k, v, causal, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(o, flash_attention(q, k, v, causal, 0))
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_forward_rows_that_see_no_key(cuda):
+    """Causal with Sq > Sk (no model path makes such a call): the rows
+    that see keys match the plain version; the first Sq - Sk rows see
+    none, where the reference's softmax is uniform and its output the
+    mean of v, but the bf16 kernel writes 0 (a known fault of the forward,
+    ROADMAP Queue 3); their lse is +inf, so the backward, which takes the
+    reference's gradient there (``FLASH_BWD_CASES``' Sq 100 against Sk
+    60), sees no key for them."""
+    q, k, v = _flash_inputs(cuda, 1, 4, 2, 100, 60, 64, 13)
+    o, lse = flash_attention_with_lse(q, k, v, True, 0)
+    want, want_lse = flash_attention_lse_plain(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o[:, :, 40:].float(), want[:, :, 40:].float(),
+                               rtol=2e-2, atol=2e-2)
+    assert bool((o[:, :, :40] == 0).all())
+    assert bool(torch.isinf(lse[:, :, :40]).all())
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_replays_in_a_cuda_graph(cuda, dtype):
+    """A backward captured in a CUDA graph and replayed gives the eager
+    call's gradients bit for bit."""
+    args = _flash_bwd_inputs(cuda, dtype, 1, 8, 2, 300, 300, 128, True,
+                             64) + (True, 64)
+    want = flash_attention_bwd(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_bwd(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = flash_attention_bwd(*args)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_card_launches_the_backward_kernel(cuda,
+                                                                 dtype):
+    """Autograd through ``flash_attention`` on CUDA tensors runs the
+    backward kernel once a call and neither plain version, with dO at the
+    model's strides, and gives the kernel's gradients."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((2, 8, 200, 64), (2, 2, 200, 64),
+                             (2, 2, 200, 64)))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    do = torch.randn(2, 200, 8, 64, generator=g).to(dtype).to(cuda)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    saved = (flash_module.flash_attention_plain,
+             flash_module.flash_attention_bwd_plain)
+    flash_module.flash_attention_plain = refuse
+    flash_module.flash_attention_bwd_plain = refuse
+    try:
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        out = flash_attention(*leaves, True, 0).transpose(1, 2)
+        grads = torch.autograd.grad(out, leaves, do)
+        assert (flash_attention.launches, flash_attention_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+    finally:
+        (flash_module.flash_attention_plain,
+         flash_module.flash_attention_bwd_plain) = saved
+    o, lse = flash_attention_with_lse(q.detach(), k.detach(), v.detach(),
+                                      True, 0)
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(), o, lse,
+                               do.transpose(1, 2), True, 0)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_counts_launches_and_rejects_what_it_cannot_take(cuda):
+    z = torch.zeros(1, 2, 8, 16, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd(z, z, z, z, lse, z)
+    assert flash_attention_bwd.launches == 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        h = z.half()
+        flash_attention_bwd(h, h, h, h, lse, h)
+    with pytest.raises(ValueError, match="head dims"):
+        w = torch.zeros(1, 2, 8, 48, device=cuda)
+        flash_attention_bwd(w, w, w, w, lse, w)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(z, z, z, z, lse.half(), z)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 8, 2, 16, device=cuda).transpose(1, 2)
+        flash_attention_bwd(t, t, t, z, lse, z)
+    with pytest.raises(ValueError, match="aligned"):
+        a = torch.zeros(1 * 2 * 8 * 16 + 1, device=cuda,
+                        dtype=torch.bfloat16)[1:].view(1, 2, 8, 16)
+        flash_attention_bwd(a, a, a, a, lse, a)
+    assert flash_attention_bwd.launches == 1
 
 
 STEPWISE_SHAPES = [

@@ -192,8 +192,8 @@ def test_every_family_calls_its_kernels(dry_ranks):
     for name in ("mixtral-8x7b", "xlstm-125m", "qwen2-vl-2b", "llama3.2-3b"):
         assert silu <= calls[name] and not gelu & calls[name], name
     assert gelu | silu <= calls["zamba2-1.2b"]     # the shared block's gelu
-    assert all("flash_attention" in calls[n] for n in C.CONFIGS
-               if n != "xlstm-125m")
+    assert all({"flash_attention", "flash_attention_bwd"} <= calls[n]
+               for n in C.CONFIGS if n != "xlstm-125m")
 
 
 def _chip_smoke():
@@ -214,7 +214,8 @@ def test_each_familys_traced_launches_are_the_cards_formula(name):
     ``expected_launches`` (the count phases 5c and 13 hold the card to):
     a train step's forward twice (activation checkpointing recomputes
     it) and each backward kernel once, ``ssd_scan_bwd`` once per Mamba2
-    layer and twice per mLSTM layer."""
+    layer and twice per mLSTM layer, ``flash_attention_bwd`` once per
+    attention launch of the forward."""
     from repro_torch.core.plan import single_device_plan
     cs = _chip_smoke()
     cfg = get(name).reduced()
@@ -276,6 +277,20 @@ BOUND_ROWS = [
      "operations"),
     ("ssd backward xLSTM P1 a rank", lambda K: K.ssd_scan.work_backward(
         1, 2, 2, 2048, 384, 1, 256, BF16, F32, F32, F32), 0.0038, "bytes"),
+    # the attention backward's: five products a visible pair, eight as the
+    # bf16 kernel issues them (P and dS in two bf16 halves)
+    ("flash backward Zamba2 D64 train B4", lambda K:
+     K.flash_attention.work_backward((4, 32, 2048, 64), 32, 2048, BF16, True,
+                                     4096), 0.2781, "operations"),
+    ("flash backward Mixtral D128 train B2", lambda K:
+     K.flash_attention.work_backward((2, 32, 2048, 128), 8, 2048, BF16, True,
+                                     4096), 0.2781, "operations"),
+    ("flash backward Gemma D256 train B2", lambda K:
+     K.flash_attention.work_backward((2, 16, 2048, 256), 16, 2048, BF16,
+                                     True, 0), 0.2781, "operations"),
+    ("flash backward Whisper encoder", lambda K:
+     K.flash_attention.work_backward((8, 16, 1500, 64), 16, 1500, BF16,
+                                     False, 0), 0.2982, "operations"),
     ("a2a route T4096 E8", lambda K: K.a2a_fused.route_work(4096, 8),
      0.0000501, "bytes"),
     ("gelu Whisper B8x1500x4096", lambda K: K.gelu_stepwise.work(
@@ -412,6 +427,9 @@ def _fake_call(name):
     calls = {
         "flash_attention": lambda: fn(x(1, 2, 8, 16), x(1, 2, 8, 16),
                                       x(1, 2, 8, 16)),
+        "flash_attention_bwd": lambda: fn(x(1, 2, 8, 16), x(1, 2, 8, 16),
+                                          x(1, 2, 8, 16), x(1, 2, 8, 16),
+                                          x(1, 2, 8), x(1, 2, 8, 16)),
         "router_topk": lambda: fn(x(16, 8), 2, 16),
         "ssd_scan": lambda: fn(x(1, 1, 8, 4), x(1, 1, 8, 4), x(1, 2, 8, 4),
                                x(1, 2, 8), 4),
@@ -430,7 +448,8 @@ def _fake_call(name):
     return fn, calls[name]
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "router_topk",
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",
+                                  "router_topk",
                                   "ssd_scan", "ssd_scan_bwd", "gelu_stepwise",
                                   "gelu_stepwise_bwd", "silu_stepwise",
                                   "silu_stepwise_bwd", "a2a_route",

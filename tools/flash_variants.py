@@ -64,7 +64,7 @@ def build(backend, name: str, text: str) -> ctypes.CDLL:
         cs.fail(f"nvcc failed for variant {name}:\n{res.stderr}")
     dll = ctypes.CDLL(str(lib))
     p, i = ctypes.c_void_p, ctypes.c_int
-    dll.flash_attention_split_launch.argtypes = [p, p, p, p] + [i] * 9 + \
+    dll.flash_attention_split_launch.argtypes = [p] * 5 + [i] * 9 + \
         [p, p, p]
     dll.flash_attention_split_launch.restype = i
     return dll
@@ -111,7 +111,7 @@ def main() -> int:
                     # the stream of the moment: graph_ms captures on its own
                     err = lib.flash_attention_split_launch(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), B, H, Hkv, Sq, Sk, D, int(causal),
+                        o.data_ptr(), None, B, H, Hkv, Sq, Sk, D, int(causal),
                         window, n, part.data_ptr(), tickets.data_ptr(),
                         torch.cuda.current_stream().cuda_stream)
                     if err:
