@@ -14,10 +14,9 @@ Phases, each of which fails the run:
    16-256) and in every ``ssd_scan_kernel_wgmma`` (the bf16-q/k
    recurrence: P tiles of 64 and 8, f32 and bf16 v), and no forward flash
    kernel with HMMA (``mma.sync``) alone (the count per kernel is printed;
-   attention's backward, ``csrc/flash_attention_bwd.cu``, is on mma.sync
-   by design until its Hopper redesign); phase
-   13's traces run in a process of their own
-   beside phases 1-2;
+   attention's backward takes HGMMA in every ``fa_bwd_wg_`` instance, D
+   16-128, and ``mma.sync`` at D 256 by ``flash_attention.bwd_plan``);
+   phase 13's traces run in a process of their own beside phases 1-2;
 2. kernels — ``a2a_route`` and ``a2a_combine`` against their plain PyTorch
    versions on the card (exact indices, byte-equal outputs);
    ``flash_attention`` against its plain version (bf16 within 2e-2, f32
@@ -60,8 +59,8 @@ Phases, each of which fails the run:
    within 1e-4 of their scale, bf16 within 2**-7 of it), two calls bit for
    bit and, at the training shapes, a CUDA graph's replay too
    (:data:`SSD_BWD_CASES`); attention's backward ``flash_attention_bwd`` (a
-   dq kernel and a dk/dv kernel, on mma.sync in bf16 and the FMA units in
-   f32) against ``flash_attention_bwd_plain`` at phase 5c's four training
+   dq kernel and a dk/dv kernel, on ``wgmma`` in bf16 up to D 128, on
+   mma.sync at D 256 and on the FMA units in f32) against ``flash_attention_bwd_plain`` at phase 5c's four training
    shapes, Whisper's decoder self and cross attention, a GQA group of 6, a
    window inside S, a context-parallel prefix (Sq < Sk), rows that see no
    key (causal, Sq > Sk) and ragged tails at every head dim (f32 gradients
@@ -446,19 +445,23 @@ def check_spills(backend) -> None:
 
 
 # the kernels whose instances may not spill
-NO_SPILL = ("flash_fwd_kernel", "ssd_scan_kernel", "ssd_bwd_wg_")
+NO_SPILL = ("flash_fwd_kernel", "ssd_scan_kernel", "ssd_bwd_wg_",
+            "fa_bwd_wg_")
 # the kernels that must run on the tensor cores: (library, name prefix,
 # count of instantiations, instructions of which one must be there): the
 # bf16 flash kernel for each head dim on wgmma (HGMMA), the recurrence with
 # bf16 q/k (template <PT, V_BF16>: P tiles of 64 and 8, f32 and bf16 v) on
-# wgmma, the wgmma backward's chain and chunk kernels; and the library
-# whose kernels may not run on mma.sync alone (a flash kernel with HMMA and
-# no HGMMA is the old design)
+# wgmma, the wgmma backward's chain and chunk kernels, attention's wgmma
+# backward (dq and dk/dv at D 16, 32, 64, 128); and the library whose
+# kernels may not run on mma.sync alone (a flash kernel with HMMA and no
+# HGMMA is the old design)
 TENSOR_CORE_KERNELS = (("flash_attention", "flash_fwd_kernel_wgmma<", 5,
                         ("HGMMA",)),
                        ("ssd_scan", "ssd_scan_kernel_wgmma<", 4,
                         ("HGMMA",)),
                        ("ssd_scan_bwd_wgmma", "ssd_bwd_wg_ch", 2,
+                        ("HGMMA",)),
+                       ("flash_attention_bwd_wgmma", "fa_bwd_wg_", 8,
                         ("HGMMA",)))
 HGMMA_ONLY = ("flash_attention", "flash_fwd_kernel")
 
@@ -662,7 +665,15 @@ FLASH_CASES = [
      for c, w in ((True, 0), (True, 64), (False, 0))
 ] + [(B, H, Hkv, Sq, Sk, D, c, w, F32) for D in (16, 32, 64, 128, 256)
      for B, H, Hkv, Sq, Sk, c, w in FLASH_EDGES
-] + [case + (BF16,) for case in FLASH_SPLITS]
+] + [case + (BF16,) for case in FLASH_SPLITS] + [
+    # causal with Sq > Sk: the first Sq - Sk rows see no key, where the
+    # plain version gives the reference's mean of v; unsplit, split (Sq
+    # 300 against 200 at B1 H4) and a window
+    (1, 4, 2, 100, 60, 64, True, 0, F32),
+    (1, 4, 2, 300, 200, 64, True, 0, BF16),
+    (2, 4, 4, 200, 72, 128, True, 0, F32),
+    (1, 2, 2, 300, 44, 256, True, 0, F32),
+    (1, 4, 2, 129, 65, 32, True, 16, F32)]
 
 
 # the cases at phase 5e's, 11's and 12's shapes, by the ``kernels`` row
@@ -1210,7 +1221,8 @@ def check_ssd_bwd(dev: torch.device) -> tuple:
 # self-attention over its 187 tokens and its cross attention (187 and 1
 # queries against 1500 frames), a GQA group of 6, a window inside S, a
 # context-parallel prefix block (Sq < Sk), rows that see no key (causal, Sq
-# > Sk) and ragged tails at every head dim; f32 on several
+# > Sk) and ragged tails at every head dim; f32 on several; then bf16 at
+# the wgmma kernels' edges at D 64 and D 128
 FLASH_BWD_CASES = [
     (4, 32, 32, 2048, 2048, 64, True, 4096, BF16),
     (2, 32, 8, 2048, 2048, 128, True, 4096, BF16),
@@ -1223,7 +1235,16 @@ FLASH_BWD_CASES = [
     (1, 8, 2, 1000, 1000, 128, True, 300, F32),
     (1, 8, 8, 512, 2048, 64, True, 0, BF16),
     (1, 4, 4, 300, 200, 64, True, 0, F32),
-] + [(1, 4, 2, 129, 257, D, True, 0, F32) for D in (16, 32, 64, 128, 256)]
+] + [(1, 4, 2, 129, 257, D, True, 0, F32) for D in (16, 32, 64, 128, 256)
+] + [(B, H, Hkv, Sq, Sk, D, c, w, BF16) for D in (64, 128)
+     for B, H, Hkv, Sq, Sk, c, w in (
+         (1, 4, 2, 127, 129, True, 0),   # ragged: the wgmma kernels' tiles
+         (1, 2, 2, 257, 255, False, 0),  # of 128 rows or keys, 64 a
+         (1, 12, 2, 200, 200, True, 0),  # warpgroup; a group of 6
+         (1, 4, 4, 300, 300, True, 70),  # a window inside S
+         (1, 4, 2, 63, 257, True, 0),    # Sq < Sk
+         (1, 4, 4, 257, 129, True, 0),   # Sq > Sk: rows that see no key
+         (2, 4, 4, 1, 64, True, 0))]     # Sq 1
 # phase 5c's shapes by ``kernels`` row; their calls are also replayed in a
 # CUDA graph
 FLASH_BWD_ROWS = {
@@ -1258,10 +1279,11 @@ def check_flash_bwd(dev: torch.device) -> tuple:
     plain version's; a second call equal bit for bit (no atomics), and at
     :data:`FLASH_BWD_ROWS` a CUDA graph's replay too.  Returns the worst
     error over the scale, the training shapes' worst by ``kernels`` row and
-    the number of cases; counts the cases by kernel (bf16 on mma.sync, f32
-    on the FMA units) and fails unless both ran."""
+    the number of cases; counts the cases by the kernel ``bwd_plan`` picks
+    (bf16 on wgmma, bf16 on mma.sync at D 256, f32 on the FMA units) and
+    fails unless each ran."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain,
+        bwd_plan, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_lse_plain)
     g = torch.Generator().manual_seed(17)
     worst, n, by_kernel = 0.0, 0, {}
@@ -1269,7 +1291,7 @@ def check_flash_bwd(dev: torch.device) -> tuple:
     for case in FLASH_BWD_CASES:
         for dtype in case[8]:
             args = flash_bwd_inputs(g, dev, case, dtype)
-            kernel = "mma (bf16)" if dtype == torch.bfloat16 else "fma (f32)"
+            kernel = bwd_plan(*case[:6], dtype).kernel
             by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
             got = flash_attention_bwd(*args)
             again = flash_attention_bwd(*args)
@@ -1322,9 +1344,9 @@ def check_flash_bwd(dev: torch.device) -> tuple:
                     rows[row] = max(rows[row], e)
             n += 1
             del args, got, again, want, lse_plain
-    if set(by_kernel) != {"mma (bf16)", "fma (f32)"}:
-        fail(f"flash_attention_bwd: the cases reached {by_kernel}, not both "
-             f"kernels")
+    if set(by_kernel) != {"wgmma", "mma", "fma"}:
+        fail(f"flash_attention_bwd: the cases reached {by_kernel}, not each "
+             f"kernel bwd_plan picks (wgmma, mma, fma)")
     say(f"[kernels] flash_attention_bwd equals its plain backward ({n} cases,"
         f" by kernel {by_kernel}; worst |err| / scale {worst:.3g}, the "
         f"training shapes' |err| by row "
@@ -3151,6 +3173,52 @@ def time_ms(fn, reps: int = 5, iters: int = 20) -> float:
     return sorted(meds)[len(meds) // 2]
 
 
+def host_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """The host's time to issue one call: ``iters`` calls back to back by
+    ``time.perf_counter``, the device drained before each run (median of
+    ``reps``)."""
+    for _ in range(3):
+        fn()
+    meds = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        meds.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return sorted(meds)[len(meds) // 2]
+
+
+def kernel_split(fn) -> dict:
+    """Device milliseconds of each of attention's backward kernels
+    (``fa_bwd_*``, one launch each a call) in one call of ``fn``: over 3
+    profiled calls after one unprofiled call (torch.profiler), each
+    kernel's device time over the launches of it the profile saw (a
+    profile misses some now and then, in a process that profiled before:
+    all of them, and it is taken again, up to 3 times; ``{}`` if none saw
+    them)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for e in prof.key_averages():
+            m = re.search(r"fa_bwd_\w+", e.key)
+            if m and e.self_device_time_total > 0:
+                total[m.group(0)] = total.get(m.group(0), 0.0) \
+                    + e.self_device_time_total / 1e3
+                count[m.group(0)] = count.get(m.group(0), 0) + e.count
+        if total:
+            return {k: total[k] / count[k] for k in total}
+    return {}
+
+
 def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
     replayed, timed with CUDA events (median of ``reps``), so no host
@@ -3250,15 +3318,23 @@ def time_flash_bwd(dev: torch.device, name: str, case: tuple, launches: int,
     (``flash_attention_bwd_plain``), the plain recompute it replaced
     (:func:`flash_recompute`), the backward of
     ``scaled_dot_product_attention`` (autograd of one bf16 call, a
-    yardstick only) and its bound (``work_backward``)."""
+    yardstick only) and its bound (``work_backward``); each of its two
+    kernels' device time in one profiled call and the host's time to issue
+    a call."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, work_backward)
+        bwd_plan, flash_attention_bwd, flash_attention_bwd_plain,
+        work_backward)
     g = torch.Generator().manual_seed(10)
     args = flash_bwd_inputs(g, dev, case, torch.bfloat16)
     B, H, Hkv, Sq, Sk, D, causal, window = case[:8]
+    plan = bwd_plan(B, H, Hkv, Sq, Sk, D, torch.bfloat16)
+    cu = "flash_attention_bwd_wgmma" if plan.kernel == "wgmma" \
+        else "flash_attention_bwd"
     ms = graph_ms(lambda: flash_attention_bwd(*args))
     eager = time_ms(lambda: flash_attention_bwd(*args))
+    host = host_ms(lambda: flash_attention_bwd(*args))
+    split = kernel_split(lambda: flash_attention_bwd(*args))
     plain = time_ms(lambda: flash_attention_bwd_plain(*args), reps=3,
                     iters=3)
     recompute = time_ms(lambda: flash_recompute(*args), reps=3, iters=3)
@@ -3271,13 +3347,14 @@ def time_flash_bwd(dev: torch.device, name: str, case: tuple, launches: int,
                                               retain_graph=True),
                   reps=3, iters=5)
     w = work_backward(q.shape, Hkv, Sk, q.dtype, causal, window)
-    row = kernel_row(name, "flash_attention_bwd",
-                     "src/repro/kernels/ops.py:40", launches, err, ms, plain,
-                     w, lib)
+    row = kernel_row(name, cu, "src/repro/kernels/ops.py:40", launches, err,
+                     ms, plain, w, lib)
     say(f"[time] {name} B{B} H{H}/{Hkv} Sq{Sq} Sk{Sk} D{D} bf16 "
-        f"{'causal' if causal else 'non-causal'} (csrc/flash_attention_"
-        f"bwd.cu): {ms:.4f} ms on the device (CUDA graph), {eager:.4f} ms "
-        f"per eager call, its "
+        f"{'causal' if causal else 'non-causal'} (csrc/{cu}.cu, "
+        f"{plan.kernel}): {ms:.4f} ms on the device (CUDA graph), "
+        f"{eager:.4f} ms per eager call, {host:.4f} ms of host time to issue "
+        f"one, its kernels in one profiled call "
+        f"{ {k: round(v, 4) for k, v in split.items()} }, its "
         f"plain version {plain:.4f} ms, the plain recompute it replaced "
         f"{recompute:.4f} ms ({ms / recompute:.3f} of it), "
         f"scaled_dot_product_attention's backward {lib:.4f} ms, bound "

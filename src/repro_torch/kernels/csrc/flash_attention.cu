@@ -99,6 +99,14 @@
 // L)); the f32 kernel, whose scale is in its staged q, m + ln l.  A row
 // that sees no key gets +inf (exp(s - lse) = 0 on any key).
 //
+// Rows that see no key (causal with Sq > Sk: the first Sq - Sk rows).  The
+// reference's softmax over such a row's all-NEG_INF scores is uniform, so
+// its output is the mean of v over the Sk keys of its KV head.  Every path
+// writes that mean there (`v_mean`, summed in fp32 from v in device memory
+// by the epilogue of a block that holds such rows: the unsplit epilogue,
+// the split merge and the f32 kernel's); no model path makes such a call,
+// and a block without such rows takes one uniform branch more.
+//
 // The launchers take PyTorch's current stream, allocate nothing (the
 // wrapper passes the split's scratch) and return cudaGetLastError() right
 // after the launch.
@@ -160,9 +168,27 @@ __device__ __forceinline__ float lse_of(float m, float l) {
                   : __int_as_float(0x7f800000);
 }
 
+// the mean over the Sk keys of kv head bhk of v's columns c .. c + N - 1,
+// fp32 (the output of a row that sees no key)
+template <int N, typename T>
+__device__ __forceinline__ void v_mean(const T* __restrict__ v, size_t bhk,
+                                       int Sk, int D, int c, int stride,
+                                       float (&out)[N]) {
+  const T* p = v + bhk * Sk * D + c;
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = 0.0f;
+  for (int j = 0; j < Sk; ++j)
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      out[e] += static_cast<float>(p[static_cast<size_t>(j) * D + e * stride]);
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] /= static_cast<float>(Sk);
+}
+
 // One block's work, as the producer and the consumers see it.
 struct Job {
   int H, Sq, Sk, causal, window, n_split;
+  int n0;                               // rows that see no key: [0, n0)
   int bh, bhk, q0, qt, n_qt, split, q_offset;
   int n_wg;                             // consumer warpgroups with rows
   int t_begin, n_tiles;                 // this split's reachable KV tiles
@@ -316,6 +342,7 @@ __device__ __forceinline__ void split_p(const float (&sc)[BK / 2],
 template <int D>
 __device__ __forceinline__ void merge_splits(const Job& j,
                                              __nv_bfloat16* __restrict__ o,
+                                             const __nv_bfloat16* __restrict__ vg,
                                              float* __restrict__ lse,
                                              const float* part,
                                              const float* pm,
@@ -345,25 +372,30 @@ __device__ __forceinline__ void merge_splits(const Job& j,
     float a[16];
 #pragma unroll
     for (int e = 0; e < 16; ++e) a[e] = 0.0f;
+    if (j.q0 + r < j.n0) {
+      v_mean<16>(vg, j.bhk, j.Sk, D, 16 * c, 1, a);
+    } else {
 #pragma unroll 4
-    for (int sp = 0; sp < j.n_split; ++sp) {
-      const size_t i = split0 + static_cast<size_t>(sp) * j.Sq + r;
-      const float w = exp2_approx(__ldcg(pm + i) - M);
-      const float4* src = reinterpret_cast<const float4*>(part + i * D) + 4 * c;
+      for (int sp = 0; sp < j.n_split; ++sp) {
+        const size_t i = split0 + static_cast<size_t>(sp) * j.Sq + r;
+        const float w = exp2_approx(__ldcg(pm + i) - M);
+        const float4* src = reinterpret_cast<const float4*>(part + i * D) + 4 * c;
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const float4 x = __ldcg(src + v);
-        a[4 * v] += w * x.x;
-        a[4 * v + 1] += w * x.y;
-        a[4 * v + 2] += w * x.z;
-        a[4 * v + 3] += w * x.w;
+        for (int v = 0; v < 4; ++v) {
+          const float4 x = __ldcg(src + v);
+          a[4 * v] += w * x.x;
+          a[4 * v + 1] += w * x.y;
+          a[4 * v + 2] += w * x.z;
+          a[4 * v + 3] += w * x.w;
+        }
       }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) a[e] *= inv;
     }
     uint32_t packed[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const __nv_bfloat162 h2 =
-          __floats2bfloat162_rn(a[2 * e] * inv, a[2 * e + 1] * inv);
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(a[2 * e], a[2 * e + 1]);
       packed[e] = *reinterpret_cast<const uint32_t*>(&h2);
     }
     uint4* dst = reinterpret_cast<uint4*>(
@@ -384,6 +416,7 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
                                         uint64_t* fullV, uint64_t* empty,
                                         int* last, float* stat,
                                         __nv_bfloat16* __restrict__ o,
+                                        const __nv_bfloat16* __restrict__ vg,
                                         float* __restrict__ lse,
                                         float* __restrict__ part,
                                         int* __restrict__ tickets) {
@@ -510,6 +543,15 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
       if (lse != nullptr && t == 0)
         lse[static_cast<size_t>(j.bh) * j.Sq + qi] = lse_of(m[r], l[r]);
       __nv_bfloat16* orow = o + (static_cast<size_t>(j.bh) * j.Sq + qi) * D;
+      if (qi < j.n0) {
+        for (int c = 0; c < D / 8; ++c) {
+          float mean[2];
+          v_mean<2>(vg, j.bhk, j.Sk, D, 8 * c + 2 * t, 1, mean);
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * t) =
+              __floats2bfloat162_rn(mean[0], mean[1]);
+        }
+        continue;
+      }
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * t) =
@@ -547,7 +589,7 @@ __device__ __forceinline__ void consume(const Job& j, int wg, int tid,
   hopper::bar_sync(1, threads);
   if (!*last) return;
   __threadfence();
-  merge_splits<D>(j, o, lse, part, pm, pl_, stat, tid - 128, threads);
+  merge_splits<D>(j, o, vg, lse, part, pm, pl_, stat, tid - 128, threads);
 }
 
 // part: n_split > 1 only; the splits' fp32 O (B*H, n_split, Sq, D), then m
@@ -558,6 +600,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
+                       const __nv_bfloat16* __restrict__ vg,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        float* __restrict__ part,
                        int* __restrict__ tickets, int H, int Hkv, int Sq,
@@ -582,6 +625,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   Job j;
   j.H = H, j.Sq = Sq, j.Sk = Sk, j.causal = causal, j.window = window;
   j.n_split = n_split, j.scale_log2 = scale_log2;
+  j.n0 = causal ? max(0, Sq - Sk) : 0;
   const int h = blockIdx.x, b = blockIdx.z;
   j.n_qt = (Sq + kWgBQ - 1) / kWgBQ;
   j.qt = j.n_qt - 1 - static_cast<int>(blockIdx.y) / n_split;  // longest 1st
@@ -625,7 +669,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     hopper::setmaxnreg_inc<kConsumerRegs>();
     if (wgi - 1 < j.n_wg)
       consume<D>(j, wgi - 1, tid, sQ, sK, sV, qbar, fullK, fullV, empty,
-                 last, reinterpret_cast<float*>(base), o, lse, part, tickets);
+                 last, reinterpret_cast<float*>(base), o, vg, lse, part,
+                 tickets);
   }
 }
 
@@ -752,8 +797,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (qi < Sq) {
     const float denom = fmaxf(l, 1e-30f);
     float* orow = o + qbase + static_cast<size_t>(qi) * D;
+    if (causal && qi < Sq - Sk)           // a row that sees no key
+      v_mean<DPT>(v, static_cast<size_t>(b) * Hkv + hk, Sk, D, sub,
+                  kRowThreads, acc);
+    else
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) orow[d * kRowThreads + sub] = acc[d] / denom;
+      for (int d = 0; d < DPT; ++d) acc[d] /= denom;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) orow[d * kRowThreads + sub] = acc[d];
     // the row's log-sum-exp, natural base (the scale is in Qs); +inf for a
     // row that saw no key (m never left -1e38).  Written after o: before
     // it, the D 32 instance spilled
@@ -807,7 +858,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 =
       1.4426950408889634f / sqrtf(static_cast<float>(D));
   flash_fwd_kernel_wgmma<D><<<grid, kWgThreads, T::smem_bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, part, tickets, H, Hkv, Sq,
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(o), lse, part, tickets, H, Hkv, Sq,
       Sk, causal, window, scale_log2, n_split);
   return static_cast<int>(cudaGetLastError());
 }

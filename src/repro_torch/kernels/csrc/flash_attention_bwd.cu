@@ -49,13 +49,16 @@
 //                each element owned by one thread), or, for the group's
 //                last head, into the outputs.
 //
-// bf16: mma.sync.m16n8k16 with fp32 accumulation, 4 warps of 16 rows (at D
-// 256 the dk/dv kernel takes 8 warps, two to a 16-key slab, each holding
-// half of D's columns of dk and dv: 128 + 128 fp32 a thread would not fit).
-// Operands from shared memory by ldmatrix (.trans where the product
-// contracts over a tile's rows), rows padded by 16 bytes; tiles by cp.async,
-// the next tile's copy in flight under the current tile's products (one
-// stage at D 256, where two would halve the blocks an SM holds).  q.k and
+// This file serves bf16 at D 256 and every f32 call;
+// kernels/flash_attention.py:bwd_plan sends bf16 at D 16-128 to
+// flash_attention_bwd_wgmma.cu, and the launcher refuses bf16 at another D.
+//
+// bf16 (D 256): mma.sync.m16n8k16 with fp32 accumulation.  The dq kernel
+// takes 4 warps of 16 rows; the dk/dv kernel 8 warps, two to a 16-key slab,
+// each holding half of D's columns of dk and dv (128 + 128 fp32 a thread
+// would not fit).  Operands from shared memory by ldmatrix (.trans where the
+// product contracts over a tile's rows), rows padded by 16 bytes; tiles by
+// cp.async in one stage (two would halve the blocks an SM holds).  q.k and
 // dO.v are exact in one pass (bf16 operands, fp32 sums).  P and dS are fp32
 // and the reference's products take them in fp32: each is split into hi =
 // bf16(x) and lo = bf16(x - hi), and hi B + lo B go into one fp32
@@ -68,8 +71,8 @@
 //
 // Bound: operations.  Five products a visible pair, eight as the bf16
 // kernels issue them (kernels/flash_attention.py:work_backward): at
-// Zamba2's train shape (B4 H32 S2048 D64 causal) 1.72e11 FLOP, 0.174 ms at
-// the H100's 989 TFLOP/s bf16 peak, 0.278 ms with the hi/lo passes.
+// Gemma-7B's train shape (B2 H16 S2048 D256 causal) 1.72e11 FLOP, 0.174 ms
+// at the H100's 989 TFLOP/s bf16 peak, 0.278 ms with the hi/lo passes.
 //
 // The launcher takes PyTorch's current stream, allocates nothing (the
 // wrapper passes the workspace) and returns cudaGetLastError() after the
@@ -80,66 +83,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* lse;      // (B*H, Sq), natural base
-  const void* dO;        // rows at do_sb, do_sh, do_ss elements; D stride 1
-  void* dq;
-  void* dk;
-  void* dv;
-  float* delta;          // (B*H, Sq), written by the dq kernel
-  float* sums;           // bf16 with H > Hkv: dk then dv, (B*Hkv, Sk, D) each
-  long long do_sb, do_sh, do_ss;
-  int B, H, Hkv, Sq, Sk, causal, window;
-  float scale;           // 1 / sqrt(D)
-  float scale_log2;      // log2(e) / sqrt(D)
-};
-
-__device__ __forceinline__ bool visible(const Args& a, int qi, int kj) {
-  const int qpos = qi + a.Sk - a.Sq;
-  return qi < a.Sq && kj < a.Sk && (!a.causal || kj <= qpos) &&
-         (a.window <= 0 || kj > qpos - a.window);
-}
-
-// the keys [k_begin, k_end) some row of [q0, q1) sees (q1 <= Sq)
-__device__ __forceinline__ void key_range(const Args& a, int q0, int q1,
-                                          int& k_begin, int& k_end) {
-  const int off = a.Sk - a.Sq;
-  k_end = a.causal ? min(a.Sk, q1 + off) : a.Sk;
-  k_begin = a.window > 0 ? max(0, q0 + off - a.window + 1) : 0;
-  k_end = max(k_end, k_begin);
-}
-
-// the queries [q_begin, q_end) that see some key of [k0, k1) (k1 <= Sk)
-__device__ __forceinline__ void query_range(const Args& a, int k0, int k1,
-                                            int& q_begin, int& q_end) {
-  const int off = a.Sk - a.Sq;
-  q_begin = a.causal ? max(0, k0 - off) : 0;
-  q_end = a.window > 0
-              ? static_cast<int>(min(static_cast<long long>(a.Sq),
-                                     static_cast<long long>(k1) - 1 +
-                                         a.window - off))
-              : a.Sq;
-  q_end = max(q_end, q_begin);
-}
-
-// dO / Sk summed over the rows that see no key, column c, head bh
-template <typename T>
-__device__ __forceinline__ float no_key_dv(const Args& a, int b, int h,
-                                           int c, int n0) {
-  const T* g = static_cast<const T*>(a.dO) + b * a.do_sb + h * a.do_sh + c;
-  float s = 0.0f;
-  for (int r = 0; r < n0; ++r) s += static_cast<float>(g[r * a.do_ss]);
-  return s / static_cast<float>(a.Sk);
-}
+using namespace fa_bwd;
 
 // ---------------------------------------------------------------------------
 // bf16 on mma.sync
@@ -228,16 +176,6 @@ __device__ __forceinline__ void mma_rn(float (&acc)[N / 8][4],
     }
 }
 
-// (a, b) -> their bf16 pair hi and the bf16 pair of what hi leaves out
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // a 16 x N accumulator as the A-fragments of a 16 x N operand, two halves:
 // columns 16 kk .. 16 kk + 15 are the accumulator's n8 blocks 2 kk, 2 kk + 1
 template <int N>
@@ -269,34 +207,32 @@ __device__ __forceinline__ void load_rows(bf16* sT, const bf16* g,
   }
 }
 
-template <int D> struct BT {
+// the bf16 kernels' tiling (D 256), one stage of tiles each
+struct BT {
+  static constexpr int D = 256;
   static constexpr int LD = D + 8;                 // a row, 16 bytes padded
-  // dq kernel: 64 query rows, 4 warps; KT keys a tile
+  // dq kernel: 64 query rows, 4 warps; KT keys a K/V tile
   static constexpr int QB = 64;
-  static constexpr int KT = D > 128 ? 32 : 64;
-  static constexpr int DQ_ST = D > 128 ? 1 : 2;    // K/V tile stages
-  static constexpr int DQ_SMEM = 2 * (2 * QB * LD + DQ_ST * 2 * KT * LD);
-  // dk/dv kernel: 64 keys; 4 warps of 16 keys x DS column splits; QT
-  // query rows a tile
+  static constexpr int KT = 32;
+  static constexpr int DQ_SMEM = 2 * (2 * QB * LD + 2 * KT * LD);
+  // dk/dv kernel: 64 keys; 4 slabs of 16 keys x 2 halves of D's columns
+  // (DC each), a warp each; QT query rows a Q/dO tile
   static constexpr int KB = 64;
-  static constexpr int DS = D > 128 ? 2 : 1;
-  static constexpr int DC = D / DS;
-  static constexpr int QT = D > 64 ? 32 : 64;
-  static constexpr int KV_ST = D > 128 ? 1 : 2;    // Q/dO tile stages
-  static constexpr int KV_THREADS = 128 * DS;
+  static constexpr int DC = D / 2;
+  static constexpr int QT = 32;
+  static constexpr int KV_THREADS = 256;
   static constexpr int KV_SMEM =
-      2 * (2 * KB * LD + KV_ST * 2 * QT * LD) + 4 * (KV_ST * 2 * QT + D);
+      2 * (2 * KB * LD + 2 * QT * LD) + 4 * (2 * QT + D);
 };
 
-template <int D>
 __global__ void __launch_bounds__(128)
 fa_bwd_dq_mma(const Args a) {
-  using T = BT<D>;
-  constexpr int LD = T::LD, QB = T::QB, KT = T::KT, ST = T::DQ_ST;
+  using T = BT;
+  constexpr int D = T::D, LD = T::LD, QB = T::QB, KT = T::KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + QB * LD;
-  bf16* sK = sdO + QB * LD;                        // stage s at + 2 s KT LD
+  bf16* sK = sdO + QB * LD;                        // K, then V
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n_qt = (a.Sq + QB - 1) / QB;
@@ -320,10 +256,9 @@ fa_bwd_dq_mma(const Args a) {
   load_rows<D, QB, LD, 128>(sdO, dO, a.do_ss, q1 - q0, tid);
   auto issue = [&](int step) {            // step: sweep * n_t + tile
     const int k0 = (t_lo + step % n_t) * KT;
-    bf16* s = sK + (step % ST) * 2 * KT * LD;
-    load_rows<D, KT, LD, 128>(s, k + static_cast<size_t>(k0) * D, D,
+    load_rows<D, KT, LD, 128>(sK, k + static_cast<size_t>(k0) * D, D,
                               a.Sk - k0, tid);
-    load_rows<D, KT, LD, 128>(s + KT * LD, v + static_cast<size_t>(k0) * D,
+    load_rows<D, KT, LD, 128>(sK + KT * LD, v + static_cast<size_t>(k0) * D,
                               D, a.Sk - k0, tid);
   };
 
@@ -339,24 +274,14 @@ fa_bwd_dq_mma(const Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[i][e] = 0.0f;
 
-  const int steps = 2 * n_t;
-  if (steps > 0 && ST == 2) issue(0);
-  cp_commit();                          // with Q and dO
-  for (int step = 0; step < steps; ++step) {
-    if (ST == 2 && step + 1 < steps) {
-      issue(step + 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      if (ST == 1) {
-        issue(step);
-        cp_commit();
-      }
-      cp_wait<0>();
-    }
+  cp_commit();                          // Q and dO
+  for (int step = 0; step < 2 * n_t; ++step) {
+    issue(step);
+    cp_commit();
+    cp_wait<0>();
     __syncthreads();
-    const bf16* tK = sK + (step % ST) * 2 * KT * LD;
-    const bf16* tV = tK + KT * LD;
+    const bf16* tK = sK;
+    const bf16* tV = sK + KT * LD;
     const int sweep = step / n_t;
     const int k0 = (t_lo + step % n_t) * KT;
     float s[KT / 8][4], dp[KT / 8][4];
@@ -404,18 +329,17 @@ fa_bwd_dq_mma(const Args a) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BT<D>::KV_THREADS)
+__global__ void __launch_bounds__(BT::KV_THREADS)
 fa_bwd_dkdv_mma(const Args a) {
-  using T = BT<D>;
-  constexpr int LD = T::LD, KB = T::KB, QT = T::QT, ST = T::KV_ST;
+  using T = BT;
+  constexpr int D = T::D, LD = T::LD, KB = T::KB, QT = T::QT;
   constexpr int DC = T::DC, NT = T::KV_THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + KB * LD;
-  bf16* sQ = sV + KB * LD;                         // stage s at + 2 s QT LD
-  float* sL = reinterpret_cast<float*>(sQ + ST * 2 * QT * LD);  // lse2, delta
-  float* sX = sL + ST * 2 * QT;                    // the no-key rows' dv
+  bf16* sQ = sV + KB * LD;                         // Q, then dO
+  float* sL = reinterpret_cast<float*>(sQ + 2 * QT * LD);  // lse2, delta
+  float* sX = sL + 2 * QT;                         // the no-key rows' dv
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int slab = w & 3, half = w >> 2;           // keys 16 slab, cols DC half
@@ -437,19 +361,17 @@ fa_bwd_dkdv_mma(const Args a) {
     const int h = hk * G + step / n_t;
     const int qs = (t_lo + step % n_t) * QT;
     const size_t bh = static_cast<size_t>(b) * a.H + h;
-    bf16* s = sQ + (step % ST) * 2 * QT * LD;
-    load_rows<D, QT, LD, NT>(s, static_cast<const bf16*>(a.q) +
-                                    (bh * a.Sq + qs) * D, D, a.Sq - qs, tid);
+    load_rows<D, QT, LD, NT>(sQ, static_cast<const bf16*>(a.q) +
+                                     (bh * a.Sq + qs) * D, D, a.Sq - qs, tid);
     load_rows<D, QT, LD, NT>(
-        s + QT * LD,
+        sQ + QT * LD,
         static_cast<const bf16*>(a.dO) + b * a.do_sb + h * a.do_sh +
             static_cast<long long>(qs) * a.do_ss,
         a.do_ss, a.Sq - qs, tid);
-    float* l = sL + (step % ST) * 2 * QT;
     for (int i = tid; i < QT; i += NT) {
       const int qi = qs + i;
-      l[i] = qi < a.Sq ? a.lse[bh * a.Sq + qi] * kLog2e : 0.0f;
-      l[QT + i] = qi < a.Sq ? a.delta[bh * a.Sq + qi] : 0.0f;
+      sL[i] = qi < a.Sq ? a.lse[bh * a.Sq + qi] * kLog2e : 0.0f;
+      sL[QT + i] = qi < a.Sq ? a.delta[bh * a.Sq + qi] : 0.0f;
     }
   };
 
@@ -460,27 +382,17 @@ fa_bwd_dkdv_mma(const Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.0f;
 
-  if (n_t > 0 && ST == 2) issue(0);
-  cp_commit();                          // with K and V
+  cp_commit();                          // K and V
   for (int j = 0; j < G; ++j) {
     const int h = hk * G + j;
     for (int it = 0; it < n_t; ++it) {
-      const int step = j * n_t + it;
-      if (ST == 2 && step + 1 < G * n_t) {
-        issue(step + 1);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        if (ST == 1) {
-          issue(step);
-          cp_commit();
-        }
-        cp_wait<0>();
-      }
+      issue(j * n_t + it);
+      cp_commit();
+      cp_wait<0>();
       __syncthreads();
-      const bf16* tQ = sQ + (step % ST) * 2 * QT * LD;
-      const bf16* tdO = tQ + QT * LD;
-      const float* l = sL + (step % ST) * 2 * QT;
+      const bf16* tQ = sQ;
+      const bf16* tdO = sQ + QT * LD;
+      const float* l = sL;
       const int qs = (t_lo + it) * QT;
       float s[QT / 8][4], dp[QT / 8][4];
       mma_nt<D, QT, LD>(s, sK + 16 * slab * LD, tQ, lane);
@@ -519,40 +431,15 @@ fa_bwd_dkdv_mma(const Args a) {
           dv[nb][e] += sX[half * DC + 8 * nb + 2 * t + (e & 1)];
       __syncthreads();
     }
+    const size_t plane = static_cast<size_t>(a.B) * a.Hkv * a.Sk * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (key0 + 8 * r >= a.Sk) continue;
       const size_t base = (bhk * a.Sk + key0 + 8 * r) * D + half * DC;
-      float* sk = a.sums + base;
-      float* sv = a.sums + static_cast<size_t>(a.B) * a.Hkv * a.Sk * D + base;
 #pragma unroll
-      for (int nb = 0; nb < DC / 8; ++nb) {
-        const int c = 8 * nb + 2 * t;
-        const __nv_bfloat162 rk =
-            __floats2bfloat162_rn(dk[nb][2 * r], dk[nb][2 * r + 1]);
-        const __nv_bfloat162 rv =
-            __floats2bfloat162_rn(dv[nb][2 * r], dv[nb][2 * r + 1]);
-        if (G == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dk) + base + c) = rk;
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dv) + base + c) = rv;
-          continue;
-        }
-        float2 fk = __bfloat1622float2(rk), fv = __bfloat1622float2(rv);
-        if (j > 0) {
-          const float2 ok = *reinterpret_cast<const float2*>(sk + c);
-          const float2 ov = *reinterpret_cast<const float2*>(sv + c);
-          fk.x += ok.x, fk.y += ok.y, fv.x += ov.x, fv.y += ov.y;
-        }
-        if (j < G - 1) {
-          *reinterpret_cast<float2*>(sk + c) = fk;
-          *reinterpret_cast<float2*>(sv + c) = fv;
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dk) + base + c) =
-              __floats2bfloat162_rn(fk.x, fk.y);
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dv) + base + c) =
-              __floats2bfloat162_rn(fv.x, fv.y);
-        }
-      }
+      for (int nb = 0; nb < DC / 8; ++nb)
+        round_into(a, base, plane, 8 * nb + 2 * t, j, G, dk[nb][2 * r],
+                   dk[nb][2 * r + 1], dv[nb][2 * r], dv[nb][2 * r + 1]);
     }
 #pragma unroll
     for (int i = 0; i < DC / 8; ++i)
@@ -788,50 +675,79 @@ cudaError_t raise_smem(K kernel, size_t smem, bool* raised) {
   return err;
 }
 
-template <int D>
-long long smem_bytes(int dtype, int which) {
-  if (dtype == 1) return which == 0 ? BT<D>::DQ_SMEM : BT<D>::KV_SMEM;
-  return 4LL * (which == 0 ? FT<D>::DQ_FLOATS : FT<D>::KV_FLOATS);
+// the dq kernel (blocks of 64 query rows), then the dk/dv kernel (blocks of
+// 64 keys), on the caller's stream
+template <typename KQ, typename KKV>
+int launch2(const Args& a, KQ dq_kernel, int dq_threads, size_t s_dq,
+            KKV kv_kernel, int kv_threads, size_t s_kv, bool* raised,
+            cudaStream_t stream) {
+  cudaError_t err = raise_smem(dq_kernel, s_dq, &raised[0]);
+  if (err == cudaSuccess) err = raise_smem(kv_kernel, s_kv, &raised[1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g_dq((a.Sq + 63) / 64, a.H, a.B);
+  const dim3 g_kv((a.Sk + 63) / 64, a.Hkv, a.B);
+  dq_kernel<<<g_dq, dq_threads, s_dq, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kv_kernel<<<g_kv, kv_threads, s_kv, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma(const Args& a, cudaStream_t stream) {
+  static bool raised[2] = {false, false};
+  return launch2(a, fa_bwd_dq_mma, 128, BT::DQ_SMEM, fa_bwd_dkdv_mma,
+                 BT::KV_THREADS, BT::KV_SMEM, raised, stream);
 }
 
 template <int D>
-int launch(const Args& a, int dtype, cudaStream_t stream) {
-  static bool raised[4] = {false, false, false, false};
-  const size_t s_dq = smem_bytes<D>(dtype, 0), s_kv = smem_bytes<D>(dtype, 1);
-  const dim3 g_dq((a.Sq + 63) / 64, a.H, a.B);
-  const dim3 g_kv((a.Sk + 63) / 64, a.Hkv, a.B);
-  cudaError_t err;
-  if (dtype == 1) {
-    err = raise_smem(fa_bwd_dq_mma<D>, s_dq, &raised[0]);
-    if (err == cudaSuccess)
-      err = raise_smem(fa_bwd_dkdv_mma<D>, s_kv, &raised[1]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dq_mma<D><<<g_dq, 128, s_dq, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dkdv_mma<D><<<g_kv, BT<D>::KV_THREADS, s_kv, stream>>>(a);
-  } else {
-    err = raise_smem(fa_bwd_dq_f32<D>, s_dq, &raised[2]);
-    if (err == cudaSuccess)
-      err = raise_smem(fa_bwd_dkdv_f32<D>, s_kv, &raised[3]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dq_f32<D><<<g_dq, kThreads, s_dq, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dkdv_f32<D><<<g_kv, kThreads, s_kv, stream>>>(a);
+int launch_f32(const Args& a, cudaStream_t stream) {
+  static bool raised[2] = {false, false};
+  return launch2(a, fa_bwd_dq_f32<D>, kThreads, 4 * FT<D>::DQ_FLOATS,
+                 fa_bwd_dkdv_f32<D>, kThreads, 4 * FT<D>::KV_FLOATS, raised,
+                 stream);
+}
+
+// which: as flash_attention_bwd_tiling
+long long tiling_mma(int which) {
+  switch (which) {
+    case 0: return BT::QB;
+    case 1: return BT::KT;
+    case 2: return 1;
+    case 3: return BT::DQ_SMEM;
+    case 4: return BT::KB;
+    case 5: return BT::QT;
+    case 6: return 1;
+    case 7: return BT::KV_SMEM;
+    case 8: return BT::KV_THREADS;
+    default: return -1;
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+long long tiling_f32(int which) {
+  switch (which) {
+    case 0: return kRows;
+    case 1: return FT<D>::KT;
+    case 2: return 1;
+    case 3: return 4LL * FT<D>::DQ_FLOATS;
+    case 4: return kRows;
+    case 5: return FT<D>::QT;
+    case 6: return 1;
+    case 7: return 4LL * FT<D>::KV_FLOATS;
+    case 8: return kThreads;
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v contiguous and 16-byte
-// aligned; lse (B,H,Sq) fp32; dO (B,H,Sq,D) at do_strides (elements, the
-// last 1; rows 16-byte aligned); dq, dk, dv contiguous, in the inputs'
-// type; ws: B*H*Sq floats of delta, then for bf16 with H > Hkv
-// 2*B*Hkv*Sk*D floats of the group's sums
+// dtype: 0 = float32 (D 16-256), 1 = bfloat16 (D 256).  q, k, v
+// contiguous and 16-byte aligned; lse (B,H,Sq) fp32; dO (B,H,Sq,D) at
+// do_strides (elements, the last 1; rows 16-byte aligned); dq, dk, dv
+// contiguous, in the inputs' type; ws: B*H*Sq floats of delta, then for
+// bf16 with H > Hkv 2*B*Hkv*Sk*D floats of the group's sums
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const float* lse, const void* dO, void* dq,
                                void* dk, void* dv, float* ws,
@@ -839,7 +755,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                int Hkv, int Sq, int Sk, int D, int causal,
                                int window, int dtype, void* stream) {
   if (Hkv < 1 || H % Hkv || Sk < 1 || (dtype != 0 && dtype != 1) ||
-      do_strides[3] != 1)
+      (dtype == 1 && D != 256) || do_strides[3] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q, a.k = k, a.v = v, a.lse = lse, a.dO = dO;
@@ -852,13 +768,32 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   a.scale = 1.0f / sqrtf(static_cast<float>(D));
   a.scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_mma(a, s);
   switch (D) {
-    case 16: return launch<16>(a, dtype, s);
-    case 32: return launch<32>(a, dtype, s);
-    case 64: return launch<64>(a, dtype, s);
-    case 128: return launch<128>(a, dtype, s);
-    case 256: return launch<256>(a, dtype, s);
+    case 16: return launch_f32<16>(a, s);
+    case 32: return launch_f32<32>(a, s);
+    case 64: return launch_f32<64>(a, s);
+    case 128: return launch_f32<128>(a, s);
+    case 256: return launch_f32<256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the kernels' tiling at head dim D (dtype 0 = float32, 1 = bfloat16):
+// which = 0 query rows a dq block, 1 keys a K/V tile, 2 its stages, 3 the
+// dq kernel's dynamic shared memory in bytes, 4 keys a dk/dv block, 5 query
+// rows a Q/dO tile, 6 its stages, 7 the dk/dv kernel's shared memory, 8 the
+// dk/dv kernel's threads; -1 otherwise (bfloat16 at a D other than 256)
+long long flash_attention_bwd_tiling(int D, int dtype, int which) {
+  if (dtype == 1) return D == 256 ? tiling_mma(which) : -1;
+  if (dtype != 0) return -1;
+  switch (D) {
+    case 16: return tiling_f32<16>(which);
+    case 32: return tiling_f32<32>(which);
+    case 64: return tiling_f32<64>(which);
+    case 128: return tiling_f32<128>(which);
+    case 256: return tiling_f32<256>(which);
+    default: return -1;
   }
 }
 

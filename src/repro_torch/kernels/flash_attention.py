@@ -24,13 +24,15 @@ The backward.  The reference has no backward kernel: ``ops.py``'s VJP rule
 (``_fa_bwd``) is ``jax.vjp`` of ``ref.attention_ref``.  The port computes
 that VJP without the score matrix: where autograd will take the gradient,
 the forward also keeps each row's fp32 log-sum-exp (B, H, Sq), and
-:func:`flash_attention_bwd` recomputes P from it, tile by tile, in
-``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dk/dv kernel; its
-header gives the design) for CUDA tensors, or in
+:func:`flash_attention_bwd` recomputes P from it, tile by tile, in a dq
+kernel and then a dk/dv kernel for CUDA tensors, or in
 :func:`flash_attention_bwd_plain`, the same decomposition in fp32 torch,
-for CPU tensors.  ``flash_attention_bwd.launches`` counts its calls on the
-card; :func:`work_backward` is its bound; the profiler sees it as the
-range ``flash_attention.backward``.
+for CPU tensors.  :func:`bwd_plan` picks the kernels by type and head
+dim: bf16 at D 16-128 ``csrc/flash_attention_bwd_wgmma.cu`` (``wgmma``
+fed by TMA), bf16 at D 256 and f32 ``csrc/flash_attention_bwd.cu``
+(``mma.sync``; the FMA units).  ``flash_attention_bwd.launches`` counts
+its calls on the card; :func:`work_backward` is its bound; the profiler
+sees it as the range ``flash_attention.backward``.
 """
 
 from __future__ import annotations
@@ -317,8 +319,125 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [strides] \
             + [i] * 9 + [p]
         lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_bwd_tiling.argtypes = [i, i, i]
+        lib.flash_attention_bwd_tiling.restype = ctypes.c_longlong
         lib._ff_typed = True
     return lib
+
+
+def _lib_bwd_wgmma() -> ctypes.CDLL:
+    lib = backend.load("flash_attention_bwd_wgmma")
+    if not getattr(lib, "_ff_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.flash_attention_bwd_wgmma_launch.argtypes = [p] * 9 \
+            + [strides] + [i] * 8 + [p]
+        lib.flash_attention_bwd_wgmma_launch.restype = i
+        lib.flash_attention_bwd_wgmma_tiling.argtypes = [i, i]
+        lib.flash_attention_bwd_wgmma_tiling.restype = ctypes.c_longlong
+        lib._ff_typed = True
+    return lib
+
+
+# the backward kernels' tiling by head dim (csrc/flash_attention_bwd_wgmma.cu
+# Wt<D>; csrc/flash_attention_bwd.cu BT (bf16, D 256 only) and FT<D>): (dq
+# rows, dq keys a K/V tile, its stages, dk/dv keys, dk/dv queries a Q/dO
+# tile, its stages, threads a dk/dv block)
+_BWD_TILES = {
+    "wgmma": {D: (128, 64, 3 if D > 64 else 4,
+                  128, 32 if D > 64 else 64, 3 if D > 64 else 4, 384)
+              for D in (16, 32, 64, 128)},
+    "mma": {256: (64, 32, 1, 64, 32, 1, 256)},
+    "fma": {D: (64, 16 if D >= 256 else 32 if D >= 128 else 64, 1,
+                64, 16 if D >= 256 else 32 if D >= 128 else 64, 1, 256)
+            for D in HEAD_DIMS},
+}
+
+
+class BwdPlan(NamedTuple):
+    kernel: str        # "wgmma" (bf16, csrc/flash_attention_bwd_wgmma.cu),
+                       # "mma" (bf16, mma.sync) or "fma" (f32; both
+                       # csrc/flash_attention_bwd.cu)
+    dq_rows: int       # query rows a dq block
+    dq_keys: int       # keys a K/V tile of the dq kernel
+    dq_stages: int     # its K/V tiles in flight
+    dq_smem: int       # the dq kernel's dynamic shared memory, bytes
+    kv_keys: int       # keys a dk/dv block
+    kv_queries: int    # query rows a Q/dO tile of the dk/dv kernel
+    kv_stages: int     # its Q/dO tiles in flight
+    kv_smem: int       # the dk/dv kernel's dynamic shared memory, bytes
+    kv_threads: int    # threads a dk/dv block
+    dq_grid: tuple     # (x, y, z): (query tiles, H, B)
+    kv_grid: tuple     # (key tiles, Hkv, B)
+    workspace: int     # fp32 words (:func:`bwd_workspace`)
+
+
+def _bwd_smem(kernel: str, D: int, tiles: tuple) -> tuple:
+    """The dq and dk/dv kernels' dynamic shared memory in bytes (the
+    sources' DQ_SMEM and KV_SMEM)."""
+    rows, bk, dst, keys, bq, kst, _ = tiles
+    if kernel == "wgmma":
+        # 1024 bytes to align the tiles, Q and dO (K and V) of 128 rows,
+        # the ring of K and V (Q and dO) tiles, each Q/dO stage's lse and
+        # delta, the no-key rows' dv, the mbarriers
+        return (1024 + 2 * rows * D * 2 + dst * 2 * bk * D * 2 + 256,
+                1024 + 2 * keys * D * 2 + kst * 2 * bq * D * 2
+                + kst * 2 * bq * 4 + D * 4 + 256)
+    if kernel == "mma":
+        ld = D + 8                     # a row padded by 16 bytes
+        return (2 * (2 * rows * ld + dst * 2 * bk * ld),
+                2 * (2 * keys * ld + kst * 2 * bq * ld)
+                + 4 * (kst * 2 * bq + D))
+    ld = D + 1
+    return (4 * (2 * rows * ld + 2 * bk * ld + rows * (bk + 1)),
+            4 * (2 * keys * ld + 2 * bq * ld + 2 * keys * (bq + 1)
+                 + 2 * bq + D))
+
+
+def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """Which kernels take a backward call and how: a pure function of the
+    shapes and the type.  bf16 at D 16-128 (Zamba2's and Whisper's D 64,
+    Mixtral's D 128) goes to the ``wgmma`` kernels fed by TMA
+    (csrc/flash_attention_bwd_wgmma.cu: blocks of 128 query rows or 128
+    keys, two consumer warpgroups of 64, a ring of K/V or Q/dO tiles);
+    bf16 at D 256 (Gemma-7B) to the ``mma.sync`` kernels of
+    csrc/flash_attention_bwd.cu, whose dk/dv kernel splits D's columns
+    over two warps (on ``wgmma`` a warpgroup's dk and dv of 64 keys would
+    take 256 fp32 registers a thread); f32 to the same file's kernels on
+    the FMA units (TF32 would miss the f32 tolerance).  A dispatch by type
+    and shape, not a fallback: the call launches the plan's kernels or
+    raises."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward takes head dims "
+                         f"{HEAD_DIMS}, got {D}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention backward takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if dtype == torch.float32:
+        kernel = "fma"
+    else:
+        kernel = "wgmma" if D <= 128 else "mma"
+    tiles = _BWD_TILES[kernel][D]
+    rows, bk, dst, keys, bq, kst, threads = tiles
+    dq_smem, kv_smem = _bwd_smem(kernel, D, tiles)
+    return BwdPlan(kernel, rows, bk, dst, dq_smem, keys, bq, kst, kv_smem,
+                   threads, (-(-Sq // rows), H, B), (-(-Sk // keys), Hkv, B),
+                   bwd_workspace(B, H, Hkv, Sq, Sk, D, dtype))
+
+
+def bwd_library_tiling(kernel: str, D: int) -> tuple:
+    """The tiling of ``kernel`` at head dim ``D`` as its library reports it
+    (the card's builds), in :class:`BwdPlan`'s order: (dq rows, dq keys,
+    dq stages, dq smem, dk/dv keys, dk/dv queries, dk/dv stages, dk/dv
+    smem, dk/dv threads)."""
+    if kernel == "wgmma":
+        return tuple(_lib_bwd_wgmma().flash_attention_bwd_wgmma_tiling(D, i)
+                     for i in range(9))
+    lib = _lib_bwd()
+    dtype = 1 if kernel == "mma" else 0
+    return tuple(lib.flash_attention_bwd_tiling(D, dtype, i)
+                 for i in range(9))
 
 
 def bwd_workspace(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
@@ -378,18 +497,23 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, window: int) -> tuple:
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Sq == 0 or B == 0:
         return dq, dk.zero_(), dv.zero_()
-    ws = torch.empty(bwd_workspace(B, H, Hkv, Sq, Sk, D, q.dtype),
-                     dtype=torch.float32, device=q.device)
+    plan = bwd_plan(B, H, Hkv, Sq, Sk, D, q.dtype)
+    # before the fake branch: the dry run's peak holds the workspace
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     if fake:
         backend.note_launch("flash_attention_bwd")
         return dq, dk, dv
     st = ctypes.c_longlong * 4
-    err = _lib_bwd().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), ws.data_ptr(), st(*do.stride()), B, H, Hkv, Sq, Sk,
-        D, int(bool(causal)), int(window), _DTYPES[q.dtype],
-        backend.current_stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ws.data_ptr(), st(*do.stride()), B, H, Hkv, Sq, Sk, D,
+            int(bool(causal)), int(window))
+    if plan.kernel == "wgmma":
+        err = _lib_bwd_wgmma().flash_attention_bwd_wgmma_launch(
+            *ptrs, backend.current_stream(q.device))
+    else:
+        err = _lib_bwd().flash_attention_bwd_launch(
+            *ptrs, _DTYPES[q.dtype], backend.current_stream(q.device))
     with _count_lock:
         flash_attention_bwd.launches += 1
     backend.check(err, "flash_attention_bwd")
@@ -403,9 +527,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for the cotangent ``do`` (any strides), given the forward's output
     ``o`` and fp32 log-sum-exp ``lse`` (:func:`flash_attention_lse_plain`'s
     convention), in the inputs' type: :func:`flash_attention_bwd_plain`
-    for CPU tensors, for CUDA tensors the kernels of
-    ``csrc/flash_attention_bwd.cu`` (a dq kernel, then a dk/dv kernel; one
-    count in ``flash_attention_bwd.launches`` a call)."""
+    for CPU tensors, for CUDA tensors the kernels :func:`bwd_plan` picks
+    (a dq kernel, then a dk/dv kernel; one count in
+    ``flash_attention_bwd.launches`` a call)."""
     _check(q, k, v)
     if backend.noted():
         backend.note("flash_attention_bwd", work_backward(

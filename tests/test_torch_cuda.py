@@ -19,7 +19,9 @@ from ssd_bwd_cases import BWD_BAD_IDS, BWD_BAD_SHAPES, bwd_bad_inputs
 from repro_torch.kernels.a2a_fused import (a2a_combine, a2a_combine_plain,
                                            a2a_route, a2a_route_plain)
 from repro_torch.kernels import flash_attention as flash_module
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, bwd_plan,
+                                                 bwd_library_tiling,
+                                                 flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_lse_plain,
@@ -310,7 +312,11 @@ def test_flash_split_on_two_streams_at_once(cuda):
 # Whisper's encoder without a mask and its cross attention at 37 and 1
 # queries), a group of 6, a context-parallel prefix (Sq < Sk) with a
 # window, rows that see no key (causal, Sq > Sk) and ragged lengths at
-# every head dim
+# every head dim; then at the wgmma kernels' tile edges (128 query rows or
+# keys a block, 64 a warpgroup; Q/dO tiles of 128 queries at D 64, 64 at
+# D 128; K/V tiles of 128 and 64 keys) at D 64 and D 128: lengths of
+# 63-65, 127-129 and 255-257, a group of 6, a window inside S, Sq < Sk,
+# Sq > Sk and Sq 1
 FLASH_BWD_CASES = [
     (2, 8, 8, 256, 256, 64, True, 0),
     (1, 8, 2, 300, 300, 128, True, 64),
@@ -321,7 +327,13 @@ FLASH_BWD_CASES = [
     (1, 6, 1, 130, 130, 128, True, 0),
     (1, 4, 2, 70, 300, 16, True, 32),
     (1, 2, 2, 100, 60, 32, True, 0),
-] + [(1, 4, 2, 65, 97, D, True, 0) for D in HEAD_DIMS]
+] + [(1, 4, 2, 65, 97, D, True, 0) for D in HEAD_DIMS] + [
+    (B, H, Hkv, Sq, Sk, D, causal, window) for D in (64, 128)
+    for B, H, Hkv, Sq, Sk, causal, window in (
+        (1, 4, 2, 127, 129, True, 0), (1, 2, 2, 257, 255, False, 0),
+        (1, 12, 2, 200, 200, True, 0), (1, 4, 4, 300, 300, True, 70),
+        (1, 4, 2, 63, 257, True, 0), (1, 4, 4, 257, 129, True, 0),
+        (2, 4, 4, 1, 64, True, 0))]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
@@ -383,23 +395,54 @@ def test_flash_forward_lse_matches_plain(cuda, B, H, Hkv, Sq, Sk, D, causal):
 
 
 @pytest.mark.cuda
-def test_flash_forward_rows_that_see_no_key(cuda):
-    """Causal with Sq > Sk (no model path makes such a call): the rows
-    that see keys match the plain version; the first Sq - Sk rows see
-    none, where the reference's softmax is uniform and its output the
-    mean of v, but the bf16 kernel writes 0 (a known fault of the forward,
-    ROADMAP Queue 3); their lse is +inf, so the backward, which takes the
-    reference's gradient there (``FLASH_BWD_CASES``' Sq 100 against Sk
-    60), sees no key for them."""
-    q, k, v = _flash_inputs(cuda, 1, 4, 2, 100, 60, 64, 13)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
+    (1, 4, 2, 100, 60, 64), (1, 4, 2, 300, 200, 64),
+    (2, 4, 4, 200, 72, 128)])
+def test_flash_forward_rows_that_see_no_key(cuda, dtype, B, H, Hkv, Sq, Sk,
+                                            D):
+    """Causal with Sq > Sk (no model path makes such a call): the first Sq
+    - Sk rows see no key, where the reference's softmax is uniform and its
+    output the mean of v over the Sk keys; every path writes it there and
+    the plain version elsewhere: f32, bf16 unsplit and bf16 split (Sq 300
+    against 200, where launch_plan splits the keys).  Their lse is +inf, so
+    the backward, which takes the reference's gradient there
+    (``FLASH_BWD_CASES``' Sq 100 against Sk 60), sees no key for them."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(cuda)
+               for shape in ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    split = flash_plan(B, H, Hkv, Sq, Sk, D).splits > 1
+    assert split == (Sq == 300)
     o, lse = flash_attention_with_lse(q, k, v, True, 0)
     want, want_lse = flash_attention_lse_plain(q, k, v, True, 0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(o[:, :, 40:].float(), want[:, :, 40:].float(),
-                               rtol=2e-2, atol=2e-2)
-    assert bool((o[:, :, :40] == 0).all())
-    assert bool(torch.isinf(lse[:, :, :40]).all())
+    n0 = Sq - Sk
+    mean = v.float().mean(2).repeat_interleave(H // Hkv, 1)[:, :, None]
+    torch.testing.assert_close(want[:, :, :n0].float(),
+                               mean.expand(B, H, n0, D).to(dtype).float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+    torch.testing.assert_close(o.float(), want.float(), rtol=FLASH_TOL[dtype],
+                               atol=FLASH_TOL[dtype])
+    assert torch.equal(o, flash_attention(q, k, v, True, 0))
+    assert bool(torch.isinf(lse[:, :, :n0]).all())
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_library_tiling_is_the_plans(cuda):
+    """The tiling of the kernels ``bwd_plan`` picks (csrc/flash_attention_
+    bwd_wgmma.cu, csrc/flash_attention_bwd.cu), as their libraries report
+    it, is the plan's, at every head dim and both types; every block's
+    shared memory fits the card's opt-in limit."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    kernels = set()
+    for D in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = bwd_plan(1, 1, 1, 1, 1, D, dtype)
+            kernels.add(plan.kernel)
+            assert bwd_library_tiling(plan.kernel, D) == plan[1:10]
+            assert max(plan.dq_smem, plan.kv_smem) <= limit
+    assert kernels == {"wgmma", "mma", "fma"}
 
 
 @pytest.mark.cuda

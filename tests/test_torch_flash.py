@@ -84,6 +84,26 @@ def test_flash_attention_ragged_matches_reference_oracle(
     _close(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("H,Hkv,Sq,Sk,D,window", [
+    (4, 2, 100, 60, 64, 0), (2, 2, 40, 24, 16, 16), (6, 1, 33, 5, 128, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_rows_that_see_no_key_match_reference_oracle(H, Hkv, Sq, Sk, D,
+                                                           window, dtype):
+    """Causal with Sq > Sk: the first Sq - Sk rows see no key, and the
+    reference's softmax over their all-NEG_INF scores is uniform, so its
+    output there is the mean of v over the Sk keys.  The plain version,
+    which the kernels are held to on the card, gives the reference's
+    output on every row, that mean on those."""
+    (jq, jk, jv), (q, k, v) = _inputs(Sq * 5 + Sk, 2, H, Hkv, Sq, Sk, D,
+                                      dtype)
+    want = jref.attention_ref(jq, jk, jv, causal=True, window=window)
+    got = flash_attention_plain(q, k, v, True, window)
+    _close(got, want, TOL[dtype])
+    n0 = Sq - Sk
+    mean = v.float().mean(2).repeat_interleave(H // Hkv, 1)[:, :, None]
+    _close(got[:, :, :n0], mean.expand(2, H, n0, D).numpy(), TOL[dtype])
+
+
 def test_flash_attention_grad_matches_reference():
     # tests/test_kernels.py:44-58: the gradient of the kernel's wrapper
     (jq, jk, jv), (q, k, v) = _inputs(5, 1, 2, 2, 128, 128, 32, "float32")

@@ -238,3 +238,73 @@ def test_work_backward_counts_the_kernels_products():
     f = FA.work_backward(shape, 32, 2048, torch.float32, True, 0)
     assert f.ops_s == pytest.approx(f.flops / H100_SXM.peak_flops_f32)
     assert f.bytes == 2 * w.bytes - 4 * 4 * 32 * 2048
+
+
+# phase 5c's four training shapes (chip_smoke.FLASH_BWD_CASES[:4]: Zamba2's
+# shared block, Mixtral, Gemma-7B, Whisper-medium's encoder), (B, H, Hkv,
+# Sq, Sk, D), with the plan's bf16 kernel and its (dq, dk/dv) grids
+TRAIN_PLANS = [
+    ((4, 32, 32, 2048, 2048, 64), "wgmma", (16, 32, 4), (16, 32, 4)),
+    ((2, 32, 8, 2048, 2048, 128), "wgmma", (16, 32, 2), (16, 8, 2)),
+    ((2, 16, 16, 2048, 2048, 256), "mma", (32, 16, 2), (32, 16, 2)),
+    ((8, 16, 16, 1500, 1500, 64), "wgmma", (12, 16, 8), (12, 16, 8))]
+SMEM_LIMIT = 232448          # an H100's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+def test_bwd_plan_picks_the_kernel_by_type_and_head_dim(D, dtype):
+    """bf16 at D 16-128 on the wgmma kernels (blocks of 128 rows or keys,
+    384 threads), at D 256 on mma.sync, f32 on the FMA units; every
+    block's shared memory within an H100's 227 KB."""
+    plan = FA.bwd_plan(1, 4, 2, 100, 100, D, TDT[dtype])
+    want = "fma" if dtype == "float32" else "wgmma" if D <= 128 else "mma"
+    assert plan.kernel == want
+    assert 0 < max(plan.dq_smem, plan.kv_smem) <= SMEM_LIMIT
+    if want == "wgmma":
+        assert (plan.dq_rows, plan.kv_keys, plan.kv_threads) == (128, 128, 384)
+        assert plan.dq_keys == 64
+        assert plan.kv_queries == (32 if D == 128 else 64)
+    else:
+        assert plan.dq_rows == plan.kv_keys == 64
+
+
+@pytest.mark.parametrize("shape,kernel,dq_grid,kv_grid", TRAIN_PLANS)
+def test_bwd_plan_grids_at_the_training_shapes(shape, kernel, dq_grid,
+                                               kv_grid):
+    """The grids of phase 5c's four calls: a dq block a (query tile, head,
+    batch), a dk/dv block a (key tile, kv head, batch); the workspace is
+    each row's delta and, with a GQA group in bf16, the group's fp32 dk and
+    dv sums."""
+    B, H, Hkv, Sq, Sk, D = shape
+    plan = FA.bwd_plan(*shape, torch.bfloat16)
+    assert (plan.kernel, plan.dq_grid, plan.kv_grid) == \
+        (kernel, dq_grid, kv_grid)
+    sums = 2 * B * Hkv * Sk * D if H != Hkv else 0
+    assert plan.workspace == B * H * Sq + sums
+    f32 = FA.bwd_plan(*shape, torch.float32)
+    assert f32.workspace == B * H * Sq
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D", [
+    (1, 4, 2, 1, 129, 64), (2, 12, 2, 127, 257, 128), (1, 4, 4, 257, 63, 64),
+    (1, 2, 1, 129, 129, 16), (3, 4, 4, 65, 1, 256), (1, 6, 3, 300, 200, 32)])
+def test_bwd_plan_grids_cover_ragged_lengths(B, H, Hkv, Sq, Sk, D, dtype):
+    """At ragged Sq and Sk the grids take the fewest tiles that cover every
+    query row (dq) and every key (dk/dv), the workspace as above."""
+    plan = FA.bwd_plan(B, H, Hkv, Sq, Sk, D, TDT[dtype])
+    nq, nk = plan.dq_grid[0], plan.kv_grid[0]
+    assert (nq - 1) * plan.dq_rows < Sq <= nq * plan.dq_rows
+    assert (nk - 1) * plan.kv_keys < Sk <= nk * plan.kv_keys
+    assert plan.dq_grid[1:] == (H, B) and plan.kv_grid[1:] == (Hkv, B)
+    sums = 2 * B * Hkv * Sk * D if H != Hkv and dtype == "bfloat16" else 0
+    assert plan.workspace == B * H * Sq + sums == FA.bwd_workspace(
+        B, H, Hkv, Sq, Sk, D, TDT[dtype])
+
+
+def test_bwd_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head dims"):
+        FA.bwd_plan(1, 2, 2, 8, 8, 48, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.bwd_plan(1, 2, 2, 8, 8, 64, torch.float16)

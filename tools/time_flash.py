@@ -32,14 +32,16 @@ CUDA graph and eager, with the host's time to issue a call, the device
 time of each of its two kernels in one call (torch.profiler) and its
 bound (``work_backward``).
 
-    python3 tools/time_flash.py --train [--src DIR]
+    python3 tools/time_flash.py --train [--steps N] [--only NAME] [--src DIR]
 
 runs phase 5c's Zamba2-1.2B and Whisper-medium training
-(``chip_smoke.phase_train``: their seed-0 draws, ``TRAIN_STEPS`` steps
-through ``TrainDriver``) on the tree's package and prints each one's median
-step after the first, its forward/backward/optimizer split, its losses and
-its peak device memory (launch counts not held: a tree before the backward
-kernel launches none).
+(``chip_smoke.phase_train``: their seed-0 draws, ``TRAIN_STEPS`` steps, or
+``N``, through ``TrainDriver``; ``--only`` takes one of the two by its
+config's name) on the tree's package and prints each one's median step
+after the first, its forward/backward/optimizer split, its losses and its
+peak device memory (launch counts not held: a tree before the backward
+kernel launches none).  Whisper's step is host-bound and moves by 100 ms
+and more between runs: read it over several runs of each tree in turns.
 """
 
 from __future__ import annotations
@@ -47,9 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import re
 import sys
-import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -72,43 +72,6 @@ SHAPES = [("mixtral_d128_serve", 1, 32, 8, 2048, 2048, 128, True, 4096),
 BWD_SHAPES = [("zamba2_d64_train", 0), ("mixtral_d128_train", 1),
               ("gemma_d256_train", 2), ("whisper_encoder_train", 3),
               ("whisper_dec_self_train", 4)]
-
-
-def host_ms(fn, reps: int = 5, iters: int = 20) -> float:
-    """The host's time to issue one call: ``iters`` calls back to back by
-    ``time.perf_counter``, the device drained before each run (median of
-    ``reps``)."""
-    import torch
-    for _ in range(3):
-        fn()
-    meds = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        meds.append((time.perf_counter() - t0) * 1e3 / iters)
-    torch.cuda.synchronize()
-    return sorted(meds)[len(meds) // 2]
-
-
-def kernel_split(fn) -> dict:
-    """Device milliseconds of each backward kernel (``fa_bwd_*``) in one
-    call of ``fn`` after one unprofiled call (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        m = re.search(r"fa_bwd_\w+", e.key)
-        if m and e.self_device_time_total > 0:
-            out[m.group(0)] = out.get(m.group(0), 0.0) \
-                + e.self_device_time_total / 1e3
-    return out
 
 
 def backward(card: str) -> dict:
@@ -156,11 +119,11 @@ def backward(card: str) -> dict:
             args = (q, k, v, o, lse, do, causal, window)
             res["ms"][row] = cs.graph_ms(lambda: kernel(*args))
             res["eager_ms"][row] = cs.time_ms(lambda: kernel(*args))
-            res["host_ms"][row] = host_ms(lambda: kernel(*args))
+            res["host_ms"][row] = cs.host_ms(lambda: kernel(*args))
             w = module.work_backward(q.shape, Hkv, Sk, q.dtype, causal,
                                      window)
             res["bound_ms"][row] = w.bound_s * 1e3
-            res["kernel_ms"][row] = kernel_split(lambda: kernel(*args))
+            res["kernel_ms"][row] = cs.kernel_split(lambda: kernel(*args))
             line += (f"; flash_attention_bwd {res['ms'][row]:.4f} ms (CUDA "
                      f"graph), {res['eager_ms'][row]:.4f} ms eager, host "
                      f"{res['host_ms'][row]:.4f} ms to issue one, bound "
@@ -173,7 +136,7 @@ def backward(card: str) -> dict:
     return res
 
 
-def train(card: str) -> dict:
+def train(card: str, steps: int, only) -> dict:
     """``--train``: see the module's docstring."""
     import gc
     import torch
@@ -181,10 +144,12 @@ def train(card: str) -> dict:
     out = {}
     configs = cs.train_configs()
     for cfg, batch, seq in (configs[0], configs[3]):
+        if only and cfg.name != only:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
         res = cs.phase_train(single_device_plan(), cfg, batch, seq,
-                             check_launches=False)
+                             steps=steps, check_launches=False)
         cs.say(f"[time] {cfg.name} train step B{batch} x S{seq}: median "
                f"{res['step_ms']:.1f} ms after the first, peak "
                f"{res['peak_gb']:.2f} GB on {card}")
@@ -199,9 +164,14 @@ def main() -> int:
                     help="time the backward at the training shapes")
     ap.add_argument("--train", action="store_true",
                     help="time Zamba2-1.2B's and Whisper-medium's steps")
+    ap.add_argument("--steps", type=int, default=cs.TRAIN_STEPS,
+                    help="--train: steps a model")
+    ap.add_argument("--only", help="--train: one config's name "
+                    "(zamba2-1.2b or whisper-medium)")
     args, card, pkg = cs.tool_start(ap)
     if args.backward or args.train:
-        res = backward(card) if args.backward else train(card)
+        res = backward(card) if args.backward else train(card, args.steps,
+                                                          args.only)
         print(json.dumps({"package": str(pkg), "card": card, **res}))
         return 0
     import torch
